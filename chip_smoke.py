@@ -1,0 +1,457 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``src/repro_torch/csrc``, holds each kernel
+against its plain PyTorch version at the shapes of ``neuralut-jsc-5l``,
+then drives the port's serving path at full width: seeded init and input
+calibration, truth-table conversion through the grouped sub-network
+kernel, a serving bundle, and ``LUTServeEngine`` answering mixed-size
+requests through the LUT-cascade kernel.  Every phase that fails stops
+the run with a non-zero exit; there is no CPU fallback.  Output, one
+line per finding, then:
+
+    {"kernels": [...]}         per kernel: launches on the main path,
+                               max error, kernel / plain / bound ms
+    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
+
+Imports nothing of JAX and nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# NVIDIA H100 SXM data-sheet peaks (dense): HBM3 bandwidth and fp32
+# outside the tensor cores.  The cascade's integer ops are counted at
+# the same 32-bit rate.
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
+
+K2_ATOL = K2_RTOL = 1e-5   # fp32 summation order / FMA contraction
+CASCADE_BATCHES = (1, 8, 64, 256, 1000, 4096)
+TILE_SWEEP = (1, 2, 4, 8, 16, 32)   # K1 rows per block
+SWEEP_BATCHES = (8, 64, 256, 4096)  # the engine's buckets > 1, bench size
+SECTOR_BYTES = 32          # the smallest global-memory access of the card
+HEADLINE_B = 256           # the engine's largest bucket
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"FAILED: {msg}")
+
+
+def call_ms(fn, reps: int) -> float:
+    """Mean ms of one call over ``reps`` back-to-back calls, from CUDA
+    events after one warm-up call: what a caller waits, host work
+    between launches included."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, kernel: str = ""):
+    """Mean device ms per call of the CUDA kernels whose name holds
+    ``kernel`` ("" = every kernel the call launches), from a
+    ``torch.profiler`` trace of ``reps`` calls; None when the trace
+    shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if kernel in e.key)
+    return us / reps / 1e3 if us > 0 else None
+
+
+def timings(kern, plain, kernel: str, reps: int, plain_reps: int):
+    """Kernel and plain-version times: device time from the profiler
+    where the trace has it, CUDA-event call time always."""
+    out = {"call_ms": call_ms(kern, reps),
+           "plain_call_ms": call_ms(plain, plain_reps),
+           "ms": device_ms(kern, reps, kernel),
+           "plain_ms": device_ms(plain, plain_reps)}
+    out["timing"] = "profiler" if out["ms"] and out["plain_ms"] \
+        else "events"
+    if out["timing"] == "events":
+        out["ms"], out["plain_ms"] = out["call_ms"], out["plain_call_ms"]
+    return out
+
+
+def bound_ms(nbytes: float, ops: float):
+    """Least time for the work: bytes over HBM rate vs ops over fp32
+    rate, whichever is larger, and which one it was."""
+    tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def phase_environment():
+    import torch
+    from repro_torch.device import set_exact_fp32
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    require(torch.cuda.is_available(), "torch.cuda.is_available()")
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
+        else "nvidia-smi: " + smi.stderr.strip()
+    log(f"card: {card}")
+    set_exact_fp32()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
+        f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}")
+    log(f"tf32: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
+    return card
+
+
+def phase_build():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    build.load_library()
+    secs = time.perf_counter() - t0
+    log(f"build: {secs:.2f} s ({'compiled' if build.build_log else 'cached'}"
+        f" {build.library_path().name})")
+    for line in build.build_log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line \
+                or line.startswith("---"):
+            log(f"  ptxas {line.strip()}")
+
+
+def _rand_subnet(gen, o, f, depth, width, skip, dev):
+    import torch
+    from repro_torch.core.subnet import subnet_spec
+    spec = subnet_spec(o, f, depth, width, skip)
+
+    def draw(shape):
+        return (torch.randn(shape, generator=gen)
+                / (shape[-2] ** 0.5)).to(dev)
+    return {k: [{"w": draw(s["w"]), "b": draw(s["b"])} for s in v]
+            for k, v in spec.items()}
+
+
+def phase_subnet_kernel(cfg, dev):
+    """K2 against the plain grouped sub-network at every jsc-5l layer's
+    conversion shape."""
+    import torch
+    from repro_torch.kernels.neuralut_mlp import subnet_kernel_apply
+    from repro_torch.kernels.ref import grouped_subnet_ref
+    gen = torch.Generator().manual_seed(11)
+    rows = []
+    for i, o in enumerate(cfg.layer_widths):
+        t, f = cfg.table_size(i), cfg.layer_fan_in(i)
+        p = _rand_subnet(gen, o, f, cfg.depth, cfg.width, cfg.skip, dev)
+        codes = torch.randint(0, 2 ** cfg.layer_in_bits(i), (t, o, f),
+                              generator=gen)
+        xg = ((codes - 2 ** (cfg.layer_in_bits(i) - 1)).float()
+              * 0.3).to(dev)
+        lw = [lp["w"] for lp in p["layers"]]
+        lb = [lp["b"] for lp in p["layers"]]
+        sw = [sp["w"] for sp in p.get("skips", [])]
+        sb = [sp["b"] for sp in p.get("skips", [])]
+
+        def kern():
+            return subnet_kernel_apply(p, xg, cfg.skip)
+
+        def plain():
+            return grouped_subnet_ref(xg, lw, lb, sw, sb, skip=cfg.skip)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        require(got.shape == (t, o) and bool(torch.isfinite(got).all()),
+                f"K2 layer {i}: shape {tuple(got.shape)} / non-finite")
+        err = (got - want).abs()
+        ok = bool((err <= K2_ATOL + K2_RTOL * want.abs()).all())
+        require(ok, f"K2 layer {i}: max err {float(err.max()):.3e} beyond "
+                f"atol/rtol {K2_ATOL}")
+        macs = sum(int(w.shape[1] * w.shape[2]) for w in lw + sw)
+        flops = 2.0 * macs * t * o
+        nbytes = 4.0 * (xg.numel() + t * o + sum(
+            a.numel() for a in lw + lb + sw + sb))
+        tm = timings(kern, plain, "grouped_subnet_kernel", 20, 5)
+        bms, by = bound_ms(nbytes, flops)
+        rows.append(dict(err=float(err.max()), bound_ms=bms, by=by,
+                         flops=flops, **tm))
+        log(f"K2 layer {i}: T={t} O={o} F={f} max_abs_err="
+            f"{float(err.max()):.3e} kernel {tm['ms']:.4f} ms (call "
+            f"{tm['call_ms']:.4f}) plain {tm['plain_ms']:.4f} ms (call "
+            f"{tm['plain_call_ms']:.4f}) [{tm['timing']}] bound "
+            f"{bms:.4f} ms ({by}, {flops / 1e9:.3f} GFLOP)")
+    return rows
+
+
+def _random_chain(cfg, rng):
+    """Random uniform tables and connectivity at ``cfg``'s geometry."""
+    import numpy as np
+    statics, tables = [], []
+    w_prev = cfg.in_features
+    for i, o in enumerate(cfg.layer_widths):
+        statics.append({"conn": rng.integers(
+            0, w_prev, (o, cfg.layer_fan_in(i))).astype(np.int32)})
+        tables.append(rng.integers(0, 2 ** cfg.beta, (o, cfg.table_size(i))
+                                   ).astype(np.uint16))
+        w_prev = o
+    return tables, statics
+
+
+def _cascade_table_bytes(codes, conns, packed, meta) -> int:
+    """Table bytes this batch's lookups need: per layer, the distinct
+    32-B sectors of the packed table that its addresses touch (never more
+    than the table), walking the plain gather cascade."""
+    import torch
+    from repro_torch.core.lut_infer import pack_index
+    c, total = codes, 0
+    for conn, pt, (in_bits, _wb, slot_bits, beta) in zip(conns, packed,
+                                                         meta):
+        o, words = pt.shape
+        addr = pack_index(c[:, conn.long()], in_bits)
+        wsel = (addr >> slot_bits).clamp(max=words - 1).long()
+        rows = torch.arange(o, device=pt.device)[None, :]
+        flat = rows * words + wsel                  # word index in the table
+        sectors = torch.unique(flat // (SECTOR_BYTES // pt.element_size()))
+        total += sectors.numel() * SECTOR_BYTES
+        word = pt[rows, wsel]
+        c = (word >> (beta * (addr & ((1 << slot_bits) - 1)))) \
+            & ((1 << beta) - 1)
+    return total
+
+
+def phase_cascade_kernel(cfg, dev):
+    """K1 against the plain gather cascade (and the lut_forward oracle)
+    with random tables at full jsc-5l widths."""
+    import numpy as np
+    import torch
+    from repro_torch.core import lut_infer as LI
+    from repro_torch.kernels.lut_cascade import (CascadeOperands,
+                                                 cascade_meta,
+                                                 cascade_tables,
+                                                 lut_cascade)
+    from repro_torch.kernels.ref import lut_cascade_ref
+    rng = np.random.default_rng(7)
+    tables, statics = _random_chain(cfg, rng)
+    meta = cascade_meta(cfg)
+    packed = [torch.as_tensor(p, device=dev)
+              for p in cascade_tables(cfg, tables)]
+    conns = [torch.as_tensor(s["conn"], device=dev) for s in statics]
+    ops = CascadeOperands(conns, packed, meta, cfg.in_features)
+    conn_bytes = sum(c.numel() * 4 for c in conns)
+    per_b = {}
+    for b in CASCADE_BATCHES:
+        codes = torch.as_tensor(rng.integers(
+            0, 2 ** cfg.layer_in_bits(0), (b, cfg.in_features)
+        ).astype(np.int32), device=dev)
+
+        def kern():
+            return lut_cascade(codes, ops)
+
+        def plain():
+            return lut_cascade_ref(codes, conns, packed, meta)
+        got, want = kern(), plain()
+        oracle = LI.lut_forward(cfg, tables, statics, codes)
+        torch.cuda.synchronize()
+        require(got.shape == (b, cfg.num_classes), f"K1 B={b}: shape")
+        require(torch.equal(got, want), f"K1 B={b}: differs from the plain "
+                f"gather cascade in {int((got != want).sum())} codes")
+        require(torch.equal(got, oracle), f"K1 B={b}: differs from "
+                "lut_forward")
+        lookups = b * sum(cfg.layer_widths)
+        int_ops = float(b * sum(o * (2 * cfg.layer_fan_in(i) + 4)
+                            for i, o in enumerate(cfg.layer_widths)))
+        table_bytes = _cascade_table_bytes(codes, conns, packed, meta)
+        nbytes = 4.0 * (codes.numel() + got.numel()) + table_bytes \
+            + conn_bytes
+        tm = timings(kern, plain, "lut_cascade_kernel", 50, 10)
+        bms, by = bound_ms(nbytes, int_ops)
+        per_b[b] = dict(bound_ms=bms, by=by, bytes=nbytes,
+                        table_bytes=table_bytes, lookups=lookups,
+                        err=float((got - want).abs().max()), **tm)
+        log(f"K1 B={b}: bit-identical to plain and lut_forward; kernel "
+            f"{tm['ms']:.4f} ms (call {tm['call_ms']:.4f}) plain "
+            f"{tm['plain_ms']:.4f} ms (call {tm['plain_call_ms']:.4f}) "
+            f"[{tm['timing']}] bound {bms:.6f} ms ({by}); "
+            f"{nbytes / 1e6:.4f} MB ({table_bytes} B of table sectors), "
+            f"{lookups} lookups, "
+            f"{lookups / (tm['ms'] * 1e-3):.3e} lookups/s")
+    sweep = {}
+    for b in SWEEP_BATCHES:
+        codes = torch.as_tensor(rng.integers(
+            0, 2 ** cfg.layer_in_bits(0), (b, cfg.in_features)
+        ).astype(np.int32), device=dev)
+        want = lut_cascade_ref(codes, conns, packed, meta)
+        for rows in TILE_SWEEP:
+            got = lut_cascade(codes, ops, block_b=rows)
+            require(torch.equal(got, want), f"K1 B={b} block_b={rows}: "
+                    "differs from the plain gather cascade")
+            sweep[f"{b}/{rows}"] = device_ms(
+                lambda: lut_cascade(codes, ops, block_b=rows), 20,
+                "lut_cascade_kernel")
+        log(f"K1 tile sweep B={b}: " + ", ".join(
+            f"block_b={r} {sweep[f'{b}/{r}'] or float('nan'):.4f} ms"
+            for r in TILE_SWEEP))
+    return per_b, sweep
+
+
+def phase_main_path(cfg, dev):
+    """The port's serving path at full neuralut-jsc-5l: init, calibrate,
+    convert through K2, bundle, serve through K1."""
+    import numpy as np
+    import torch
+    from repro_torch.core import lut_infer as LI
+    from repro_torch.core import model as M
+    from repro_torch.core import truth_table as TT
+    from repro_torch.data import jsc_synthetic
+    from repro_torch.kernels.lut_cascade import lut_cascade
+    from repro_torch.kernels.neuralut_mlp import grouped_subnet
+    from repro_torch.serve import LUTServeEngine, bundle_from_training
+
+    x_tr, _ = jsc_synthetic(20000, seed=0)
+    x_te, y_te = jsc_synthetic(4000, seed=1)
+    rng = np.random.default_rng(3)
+    sizes = [int(s) for s in rng.choice([1, 2, 5, 8, 13, 31, 64, 100, 256],
+                                        70)] + [300, 1000]
+    starts = [int(rng.integers(0, len(x_te) - n)) for n in sizes]
+
+    lut_cascade.launches = 0
+    grouped_subnet.launches = 0
+    t0 = time.perf_counter()
+    params, state = M.model_init(cfg, torch.Generator().manual_seed(0),
+                                 device=dev)
+    params = M.calibrate_in_quant(cfg, params, x_tr)
+    statics = M.model_static(cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tables, packed = TT.convert_packed(cfg, params, state, statics)
+    t2 = time.perf_counter()
+    bundle = bundle_from_training(cfg, params, tables, statics,
+                                  packed_tables=packed)
+    with LUTServeEngine(bundle, device=dev) as eng:
+        eng.warmup()
+        t3 = time.perf_counter()
+        futs = [eng.submit(x_te[s:s + n]) for s, n in zip(starts, sizes)]
+        preds = [f.result(timeout=300) for f in futs]
+        t4 = time.perf_counter()
+    launches = {"lut_cascade": lut_cascade.launches,
+                "grouped_subnet": grouped_subnet.launches}
+    log(f"main path: init+calibrate {t1 - t0:.3f} s, convert "
+        f"{t2 - t1:.3f} s ({sum(t.size for t in tables)} entries, "
+        f"{sum(p.nbytes for p in packed)} packed bytes), serve "
+        f"{len(sizes)} requests / {sum(sizes)} samples in {t4 - t3:.3f} s")
+    log(f"main path launches: {launches}")
+    log(f"engine metrics: {eng.metrics.render()}")
+    require(launches["grouped_subnet"] > 0, "conversion never launched K2")
+    require(launches["lut_cascade"] > 0, "serving never launched K1")
+
+    # Checks against the plain versions on the card (outside the count).
+    plain_tables, plain_packed = TT.convert_packed(
+        cfg, params, state, statics, use_subnet_kernel=False)
+    flips = 0
+    for i, (a, b) in enumerate(zip(tables, plain_tables)):
+        d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        require(int(d.max()) <= 1, f"layer {i}: kernel and plain "
+                f"conversion differ by {int(d.max())} codes")
+        flips += int((d != 0).sum())
+    for i, (t, p) in enumerate(zip(tables, packed)):
+        require(np.array_equal(LI.pack_tables(t, cfg.beta), p),
+                f"layer {i}: device packing differs from pack_tables")
+    log(f"convert: kernel tables within +-1 of the plain conversion, "
+        f"{flips} flips of {sum(t.size for t in tables)} entries")
+    mismatched = 0
+    correct = 0
+    for s, n, got in zip(starts, sizes, preds):
+        xb = torch.as_tensor(x_te[s:s + n], device=dev)
+        want = LI.predict(cfg, params, tables, statics, xb).cpu().numpy()
+        require(got.shape == (n,), f"prediction shape {got.shape} != {n}")
+        mismatched += int((got != want).sum())
+        correct += int((got == y_te[s:s + n]).sum())
+    require(mismatched == 0, f"{mismatched} served predictions differ "
+            "from the plain lut_infer.predict")
+    log(f"serve: all {sum(sizes)} predictions equal the plain predict; "
+        f"accuracy of the random-init model {correct / sum(sizes):.4f}")
+    return launches
+
+
+def main() -> int:
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
+              "checkout of the repository", file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this run "
+              "needs one CUDA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.config import get_config
+    dev = torch.device("cuda")
+    cfg = get_config("neuralut-jsc-5l")
+
+    card = phase_environment()
+    phase_build()
+    k2 = phase_subnet_kernel(cfg, dev)
+    k1, tile_sweep = phase_cascade_kernel(cfg, dev)
+    launches = phase_main_path(cfg, dev)
+
+    head = k1[HEADLINE_B]
+    kernels = [
+        {"name": "lut_cascade", "route": "cuda",
+         "source": "src/repro_torch/csrc/lut_cascade.cu",
+         "replaces": "src/repro/kernels/lut_cascade.py:253",
+         "launches": launches["lut_cascade"],
+         "max_abs_err": max(r["err"] for r in k1.values()),
+         "ms": head["ms"], "plain_ms": head["plain_ms"],
+         "bound_ms": head["bound_ms"], "bound_by": head["by"],
+         "library_ms": None, "call_ms": head["call_ms"],
+         "plain_call_ms": head["plain_call_ms"], "timing": head["timing"],
+         "shape": f"B={HEADLINE_B}",
+         "by_batch": {str(b): r for b, r in k1.items()},
+         "tile_sweep_ms": tile_sweep},
+        {"name": "grouped_subnet", "route": "cuda",
+         "source": "src/repro_torch/csrc/neuralut_mlp.cu",
+         "replaces": "src/repro/kernels/neuralut_mlp.py:89",
+         "launches": launches["grouped_subnet"],
+         "max_abs_err": max(r["err"] for r in k2),
+         "ms": sum(r["ms"] for r in k2),
+         "plain_ms": sum(r["plain_ms"] for r in k2),
+         "bound_ms": sum(r["bound_ms"] for r in k2),
+         "bound_by": "operations" if all(r["by"] == "operations"
+                                         for r in k2) else "bytes",
+         "library_ms": None,
+         "call_ms": sum(r["call_ms"] for r in k2),
+         "plain_call_ms": sum(r["plain_call_ms"] for r in k2),
+         "timing": k2[0]["timing"],
+         "shape": "sum of the 5 jsc-5l conversion layers",
+         "by_layer": k2},
+    ]
+    log(card)  # nvidia-smi's "name, power.limit", as it printed them
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,78 @@
+"""Bridge from the JAX package's model trees to the port's.
+
+The JAX package draws its parameters from ``jax.random``, which the
+port cannot reproduce, and seeds its connectivity with the per-process
+salted ``hash`` (``core/layers.layer_static``).  To hold the port to the
+reference on the same model, a caller converts the reference's trees to
+nested numpy arrays (``jax.tree.map(np.asarray, tree)``) and hands them
+here.  This module imports no jax; the keys are the reference's:
+
+    params: in_quant.log_s,
+            layers[i].fn.layers[j].{w,b}, layers[i].fn.skips[c].{w,b},
+            layers[i].bn.{g,b}, layers[i].quant.log_s
+    state:  layers[i].bn.{mean,var}
+    statics: layers[i].conn
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.model import model_spec
+from repro_torch.core.nl_config import NeuraLUTConfig
+from repro_torch.device import DeviceLike, resolve_device
+
+
+def _convert(spec, tree, path: str, device: torch.device):
+    if isinstance(spec, dict):
+        if not isinstance(tree, dict) or set(tree) != set(spec):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"{path or 'tree'}: keys {got} != "
+                             f"{sorted(spec)}")
+        return {k: _convert(spec[k], tree[k], f"{path}.{k}".lstrip("."),
+                            device) for k in spec}
+    if isinstance(spec, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(spec):
+            raise ValueError(f"{path}: expected a list of {len(spec)}")
+        return [_convert(s, t, f"{path}[{i}]", device)
+                for i, (s, t) in enumerate(zip(spec, tree))]
+    a = np.asarray(tree, np.float32)
+    if a.shape != tuple(spec):
+        raise ValueError(f"{path}: shape {a.shape} != {tuple(spec)}")
+    return torch.as_tensor(a.copy(), device=device)
+
+
+def params_from_numpy(cfg: NeuraLUTConfig, params: Dict[str, Any],
+                      state: Dict[str, Any], *,
+                      device: DeviceLike = None
+                      ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Reference (params, state) as nested numpy arrays -> the port's
+    float32 tensor trees on ``device`` (``None`` = CUDA), checked
+    against the port's shape trees key by key."""
+    dev = resolve_device(device)
+    spec_p, spec_s = model_spec(cfg)
+    return (_convert(spec_p, params, "", dev),
+            _convert(spec_s, state, "", dev))
+
+
+def statics_from_numpy(cfg: NeuraLUTConfig, statics: List[Dict[str, Any]]
+                       ) -> List[Dict[str, np.ndarray]]:
+    """Reference statics -> the port's (``conn`` as int32 numpy, checked
+    against each layer's (O, F) and source width)."""
+    if len(statics) != cfg.num_layers:
+        raise ValueError(f"{len(statics)} statics for "
+                         f"{cfg.num_layers} layers")
+    out = []
+    w_prev = cfg.in_features
+    for i, st in enumerate(statics):
+        conn = np.asarray(st["conn"]).astype(np.int32)
+        o, f = cfg.layer_widths[i], cfg.layer_fan_in(i)
+        if conn.shape != (o, f):
+            raise ValueError(f"layer {i}: conn {conn.shape} != {(o, f)}")
+        if conn.size and (conn.min() < 0 or conn.max() >= w_prev):
+            raise ValueError(f"layer {i}: conn outside [0, {w_prev})")
+        out.append({"conn": conn})
+        w_prev = o
+    return out

@@ -1,0 +1,61 @@
+"""Circuit-level NeuraLUT layer: sparse gather -> hidden function -> BN
+-> quantize (port of ``repro.core.layers``, subnet kind)."""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import quant, subnet
+from repro_torch.core.exec_plan import SubnetExec
+from repro_torch.core.nl_config import NeuraLUTConfig
+from repro_torch.core.sparsity import random_connectivity
+
+Params = Dict[str, Any]
+
+
+def layer_static(cfg: NeuraLUTConfig, idx: int, in_width: int,
+                 out_width: int) -> Dict[str, np.ndarray]:
+    """Non-trainable per-layer constants: the connectivity.
+
+    Seeded by ``hash((cfg.name, idx))`` as in the reference.  Python
+    salts string hashes per process, so the connectivity differs between
+    processes (in both packages): carry ``conn`` with the model (the
+    bridge and the serving bundle do), never recompute it.
+    """
+    conn = random_connectivity(in_width, out_width, cfg.layer_fan_in(idx),
+                               seed=hash((cfg.name, idx)) % (2 ** 31))
+    return {"conn": conn}
+
+
+def layer_spec(cfg: NeuraLUTConfig, idx: int, out_width: int
+               ) -> Tuple[Params, Params]:
+    """(params, state) shape trees for one circuit layer."""
+    if cfg.kind != "subnet":
+        raise NotImplementedError(
+            f"kind {cfg.kind!r}: only the subnet kind is ported")
+    fn = subnet.subnet_spec(out_width, cfg.layer_fan_in(idx), cfg.depth,
+                            cfg.width, cfg.skip)
+    bn_p, bn_s = quant.bn_spec(out_width)
+    return ({"fn": fn, "bn": bn_p, "quant": quant.quant_spec(out_width)},
+            {"bn": bn_s})
+
+
+def layer_apply(cfg: NeuraLUTConfig, idx: int, p: Params, state: Params,
+                static: Dict[str, np.ndarray], x: torch.Tensor, *,
+                exec_plan: SubnetExec
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval-mode layer.  x: (B, in_width) dequantized values.  Returns
+    (values (B, O) after fake-quant, pre-quant BN output (B, O))."""
+    conn = torch.as_tensor(np.asarray(static["conn"]),
+                           device=x.device).long()
+    xg = x[:, conn]                                   # (B, O, F)
+    f = exec_plan.apply(p["fn"], xg)
+    pre, _ = quant.bn_apply(p["bn"], state["bn"], f, train=False)
+    return quant.quant_apply(p["quant"], pre, cfg.beta), pre
+
+
+def layer_codes(cfg: NeuraLUTConfig, p: Params,
+                pre: torch.Tensor) -> torch.Tensor:
+    return quant.quant_codes(p["quant"], pre, cfg.beta)

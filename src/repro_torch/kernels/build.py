@@ -1,0 +1,127 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by ``nvcc`` — one
+process per source, all started together — and linked into one shared
+library with a plain C interface, loaded with ``ctypes``.  The build
+happens at first use, into ``build/repro_torch/`` at the root of the
+checkout, under a name that hashes the sources and flags, so an edited
+source rebuilds and an unchanged one loads at once.  Nothing is built
+when the module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+# ptxas's per-kernel register / shared-memory / spill report of the
+# last build in this process ("" when the library was already built).
+build_log = ""
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    cand = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
+    cand.append(shutil.which("nvcc") or "")
+    for c in cand:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                       "PATH); the CUDA kernels are compiled at first use")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"
+
+
+def _build(out: Path) -> str:
+    nvcc = _nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        procs = []
+        for src in _sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc, *COMPILE_FLAGS, "-I", str(CSRC), "-c", str(src),
+                 "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for src, _obj, p in procs:
+            text, _ = p.communicate()
+            logs.append(f"--- {src.name}\n{text}")
+            if p.returncode:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n"
+                               + "\n".join(logs))
+        tmp_lib = os.path.join(tmp, out.name)
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp_lib,
+             *[obj for _s, obj, _p in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_lib, out)  # atomic: a reader never sees half a file
+    return "\n".join(logs)
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.repro_lut_cascade.argtypes = [
+        _I, _P, _I, _I,        # device, codes, batch, in_width
+        _I, _P, _P, _P,        # nlayers, conn ptrs, packed ptrs, geometry
+        _I, _I, _P, _P]        # rows per block, code stride, out, stream
+    lib.repro_lut_cascade.restype = _I
+    lib.repro_grouped_subnet.argtypes = [
+        _I, _P, _P, _P,        # device, xg, packed weights, out
+        _I, _I, _I,            # T, O, params per neuron
+        _I, _P, _I, _P]        # nlayers, widths, skip, stream
+    lib.repro_grouped_subnet.restype = _I
+    lib.repro_cuda_error_string.argtypes = [_I]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    global _lib, build_log
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not path.exists():
+                build_log = _build(path)
+            _lib = _bind(ctypes.CDLL(str(path)))
+        return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a launcher returned a CUDA error code."""
+    if rc:
+        msg = load_library().repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
