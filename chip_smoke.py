@@ -5,12 +5,21 @@
 
 Builds the CUDA kernels from ``src/repro_torch/csrc``, holds each kernel
 against its plain PyTorch version at the shapes of ``neuralut-jsc-5l``,
-then drives the port's serving path at full width: seeded init and input
-calibration, truth-table conversion through the grouped sub-network
-kernel, a serving bundle, and ``LUTServeEngine`` answering mixed-size
-requests through the LUT-cascade kernel.  Every phase that fails stops
-the run with a non-zero exit; there is no CPU fallback.  Output, one
-line per finding, then:
+then drives the port's two paths at full width:
+
+* serving: seeded init and input calibration, truth-table conversion
+  through the grouped sub-network kernel, a serving bundle, and
+  ``LUTServeEngine`` answering mixed-size requests through the
+  LUT-cascade kernel;
+* training: ``train_neuralut`` for a few epochs with every step's
+  grouped sub-network through the training forward and backward
+  kernels, then conversion, bundle and engine as above; plus the first
+  step's gradients against the plain autograd route, a bit-identical
+  rerun of ten steps, and the device's busy share of an epoch.
+
+The launch counts are set to 0 just before each path and read just
+after it.  Every phase that fails stops the run with a non-zero exit;
+there is no CPU fallback.  Output, one line per finding, then:
 
     {"kernels": [...]}         per kernel: launches on the main path,
                                max error, kernel / plain / bound ms
@@ -36,6 +45,13 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 
 K2_ATOL = K2_RTOL = 1e-5   # fp32 summation order / FMA contraction
+K4_ATOL = K4_RTOL = 1e-5   # the same function as K2, plus stores
+# fp32 gradients summed in another order: the reference's own gradient
+# tolerance (tests/test_train_kernel.py).
+K5_RTOL, K5_ATOL = 2e-4, 3e-5
+TRAIN_B = 256              # the trainer's batch
+TRAIN_EPOCHS = 3           # 3 x 78 = 234 steps on 20,000 rows
+RERUN_STEPS = 10
 CASCADE_BATCHES = (1, 8, 64, 256, 1000, 4096)
 TILE_SWEEP = (1, 2, 4, 8, 16, 32)   # K1 rows per block
 SWEEP_BATCHES = (8, 64, 256, 4096)  # the engine's buckets > 1, bench size
@@ -69,13 +85,14 @@ def call_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, kernel: str = ""):
+def device_ms(fn, reps: int, kernel=""):
     """Mean device ms per call of the CUDA kernels whose name holds
-    ``kernel`` ("" = every kernel the call launches), from a
-    ``torch.profiler`` trace of ``reps`` calls; None when the trace
-    shows no device time."""
+    ``kernel`` (a name or a tuple of names; "" = every kernel the call
+    launches), from a ``torch.profiler`` trace of ``reps`` calls; None
+    when the trace shows no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -83,7 +100,7 @@ def device_ms(fn, reps: int, kernel: str = ""):
             fn()
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if kernel in e.key)
+             if any(k in e.key for k in names))
     return us / reps / 1e3 if us > 0 else None
 
 
@@ -201,6 +218,112 @@ def phase_subnet_kernel(cfg, dev):
             f"{tm['plain_call_ms']:.4f}) [{tm['timing']}] bound "
             f"{bms:.4f} ms ({by}, {flops / 1e9:.3f} GFLOP)")
     return rows
+
+
+def _close(got, want, rtol, atol) -> float:
+    """Max abs error; raises when any element is beyond atol + rtol*|want|."""
+    err = (got - want).abs()
+    if not bool((err <= atol + rtol * want.abs()).all()):
+        raise RuntimeError(f"FAILED: max err {float(err.max()):.3e} beyond "
+                           f"rtol {rtol} / atol {atol}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def phase_train_kernels(cfg, dev):
+    """K4 and K5 against their plain versions (and K5 against torch
+    autograd of the plain grouped sub-network) at every jsc-5l layer's
+    training shape; K5 rerun bit for bit."""
+    import torch
+    from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
+                                                   subnet_train_fwd)
+    from repro_torch.kernels.neuralut_mlp import pack_subnet_weights
+    from repro_torch.kernels.ref import (grouped_subnet_ref,
+                                         subnet_train_bwd_ref,
+                                         subnet_train_fwd_ref)
+    gen = torch.Generator().manual_seed(13)
+    S = cfg.skip
+    fwd_rows, bwd_rows = [], []
+    for i, o in enumerate(cfg.layer_widths):
+        f = cfg.layer_fan_in(i)
+        p = _rand_subnet(gen, o, f, cfg.depth, cfg.width, S, dev)
+        lw = [lp["w"] for lp in p["layers"]]
+        lb = [lp["b"] for lp in p["layers"]]
+        sw = [sp["w"] for sp in p.get("skips", [])]
+        sb = [sp["b"] for sp in p.get("skips", [])]
+        xg = torch.randn((TRAIN_B, o, f), generator=gen).to(dev)
+        g = torch.randn((TRAIN_B, o), generator=gen).to(dev)
+        wpack = pack_subnet_weights(lw, lb, sw, sb)
+
+        out, acts = subnet_train_fwd(xg, lw, lb, sw, sb, skip=S,
+                                     wpack=wpack)
+        r_out, r_acts = subnet_train_fwd_ref(xg, lw, lb, sw, sb, skip=S)
+        torch.cuda.synchronize()
+        require(out.shape == (TRAIN_B, o) and len(acts) == cfg.depth - 1
+                and bool(torch.isfinite(out).all()),
+                f"K4 layer {i}: shape / non-finite")
+        e4 = max([_close(out, r_out, K4_RTOL, K4_ATOL)]
+                 + [_close(a, r, K4_RTOL, K4_ATOL)
+                    for a, r in zip(acts, r_acts)])
+
+        got = subnet_train_bwd(g, xg, acts, lw, lb, sw, sb, skip=S,
+                               wpack=wpack)
+        want = subnet_train_bwd_ref(g, xg, r_acts, lw, sw, skip=S)
+        leaves = [xg] + lw + lb + sw + sb
+        req = [a.detach().clone().requires_grad_(True) for a in leaves]
+        nl, nch = len(lw), len(sw)
+        y = grouped_subnet_ref(req[0], req[1:1 + nl], req[1 + nl:1 + 2 * nl],
+                               req[1 + 2 * nl:1 + 2 * nl + nch],
+                               req[1 + 2 * nl + nch:], skip=S)
+        auto = torch.autograd.grad(y, req, grad_outputs=g)
+        flat_got = [got[0]] + got[1] + got[2] + got[3] + got[4]
+        flat_want = [want[0]] + want[1] + want[2] + want[3] + want[4]
+        torch.cuda.synchronize()
+        e5 = max(_close(a, b, K5_RTOL, K5_ATOL)
+                 for a, b in zip(flat_got, flat_want))
+        e5a = max(_close(a, b, K5_RTOL, K5_ATOL)
+                  for a, b in zip(flat_got, auto))
+        again = subnet_train_bwd(g, xg, acts, lw, lb, sw, sb, skip=S,
+                                 wpack=wpack)
+        flat_again = [again[0]] + again[1] + again[2] + again[3] + again[4]
+        require(all(torch.equal(a, b) for a, b in zip(flat_got, flat_again)),
+                f"K5 layer {i}: a rerun on the same inputs differs")
+
+        macs = sum(int(w.shape[1] * w.shape[2]) for w in lw + sw)
+        wbytes = 4.0 * sum(a.numel() for a in lw + lb + sw + sb)
+        abytes = 4.0 * sum(a.numel() for a in acts)
+        fwd_flops = 2.0 * macs * TRAIN_B * o
+        fwd_bytes = 4.0 * (xg.numel() + out.numel()) + wbytes + abytes
+        # backward: dW and the input cotangent per product, twice the
+        # forward's work; reads g, xg, acts, weights, writes dx and grads
+        bwd_flops = 2.0 * fwd_flops
+        bwd_bytes = 4.0 * (g.numel() + 2 * xg.numel()) + abytes + 2 * wbytes
+
+        tm4 = timings(lambda: subnet_train_fwd(xg, lw, lb, sw, sb, skip=S,
+                                               wpack=wpack),
+                      lambda: subnet_train_fwd_ref(xg, lw, lb, sw, sb,
+                                                   skip=S),
+                      "subnet_train_fwd_kernel", 20, 5)
+        tm5 = timings(lambda: subnet_train_bwd(g, xg, acts, lw, lb, sw, sb,
+                                               skip=S, wpack=wpack),
+                      lambda: subnet_train_bwd_ref(g, xg, r_acts, lw, sw,
+                                                   skip=S),
+                      ("subnet_train_bwd_kernel", "sum_tiles_kernel"),
+                      20, 5)
+        for rows, name, err, tm, nbytes, flops in (
+                (fwd_rows, "K4", e4, tm4, fwd_bytes, fwd_flops),
+                (bwd_rows, "K5", max(e5, e5a), tm5, bwd_bytes, bwd_flops)):
+            bms, by = bound_ms(nbytes, flops)
+            rows.append(dict(err=err, bound_ms=bms, by=by, flops=flops,
+                             bytes=nbytes, **tm))
+            log(f"{name} layer {i}: B={TRAIN_B} O={o} F={f} max_abs_err="
+                f"{err:.3e} kernel {tm['ms']:.4f} ms (call "
+                f"{tm['call_ms']:.4f}) plain {tm['plain_ms']:.4f} ms (call "
+                f"{tm['plain_call_ms']:.4f}) [{tm['timing']}] bound "
+                f"{bms:.5f} ms ({by}; {nbytes / 1e6:.3f} MB, "
+                f"{flops / 1e9:.4f} GFLOP)")
+        log(f"K5 layer {i}: max err vs plain {e5:.3e}, vs autograd "
+            f"{e5a:.3e}; rerun bit-identical")
+    return fwd_rows, bwd_rows
 
 
 def _random_chain(cfg, rng):
@@ -393,6 +516,162 @@ def phase_main_path(cfg, dev):
     return launches
 
 
+def _flat(tree):
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(tree)
+
+
+def phase_train_path(cfg, dev):
+    """The port's training path at full neuralut-jsc-5l: device-resident
+    data, seeded init and calibration, train_neuralut on kernel_train
+    (K4/K5), conversion through K2, a bundle, the engine through K1."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import lut_infer as LI
+    from repro_torch.core import model as M
+    from repro_torch.core import train as TR
+    from repro_torch.core import truth_table as TT
+    from repro_torch.core.exec_plan import plan_subnet_exec
+    from repro_torch.data import device_dataset, jsc_synthetic
+    from repro_torch.kernels.lut_cascade import lut_cascade
+    from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
+                                                   subnet_train_fwd)
+    from repro_torch.kernels.neuralut_mlp import grouped_subnet
+    from repro_torch.optim import adamw_init
+    from repro_torch.serve import LUTServeEngine, bundle_from_training
+
+    xtr, ytr = device_dataset(jsc_synthetic, 20000, seed=0, device=dev)
+    xte, yte = device_dataset(jsc_synthetic, 4000, seed=1, device=dev)
+    steps_per_epoch = len(xtr) // TRAIN_B
+    steps = TRAIN_EPOCHS * steps_per_epoch
+    kernels = {"lut_cascade": lut_cascade, "grouped_subnet": grouped_subnet,
+               "subnet_train_fwd": subnet_train_fwd,
+               "subnet_train_bwd": subnet_train_bwd}
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, hist = TR.train_neuralut(
+        cfg, xtr, ytr, xte, yte, epochs=TRAIN_EPOCHS, batch=TRAIN_B,
+        lr=2e-3, weight_decay=1e-4, seed=0, device=dev)
+    t1 = time.perf_counter()   # the history's fetch synchronized
+    train_launches = {k: fn.launches for k, fn in kernels.items()}
+    statics = M.model_static(cfg)
+    tables, packed = TT.convert_packed(cfg, params, state, statics)
+    t2 = time.perf_counter()
+    bundle = bundle_from_training(cfg, params, tables, statics,
+                                  packed_tables=packed)
+    x_np = xte.cpu().numpy()
+    with LUTServeEngine(bundle, device=dev) as eng:
+        served = eng.predict(x_np)
+    t3 = time.perf_counter()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    log(f"train path: {steps} steps in {t1 - t0:.3f} s "
+        f"({steps / (t1 - t0):.2f} steps/s, {(t1 - t0) / TRAIN_EPOCHS:.3f}"
+        f" s/epoch incl. eval), convert {t2 - t1:.3f} s, serve "
+        f"{len(x_np)} rows {t3 - t2:.3f} s")
+    log(f"train path history: {json.dumps(hist)}")
+    log(f"train path launches: {launches} (training alone "
+        f"{train_launches})")
+    for k in ("subnet_train_fwd", "subnet_train_bwd"):
+        require(train_launches[k] == cfg.num_layers * steps,
+                f"{k}: {train_launches[k]} launches in {steps} steps, "
+                f"want {cfg.num_layers} per step")
+    require(launches["grouped_subnet"] > 0, "conversion never launched K2")
+    require(launches["lut_cascade"] > 0, "serving never launched K1")
+    require(all(np.isfinite(v) for vs in hist.values() for v in vs),
+            "non-finite training history")
+    require(hist["loss"][-1] < hist["loss"][0],
+            f"loss did not fall: {hist['loss']}")
+
+    # Checks against the plain versions, outside the counted run.
+    plain_tables, _ = TT.convert_packed(cfg, params, state, statics,
+                                        use_subnet_kernel=False)
+    flips = 0
+    for i, (a, b) in enumerate(zip(tables, plain_tables)):
+        d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        require(int(d.max()) <= 1, f"layer {i}: kernel and plain "
+                f"conversion differ by {int(d.max())} codes")
+        flips += int((d != 0).sum())
+    want = LI.predict(cfg, params, tables, statics, xte).cpu().numpy()
+    mismatched = int((served != want).sum())
+    require(mismatched == 0, f"{mismatched} served predictions differ "
+            "from the plain lut_infer.predict")
+    served_acc = float((served == yte.cpu().numpy()).mean())
+    log(f"train path convert: {flips} flips of "
+        f"{sum(t.size for t in tables)} entries against the plain "
+        f"conversion; serve: all {len(x_np)} predictions equal the plain "
+        f"predict, served accuracy {served_acc:.4f}, test acc_q "
+        f"{hist['test_acc_q'][-1]:.4f}")
+
+    # Step 1 from the same init: kernel_train against canonical autograd.
+    sd = M.device_statics(statics, dev)
+    p0, s0 = M.model_init(cfg, torch.Generator().manual_seed(0), device=dev)
+    p0 = M.calibrate_in_quant(cfg, p0, xtr)
+    ib = TR.epoch_batches(len(xtr), steps_per_epoch, TRAIN_B, seed=0,
+                          epoch=0, device=dev)
+    plan_k = plan_subnet_exec(cfg, purpose="train", device=dev)
+    plan_c = plan_subnet_exec(cfg, purpose="train", device=dev,
+                              route="canonical")
+    require(plan_k.route == "kernel_train", f"train plan {plan_k.route}")
+    lk, gk, sk = TR.loss_and_grads(cfg, p0, s0, sd, xtr[ib[0]], ytr[ib[0]],
+                                   exec_plan=plan_k)
+    lc, gc, sc = TR.loss_and_grads(cfg, p0, s0, sd, xtr[ib[0]], ytr[ib[0]],
+                                   exec_plan=plan_c)
+    torch.cuda.synchronize()
+    gerr = max(_close(a, b, K5_RTOL, K5_ATOL)
+               for a, b in zip(_flat(gk), _flat(gc)))
+    serr = max(_close(a, b, K4_RTOL, K4_ATOL)
+               for a, b in zip(_flat(sk), _flat(sc)))
+    log(f"step 1: loss kernel_train {float(lk):.7f} canonical "
+        f"{float(lc):.7f}; {len(_flat(gk))} gradient leaves within rtol "
+        f"{K5_RTOL} / atol {K5_ATOL} (max err {gerr:.3e}), BN state max "
+        f"err {serr:.3e}")
+
+    # Rerun: the same steps from the same init, bit for bit.
+    step = TR.make_step_fn(cfg, lr=2e-3, weight_decay=1e-4, t0=steps,
+                           exec_plan=plan_k)
+
+    def run(n):
+        p, s, o = p0, s0, adamw_init(p0)
+        for k in range(n):
+            p, s, o, _ = step(p, s, o, sd, xtr[ib[k]], ytr[ib[k]])
+        return _flat(p) + _flat(s) + _flat(o)
+    a, b = run(RERUN_STEPS), run(RERUN_STEPS)
+    require(all(torch.equal(x, y) for x, y in zip(a, b)),
+            f"{RERUN_STEPS} steps rerun from the same init differ")
+    log(f"rerun: {RERUN_STEPS} steps twice from the same init give "
+        f"bit-identical params, BN state and opt state ({len(a)} tensors)")
+
+    # Busy share of one training epoch: device kernel time (profiler)
+    # over the epoch's wall time without the profiler.
+    def epoch():
+        p, s, o = p0, s0, adamw_init(p0)
+        for k in range(steps_per_epoch):
+            p, s, o, _ = step(p, s, o, sd, xtr[ib[k]], ytr[ib[k]])
+        torch.cuda.synchronize()
+    epoch()
+    te = time.perf_counter()
+    epoch()
+    wall = time.perf_counter() - te
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        epoch()
+    by_kernel = sorted(((e.self_device_time_total, e.key)
+                        for e in prof.key_averages()
+                        if e.self_device_time_total > 0), reverse=True)
+    busy = sum(u for u, _ in by_kernel) / 1e6
+    log(f"training epoch ({steps_per_epoch} steps, no eval): {wall:.3f} s "
+        f"wall, {steps_per_epoch / wall:.2f} steps/s, device busy "
+        f"{busy:.4f} s = {busy / wall:.4f} of the wall time")
+    log("training epoch device time by kernel (ms): " + ", ".join(
+        f"{k[:48]} {u / 1e3:.2f}" for u, k in by_kernel[:12]))
+    return dict(launches=launches, steps=steps, train_s=t1 - t0,
+                epoch_s=wall, busy_share=busy / wall,
+                acc_q=hist["test_acc_q"][-1], loss=hist["loss"],
+                grad_err=gerr, flips=flips)
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
@@ -413,6 +692,8 @@ def main() -> int:
     k2 = phase_subnet_kernel(cfg, dev)
     k1, tile_sweep = phase_cascade_kernel(cfg, dev)
     launches = phase_main_path(cfg, dev)
+    k4, k5 = phase_train_kernels(cfg, dev)
+    train = phase_train_path(cfg, dev)
 
     head = k1[HEADLINE_B]
     kernels = [
@@ -445,6 +726,40 @@ def main() -> int:
          "shape": "sum of the 5 jsc-5l conversion layers",
          "by_layer": k2},
     ]
+    from repro_torch.kernels.neuralut_grad import BWD_ROWS
+    # K5's wrapper counts calls; each call runs its row-tile kernel and,
+    # when B > BWD_ROWS, the fixed-order sum of the tiles after it.
+    for name, src, line, rows, per_call in (
+            ("subnet_train_fwd", "neuralut_grad.cu",
+             "src/repro/kernels/neuralut_grad.py:148", k4, 1),
+            ("subnet_train_bwd", "neuralut_grad.cu",
+             "src/repro/kernels/neuralut_grad.py:261", k5,
+             1 + (TRAIN_B > BWD_ROWS))):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}", "replaces": line,
+            "launches": train["launches"][name],
+            "kernels_per_launch": per_call,
+            "max_abs_err": max(r["err"] for r in rows),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "bytes" if all(r["by"] == "bytes" for r in rows)
+            else "operations",
+            "library_ms": None,
+            "call_ms": sum(r["call_ms"] for r in rows),
+            "plain_call_ms": sum(r["plain_call_ms"] for r in rows),
+            "timing": rows[0]["timing"],
+            "shape": f"sum of the 5 jsc-5l training layers at B={TRAIN_B}",
+            "by_layer": rows})
+    for k in kernels:
+        k["launches_by_path"] = {"serve": launches.get(k["name"], 0),
+                                 "train": train["launches"][k["name"]]}
+    log(f"training: {train['steps']} steps, {train['train_s']:.3f} s, "
+        f"{train['steps'] / train['train_s']:.2f} steps/s; epoch "
+        f"{train['epoch_s']:.3f} s, device busy share "
+        f"{train['busy_share']:.4f}; test acc_q {train['acc_q']:.4f}; "
+        f"loss by epoch {train['loss']}")
     log(card)  # nvidia-smi's "name, power.limit", as it printed them
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

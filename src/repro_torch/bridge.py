@@ -12,6 +12,11 @@ here.  This module imports no jax; the keys are the reference's:
             layers[i].bn.{g,b}, layers[i].quant.log_s
     state:  layers[i].bn.{mean,var}
     statics: layers[i].conn
+    opt:    m, v (trees like params), count; the reference's ``master``
+            tree is all None for float32 params and has no counterpart
+
+``params_to_numpy`` goes the other way, so a test can start both
+packages from one state and compare the trees leaf by leaf.
 """
 from __future__ import annotations
 
@@ -76,3 +81,38 @@ def statics_from_numpy(cfg: NeuraLUTConfig, statics: List[Dict[str, Any]]
         out.append({"conn": conn})
         w_prev = o
     return out
+
+
+def opt_from_numpy(cfg: NeuraLUTConfig, opt: Dict[str, Any], *,
+                   device: DeviceLike = None) -> Dict[str, Any]:
+    """Reference AdamW state (``m``, ``v``, ``count``, ``master``) as
+    numpy -> the port's (``m``, ``v``, ``count``).  ``master`` must be
+    all None: NeuraLUT's parameters are float32, so the reference keeps
+    no master copy."""
+    dev = resolve_device(device)
+    masters = opt.get("master")
+    stack = [masters]
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, (list, tuple)):
+            stack.extend(t)
+        elif t is not None:
+            raise ValueError("the reference opt state holds a master copy; "
+                             "the port trains float32 parameters only")
+    spec_p, _ = model_spec(cfg)
+    return {"m": _convert(spec_p, opt["m"], "m", dev),
+            "v": _convert(spec_p, opt["v"], "v", dev),
+            "count": torch.tensor(int(np.asarray(opt["count"])),
+                                  dtype=torch.int32, device=dev)}
+
+
+def params_to_numpy(tree) -> Any:
+    """A port tree (params, state, grads or opt state) -> the same nested
+    dicts and lists of numpy arrays, in the reference's layout."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    return tree.detach().cpu().numpy()

@@ -3,17 +3,32 @@
 
 ``SubnetExec`` routes the hidden function:
 
-  * ``canonical``    — the plain (B, O, n) grouped product
-                       (``core.subnet.subnet_apply``): the reference the
-                       truth tables are defined against.
-  * ``kernel_infer`` — the CUDA grouped sub-network kernel
-                       (``kernels/neuralut_mlp.subnet_kernel_apply``);
-                       forward only.
+  * ``canonical``      — the plain (B, O, n) grouped product
+                         (``core.subnet.subnet_apply``): the reference
+                         the truth tables are defined against, and the
+                         autograd oracle of the kernel routes.
+  * ``neuron_leading`` — the same ops in (O, B, n) layout
+                         (``subnet_apply(batch_leading=True)``): the
+                         CPU training route; equal to canonical to
+                         float32 rounding.
+  * ``kernel_infer``   — the CUDA grouped sub-network kernel
+                         (``kernels/neuralut_mlp.subnet_kernel_apply``);
+                         forward only.
+  * ``kernel_train``   — the CUDA training kernels
+                         (``kernels/neuralut_grad.subnet_train_apply``):
+                         the forward saves the sub-layer inputs, the
+                         backward computes dx and every weight gradient.
 
-  purpose   on CPU       on CUDA
-  -------   ---------    ------------
-  eval      canonical    canonical
-  convert   canonical    kernel_infer
+  purpose   on CPU           on CUDA
+  -------   --------------   ------------
+  train     neuron_leading   kernel_train
+  eval      canonical        canonical
+  convert   canonical        kernel_infer
+
+A ``kernel_infer`` route for training is rejected when the plan is
+built: it has no backward.  The kernel routes take CUDA tensors (their
+wrappers run the plain versions for CPU tensors, which is how the CPU
+tests reach them).
 
 ``CascadeExec`` runs the bit-exact LUT cascade (the serving path)
 through ``kernels/lut_cascade.lut_cascade``, whose wrapper picks the
@@ -35,8 +50,8 @@ from repro_torch.core.nl_config import (NeuraLUTConfig, UnsupportedTopology,
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.lut_cascade import cascade_meta, lut_cascade
 
-ROUTES = ("canonical", "kernel_infer")
-PURPOSES = ("eval", "convert")
+ROUTES = ("canonical", "neuron_leading", "kernel_infer", "kernel_train")
+PURPOSES = ("train", "eval", "convert")
 
 
 @dataclass(frozen=True)
@@ -55,12 +70,21 @@ class SubnetExec:
             raise ValueError(f"unknown route {self.route!r}; one of "
                              f"{ROUTES}")
 
+    @property
+    def differentiable(self) -> bool:
+        """Whether autograd may flow through :meth:`apply`."""
+        return self.route != "kernel_infer"
+
     def apply(self, p: Dict[str, Any], xg: torch.Tensor) -> torch.Tensor:
         """Evaluate the hidden function: (B, O, F) -> (B, O)."""
         if self.route == "kernel_infer":
             from repro_torch.kernels.neuralut_mlp import subnet_kernel_apply
             return subnet_kernel_apply(p, xg, self.skip)
-        return subnet.subnet_apply(p, xg, self.skip)
+        if self.route == "kernel_train":
+            from repro_torch.kernels.neuralut_grad import subnet_train_apply
+            return subnet_train_apply(p, xg, self.skip)
+        return subnet.subnet_apply(
+            p, xg, self.skip, batch_leading=self.route == "neuron_leading")
 
 
 def plan_subnet_exec(cfg: NeuraLUTConfig, *, purpose: str,
@@ -70,10 +94,15 @@ def plan_subnet_exec(cfg: NeuraLUTConfig, *, purpose: str,
     (``None`` = CUDA).  ``route`` overrides the default."""
     if purpose not in PURPOSES:
         raise ValueError(f"unknown purpose {purpose!r}; one of {PURPOSES}")
+    if purpose == "train" and route == "kernel_infer":
+        raise ValueError("kernel_infer is forward-only; training needs a "
+                         "differentiable route (kernel_train, canonical or "
+                         "neuron_leading)")
     if route is None:
         on_cuda = resolve_device(device).type == "cuda"
-        route = ("kernel_infer" if purpose == "convert" and on_cuda
-                 else "canonical")
+        route = {"train": "kernel_train" if on_cuda else "neuron_leading",
+                 "convert": "kernel_infer" if on_cuda else "canonical",
+                 "eval": "canonical"}[purpose]
     return SubnetExec(kind=cfg.kind, route=route, skip=cfg.skip)
 
 

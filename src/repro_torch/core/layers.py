@@ -44,16 +44,22 @@ def layer_spec(cfg: NeuraLUTConfig, idx: int, out_width: int
 
 def layer_apply(cfg: NeuraLUTConfig, idx: int, p: Params, state: Params,
                 static: Dict[str, np.ndarray], x: torch.Tensor, *,
-                exec_plan: SubnetExec
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eval-mode layer.  x: (B, in_width) dequantized values.  Returns
-    (values (B, O) after fake-quant, pre-quant BN output (B, O))."""
-    conn = torch.as_tensor(np.asarray(static["conn"]),
-                           device=x.device).long()
+                train: bool, exec_plan: SubnetExec
+                ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
+    """x: (B, in_width) dequantized values.  Returns (values (B, O)
+    after fake-quant, pre-quant BN output (B, O), new_state).  Training
+    normalizes with the batch statistics and moves the running ones by
+    ``cfg.bn_momentum``.  ``exec_plan`` picks the hidden-function
+    route."""
+    conn = static["conn"]
+    if not isinstance(conn, torch.Tensor):
+        conn = torch.as_tensor(np.asarray(conn))
+    conn = conn.to(device=x.device, dtype=torch.long)  # no-op if resident
     xg = x[:, conn]                                   # (B, O, F)
     f = exec_plan.apply(p["fn"], xg)
-    pre, _ = quant.bn_apply(p["bn"], state["bn"], f, train=False)
-    return quant.quant_apply(p["quant"], pre, cfg.beta), pre
+    pre, new_bn = quant.bn_apply(p["bn"], state["bn"], f, train=train,
+                                 momentum=cfg.bn_momentum)
+    return quant.quant_apply(p["quant"], pre, cfg.beta), pre, {"bn": new_bn}
 
 
 def layer_codes(cfg: NeuraLUTConfig, p: Params,

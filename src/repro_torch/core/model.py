@@ -1,16 +1,18 @@
 """Full NeuraLUT circuit-level model: input quantizer + stacked layers
-(port of ``repro.core.model``, chain geometries, eval forward).
+(port of ``repro.core.model``, chain geometries; eval and training
+forward).
 
 API (parameters are nested dicts of tensors with the reference's keys):
     statics   = model_static(cfg)                 # connectivity
     p, s      = model_init(cfg, generator, device=...)
     p         = calibrate_in_quant(cfg, p, x_train)
-    logits, values, s = model_apply(cfg, p, s, statics, x)
+    logits, values, s = model_apply(cfg, p, s, statics, x, train=...)
+    loss      = ce_loss(logits, labels)
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -108,6 +110,8 @@ def calibrate_in_quant(cfg: NeuraLUTConfig, params: Params,
     Returns ``params`` with ``in_quant.log_s`` replaced."""
     beta_in = cfg.beta_in or cfg.beta
     max_code = 2 ** (beta_in - 1)
+    if isinstance(x_train, torch.Tensor):
+        x_train = x_train.detach().cpu().numpy()
     std = np.maximum(np.asarray(x_train).std(axis=0), 1e-3)
     dev = params["in_quant"]["log_s"].device
     params = dict(params)
@@ -116,22 +120,45 @@ def calibrate_in_quant(cfg: NeuraLUTConfig, params: Params,
     return params
 
 
+def device_statics(statics: List[Dict], device) -> List[Dict]:
+    """``statics`` with every ``conn`` as an int64 tensor on ``device``,
+    so a training step moves no connectivity to the device."""
+    return [{k: torch.as_tensor(np.asarray(v)).to(device, torch.long)
+             for k, v in st.items()} for st in statics]
+
+
 def model_apply(cfg: NeuraLUTConfig, params: Params, state: Params,
                 statics: List[Dict], x: torch.Tensor, *,
-                train: bool = False, exec_plan: SubnetExec = None):
+                train: bool = False, exec_plan: Optional[SubnetExec] = None):
     """x: (B, in_features) raw features -> (logits (B, classes)
-    pre-quant, quantized class values, state).  Eval mode only: the
-    training forward is not ported."""
+    pre-quant, quantized class values, new_state).  ``train=True``
+    normalizes with batch statistics and threads the BN state;
+    ``exec_plan`` routes every layer's hidden function (None: the
+    planner default for the purpose on ``x``'s device)."""
     _chain_only(cfg)
-    if train:
-        raise NotImplementedError("the training forward is not ported; "
-                                  "model_apply runs eval mode only")
     if exec_plan is None:
-        exec_plan = plan_subnet_exec(cfg, purpose="eval", device=x.device)
+        exec_plan = plan_subnet_exec(
+            cfg, purpose="train" if train else "eval", device=x.device)
     v = quant.quant_apply(params["in_quant"], x, cfg.beta_in or cfg.beta)
     pre = None
+    new_states = []
     for i in range(cfg.num_layers):
-        v, pre = L.layer_apply(cfg, i, params["layers"][i],
-                               state["layers"][i], statics[i], v,
-                               exec_plan=exec_plan)
-    return pre, v, state
+        v, pre, ns = L.layer_apply(cfg, i, params["layers"][i],
+                                   state["layers"][i], statics[i], v,
+                                   train=train, exec_plan=exec_plan)
+        new_states.append(ns)
+    return pre, v, {"layers": new_states}
+
+
+def ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy, written as the reference writes it
+    (logsumexp minus the label's logit)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels.long()[:, None], dim=-1)[:, 0]
+    return torch.mean(lse - ll)
+
+
+def accuracy_from_values(values: torch.Tensor,
+                         labels: torch.Tensor) -> torch.Tensor:
+    return torch.mean((torch.argmax(values, dim=-1) == labels)
+                      .to(torch.float32))

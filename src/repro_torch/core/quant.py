@@ -14,6 +14,7 @@ its running state, the reference keeps the biased one.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -35,11 +36,25 @@ def _ste_round(v: torch.Tensor) -> torch.Tensor:
     return v + (v.round() - v).detach()
 
 
-def quant_apply(p: Params, x: torch.Tensor, beta: int) -> torch.Tensor:
-    """Fake-quantize x (..., C) to beta bits; returns dequantized values."""
-    s = torch.exp(p["log_s"])
+@functools.lru_cache(maxsize=None)
+def _clip_bounds(beta: int, device: torch.device
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     lo, hi = -(2 ** (beta - 1)), 2 ** (beta - 1) - 1
-    vq = torch.clamp(_ste_round(x / s), lo, hi)
+    return (torch.tensor(float(lo), device=device),
+            torch.tensor(float(hi), device=device))
+
+
+def quant_apply(p: Params, x: torch.Tensor, beta: int) -> torch.Tensor:
+    """Fake-quantize x (..., C) to beta bits; returns dequantized values.
+
+    The clip is a ``maximum``/``minimum`` pair against float32 tensor
+    bounds, as ``jnp.clip`` is: at a tie (a value that rounds to exactly
+    the lowest or highest code) each side takes half the gradient.
+    ``torch.clamp`` would pass all of it to the input, doubling the
+    gradient of every saturated activation and of its ``log_s``."""
+    s = torch.exp(p["log_s"])
+    lo, hi = _clip_bounds(beta, x.device)
+    vq = torch.minimum(torch.maximum(_ste_round(x / s), lo), hi)
     return vq * s
 
 

@@ -27,45 +27,9 @@
 //  * fp32 FMAs on the CUDA cores; each dense layer sums its products
 //    first and adds the bias last, as the reference einsum does.
 //  * Ragged edges are masked: rows past T return after the weight load.
-#include <cuda_runtime.h>
+#include "subnet_geom.cuh"
 
-#define REPRO_MAX_DEPTH 16
 #define REPRO_SUBNET_THREADS 256
-
-struct SubnetGeom {
-  int nlayers;
-  int skip;
-  int pstride;                      // floats of packed weights per neuron
-  int width[REPRO_MAX_DEPTH + 1];   // n_0 = F, ..., n_L = 1
-  int w_off[REPRO_MAX_DEPTH];       // layer l: w (n_l, n_{l+1}) row-major
-  int b_off[REPRO_MAX_DEPTH];       //          b (n_{l+1})
-  int sw_off[REPRO_MAX_DEPTH];      // skip chunk c: w, then b
-  int sb_off[REPRO_MAX_DEPTH];
-};
-
-template <int NMAX>
-__device__ __forceinline__ void dense(const float (&h)[NMAX],
-                                      float (&y)[NMAX],
-                                      const float* __restrict__ w,
-                                      const float* __restrict__ b,
-                                      int nin, int nout) {
-  float acc[NMAX];
-#pragma unroll
-  for (int j = 0; j < NMAX; ++j) acc[j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < NMAX; ++i) {
-    if (i < nin) {
-      const float hi = h[i];
-      const float* wr = w + i * nout;
-#pragma unroll
-      for (int j = 0; j < NMAX; ++j) {
-        if (j < nout) acc[j] = fmaf(hi, wr[j], acc[j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NMAX; ++j) y[j] = (j < nout) ? acc[j] + b[j] : 0.f;
-}
 
 template <int NMAX>
 __global__ void __launch_bounds__(REPRO_SUBNET_THREADS)
@@ -126,12 +90,8 @@ template <int NMAX>
 static int launch(const float* xg, const float* wpack, float* out, int T,
                   int O, const SubnetGeom& g, cudaStream_t stream) {
   const size_t smem = (size_t)g.pstride * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        grouped_subnet_kernel<NMAX>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int e = repro_allow_smem(grouped_subnet_kernel<NMAX>, smem);
+  if (e) return e;
   const dim3 grid(O, (T + REPRO_SUBNET_THREADS - 1) / REPRO_SUBNET_THREADS);
   grouped_subnet_kernel<NMAX><<<grid, REPRO_SUBNET_THREADS, smem, stream>>>(
       xg, wpack, out, T, O, g);
@@ -146,36 +106,13 @@ extern "C" int repro_grouped_subnet(int device, const float* xg,
                                     float* out, int T, int O, int pstride,
                                     int nlayers, const int* widths,
                                     int skip, void* stream) {
-  if (nlayers < 1 || nlayers > REPRO_MAX_DEPTH || skip < 0 ||
-      (skip > 0 && nlayers % skip) || T < 1 || O < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (T < 1 || O < 1) return (int)cudaErrorInvalidValue;
+  SubnetGeom g;
+  int nmax = 0;
+  int rc = repro_subnet_geom(nlayers, widths, skip, pstride, &g, &nmax);
+  if (rc) return rc;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  SubnetGeom g;
-  g.nlayers = nlayers;
-  g.skip = skip;
-  g.pstride = pstride;
-  int nmax = 0;
-  for (int l = 0; l <= nlayers; ++l) {
-    g.width[l] = widths[l];
-    nmax = widths[l] > nmax ? widths[l] : nmax;
-  }
-  int off = 0;
-  for (int l = 0; l < nlayers; ++l) {
-    g.w_off[l] = off;
-    off += g.width[l] * g.width[l + 1];
-    g.b_off[l] = off;
-    off += g.width[l + 1];
-  }
-  for (int c = 0; skip > 0 && c < nlayers / skip; ++c) {
-    const int l0 = c * skip;
-    g.sw_off[c] = off;
-    off += g.width[l0] * g.width[l0 + skip];
-    g.sb_off[c] = off;
-    off += g.width[l0 + skip];
-  }
-  if (off != pstride) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (nmax <= 8) return launch<8>(xg, wpack, out, T, O, g, s);
   if (nmax <= 16) return launch<16>(xg, wpack, out, T, O, g, s);

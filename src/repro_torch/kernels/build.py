@@ -103,6 +103,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         _I, _I, _I,            # T, O, params per neuron
         _I, _P, _I, _P]        # nlayers, widths, skip, stream
     lib.repro_grouped_subnet.restype = _I
+    lib.repro_subnet_train_fwd.argtypes = [
+        _I, _P, _P, _P, _P,    # device, xg, packed weights, out, acts
+        _I, _I, _I,            # T, O, params per neuron
+        _I, _P, _I, _P]        # nlayers, widths, skip, stream
+    lib.repro_subnet_train_fwd.restype = _I
+    lib.repro_subnet_train_bwd.argtypes = [
+        _I, _P, _P, _P, _P,    # device, g, xg, acts, packed weights
+        _P, _P, _P,            # dx, tile partials, grads
+        _I, _I, _I,            # T, O, params per neuron
+        _I, _P, _I, _I, _P]    # nlayers, widths, skip, rows, stream
+    lib.repro_subnet_train_bwd.restype = _I
     lib.repro_cuda_error_string.argtypes = [_I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,232 @@
+"""Training forward and backward of the grouped sub-network: the
+wrappers of the CUDA kernels in ``csrc/neuralut_grad.cu`` (port of
+``repro.kernels.neuralut_grad.subnet_train_op`` and of
+``repro.kernels.ops.subnet_train_apply``).
+
+* :func:`subnet_train_fwd` (K4) evaluates every (row, neuron) pair of a
+  (B, O, F) input through its neuron's MLP with skips in one launch and
+  saves the input of every sub-layer i >= 1, (B, O, n_i) each.
+* :func:`subnet_train_bwd` (K5) walks the output's cotangent back in one
+  launch (plus a small fixed-order sum over row tiles) and returns dx
+  and the weight gradients of every sub-layer and skip chunk, summed
+  over B without atomics: a rerun is bit-identical.
+* :class:`SubnetTrainFn` ties the two together as an autograd function;
+  :func:`subnet_train_apply` runs a ``core.subnet`` parameter dict
+  through it (the ``kernel_train`` route).
+
+On a CPU tensor each wrapper runs its plain version
+(``kernels.ref.subnet_train_fwd_ref`` / ``subnet_train_bwd_ref``); on a
+CUDA tensor it launches its kernel or raises.  On the card the kernels
+agree with the plain versions to atol/rtol 1e-5 (forward) and rtol 2e-4
+/ atol 3e-5 (gradients; the reference's own tolerance,
+tests/test_train_kernel.py), the spread of float32 summation order.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from repro_torch.kernels import build
+from repro_torch.kernels.neuralut_mlp import (MAX_SHARED_BYTES, MAX_WIDTH,
+                                              check_operands,
+                                              pack_subnet_weights)
+from repro_torch.kernels.ref import subnet_train_bwd_ref, subnet_train_fwd_ref
+
+BWD_ROWS = 64         # rows per K5 block (a multiple of 32, <= 256)
+Tensors = List[torch.Tensor]
+
+
+def _launch_args(xg, layer_ws, layer_bs, skip_ws, skip_bs, skip, wpack):
+    widths, skip_ws, skip_bs = check_operands(xg, layer_ws, layer_bs,
+                                              skip_ws, skip_bs, skip)
+    if wpack is None:
+        raise ValueError("a CUDA launch needs the packed weights "
+                         "(pack_subnet_weights)")
+    o = xg.shape[1]
+    p = sum(math.prod(a.shape[1:]) for wb in
+            list(zip(layer_ws, layer_bs)) + list(zip(skip_ws, skip_bs))
+            for a in wb)
+    if tuple(wpack.shape) != (o, p) or wpack.device != xg.device \
+            or not wpack.is_contiguous():
+        raise ValueError(f"packed weights {tuple(wpack.shape)} on "
+                         f"{wpack.device} != ({o}, {p}) on {xg.device}")
+    # K5's block holds the packed row and two (rows, NMAX + 1) stages
+    if 4 * (p + 4 + 2 * BWD_ROWS * (MAX_WIDTH + 1)) > MAX_SHARED_BYTES:
+        raise ValueError(f"{p} weights per neuron exceed the block's "
+                         "shared memory")
+    return widths, skip_ws, skip_bs, wpack
+
+
+def subnet_train_fwd(xg: torch.Tensor,
+                     layer_ws: Sequence[torch.Tensor],
+                     layer_bs: Sequence[torch.Tensor],
+                     skip_ws: Optional[Sequence[torch.Tensor]] = None,
+                     skip_bs: Optional[Sequence[torch.Tensor]] = None,
+                     *, skip: int = 0,
+                     wpack: Optional[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, Tensors]:
+    """(B, O, F) float32 -> (out (B, O), [act_i (B, O, n_i) for i = 1 ..
+    L-1]).  Weights as in ``neuralut_mlp.grouped_subnet``; ``wpack`` is
+    their ``pack_subnet_weights`` form, which the CUDA launch reads (the
+    plain CPU version takes None).  The activations are views of one
+    buffer, in order."""
+    if xg.device.type == "cpu":
+        return subnet_train_fwd_ref(xg, layer_ws, layer_bs, skip_ws or (),
+                                    skip_bs or (), skip=skip)
+    widths, skip_ws, skip_bs, wpack = _launch_args(
+        xg, layer_ws, layer_bs, skip_ws, skip_bs, skip, wpack)
+    t, o, _ = xg.shape
+    nl = len(layer_ws)
+    xg = xg.contiguous()
+    out = torch.empty((t, o), dtype=torch.float32, device=xg.device)
+    sizes = [t * o * n for n in widths[1:nl]]
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=xg.device)
+    acts = [a.view(t, o, n) for a, n in
+            zip(torch.split(buf, sizes), widths[1:nl])]
+    if t == 0 or o == 0:
+        return out, acts
+    rc = build.load_library().repro_subnet_train_fwd(
+        xg.device.index, xg.data_ptr(), wpack.data_ptr(), out.data_ptr(),
+        buf.data_ptr() if buf.numel() else None, t, o, wpack.shape[1], nl,
+        (ctypes.c_int * len(widths))(*widths), skip,
+        torch.cuda.current_stream(xg.device).cuda_stream)
+    build.check(rc, "subnet_train_fwd launch")
+    subnet_train_fwd.launches += 1
+    return out, acts
+
+
+subnet_train_fwd.launches = 0
+
+
+def _act_buffer(acts: Sequence[torch.Tensor], t: int, o: int,
+                widths: Sequence[int], device) -> Optional[torch.Tensor]:
+    """The start of the one buffer that :func:`subnet_train_fwd`'s
+    (B, O, n_i) activations view, in the kernel's layout; raises for
+    activations of any other shape or layout."""
+    want = [(t, o, n) for n in widths[1:len(widths) - 1]]
+    if [tuple(a.shape) for a in acts] != want or any(
+            a.device != device or a.dtype != torch.float32 for a in acts):
+        raise ValueError(f"activations {[tuple(a.shape) for a in acts]} "
+                         f"!= {want} float32 on {device}")
+    if not acts:
+        return None
+    base, off = acts[0].data_ptr(), 0
+    for a in acts:
+        if not a.is_contiguous() or a.data_ptr() != base + 4 * off:
+            raise ValueError("activations must be the views of one buffer "
+                             "that subnet_train_fwd returned")
+        off += a.numel()
+    return acts[0]
+
+
+def subnet_train_bwd(g: torch.Tensor, xg: torch.Tensor,
+                     acts: Sequence[torch.Tensor],
+                     layer_ws: Sequence[torch.Tensor],
+                     layer_bs: Sequence[torch.Tensor],
+                     skip_ws: Optional[Sequence[torch.Tensor]] = None,
+                     skip_bs: Optional[Sequence[torch.Tensor]] = None,
+                     *, skip: int = 0,
+                     wpack: Optional[torch.Tensor]):
+    """Cotangent g (B, O) of the output -> (dx (B, O, F), [dW_i], [db_i],
+    [dR_c], [dRb_c]), each gradient shaped like its weight and summed
+    over B.  ``acts`` and ``wpack`` are as :func:`subnet_train_fwd`
+    took and returned them."""
+    if xg.device.type == "cpu":
+        return subnet_train_bwd_ref(g, xg, acts, layer_ws, skip_ws or (),
+                                    skip=skip)
+    widths, skip_ws, skip_bs, wpack = _launch_args(
+        xg, layer_ws, layer_bs, skip_ws, skip_bs, skip, wpack)
+    t, o, f = xg.shape
+    if tuple(g.shape) != (t, o) or g.dtype != torch.float32 \
+            or g.device != xg.device:
+        raise ValueError(f"g {tuple(g.shape)} {g.dtype} on {g.device} != "
+                         f"({t}, {o}) float32 on {xg.device}")
+    buf = _act_buffer(acts, t, o, widths, xg.device)
+    nl = len(layer_ws)
+    p = wpack.shape[1]
+    xg, g = xg.contiguous(), g.contiguous()
+    dx = torch.empty((t, o, f), dtype=torch.float32, device=xg.device)
+    grads = torch.empty(o * p, dtype=torch.float32, device=xg.device)
+    ntiles = -(-t // BWD_ROWS)
+    part = (torch.empty(ntiles * o * p, dtype=torch.float32,
+                        device=xg.device) if ntiles > 1 else None)
+    leaves = list(zip(layer_ws, layer_bs)) + list(zip(skip_ws, skip_bs))
+    views, off = [], 0
+    for w, b in leaves:        # leaf-major: leaf k at O * (its row offset)
+        for a in (w, b):
+            n = math.prod(a.shape[1:])
+            views.append(grads[o * off:o * (off + n)].view(a.shape))
+            off += n
+    dws, dbs = views[0:2 * nl:2], views[1:2 * nl:2]
+    drs, drbs = views[2 * nl::2], views[2 * nl + 1::2]
+    if t == 0 or o == 0:
+        dx.zero_()
+        grads.zero_()
+        return dx, dws, dbs, drs, drbs
+    rc = build.load_library().repro_subnet_train_bwd(
+        xg.device.index, g.data_ptr(), xg.data_ptr(),
+        buf.data_ptr() if buf is not None else None, wpack.data_ptr(),
+        dx.data_ptr(), part.data_ptr() if part is not None else None,
+        grads.data_ptr(), t, o, p, nl,
+        (ctypes.c_int * len(widths))(*widths), skip, BWD_ROWS,
+        torch.cuda.current_stream(xg.device).cuda_stream)
+    build.check(rc, "subnet_train_bwd launch")
+    subnet_train_bwd.launches += 1
+    return dx, dws, dbs, drs, drbs
+
+
+# Counts calls: each runs subnet_train_bwd_kernel and, when B > BWD_ROWS,
+# sum_tiles_kernel after it.
+subnet_train_bwd.launches = 0
+
+
+class SubnetTrainFn(torch.autograd.Function):
+    """Differentiable grouped sub-network: the forward runs K4 and saves
+    the sub-layer inputs, the backward runs K5 on them (the plain
+    versions for CPU tensors).
+
+    apply(skip, nl, nch, xg, *layer_ws, *layer_bs, *skip_ws, *skip_bs)
+    -> (B, O)."""
+
+    @staticmethod
+    def forward(ctx, skip: int, nl: int, nch: int, xg: torch.Tensor,
+                *weights: torch.Tensor) -> torch.Tensor:
+        lw, lb = weights[:nl], weights[nl:2 * nl]
+        sw, sb = weights[2 * nl:2 * nl + nch], weights[2 * nl + nch:]
+        wpack = (pack_subnet_weights(lw, lb, sw, sb)
+                 if xg.device.type == "cuda" else None)
+        out, acts = subnet_train_fwd(xg, lw, lb, sw, sb, skip=skip,
+                                     wpack=wpack)
+        ctx.skip, ctx.nl, ctx.nch, ctx.wpack = skip, nl, nch, wpack
+        ctx.save_for_backward(xg, *acts, *weights)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g: torch.Tensor):
+        nl, nch = ctx.nl, ctx.nch
+        xg, *rest = ctx.saved_tensors
+        acts, weights = rest[:nl - 1], rest[nl - 1:]
+        lw, lb = weights[:nl], weights[nl:2 * nl]
+        sw, sb = weights[2 * nl:2 * nl + nch], weights[2 * nl + nch:]
+        dx, dws, dbs, drs, drbs = subnet_train_bwd(
+            g.contiguous(), xg, acts, lw, lb, sw, sb, skip=ctx.skip,
+            wpack=ctx.wpack)
+        return (None, None, None, dx, *dws, *dbs, *drs, *drbs)
+
+
+def subnet_train_apply(fn_params: Dict, xg: torch.Tensor,
+                       skip: int) -> torch.Tensor:
+    """Differentiable (B, O, F) -> (B, O) evaluation of a ``core.subnet``
+    param dict through :class:`SubnetTrainFn` (the ``kernel_train``
+    route): one K4 launch forward, one K5 launch backward."""
+    lw = [lp["w"] for lp in fn_params["layers"]]
+    lb = [lp["b"] for lp in fn_params["layers"]]
+    sw = [sp["w"] for sp in fn_params.get("skips", [])]
+    sb = [sp["b"] for sp in fn_params.get("skips", [])]
+    return SubnetTrainFn.apply(skip, len(lw), len(sw), xg, *lw, *lb, *sw,
+                               *sb)

@@ -42,19 +42,16 @@ def pack_subnet_weights(layer_ws: Sequence[torch.Tensor],
     return torch.cat(parts, dim=1).to(torch.float32).contiguous()
 
 
-def grouped_subnet(xg: torch.Tensor,
+def check_operands(xg: torch.Tensor,
                    layer_ws: Sequence[torch.Tensor],
                    layer_bs: Sequence[torch.Tensor],
-                   skip_ws: Optional[Sequence[torch.Tensor]] = None,
-                   skip_bs: Optional[Sequence[torch.Tensor]] = None,
-                   *, skip: int = 0) -> torch.Tensor:
-    """(T, O, F) float32 -> (T, O) float32.  Layer i: w (O, n_i,
-    n_{i+1}), b (O, n_{i+1}); skip chunk c: w (O, n_{cS}, n_{(c+1)S}),
-    b (O, n_{(c+1)S}).  On a CPU tensor this runs the plain version; on
-    a CUDA tensor it launches the kernel or raises."""
-    if xg.device.type == "cpu":
-        return grouped_subnet_ref(xg, layer_ws, layer_bs, skip_ws, skip_bs,
-                                  skip=skip)
+                   skip_ws: Optional[Sequence[torch.Tensor]],
+                   skip_bs: Optional[Sequence[torch.Tensor]],
+                   skip: int):
+    """Check a CUDA launch's operands: float32 (T, O, F) input, weights
+    of the shapes the widths imply on the same device, depth, skip
+    period and widths within the kernels' limits.  Returns (widths
+    [F, n_1, ..., 1], skip_ws, skip_bs as lists); raises ValueError."""
     if xg.device.type != "cuda":
         raise ValueError(f"xg lies on {xg.device}; cpu or cuda only")
     check_exact_fp32()
@@ -91,6 +88,26 @@ def grouped_subnet(xg: torch.Tensor,
                                  f"{xg.device}")
     if t > MAX_ROWS:
         raise ValueError(f"{t} rows > kernel maximum {MAX_ROWS}")
+    return widths, skip_ws, skip_bs
+
+
+def grouped_subnet(xg: torch.Tensor,
+                   layer_ws: Sequence[torch.Tensor],
+                   layer_bs: Sequence[torch.Tensor],
+                   skip_ws: Optional[Sequence[torch.Tensor]] = None,
+                   skip_bs: Optional[Sequence[torch.Tensor]] = None,
+                   *, skip: int = 0) -> torch.Tensor:
+    """(T, O, F) float32 -> (T, O) float32.  Layer i: w (O, n_i,
+    n_{i+1}), b (O, n_{i+1}); skip chunk c: w (O, n_{cS}, n_{(c+1)S}),
+    b (O, n_{(c+1)S}).  On a CPU tensor this runs the plain version; on
+    a CUDA tensor it launches the kernel or raises."""
+    if xg.device.type == "cpu":
+        return grouped_subnet_ref(xg, layer_ws, layer_bs, skip_ws, skip_bs,
+                                  skip=skip)
+    widths, skip_ws, skip_bs = check_operands(xg, layer_ws, layer_bs,
+                                              skip_ws, skip_bs, skip)
+    t, o, _ = xg.shape
+    nl = len(layer_ws)
     wpack = pack_subnet_weights(layer_ws, layer_bs, skip_ws, skip_bs)
     if wpack.shape[1] * 4 > MAX_SHARED_BYTES:
         raise ValueError(f"{wpack.shape[1]} weights per neuron exceed the "

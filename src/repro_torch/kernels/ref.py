@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the two CUDA kernels: the correctness
+"""Plain PyTorch versions of the CUDA kernels: the correctness
 reference the kernels are held against, and what their wrappers run for
 tensors that lie on the CPU."""
 from __future__ import annotations
@@ -48,6 +48,129 @@ def grouped_subnet_ref(xg: torch.Tensor,
         if c < nch - 1:
             h = torch.relu(h)
     return h[..., 0]
+
+
+def _mm(h, w, b=None):
+    """(B, O, ni) x (O, ni, no) -> (B, O, no), neuron-batched."""
+    out = torch.einsum("boi,oij->boj", h, w)
+    return out if b is None else out + b[None]
+
+
+def _mm_t(g, w):
+    """Cotangent through the product: (B, O, no) x (O, ni, no) ->
+    (B, O, ni)."""
+    return torch.einsum("boj,oij->boi", g, w)
+
+
+def _dw(a, g):
+    """Per-neuron weight gradient summed over rows: (B, O, ni) x
+    (B, O, no) -> (O, ni, no)."""
+    return torch.einsum("boi,boj->oij", a, g)
+
+
+def subnet_train_fwd_ref(xg: torch.Tensor,
+                         layer_ws: Sequence[torch.Tensor],
+                         layer_bs: Sequence[torch.Tensor],
+                         skip_ws: Sequence[torch.Tensor] = (),
+                         skip_bs: Sequence[torch.Tensor] = (),
+                         skip: int = 0
+                         ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Reference for the training forward kernel, step by step as the
+    Pallas body ``repro.kernels.neuralut_grad._fwd_kernel``: the output
+    (B, O) and the input of every sub-layer i >= 1 (the post-ReLU
+    activation, (B, O, n_i)), in order i = 1 .. L-1.  Plain tensors, no
+    autograd."""
+    L = len(layer_ws)
+    acts: List[torch.Tensor] = [None] * (L - 1)
+
+    def save(i, h):
+        acts[i - 1] = h
+
+    h = xg.to(torch.float32)
+    if skip == 0:
+        for i in range(L):
+            if i > 0:
+                save(i, h)
+            h = _mm(h, layer_ws[i], layer_bs[i])
+            if i < L - 1:
+                h = torch.relu(h)
+        return h[..., 0], acts
+    nch = L // skip
+    for c in range(nch):
+        if c > 0:
+            save(c * skip, h)
+        res = _mm(h, skip_ws[c], skip_bs[c])
+        hh = h
+        for j in range(skip):
+            i = c * skip + j
+            if j > 0:
+                save(i, hh)
+            hh = _mm(hh, layer_ws[i], layer_bs[i])
+            if j < skip - 1:
+                hh = torch.relu(hh)
+        h = hh + res
+        if c < nch - 1:
+            h = torch.relu(h)
+    return h[..., 0], acts
+
+
+def subnet_train_bwd_ref(g: torch.Tensor, xg: torch.Tensor,
+                         acts: Sequence[torch.Tensor],
+                         layer_ws: Sequence[torch.Tensor],
+                         skip_ws: Sequence[torch.Tensor] = (),
+                         skip: int = 0):
+    """Reference for the training backward kernel, step by step as the
+    Pallas body ``repro.kernels.neuralut_grad._bwd_kernel``.
+
+    g: (B, O) cotangent of the output; ``acts`` from
+    :func:`subnet_train_fwd_ref`.  Returns (dx (B, O, F), [dW_i],
+    [db_i], [dR_c], [dRb_c]), the weight gradients summed over B.  ReLU
+    masks are recovered from the saved post-ReLU values (``a > 0``), so
+    the gradient at 0 is 0, as ``jax.nn.relu``'s and ``torch.relu``'s.
+    """
+    L = len(layer_ws)
+    x = xg.to(torch.float32)
+    dws: List[torch.Tensor] = [None] * L
+    dbs: List[torch.Tensor] = [None] * L
+
+    def a_in(i):
+        return x if i == 0 else acts[i - 1]
+
+    def through_layer(i, gm):
+        a = a_in(i)
+        dws[i] = _dw(a, gm)
+        dbs[i] = gm.sum(dim=0)
+        return _mm_t(gm, layer_ws[i]), a
+
+    gh = g.to(torch.float32)[..., None]                  # (B, O, 1)
+    if skip == 0:
+        gm = gh
+        for i in range(L - 1, -1, -1):
+            gm, a = through_layer(i, gm)
+            if i > 0:
+                gm = gm * (a > 0)
+        return gm, dws, dbs, [], []
+    nch = L // skip
+    drs: List[torch.Tensor] = [None] * nch
+    drbs: List[torch.Tensor] = [None] * nch
+    gout = gh
+    dx = None
+    for c in range(nch - 1, -1, -1):
+        hc = a_in(c * skip)
+        drs[c] = _dw(hc, gout)
+        drbs[c] = gout.sum(dim=0)
+        ghc = _mm_t(gout, skip_ws[c])
+        gm = gout
+        for i in range((c + 1) * skip - 1, c * skip - 1, -1):
+            gm, a = through_layer(i, gm)
+            if i > c * skip:
+                gm = gm * (a > 0)
+        ghc = ghc + gm
+        if c > 0:
+            gout = ghc * (hc > 0)          # inter-chunk ReLU boundary
+        else:
+            dx = ghc
+    return dx, dws, dbs, drs, drbs
 
 
 # (in_bits, word_bits, slot_bits, beta_out) of one chain layer; see

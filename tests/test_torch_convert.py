@@ -119,8 +119,8 @@ def test_tables_equal_own_eval_layer_on_every_code(mod, monkeypatch):
             cols = conn[:, j].repeat_interleave(t)
             x[rows, cols] = ((codes[:, j].repeat(o) - 2 ** (bits - 1))
                              .float() * scale[cols])
-        _, pre = L.layer_apply(pcfg, i, p["layers"][i], s["layers"][i],
-                               st[i], x, exec_plan=plan)
+        _, pre, _ = L.layer_apply(pcfg, i, p["layers"][i], s["layers"][i],
+                                  st[i], x, train=False, exec_plan=plan)
         got = L.layer_codes(pcfg, p["layers"][i], pre)       # (O*T, O)
         own = got.reshape(o, t, o)[torch.arange(o), :, torch.arange(o)]
         assert np.array_equal(own.numpy(), tables[i].astype(np.int32)), i
