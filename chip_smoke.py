@@ -5,17 +5,25 @@
 
 Builds the CUDA kernels from ``src/repro_torch/csrc``, holds each kernel
 against its plain PyTorch version at the shapes of ``neuralut-jsc-5l``,
-then drives the port's two paths at full width:
+then drives the port's paths at full width:
 
 * serving: seeded init and input calibration, truth-table conversion
   through the grouped sub-network kernel, a serving bundle, and
   ``LUTServeEngine`` answering mixed-size requests through the
   LUT-cascade kernel;
+* per-layer serving: the same bundle and requests through
+  ``LUTServeEngine(fused=False)``, one per-layer lookup kernel launch
+  per layer and batch, against the fused route (latencies in turns);
 * training: ``train_neuralut`` for a few epochs with every step's
   grouped sub-network through the training forward and backward
   kernels, then conversion, bundle and engine as above; plus the first
   step's gradients against the plain autograd route, a bit-identical
-  rerun of ten steps, and the device's busy share of an epoch.
+  rerun of ten steps, and the device's busy share of an epoch;
+* the seed ensemble: ``train_neuralut_ensemble`` of 4 seeds, one
+  seed-axis launch of each training kernel per layer per step, the
+  best member converted and served; the seed-axis kernels against
+  separate single-seed launches, a bit-identical rerun of ten ensemble
+  steps, and steps/s and the busy share at S = 4 beside S = 1.
 
 The launch counts are set to 0 just before each path and read just
 after it.  Every phase that fails stops the run with a non-zero exit;
@@ -53,6 +61,9 @@ TRAIN_B = 256              # the trainer's batch
 TRAIN_EPOCHS = 3           # 3 x 78 = 234 steps on 20,000 rows
 RERUN_STEPS = 10
 CASCADE_BATCHES = (1, 8, 64, 256, 1000, 4096)
+GATHER_BATCHES = CASCADE_BATCHES    # K3; 1000 fills no 256-thread block
+ENSEMBLE_SEEDS = (0, 1, 2, 3)
+ENSEMBLE_EPOCHS = 2                 # 2 x 78 = 156 steps of 4 seeds
 TILE_SWEEP = (1, 2, 4, 8, 16, 32)   # K1 rows per block
 SWEEP_BATCHES = (8, 64, 256, 4096)  # the engine's buckets > 1, bench size
 SECTOR_BYTES = 32          # the smallest global-memory access of the card
@@ -513,7 +524,9 @@ def phase_main_path(cfg, dev):
             "from the plain lut_infer.predict")
     log(f"serve: all {sum(sizes)} predictions equal the plain predict; "
         f"accuracy of the random-init model {correct / sum(sizes):.4f}")
-    return launches
+    requests = [x_te[s:s + n] for s, n in zip(starts, sizes)]
+    return launches, dict(bundle=bundle, requests=requests, preds=preds,
+                          params=params, tables=tables, statics=statics)
 
 
 def _flat(tree):
@@ -672,6 +685,373 @@ def phase_train_path(cfg, dev):
                 grad_err=gerr, flips=flips)
 
 
+def _table_sectors(tables, addr) -> int:
+    """Bytes of the distinct 32-B table sectors that these lookups touch
+    (never more than the table)."""
+    import torch
+    o, t = tables.shape
+    flat = torch.arange(o, device=addr.device)[None, :] * t + addr.long()
+    sectors = torch.unique(flat // (SECTOR_BYTES // tables.element_size()))
+    return sectors.numel() * SECTOR_BYTES
+
+
+def phase_gather_kernel(cfg, dev):
+    """K3 against its plain version at the five jsc-5l layer shapes and
+    every batch size, edge addresses included; the one PyTorch call that
+    computes the same function (advanced indexing ``tables[o_idx,
+    addr]``, int32 indices, ``o_idx`` precomputed) timed beside it."""
+    import torch
+    from repro_torch.kernels.lut_gather import lut_lookup
+    from repro_torch.kernels.ref import lut_gather_ref
+    gen = torch.Generator().manual_seed(17)
+    rows = {}
+    for i, o in enumerate(cfg.layer_widths):
+        t = cfg.table_size(i)
+        tables = torch.randint(0, 2 ** cfg.beta, (o, t), generator=gen,
+                               dtype=torch.int32).to(dev)
+        o_idx = torch.arange(o, dtype=torch.int32, device=dev)[None, :]
+        for b in GATHER_BATCHES:
+            addr = torch.randint(0, t, (b, o), generator=gen,
+                                 dtype=torch.int32)
+            addr[0, 0::2] = 0          # the edge addresses
+            addr[0, 1::2] = t - 1
+            addr = addr.to(dev)
+
+            def kern():
+                return lut_lookup(tables, addr)
+
+            def plain():
+                return lut_gather_ref(tables, addr)
+
+            def library():
+                return tables[o_idx, addr]
+            got, want, lib = kern(), plain(), library()
+            torch.cuda.synchronize()
+            require(got.shape == (b, o) and got.dtype == torch.int32,
+                    f"K3 layer {i} B={b}: shape {tuple(got.shape)}")
+            require(torch.equal(got, want), f"K3 layer {i} B={b}: differs "
+                    f"from the plain version in {int((got != want).sum())}")
+            require(torch.equal(lib, want), f"K3 layer {i} B={b}: the "
+                    "library call differs from the plain version")
+            tm = timings(kern, plain, "lut_gather_kernel", 50, 10)
+            lib_ms = device_ms(library, 50) or call_ms(library, 50)
+            lookups = b * o
+            nbytes = 4.0 * 2 * lookups + _table_sectors(tables, addr)
+            bms, by = bound_ms(nbytes, 4.0 * lookups)
+            rows[(i, b)] = dict(err=0.0, bound_ms=bms, by=by, bytes=nbytes,
+                                library_ms=lib_ms, **tm)
+            log(f"K3 layer {i} (O={o}, T={t}) B={b}: bit-identical to "
+                f"plain; kernel {tm['ms']:.4f} ms (call {tm['call_ms']:.4f})"
+                f" plain {tm['plain_ms']:.4f} ms (call "
+                f"{tm['plain_call_ms']:.4f}) [{tm['timing']}] library "
+                f"tables[o_idx, addr] {lib_ms:.4f} ms bound {bms:.6f} ms "
+                f"({by}; {nbytes / 1e6:.4f} MB)")
+    return rows
+
+
+def phase_layer_serving(cfg, dev, served):
+    """The per-layer route: the slice-1 bundle and requests through
+    ``LUTServeEngine(fused=False)`` (K3 once per layer and batch),
+    against the fused route (K1) and the plain predict.  One request at
+    a time with no admission window, so each request is its own batch
+    and its latency is the route's; the routes run in turns fused,
+    layer, layer, fused."""
+    import numpy as np
+    import torch
+    from repro_torch.core import lut_infer as LI
+    from repro_torch.kernels.lut_cascade import lut_cascade
+    from repro_torch.kernels.lut_gather import lut_lookup
+    from repro_torch.serve import LUTServeEngine
+    from repro_torch.serve.engine import DEFAULT_BUCKETS
+
+    requests = served["requests"]
+    forwards = sum(-(-len(x) // DEFAULT_BUCKETS[-1]) for x in requests)
+    want = [LI.predict(cfg, served["params"], served["tables"],
+                       served["statics"], torch.as_tensor(x, device=dev))
+            .cpu().numpy() for x in requests]
+    runs = []
+    for fused in (True, False, False, True):
+        with LUTServeEngine(served["bundle"], fused=fused, max_wait_ms=0.0,
+                            device=dev) as eng:
+            eng.warmup()
+            torch.cuda.synchronize()
+            lut_cascade.launches = lut_lookup.launches = 0
+            preds = [eng.predict(x) for x in requests]
+            launches = {"lut_cascade": lut_cascade.launches,
+                        "lut_lookup": lut_lookup.launches}
+        rep = eng.metrics.report()
+        route = "fused" if fused else "layer"
+        runs.append(dict(route=route, launches=launches, p50_ms=rep["p50_ms"],
+                         p99_ms=rep["p99_ms"]))
+        log(f"{route} route: {len(requests)} requests one at a time, "
+            f"{forwards} batches; p50 {rep['p50_ms']:.3f} ms p99 "
+            f"{rep['p99_ms']:.3f} ms; launches {launches}")
+        for k, (got, w, f) in enumerate(zip(preds, want, served["preds"])):
+            require(np.array_equal(got, w), f"{route} route request {k}: "
+                    f"{int((got != w).sum())} predictions differ from "
+                    "predict")
+            require(np.array_equal(got, f), f"{route} route request {k}: "
+                    "differs from the fused route's slice-1 predictions")
+        if fused:
+            require(launches == {"lut_cascade": forwards, "lut_lookup": 0},
+                    f"fused route launches {launches}, want {forwards} K1")
+        else:
+            require(launches == {"lut_cascade": 0,
+                                 "lut_lookup": cfg.num_layers * forwards},
+                    f"layer route launches {launches}, want "
+                    f"{cfg.num_layers} x {forwards} K3 and no K1")
+    log(f"per-layer serving: predictions equal the fused route and "
+        f"predict on all {sum(len(x) for x in requests)} samples; latency "
+        "(ms) p50/p99 fused vs layer: " + ", ".join(
+            f"{r['route']} {r['p50_ms']:.3f}/{r['p99_ms']:.3f}" for r in runs))
+    return dict(launches=runs[1]["launches"]["lut_lookup"], runs=runs,
+                forwards=forwards)
+
+
+def _stacked_subnet(gen, seeds, o, f, depth, width, skip, dev):
+    import torch
+    ps = [_rand_subnet(gen, o, f, depth, width, skip, dev)
+          for _ in range(seeds)]
+    return {k: [{n: torch.stack([p[k][j][n] for p in ps])
+                 for n in ("w", "b")} for j in range(len(ps[0][k]))]
+            for k in ps[0]}
+
+
+def _weights(p):
+    return ([lp["w"] for lp in p["layers"]], [lp["b"] for lp in p["layers"]],
+            [sp["w"] for sp in p.get("skips", [])],
+            [sp["b"] for sp in p.get("skips", [])])
+
+
+def phase_seed_kernels(cfg, dev):
+    """K4 and K5 over a leading seed axis (S = 4, one launch) against S
+    separate single-seed launches and against the plain versions over
+    the same axis, at every jsc-5l training shape; device ms of one
+    S = 4 launch beside one S = 1 launch."""
+    import torch
+    from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
+                                                   subnet_train_fwd)
+    from repro_torch.kernels.neuralut_mlp import pack_subnet_weights
+    from repro_torch.kernels.ref import (subnet_train_bwd_ref,
+                                         subnet_train_fwd_ref)
+    gen = torch.Generator().manual_seed(19)
+    ns, sk = len(ENSEMBLE_SEEDS), cfg.skip
+    out_rows = []
+    for i, o in enumerate(cfg.layer_widths):
+        f = cfg.layer_fan_in(i)
+        lw, lb, sw, sb = _weights(_stacked_subnet(
+            gen, ns, o, f, cfg.depth, cfg.width, sk, dev))
+        xg = torch.randn((ns, TRAIN_B, o, f), generator=gen).to(dev)
+        g = torch.randn((ns, TRAIN_B, o), generator=gen).to(dev)
+        wpack = pack_subnet_weights(lw, lb, sw, sb)
+        out, acts = subnet_train_fwd(xg, lw, lb, sw, sb, skip=sk, wpack=wpack)
+        grads = subnet_train_bwd(g, xg, acts, lw, lb, sw, sb, skip=sk,
+                                 wpack=wpack)
+        r_out, r_acts = subnet_train_fwd_ref(xg, lw, lb, sw, sb, skip=sk)
+        r_grads = subnet_train_bwd_ref(g, xg, r_acts, lw, sw, skip=sk)
+        flat = [grads[0]] + [a for grp in grads[1:] for a in grp]
+        e4 = max([_close(out, r_out, K4_RTOL, K4_ATOL)]
+                 + [_close(a, r, K4_RTOL, K4_ATOL)
+                    for a, r in zip(acts, r_acts)])
+        e5 = max(_close(a, r, K5_RTOL, K5_ATOL) for a, r in
+                 zip(flat, [r_grads[0]] + [a for grp in r_grads[1:]
+                                           for a in grp]))
+        same4 = same5 = True
+        for s in range(ns):
+            one = [[a[s] for a in grp] for grp in (lw, lb, sw, sb)]
+            o1, a1 = subnet_train_fwd(xg[s], *one, skip=sk, wpack=wpack[s])
+            g1 = subnet_train_bwd(g[s], xg[s], a1, *one, skip=sk,
+                                  wpack=wpack[s])
+            flat1 = [g1[0]] + [a for grp in g1[1:] for a in grp]
+            e4 = max([e4, _close(out[s], o1, K4_RTOL, K4_ATOL)]
+                     + [_close(a[s], b, K4_RTOL, K4_ATOL)
+                        for a, b in zip(acts, a1)])
+            e5 = max([e5] + [_close(a[s], b, K5_RTOL, K5_ATOL)
+                             for a, b in zip(flat, flat1)])
+            same4 &= torch.equal(out[s], o1) and all(
+                torch.equal(a[s], b) for a, b in zip(acts, a1))
+            same5 &= all(torch.equal(a[s], b) for a, b in zip(flat, flat1))
+        torch.cuda.synchronize()
+        one = [[a[0] for a in grp] for grp in (lw, lb, sw, sb)]
+        o1, a1 = subnet_train_fwd(xg[0], *one, skip=sk, wpack=wpack[0])
+
+        def trace_ms(fn, reps, kernel):
+            # a trace now and then misses kernels (no or too little device
+            # time): the larger of two traces
+            runs = [device_ms(fn, reps, kernel) for _ in "ab"]
+            return max((r for r in runs if r), default=None)
+        ms = {
+            "k4_s4": trace_ms(lambda: subnet_train_fwd(
+                xg, lw, lb, sw, sb, skip=sk, wpack=wpack), 20,
+                "subnet_train_fwd_kernel"),
+            "k4_s1": trace_ms(lambda: subnet_train_fwd(
+                xg[0], *one, skip=sk, wpack=wpack[0]), 20,
+                "subnet_train_fwd_kernel"),
+            "k5_s4": trace_ms(lambda: subnet_train_bwd(
+                g, xg, acts, lw, lb, sw, sb, skip=sk, wpack=wpack), 20,
+                ("subnet_train_bwd_kernel", "sum_tiles_kernel")),
+            "k5_s1": trace_ms(lambda: subnet_train_bwd(
+                g[0], xg[0], a1, *one, skip=sk, wpack=wpack[0]), 20,
+                ("subnet_train_bwd_kernel", "sum_tiles_kernel"))}
+        out_rows.append(dict(err4=e4, err5=e5, same4=same4, same5=same5,
+                             **ms))
+        log(f"seed axis layer {i} (O={o}, F={f}, S={ns}, B={TRAIN_B}): K4 "
+            f"vs {ns} single-seed launches and the plain version max err "
+            f"{e4:.3e} ({'bit-identical' if same4 else 'within tolerance'}"
+            f" to the single-seed launches), K5 {e5:.3e} "
+            f"({'bit-identical' if same5 else 'within tolerance'}); device "
+            + ", ".join(f"{k} {v or float('nan'):.4f} ms"
+                        for k, v in ms.items()))
+    return out_rows
+
+
+def phase_ensemble_path(cfg, dev):
+    """The seed ensemble at full neuralut-jsc-5l: 4 seeds trained
+    together (one seed-axis K4 and K5 call per layer per step), the best
+    member converted through K2 and served through K1; a bit-identical
+    rerun of ten ensemble steps; steps/s and the busy share of an epoch
+    at S = 4 beside S = 1."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import lut_infer as LI
+    from repro_torch.core import model as M
+    from repro_torch.core import train as TR
+    from repro_torch.core import truth_table as TT
+    from repro_torch.core.exec_plan import plan_subnet_exec
+    from repro_torch.data import device_dataset, jsc_synthetic
+    from repro_torch.kernels.lut_cascade import lut_cascade
+    from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
+                                                   subnet_train_fwd)
+    from repro_torch.kernels.neuralut_mlp import grouped_subnet
+    from repro_torch.serve import LUTServeEngine, bundle_from_training
+
+    xtr, ytr = device_dataset(jsc_synthetic, 20000, seed=0, device=dev)
+    xte, yte = device_dataset(jsc_synthetic, 4000, seed=1, device=dev)
+    steps_per_epoch = len(xtr) // TRAIN_B
+    steps = ENSEMBLE_EPOCHS * steps_per_epoch
+    ns = len(ENSEMBLE_SEEDS)
+    kernels = {"lut_cascade": lut_cascade, "grouped_subnet": grouped_subnet,
+               "subnet_train_fwd": subnet_train_fwd,
+               "subnet_train_bwd": subnet_train_bwd}
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, hist = TR.train_neuralut_ensemble(
+        cfg, xtr, ytr, xte, yte, seeds=ENSEMBLE_SEEDS,
+        epochs=ENSEMBLE_EPOCHS, batch=TRAIN_B, lr=2e-3, weight_decay=1e-4,
+        device=dev)
+    t1 = time.perf_counter()   # the history's fetch synchronized
+    train_launches = {k: fn.launches for k, fn in kernels.items()}
+    final_q = hist["test_acc_q"][-1]
+    best = int(final_q.argmax())
+    p_best, s_best = TR.ensemble_member(params, state, best)
+    statics = M.model_static(cfg)
+    tables, packed = TT.convert_packed(cfg, p_best, s_best, statics)
+    bundle = bundle_from_training(cfg, p_best, tables, statics,
+                                  packed_tables=packed)
+    with LUTServeEngine(bundle, device=dev) as eng:
+        served = eng.predict(xte.cpu().numpy())
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    log(f"ensemble path: {ns} seeds x {steps} steps in {t1 - t0:.3f} s "
+        f"({steps / (t1 - t0):.2f} ensemble steps/s, "
+        f"{ns * steps / (t1 - t0):.2f} seed-steps/s, incl. eval)")
+    log(f"ensemble history: " + json.dumps(
+        {k: v.tolist() for k, v in hist.items()}))
+    log(f"ensemble launches: {launches} (training alone {train_launches})")
+    for k in ("subnet_train_fwd", "subnet_train_bwd"):
+        require(train_launches[k] == cfg.num_layers * steps,
+                f"{k}: {train_launches[k]} calls in {steps} ensemble steps, "
+                f"want {cfg.num_layers} per step whatever S")
+    require(launches["grouped_subnet"] > 0, "conversion never launched K2")
+    require(launches["lut_cascade"] > 0, "serving never launched K1")
+    require(all(np.isfinite(v).all() for v in hist.values()),
+            "non-finite ensemble history")
+    require(bool((hist["loss"][-1] < hist["loss"][0]).all()),
+            f"the loss of some seed did not fall: {hist['loss'].tolist()}")
+    w = params["layers"][0]["fn"]["layers"][0]["w"]
+    require(all(not torch.equal(w[a], w[b]) for a in range(ns)
+                for b in range(a + 1, ns)), "two members are equal")
+    want = LI.predict(cfg, p_best, tables, statics, xte).cpu().numpy()
+    mismatched = int((served != want).sum())
+    require(mismatched == 0, f"{mismatched} served predictions of the best "
+            "member differ from the plain lut_infer.predict")
+    log(f"ensemble: acc_q per seed {[round(float(a), 4) for a in final_q]}"
+        f", best seed {best}; all {len(served)} served predictions of the "
+        "best member equal the plain predict")
+
+    # Rerun: ten ensemble steps from the same init, bit for bit.
+    sd = M.device_statics(statics, dev)
+    plan = plan_subnet_exec(cfg, purpose="train", device=dev)
+    require(plan.route == "kernel_train", f"train plan {plan.route}")
+    step = TR.make_ensemble_step_fn(cfg, lr=2e-3, weight_decay=1e-4,
+                                    t0=steps, exec_plan=plan)
+
+    def batches(seeds):
+        return torch.stack([TR.epoch_batches(len(xtr), steps_per_epoch,
+                                             TRAIN_B, seed=s, epoch=0,
+                                             device=dev) for s in seeds],
+                           dim=1)
+
+    def run(init, idx):
+        p, s, o = init
+        for ib in idx:
+            p, s, o, _ = step(p, s, o, sd, xtr[ib], ytr[ib])
+        torch.cuda.synchronize()
+        return _flat(p) + _flat(s) + _flat(o)
+    init = TR.init_ensemble(cfg, ENSEMBLE_SEEDS, xtr, device=dev)
+    idx = batches(ENSEMBLE_SEEDS)[:RERUN_STEPS]
+    a, b = run(init, idx), run(init, idx)
+    require(all(torch.equal(x, y) for x, y in zip(a, b)),
+            f"{RERUN_STEPS} ensemble steps rerun from the same init differ")
+    log(f"ensemble rerun: {RERUN_STEPS} steps of {ns} seeds twice give "
+        f"bit-identical params, BN state and opt state ({len(a)} tensors)")
+
+    # steps/s, busy share and K4/K5 device time per step at S = 4 and 1:
+    # one warm-up epoch each, then timed epochs in turns (4, 1, 1, 4),
+    # since host time varies between epochs on a shared machine, then
+    # one profiled epoch each.
+    runs = {len(seeds): (TR.init_ensemble(cfg, seeds, xtr, device=dev),
+                         batches(seeds))
+            for seeds in (ENSEMBLE_SEEDS, ENSEMBLE_SEEDS[:1])}
+    walls = {n: [] for n in runs}
+    for n in runs:
+        run(*runs[n])
+    for n in (ns, 1, 1, ns):
+        te = time.perf_counter()
+        run(*runs[n])
+        walls[n].append(time.perf_counter() - te)
+    by_s = {}
+    for n, (init, idx) in runs.items():
+        wall = sum(walls[n]) / len(walls[n])
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(init, idx)
+        ev = [(e.self_device_time_total, e.key) for e in prof.key_averages()
+              if e.self_device_time_total > 0]
+        busy = sum(u for u, _ in ev) / 1e6
+        k4 = sum(u for u, k in ev if "subnet_train_fwd_kernel" in k)
+        k5 = sum(u for u, k in ev if "subnet_train_bwd_kernel" in k
+                 or "sum_tiles_kernel" in k)
+        by_s[n] = dict(
+            steps_s=steps_per_epoch / wall, epoch_s=wall,
+            epoch_s_each=walls[n], busy_share=busy / wall,
+            k4_ms_step=k4 / 1e3 / steps_per_epoch,
+            k5_ms_step=k5 / 1e3 / steps_per_epoch,
+            device_ms_step=busy * 1e3 / steps_per_epoch)
+        log(f"ensemble epoch S={n} ({steps_per_epoch} steps, no eval): "
+            f"{wall:.3f} s wall (epochs {[round(w, 3) for w in walls[n]]}), "
+            f"{steps_per_epoch / wall:.2f} steps/s, device busy "
+            f"{busy:.4f} s = {busy / wall:.4f}; per step K4 "
+            f"{by_s[n]['k4_ms_step']:.4f} ms, K5 "
+            f"{by_s[n]['k5_ms_step']:.4f} ms, all device "
+            f"{by_s[n]['device_ms_step']:.4f} ms")
+        log("  device time by kernel (ms): " + ", ".join(
+            f"{k[:48]} {u / 1e3:.2f}" for u, k in sorted(ev, reverse=True)[:8]))
+    return dict(launches=launches, steps=steps, train_s=t1 - t0,
+                best=best, acc_q=final_q.tolist(), by_s=by_s)
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
@@ -691,9 +1071,13 @@ def main() -> int:
     phase_build()
     k2 = phase_subnet_kernel(cfg, dev)
     k1, tile_sweep = phase_cascade_kernel(cfg, dev)
-    launches = phase_main_path(cfg, dev)
+    k3 = phase_gather_kernel(cfg, dev)
+    launches, served = phase_main_path(cfg, dev)
+    layer = phase_layer_serving(cfg, dev, served)
     k4, k5 = phase_train_kernels(cfg, dev)
     train = phase_train_path(cfg, dev)
+    seed_k = phase_seed_kernels(cfg, dev)
+    ens = phase_ensemble_path(cfg, dev)
 
     head = k1[HEADLINE_B]
     kernels = [
@@ -726,6 +1110,25 @@ def main() -> int:
          "shape": "sum of the 5 jsc-5l conversion layers",
          "by_layer": k2},
     ]
+    k3_head = [k3[(i, HEADLINE_B)] for i in range(cfg.num_layers)]
+    kernels.append({
+        "name": "lut_lookup", "route": "cuda",
+        "source": "src/repro_torch/csrc/lut_gather.cu",
+        "replaces": "src/repro/kernels/lut_gather.py:44",
+        "launches": layer["launches"],
+        "max_abs_err": max(r["err"] for r in k3.values()),
+        "ms": sum(r["ms"] for r in k3_head),
+        "plain_ms": sum(r["plain_ms"] for r in k3_head),
+        "bound_ms": sum(r["bound_ms"] for r in k3_head),
+        "bound_by": "bytes" if all(r["by"] == "bytes" for r in k3_head)
+        else "operations",
+        "library_ms": sum(r["library_ms"] for r in k3_head),
+        "library_call": "tables[o_idx, addr] (advanced indexing, int32)",
+        "call_ms": sum(r["call_ms"] for r in k3_head),
+        "plain_call_ms": sum(r["plain_call_ms"] for r in k3_head),
+        "timing": k3_head[0]["timing"],
+        "shape": f"sum of the 5 jsc-5l layers at B={HEADLINE_B}",
+        "by_layer_batch": {f"{i}/{b}": r for (i, b), r in k3.items()}})
     from repro_torch.kernels.neuralut_grad import BWD_ROWS
     # K5's wrapper counts calls; each call runs its row-tile kernel and,
     # when B > BWD_ROWS, the fixed-order sum of the tiles after it.
@@ -751,15 +1154,30 @@ def main() -> int:
             "plain_call_ms": sum(r["plain_call_ms"] for r in rows),
             "timing": rows[0]["timing"],
             "shape": f"sum of the 5 jsc-5l training layers at B={TRAIN_B}",
-            "by_layer": rows})
+            "by_layer": rows,
+            "seed_axis_by_layer": [
+                {k: r[k] for k in (("err4", "same4", "k4_s4", "k4_s1")
+                                   if name.endswith("fwd") else
+                                   ("err5", "same5", "k5_s4", "k5_s1"))}
+                for r in seed_k]})
     for k in kernels:
-        k["launches_by_path"] = {"serve": launches.get(k["name"], 0),
-                                 "train": train["launches"][k["name"]]}
+        k["launches_by_path"] = {
+            "serve": launches.get(k["name"], 0),
+            "layer_serve": layer["launches"] if k["name"] == "lut_lookup"
+            else 0,
+            "train": train["launches"].get(k["name"], 0),
+            "ensemble": ens["launches"].get(k["name"], 0)}
     log(f"training: {train['steps']} steps, {train['train_s']:.3f} s, "
         f"{train['steps'] / train['train_s']:.2f} steps/s; epoch "
         f"{train['epoch_s']:.3f} s, device busy share "
         f"{train['busy_share']:.4f}; test acc_q {train['acc_q']:.4f}; "
         f"loss by epoch {train['loss']}")
+    log("ensemble: {} seeds x {} steps, {:.3f} s; epoch without eval: ".format(
+        len(ENSEMBLE_SEEDS), ens["steps"], ens["train_s"]) + "; ".join(
+        f"S={n}: {r['steps_s']:.2f} steps/s, busy share "
+        f"{r['busy_share']:.4f}, K4 {r['k4_ms_step']:.4f} + K5 "
+        f"{r['k5_ms_step']:.4f} ms device per step"
+        for n, r in ens["by_s"].items()))
     log(card)  # nvidia-smi's "name, power.limit", as it printed them
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,12 +15,14 @@ here.  This module imports no jax; the keys are the reference's:
     opt:    m, v (trees like params), count; the reference's ``master``
             tree is all None for float32 params and has no counterpart
 
+With ``seeds=S`` every leaf carries a leading seed axis S (the seed
+ensemble's stacked trees; the optimizer's ``count`` is then (S,)).
 ``params_to_numpy`` goes the other way, so a test can start both
 packages from one state and compare the trees leaf by leaf.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,36 +32,49 @@ from repro_torch.core.nl_config import NeuraLUTConfig
 from repro_torch.device import DeviceLike, resolve_device
 
 
-def _convert(spec, tree, path: str, device: torch.device):
+def _lead(seeds: Optional[int]) -> Tuple[int, ...]:
+    if seeds is None:
+        return ()
+    if seeds < 1:
+        raise ValueError(f"seeds={seeds} must be >= 1")
+    return (int(seeds),)
+
+
+def _convert(spec, tree, path: str, device: torch.device,
+             lead: Tuple[int, ...] = ()):
     if isinstance(spec, dict):
         if not isinstance(tree, dict) or set(tree) != set(spec):
             got = sorted(tree) if isinstance(tree, dict) else type(tree)
             raise ValueError(f"{path or 'tree'}: keys {got} != "
                              f"{sorted(spec)}")
         return {k: _convert(spec[k], tree[k], f"{path}.{k}".lstrip("."),
-                            device) for k in spec}
+                            device, lead) for k in spec}
     if isinstance(spec, list):
         if not isinstance(tree, (list, tuple)) or len(tree) != len(spec):
             raise ValueError(f"{path}: expected a list of {len(spec)}")
-        return [_convert(s, t, f"{path}[{i}]", device)
+        return [_convert(s, t, f"{path}[{i}]", device, lead)
                 for i, (s, t) in enumerate(zip(spec, tree))]
     a = np.asarray(tree, np.float32)
-    if a.shape != tuple(spec):
-        raise ValueError(f"{path}: shape {a.shape} != {tuple(spec)}")
+    if a.shape != lead + tuple(spec):
+        raise ValueError(f"{path}: shape {a.shape} != "
+                         f"{lead + tuple(spec)}")
     return torch.as_tensor(a.copy(), device=device)
 
 
 def params_from_numpy(cfg: NeuraLUTConfig, params: Dict[str, Any],
                       state: Dict[str, Any], *,
-                      device: DeviceLike = None
+                      device: DeviceLike = None,
+                      seeds: Optional[int] = None
                       ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Reference (params, state) as nested numpy arrays -> the port's
     float32 tensor trees on ``device`` (``None`` = CUDA), checked
-    against the port's shape trees key by key."""
+    against the port's shape trees key by key (with a leading seed axis
+    when ``seeds`` is given)."""
     dev = resolve_device(device)
     spec_p, spec_s = model_spec(cfg)
-    return (_convert(spec_p, params, "", dev),
-            _convert(spec_s, state, "", dev))
+    lead = _lead(seeds)
+    return (_convert(spec_p, params, "", dev, lead),
+            _convert(spec_s, state, "", dev, lead))
 
 
 def statics_from_numpy(cfg: NeuraLUTConfig, statics: List[Dict[str, Any]]
@@ -84,11 +99,13 @@ def statics_from_numpy(cfg: NeuraLUTConfig, statics: List[Dict[str, Any]]
 
 
 def opt_from_numpy(cfg: NeuraLUTConfig, opt: Dict[str, Any], *,
-                   device: DeviceLike = None) -> Dict[str, Any]:
+                   device: DeviceLike = None,
+                   seeds: Optional[int] = None) -> Dict[str, Any]:
     """Reference AdamW state (``m``, ``v``, ``count``, ``master``) as
-    numpy -> the port's (``m``, ``v``, ``count``).  ``master`` must be
-    all None: NeuraLUT's parameters are float32, so the reference keeps
-    no master copy."""
+    numpy -> the port's (``m``, ``v``, ``count``), with a leading seed
+    axis when ``seeds`` is given.  ``master`` must be all None:
+    NeuraLUT's parameters are float32, so the reference keeps no master
+    copy."""
     dev = resolve_device(device)
     masters = opt.get("master")
     stack = [masters]
@@ -102,10 +119,13 @@ def opt_from_numpy(cfg: NeuraLUTConfig, opt: Dict[str, Any], *,
             raise ValueError("the reference opt state holds a master copy; "
                              "the port trains float32 parameters only")
     spec_p, _ = model_spec(cfg)
-    return {"m": _convert(spec_p, opt["m"], "m", dev),
-            "v": _convert(spec_p, opt["v"], "v", dev),
-            "count": torch.tensor(int(np.asarray(opt["count"])),
-                                  dtype=torch.int32, device=dev)}
+    lead = _lead(seeds)
+    count = np.asarray(opt["count"])
+    if count.shape != lead:
+        raise ValueError(f"count: shape {count.shape} != {lead}")
+    return {"m": _convert(spec_p, opt["m"], "m", dev, lead),
+            "v": _convert(spec_p, opt["v"], "v", dev, lead),
+            "count": torch.as_tensor(count.astype(np.int32), device=dev)}
 
 
 def params_to_numpy(tree) -> Any:

@@ -30,28 +30,40 @@ built: it has no backward.  The kernel routes take CUDA tensors (their
 wrappers run the plain versions for CPU tensors, which is how the CPU
 tests reach them).
 
-``CascadeExec`` runs the bit-exact LUT cascade (the serving path)
-through ``kernels/lut_cascade.lut_cascade``, whose wrapper picks the
-route from the codes' device: the CUDA kernel for a CUDA tensor, the
-plain gather cascade (``kernels/ref.lut_cascade_ref``) for a CPU tensor.
-Nothing moves work between devices: a CUDA tensor goes through the
-kernel or the call raises.
+``CascadeExec`` routes the bit-exact LUT cascade (the serving path):
+
+  * ``fused`` — the whole chain in one launch of
+                ``kernels/lut_cascade.lut_cascade`` (K1) over the
+                bit-packed tables: the serving default.
+  * ``layer`` — one ``kernels/lut_gather.lut_lookup`` (K3) per layer
+                over the unpacked int32 tables, the connected codes
+                gathered and packed into addresses in plain PyTorch
+                between them (the reference's ``layer_kernel``).
+
+Each wrapper picks the kernel or its plain version from the codes'
+device: the CUDA kernel for a CUDA tensor, the plain version
+(``kernels/ref.lut_cascade_ref`` / ``lut_gather_ref``) for a CPU
+tensor.  Nothing moves work between devices: a CUDA tensor goes through
+the kernel or the call raises.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core import subnet
 from repro_torch.core.nl_config import (NeuraLUTConfig, UnsupportedTopology,
                                         is_graph_config)
+from repro_torch.core.lut_infer import pack_index
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.lut_cascade import cascade_meta, lut_cascade
+from repro_torch.kernels.lut_gather import lut_lookup
 
 ROUTES = ("canonical", "neuron_leading", "kernel_infer", "kernel_train")
 PURPOSES = ("train", "eval", "convert")
+CASCADE_ROUTES = ("fused", "layer")
 
 
 @dataclass(frozen=True)
@@ -106,32 +118,76 @@ def plan_subnet_exec(cfg: NeuraLUTConfig, *, purpose: str,
     return SubnetExec(kind=cfg.kind, route=route, skip=cfg.skip)
 
 
+class LayerOperands:
+    """The per-layer route's operands of one converted chain, on one
+    device: ``conns[i]`` (O_i, F_i) int64 and ``tables[i]`` (O_i, T_i)
+    int32 (unpacked), T_i = 2^(in_bits_i * F_i) by the plan's
+    ``schedule``.  The serving forward builds this once and passes it
+    with every batch."""
+
+    def __init__(self, conns: Sequence[torch.Tensor],
+                 tables: Sequence[torch.Tensor], schedule):
+        self.conns = tuple(c.to(torch.long) for c in conns)
+        self.tables = tuple(tables)
+        if not len(self.conns) == len(self.tables) == len(schedule) >= 1:
+            raise ValueError(f"{len(self.conns)} conns, {len(self.tables)} "
+                             f"tables and {len(schedule)} layers disagree")
+        for i, (c, t, m) in enumerate(zip(self.conns, self.tables,
+                                          schedule)):
+            want = (c.shape[0], 1 << (m[0] * c.shape[1]))
+            if t.dtype != torch.int32 or tuple(t.shape) != want \
+                    or c.dim() != 2 or c.device != t.device:
+                raise ValueError(
+                    f"layer {i}: conn {tuple(c.shape)} on {c.device} and "
+                    f"table {tuple(t.shape)} {t.dtype} on {t.device}; want "
+                    f"(O, F) and {want} int32 on one device")
+
+
 @dataclass(frozen=True)
 class CascadeExec:
     """Execution plan for the bit-exact LUT cascade.
 
     ``schedule`` is ``kernels.lut_cascade.cascade_meta(cfg)``: one
     ``(in_bits, word_bits, slot_bits, beta)`` tuple per chain layer.
+    ``route`` is ``fused`` (K1, over ``CascadeOperands``) or ``layer``
+    (K3 per layer, over :class:`LayerOperands`).
     """
     schedule: Tuple[Tuple[int, int, int, int], ...]
+    route: str = "fused"
 
     def __post_init__(self) -> None:
+        if self.route not in CASCADE_ROUTES:
+            raise ValueError(f"unknown cascade route {self.route!r}; one "
+                             f"of {CASCADE_ROUTES}")
         if any(len(m) != 4 for m in self.schedule):
             raise UnsupportedTopology(
                 "the cascade plan takes a chain schedule of (in_bits, "
                 "word_bits, slot_bits, beta) layers; DAG schedules are not "
                 "ported")
 
+    @property
+    def fused(self) -> bool:
+        return self.route == "fused"
+
     def apply(self, codes: torch.Tensor, ops) -> torch.Tensor:
         """(B, in) int32 codes -> (B, classes) int32 output codes.
-        ``ops`` is the chain's ``kernels.lut_cascade.CascadeOperands``."""
-        return lut_cascade(codes, ops)
+        ``ops`` is the chain's ``kernels.lut_cascade.CascadeOperands``
+        (fused) or :class:`LayerOperands` (layer)."""
+        if self.fused:
+            return lut_cascade(codes, ops)
+        c = codes
+        for conn, table, (in_bits, *_rest) in zip(ops.conns, ops.tables,
+                                                  self.schedule):
+            c = lut_lookup(table, pack_index(c[:, conn], in_bits))
+        return c
 
 
-def plan_cascade_exec(cfg) -> CascadeExec:
-    """Build the cascade plan for a chain ``cfg``.  A non-chain
+def plan_cascade_exec(cfg, *, fused: bool = True) -> CascadeExec:
+    """Build the cascade plan for a chain ``cfg``: ``fused`` (K1) or, with
+    ``fused=False``, ``layer`` (K3 per layer).  A non-chain
     ``LUTGraphConfig`` raises ``UnsupportedTopology`` here, when the plan
-    is built."""
+    is built, for either route."""
     if is_graph_config(cfg):
         cfg = cfg.as_chain()  # raises UnsupportedTopology for DAGs
-    return CascadeExec(schedule=cascade_meta(cfg))
+    return CascadeExec(schedule=cascade_meta(cfg),
+                       route="fused" if fused else "layer")

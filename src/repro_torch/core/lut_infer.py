@@ -9,6 +9,7 @@ must equal bit for bit.  The packed-word format is the JAX package's:
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -26,11 +27,18 @@ def shift_weights(beta: int, fan_in: int) -> np.ndarray:
                        for j in range(fan_in)], np.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _shift_tensor(beta: int, fan_in: int, device: torch.device
+                  ) -> torch.Tensor:
+    return torch.as_tensor(shift_weights(beta, fan_in), device=device)
+
+
 def pack_index(codes: torch.Tensor, beta: int) -> torch.Tensor:
     """codes: (..., F) -> int32 LUT addresses,
-    ``addr = sum_j codes[..., j] << (beta * (F-1-j))``."""
-    w = torch.as_tensor(shift_weights(beta, codes.shape[-1]),
-                        device=codes.device)
+    ``addr = sum_j codes[..., j] << (beta * (F-1-j))``.  The place
+    values are uploaded once per (beta, F, device), so a call on the
+    card copies nothing from the host."""
+    w = _shift_tensor(beta, codes.shape[-1], codes.device)
     return (codes.to(torch.int32) * w).sum(-1, dtype=torch.int32)
 
 

@@ -1,6 +1,8 @@
-"""NeuraLUT training (port of ``repro.core.train``, one seed): AdamW
-with decoupled weight decay, SGDR cosine warm restarts, the
-quantization-aware forward and BN state threading.
+"""NeuraLUT training (port of ``repro.core.train``): AdamW with
+decoupled weight decay, SGDR cosine warm restarts, the
+quantization-aware forward and BN state threading, for one seed
+(``train_neuralut``) or an ensemble of S seeds trained together
+(``train_neuralut_ensemble``).
 
 The reference compiles each epoch into one jitted scan.  The port runs
 an eager step in a Python epoch loop: the training and test sets stay
@@ -11,13 +13,23 @@ end.  Inside the step the grouped sub-network runs on the
 ``core.exec_plan`` train route: the CUDA training kernels on the card,
 the neuron-leading layout on the CPU.
 
+The ensemble is the reference's ``jax.vmap`` of the step:
+``torch.func.vmap`` of a functional step (``torch.func.grad_and_value``
+of the loss, then SGDR and AdamW) over a leading seed axis S on every
+parameter, BN state and optimizer leaf.  BN batch statistics and the
+optimizer's global-norm clip are per seed by construction, and the
+training kernels' vmap rules make one K4 and one K5 call per layer per
+step for all S seeds.  Seed s draws its init and its permutations as
+``train_neuralut(seed=s)`` does, so member s follows that run's
+trajectory to float32 rounding.
+
 The permutations differ from the reference's (``jax.random`` cannot be
 reproduced), so the two packages agree step by step only when they are
 handed the same batches.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -147,3 +159,124 @@ def train_neuralut(
     history = {k: np.asarray(torch.stack(v).cpu()).tolist()
                for k, v in traces.items()}
     return params, state, history
+
+
+# ---------------------------------------------------------------------------
+# The seed ensemble: S independent restarts trained together
+
+
+def make_ensemble_step_fn(cfg: NeuraLUTConfig, *, lr: float,
+                          weight_decay: float, t0: int,
+                          exec_plan: SubnetExec):
+    """One optimizer step of S seeds at once (the counterpart of
+    ``jax.vmap(make_step_fn_dynamic(...), in_axes=(0, 0, 0, None, 0,
+    0))``): (params, state, opt, statics, xb, yb) -> (params, state,
+    opt, loss), every tree and batch with a leading seed axis S, the
+    statics shared.  Each seed's gradient norm is clipped on its own."""
+
+    def loss_fn(params, state, statics, xb, yb):
+        logits, _, new_state = M.model_apply(cfg, params, state, statics,
+                                             xb, train=True,
+                                             exec_plan=exec_plan)
+        return M.ce_loss(logits, yb), new_state
+
+    grad_fn = torch.func.grad_and_value(loss_fn, has_aux=True)
+
+    def step_fn(params, state, opt, statics, xb, yb):
+        grads, (loss, new_state) = grad_fn(params, state, statics, xb, yb)
+        lr_t = sgdr_schedule(opt["count"], lr_max=lr, lr_min=lr * 1e-2,
+                             t0=t0, t_mult=2)
+        params, opt = adamw_update(grads, opt, params, lr=lr_t,
+                                   weight_decay=weight_decay, grad_clip=1.0)
+        return params, new_state, opt, loss
+
+    return torch.func.vmap(step_fn, in_dims=(0, 0, 0, None, 0, 0))
+
+
+def init_ensemble(cfg: NeuraLUTConfig, seeds: Sequence[int], x_train, *,
+                  device: DeviceLike = None) -> Tuple[Dict, Dict, Dict]:
+    """Stacked (params, state, opt) of S restarts on ``device``: seed s
+    initialized as ``train_neuralut(seed=s)`` initializes, the input
+    quantizer calibrated once (it depends on the data only) and
+    broadcast, the optimizer's count (S,)."""
+    if not seeds:
+        raise ValueError("need at least one seed")
+    dev = resolve_device(device)
+    members = [M.model_init(cfg, torch.Generator().manual_seed(int(s)),
+                            device=dev) for s in seeds]
+    params = tree_map(lambda *a: torch.stack(a), *[m[0] for m in members])
+    state = tree_map(lambda *a: torch.stack(a), *[m[1] for m in members])
+    calib = M.calibrate_in_quant(cfg, members[0][0], x_train)
+    params["in_quant"] = {"log_s": calib["in_quant"]["log_s"]
+                          .repeat(len(seeds), 1)}
+    opt = adamw_init(params)
+    opt["count"] = torch.zeros(len(seeds), dtype=torch.int32, device=dev)
+    return params, state, opt
+
+
+def train_neuralut_ensemble(
+    cfg: NeuraLUTConfig,
+    x_train, y_train, x_test, y_test,
+    *,
+    seeds: Sequence[int] = (0, 1, 2, 3),
+    epochs: int = 30,
+    batch: int = 256,
+    lr: float = 2e-3,
+    weight_decay: float = 1e-4,
+    log_every: int = 0,
+    device: DeviceLike = None,
+) -> Tuple[Dict, Dict, Dict[str, np.ndarray]]:
+    """Train S networks, one per seed, together -> (stacked params,
+    stacked state, history).  Seed s draws its own init and its own
+    per-epoch permutation (``epoch_batches(seed=s)``), as
+    ``train_neuralut(seed=s)`` does; the connectivity is one
+    ``model_static(cfg)`` for all.  Each history entry is a float64
+    (epochs, S) array, fetched from the device once at the end.  Use
+    :func:`ensemble_member` to take one network out of the stack."""
+    dev = resolve_device(device)
+    xd = torch.as_tensor(x_train, device=dev)
+    yd = torch.as_tensor(y_train, device=dev)
+    xe = torch.as_tensor(x_test, device=dev)
+    ye = torch.as_tensor(y_test, device=dev)
+    statics = M.device_statics(M.model_static(cfg), dev)
+    params, state, opt = init_ensemble(cfg, seeds, xd, device=dev)
+
+    n = xd.shape[0]
+    batch = min(batch, n)
+    steps = max(1, n // batch)
+    step_fn = make_ensemble_step_fn(
+        cfg, lr=lr, weight_decay=weight_decay, t0=epochs * steps,
+        exec_plan=plan_subnet_exec(cfg, purpose="train", device=dev))
+    eval_fn = torch.func.vmap(
+        lambda p, s: evaluate(cfg, p, s, statics, xe, ye))
+
+    traces: Dict[str, List[torch.Tensor]] = {
+        "loss": [], "test_acc": [], "test_acc_q": []}
+    for ep in range(epochs):
+        idx = torch.stack([epoch_batches(n, steps, batch, seed=int(s),
+                                         epoch=ep, device=dev)
+                           for s in seeds], dim=1)   # (steps, S, batch)
+        losses = []
+        for ib in idx:
+            params, state, opt, loss = step_fn(params, state, opt, statics,
+                                               xd[ib], yd[ib])
+            losses.append(loss)
+        acc, acc_q = eval_fn(params, state)
+        traces["loss"].append(torch.stack(losses).mean(dim=0))
+        traces["test_acc"].append(acc)
+        traces["test_acc_q"].append(acc_q)
+        if log_every and (ep + 1) % log_every == 0:
+            aq = acc_q.cpu().numpy()
+            print(f"  epoch {ep + 1}/{epochs} loss="
+                  f"{float(traces['loss'][-1].mean()):.4f} "
+                  f"acc_q[best/mean]={aq.max():.4f}/{aq.mean():.4f}",
+                  flush=True)
+    history = {k: torch.stack(v).cpu().numpy().astype(np.float64)
+               for k, v in traces.items()}
+    return params, state, history
+
+
+def ensemble_member(params: Dict, state: Dict, s: int) -> Tuple[Dict, Dict]:
+    """Network ``s`` of an ensemble's stacked (params, state)."""
+    return (tree_map(lambda a: a[s], params),
+            tree_map(lambda a: a[s], state))

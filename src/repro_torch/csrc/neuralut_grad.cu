@@ -42,13 +42,22 @@
 //    w, skip b, in the packing order) of neuron o, element e, lives at
 //    O * off_k + o * size_k + e, where off_k is the leaf's offset in a
 //    packed weight row; the wrapper views each leaf as its own tensor.
+//  * A leading seed axis S (the seed ensemble, one network per seed)
+//    is gridDim.z: every tensor carries S as its outermost dimension,
+//    and block (o, tile, s) works on seed s's rows, weights and
+//    gradients.  The kernels treat (s, o) as one of S * O neurons: row
+//    (s, t, o) is element (s * T + t) * O + o of the (S, T, O) arrays,
+//    the packed weights of (s, o) are row s * O + o, a gradient leaf is
+//    an (S, O, ...) block, and the tile partials and their fixed-order
+//    sum see S * O neurons.  So the sum stays per seed and in order, and
+//    S = 1 is the single-network launch.
 #include "subnet_geom.cuh"
 
 #define REPRO_TRAIN_FWD_THREADS 128
 #define REPRO_SUM_THREADS 256
 
 struct ActGeom {
-  long long off[REPRO_MAX_DEPTH];   // act i (i >= 1) at off[i], (T, O, n_i)
+  long long off[REPRO_MAX_DEPTH];   // act i (i >= 1) at off[i], (S, T, O, n_i)
 };
 
 template <int NMAX>
@@ -72,13 +81,14 @@ subnet_train_fwd_kernel(const float* __restrict__ xg,
                         int T, int O, SubnetGeom g, ActGeom ag) {
   extern __shared__ float sw[];
   const int o = blockIdx.x;
-  const float* src = wpack + (size_t)o * g.pstride;
+  const int s = blockIdx.z;
+  const float* src = wpack + ((size_t)s * O + o) * g.pstride;
   for (int k = threadIdx.x; k < g.pstride; k += blockDim.x) sw[k] = src[k];
   __syncthreads();
   const int t = blockIdx.y * blockDim.x + threadIdx.x;
   if (t >= T) return;
 
-  const size_t row = (size_t)t * O + o;
+  const size_t row = ((size_t)s * T + t) * O + o;
   const int F = g.width[0];
   const float* x = xg + row * F;
   float h[NMAX], a[NMAX], r[NMAX], z[NMAX];
@@ -129,12 +139,12 @@ subnet_train_fwd_kernel(const float* __restrict__ xg,
 struct BwdCtx {
   const float* xg;
   const float* acts;
-  float* grads;        // this tile's leaf-major gradient (O * pstride)
+  float* grads;        // this tile's leaf-major gradient (S * O * pstride)
   const float* sw;     // the neuron's packed weights (shared)
   float* sa;           // ROWS x (NMAX + 1): the rows' layer inputs
   float* sg;           // ROWS x (NMAX + 1): the rows' output cotangents
-  size_t row;          // t * O + o
-  int o, O, rows;
+  size_t row;          // (s * T + t) * O + o
+  int o, O, rows;      // neuron s * O + o of S * O
   bool valid;          // t < T
 };
 
@@ -214,21 +224,23 @@ subnet_train_bwd_kernel(const float* __restrict__ gout_in,
                                         int O, SubnetGeom g, ActGeom ag) {
   extern __shared__ float smem[];
   const int o = blockIdx.x;
+  const int s = blockIdx.z;
   const int rows = blockDim.x;
+  const int so = s * O + o;       // the neuron among S * O
   float* sw = smem;
-  const float* src = wpack + (size_t)o * g.pstride;
+  const float* src = wpack + (size_t)so * g.pstride;
   for (int k = threadIdx.x; k < g.pstride; k += rows) sw[k] = src[k];
   const int t = blockIdx.y * rows + threadIdx.x;
   BwdCtx c;
   c.xg = xg;
   c.acts = acts;
-  c.grads = part + (size_t)blockIdx.y * O * g.pstride;
+  c.grads = part + (size_t)blockIdx.y * gridDim.z * O * g.pstride;
   c.sw = sw;
   c.sa = smem + ((g.pstride + 3) & ~3);
   c.sg = c.sa + rows * (NMAX + 1);
-  c.row = (size_t)t * O + o;
-  c.o = o;
-  c.O = O;
+  c.row = ((size_t)s * T + t) * O + o;
+  c.o = so;
+  c.O = gridDim.z * O;
   c.rows = rows;
   c.valid = t < T;
   __syncthreads();
@@ -306,24 +318,25 @@ sum_tiles_kernel(const float* __restrict__ part, float* __restrict__ out,
   }
 }
 
-static void act_geom(const SubnetGeom& g, int T, int O, ActGeom* ag) {
+static void act_geom(const SubnetGeom& g, int S, int T, int O,
+                     ActGeom* ag) {
   long long off = 0;
   ag->off[0] = 0;
   for (int i = 1; i < g.nlayers; ++i) {
     ag->off[i] = off;
-    off += (long long)T * O * g.width[i];
+    off += (long long)S * T * O * g.width[i];
   }
 }
 
 template <int NMAX>
 static int launch_fwd(const float* xg, const float* wpack, float* out,
-                      float* acts, int T, int O, const SubnetGeom& g,
+                      float* acts, int S, int T, int O, const SubnetGeom& g,
                       const ActGeom& ag, cudaStream_t stream) {
   const size_t smem = (size_t)g.pstride * sizeof(float);
   const int e = repro_allow_smem(subnet_train_fwd_kernel<NMAX>, smem);
   if (e) return e;
   const dim3 grid(O, (T + REPRO_TRAIN_FWD_THREADS - 1) /
-                         REPRO_TRAIN_FWD_THREADS);
+                         REPRO_TRAIN_FWD_THREADS, S);
   subnet_train_fwd_kernel<NMAX><<<grid, REPRO_TRAIN_FWD_THREADS, smem,
                                   stream>>>(xg, wpack, out, acts, T, O, g,
                                             ag);
@@ -333,7 +346,7 @@ static int launch_fwd(const float* xg, const float* wpack, float* out,
 template <int NMAX>
 static int launch_bwd(const float* gout, const float* xg, const float* acts,
                       const float* wpack, float* dx, float* part,
-                      float* grads, int T, int O, int rows,
+                      float* grads, int S, int T, int O, int rows,
                       const SubnetGeom& g, const ActGeom& ag,
                       cudaStream_t stream) {
   const size_t smem = (size_t)(((g.pstride + 3) & ~3) +
@@ -341,12 +354,12 @@ static int launch_bwd(const float* gout, const float* xg, const float* acts,
   int e = repro_allow_smem(subnet_train_bwd_kernel<NMAX>, smem);
   if (e) return e;
   const int ntiles = (T + rows - 1) / rows;
-  const dim3 grid(O, ntiles);
+  const dim3 grid(O, ntiles, S);
   subnet_train_bwd_kernel<NMAX><<<grid, rows, smem, stream>>>(
       gout, xg, acts, wpack, dx, ntiles == 1 ? grads : part, T, O, g, ag);
   e = (int)cudaGetLastError();
   if (e || ntiles == 1) return e;
-  const long long n = (long long)O * g.pstride;
+  const long long n = (long long)S * O * g.pstride;
   long long blocks = (n + REPRO_SUM_THREADS - 1) / REPRO_SUM_THREADS;
   if (blocks > 4096) blocks = 4096;
   sum_tiles_kernel<<<(int)blocks, REPRO_SUM_THREADS, 0, stream>>>(
@@ -354,43 +367,50 @@ static int launch_bwd(const float* gout, const float* xg, const float* acts,
   return (int)cudaGetLastError();
 }
 
-// widths: nlayers + 1 ints (F, N, ..., N, 1); the packed weights as in
-// neuralut_mlp.cu.  acts: the sub-layer inputs i = 1 .. nlayers-1, one
-// (T, O, n_i) block after another.
+// S seeds (S = 1: one network).  xg (S, T, O, F), out (S, T, O), the
+// packed weights (S, O, pstride) as in neuralut_mlp.cu.  widths:
+// nlayers + 1 ints (F, N, ..., N, 1).  acts: the sub-layer inputs
+// i = 1 .. nlayers-1, one (S, T, O, n_i) block after another.
 extern "C" int repro_subnet_train_fwd(int device, const float* xg,
                                       const float* wpack, float* out,
-                                      float* acts, int T, int O,
+                                      float* acts, int S, int T, int O,
                                       int pstride, int nlayers,
                                       const int* widths, int skip,
                                       void* stream) {
-  if (T < 1 || O < 1) return (int)cudaErrorInvalidValue;
+  if (S < 1 || S > 65535 || T < 1 || O < 1)
+    return (int)cudaErrorInvalidValue;
   SubnetGeom g;
   int nmax = 0;
   int rc = repro_subnet_geom(nlayers, widths, skip, pstride, &g, &nmax);
   if (rc) return rc;
   ActGeom ag;
-  act_geom(g, T, O, &ag);
+  act_geom(g, S, T, O, &ag);
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (nmax <= 8) return launch_fwd<8>(xg, wpack, out, acts, T, O, g, ag, s);
-  if (nmax <= 16) return launch_fwd<16>(xg, wpack, out, acts, T, O, g, ag, s);
-  if (nmax <= 32) return launch_fwd<32>(xg, wpack, out, acts, T, O, g, ag, s);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nmax <= 8)
+    return launch_fwd<8>(xg, wpack, out, acts, S, T, O, g, ag, st);
+  if (nmax <= 16)
+    return launch_fwd<16>(xg, wpack, out, acts, S, T, O, g, ag, st);
+  if (nmax <= 32)
+    return launch_fwd<32>(xg, wpack, out, acts, S, T, O, g, ag, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// gout: (T, O) cotangent of the output.  dx: (T, O, F).  grads: the
-// leaf-major gradient (O * pstride floats).  rows: rows per block, a
-// multiple of 32 in [32, 256]; part: ceil(T / rows) * O * pstride floats
-// of scratch (unused, may be null, when one tile holds every row).
+// S seeds as in repro_subnet_train_fwd.  gout: (S, T, O) cotangent of
+// the output.  dx: (S, T, O, F).  grads: the leaf-major gradient
+// (S * O * pstride floats).  rows: rows per block, a multiple of 32 in
+// [32, 256]; part: ceil(T / rows) * S * O * pstride floats of scratch
+// (unused, may be null, when one tile holds every row).
 extern "C" int repro_subnet_train_bwd(int device, const float* gout,
                                       const float* xg, const float* acts,
                                       const float* wpack, float* dx,
-                                      float* part, float* grads, int T,
-                                      int O, int pstride, int nlayers,
-                                      const int* widths, int skip, int rows,
-                                      void* stream) {
-  if (T < 1 || O < 1 || rows < 32 || rows > 256 || rows % 32)
+                                      float* part, float* grads, int S,
+                                      int T, int O, int pstride,
+                                      int nlayers, const int* widths,
+                                      int skip, int rows, void* stream) {
+  if (S < 1 || S > 65535 || T < 1 || O < 1 || rows < 32 || rows > 256 ||
+      rows % 32)
     return (int)cudaErrorInvalidValue;
   SubnetGeom g;
   int nmax = 0;
@@ -398,18 +418,18 @@ extern "C" int repro_subnet_train_bwd(int device, const float* gout,
   if (rc) return rc;
   if (T > rows && part == nullptr) return (int)cudaErrorInvalidValue;
   ActGeom ag;
-  act_geom(g, T, O, &ag);
+  act_geom(g, S, T, O, &ag);
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  cudaStream_t s = (cudaStream_t)stream;
+  cudaStream_t st = (cudaStream_t)stream;
   if (nmax <= 8)
-    return launch_bwd<8>(gout, xg, acts, wpack, dx, part, grads, T, O, rows,
-                         g, ag, s);
+    return launch_bwd<8>(gout, xg, acts, wpack, dx, part, grads, S, T, O,
+                         rows, g, ag, st);
   if (nmax <= 16)
-    return launch_bwd<16>(gout, xg, acts, wpack, dx, part, grads, T, O,
-                          rows, g, ag, s);
+    return launch_bwd<16>(gout, xg, acts, wpack, dx, part, grads, S, T, O,
+                          rows, g, ag, st);
   if (nmax <= 32)
-    return launch_bwd<32>(gout, xg, acts, wpack, dx, part, grads, T, O,
-                          rows, g, ag, s);
+    return launch_bwd<32>(gout, xg, acts, wpack, dx, part, grads, S, T, O,
+                          rows, g, ag, st);
   return (int)cudaErrorInvalidValue;
 }

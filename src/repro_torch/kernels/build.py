@@ -98,6 +98,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         _I, _P, _P, _P,        # nlayers, conn ptrs, packed ptrs, geometry
         _I, _I, _P, _P]        # rows per block, code stride, out, stream
     lib.repro_lut_cascade.restype = _I
+    lib.repro_lut_gather.argtypes = [
+        _I, _P, _P, _P,        # device, tables, addr, out
+        _I, _I, _I, _P]        # B, O, T, stream
+    lib.repro_lut_gather.restype = _I
     lib.repro_grouped_subnet.argtypes = [
         _I, _P, _P, _P,        # device, xg, packed weights, out
         _I, _I, _I,            # T, O, params per neuron
@@ -105,13 +109,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_grouped_subnet.restype = _I
     lib.repro_subnet_train_fwd.argtypes = [
         _I, _P, _P, _P, _P,    # device, xg, packed weights, out, acts
-        _I, _I, _I,            # T, O, params per neuron
+        _I, _I, _I, _I,        # seeds, T, O, params per neuron
         _I, _P, _I, _P]        # nlayers, widths, skip, stream
     lib.repro_subnet_train_fwd.restype = _I
     lib.repro_subnet_train_bwd.argtypes = [
         _I, _P, _P, _P, _P,    # device, g, xg, acts, packed weights
         _P, _P, _P,            # dx, tile partials, grads
-        _I, _I, _I,            # T, O, params per neuron
+        _I, _I, _I, _I,        # seeds, T, O, params per neuron
         _I, _P, _I, _I, _P]    # nlayers, widths, skip, rows, stream
     lib.repro_subnet_train_bwd.restype = _I
     lib.repro_cuda_error_string.argtypes = [_I]

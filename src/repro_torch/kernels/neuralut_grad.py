@@ -10,9 +10,18 @@ wrappers of the CUDA kernels in ``csrc/neuralut_grad.cu`` (port of
   launch (plus a small fixed-order sum over row tiles) and returns dx
   and the weight gradients of every sub-layer and skip chunk, summed
   over B without atomics: a rerun is bit-identical.
-* :class:`SubnetTrainFn` ties the two together as an autograd function;
+* :class:`SubnetTrainFn` ties the two together as an autograd function
+  (K5 behind its own :class:`SubnetTrainBwdFn`);
   :func:`subnet_train_apply` runs a ``core.subnet`` parameter dict
   through it (the ``kernel_train`` route).
+
+Every operand may carry a leading seed axis S (the seed ensemble): the
+kernels then run all S networks in one launch (``gridDim.z = S``), with
+each seed's weight gradients summed on their own, in a fixed order.
+Both functions carry a ``torch.func.vmap`` rule that moves the vmapped
+dimension to the front and makes that one launch, so the ensemble's
+vmapped training step costs one K4 and one K5 call per layer, whatever
+S, as the reference's ``jax.vmap`` batches its ``pallas_call``.
 
 On a CPU tensor each wrapper runs its plain version
 (``kernels.ref.subnet_train_fwd_ref`` / ``subnet_train_bwd_ref``); on a
@@ -28,7 +37,6 @@ import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import build
 from repro_torch.kernels.neuralut_mlp import (MAX_SHARED_BYTES, MAX_WIDTH,
@@ -40,25 +48,36 @@ BWD_ROWS = 64         # rows per K5 block (a multiple of 32, <= 256)
 Tensors = List[torch.Tensor]
 
 
+def _seeds(xg: torch.Tensor) -> Optional[int]:
+    """S for an (S, B, O, F) input, None for a (B, O, F) one."""
+    if xg.dim() not in (3, 4):
+        raise ValueError(f"xg must be (B, O, F) or (S, B, O, F), got "
+                         f"{tuple(xg.shape)}")
+    return xg.shape[0] if xg.dim() == 4 else None
+
+
 def _launch_args(xg, layer_ws, layer_bs, skip_ws, skip_bs, skip, wpack):
+    seeds = _seeds(xg)
     widths, skip_ws, skip_bs = check_operands(xg, layer_ws, layer_bs,
-                                              skip_ws, skip_bs, skip)
+                                              skip_ws, skip_bs, skip,
+                                              seeds=seeds)
     if wpack is None:
         raise ValueError("a CUDA launch needs the packed weights "
                          "(pack_subnet_weights)")
-    o = xg.shape[1]
-    p = sum(math.prod(a.shape[1:]) for wb in
-            list(zip(layer_ws, layer_bs)) + list(zip(skip_ws, skip_bs))
-            for a in wb)
-    if tuple(wpack.shape) != (o, p) or wpack.device != xg.device \
+    o = xg.shape[-2]
+    p = sum(math.prod(a.shape[-2:] if a is w else a.shape[-1:])
+            for w, b in list(zip(layer_ws, layer_bs))
+            + list(zip(skip_ws, skip_bs)) for a in (w, b))
+    lead = () if seeds is None else (seeds,)
+    if tuple(wpack.shape) != lead + (o, p) or wpack.device != xg.device \
             or not wpack.is_contiguous():
         raise ValueError(f"packed weights {tuple(wpack.shape)} on "
-                         f"{wpack.device} != ({o}, {p}) on {xg.device}")
+                         f"{wpack.device} != {lead + (o, p)} on {xg.device}")
     # K5's block holds the packed row and two (rows, NMAX + 1) stages
     if 4 * (p + 4 + 2 * BWD_ROWS * (MAX_WIDTH + 1)) > MAX_SHARED_BYTES:
         raise ValueError(f"{p} weights per neuron exceed the block's "
                          "shared memory")
-    return widths, skip_ws, skip_bs, wpack
+    return widths, skip_ws, skip_bs, wpack, seeds or 1
 
 
 def subnet_train_fwd(xg: torch.Tensor,
@@ -73,26 +92,28 @@ def subnet_train_fwd(xg: torch.Tensor,
     L-1]).  Weights as in ``neuralut_mlp.grouped_subnet``; ``wpack`` is
     their ``pack_subnet_weights`` form, which the CUDA launch reads (the
     plain CPU version takes None).  The activations are views of one
-    buffer, in order."""
+    buffer, in order.  With a leading seed axis S on every operand, the
+    output is (S, B, O) and act_i (S, B, O, n_i), in one launch."""
     if xg.device.type == "cpu":
         return subnet_train_fwd_ref(xg, layer_ws, layer_bs, skip_ws or (),
                                     skip_bs or (), skip=skip)
-    widths, skip_ws, skip_bs, wpack = _launch_args(
+    widths, skip_ws, skip_bs, wpack, ns = _launch_args(
         xg, layer_ws, layer_bs, skip_ws, skip_bs, skip, wpack)
-    t, o, _ = xg.shape
+    t, o, _ = xg.shape[-3:]
+    lead = xg.shape[:-3]
     nl = len(layer_ws)
     xg = xg.contiguous()
-    out = torch.empty((t, o), dtype=torch.float32, device=xg.device)
-    sizes = [t * o * n for n in widths[1:nl]]
+    out = torch.empty(lead + (t, o), dtype=torch.float32, device=xg.device)
+    sizes = [ns * t * o * n for n in widths[1:nl]]
     buf = torch.empty(sum(sizes), dtype=torch.float32, device=xg.device)
-    acts = [a.view(t, o, n) for a, n in
+    acts = [a.view(lead + (t, o, n)) for a, n in
             zip(torch.split(buf, sizes), widths[1:nl])]
     if t == 0 or o == 0:
         return out, acts
     rc = build.load_library().repro_subnet_train_fwd(
         xg.device.index, xg.data_ptr(), wpack.data_ptr(), out.data_ptr(),
-        buf.data_ptr() if buf.numel() else None, t, o, wpack.shape[1], nl,
-        (ctypes.c_int * len(widths))(*widths), skip,
+        buf.data_ptr() if buf.numel() else None, ns, t, o, wpack.shape[-1],
+        nl, (ctypes.c_int * len(widths))(*widths), skip,
         torch.cuda.current_stream(xg.device).cuda_stream)
     build.check(rc, "subnet_train_fwd launch")
     subnet_train_fwd.launches += 1
@@ -102,12 +123,13 @@ def subnet_train_fwd(xg: torch.Tensor,
 subnet_train_fwd.launches = 0
 
 
-def _act_buffer(acts: Sequence[torch.Tensor], t: int, o: int,
-                widths: Sequence[int], device) -> Optional[torch.Tensor]:
+def _act_buffer(acts: Sequence[torch.Tensor], lead: Tuple[int, ...],
+                t: int, o: int, widths: Sequence[int],
+                device) -> Optional[torch.Tensor]:
     """The start of the one buffer that :func:`subnet_train_fwd`'s
-    (B, O, n_i) activations view, in the kernel's layout; raises for
+    (..., B, O, n_i) activations view, in the kernel's layout; raises for
     activations of any other shape or layout."""
-    want = [(t, o, n) for n in widths[1:len(widths) - 1]]
+    want = [lead + (t, o, n) for n in widths[1:len(widths) - 1]]
     if [tuple(a.shape) for a in acts] != want or any(
             a.device != device or a.dtype != torch.float32 for a in acts):
         raise ValueError(f"activations {[tuple(a.shape) for a in acts]} "
@@ -134,32 +156,36 @@ def subnet_train_bwd(g: torch.Tensor, xg: torch.Tensor,
     """Cotangent g (B, O) of the output -> (dx (B, O, F), [dW_i], [db_i],
     [dR_c], [dRb_c]), each gradient shaped like its weight and summed
     over B.  ``acts`` and ``wpack`` are as :func:`subnet_train_fwd`
-    took and returned them."""
+    took and returned them.  With a leading seed axis S on every
+    operand, every result carries it too and each seed's gradients are
+    summed over its own rows."""
     if xg.device.type == "cpu":
         return subnet_train_bwd_ref(g, xg, acts, layer_ws, skip_ws or (),
                                     skip=skip)
-    widths, skip_ws, skip_bs, wpack = _launch_args(
+    widths, skip_ws, skip_bs, wpack, ns = _launch_args(
         xg, layer_ws, layer_bs, skip_ws, skip_bs, skip, wpack)
-    t, o, f = xg.shape
-    if tuple(g.shape) != (t, o) or g.dtype != torch.float32 \
+    t, o, f = xg.shape[-3:]
+    lead = tuple(xg.shape[:-3])
+    if tuple(g.shape) != lead + (t, o) or g.dtype != torch.float32 \
             or g.device != xg.device:
         raise ValueError(f"g {tuple(g.shape)} {g.dtype} on {g.device} != "
-                         f"({t}, {o}) float32 on {xg.device}")
-    buf = _act_buffer(acts, t, o, widths, xg.device)
+                         f"{lead + (t, o)} float32 on {xg.device}")
+    buf = _act_buffer(acts, lead, t, o, widths, xg.device)
     nl = len(layer_ws)
-    p = wpack.shape[1]
+    p = wpack.shape[-1]
     xg, g = xg.contiguous(), g.contiguous()
-    dx = torch.empty((t, o, f), dtype=torch.float32, device=xg.device)
-    grads = torch.empty(o * p, dtype=torch.float32, device=xg.device)
+    dx = torch.empty(lead + (t, o, f), dtype=torch.float32, device=xg.device)
+    grads = torch.empty(ns * o * p, dtype=torch.float32, device=xg.device)
     ntiles = -(-t // BWD_ROWS)
-    part = (torch.empty(ntiles * o * p, dtype=torch.float32,
+    part = (torch.empty(ntiles * ns * o * p, dtype=torch.float32,
                         device=xg.device) if ntiles > 1 else None)
     leaves = list(zip(layer_ws, layer_bs)) + list(zip(skip_ws, skip_bs))
     views, off = [], 0
-    for w, b in leaves:        # leaf-major: leaf k at O * (its row offset)
+    for w, b in leaves:  # leaf-major: leaf k at S * O * (its row offset)
         for a in (w, b):
-            n = math.prod(a.shape[1:])
-            views.append(grads[o * off:o * (off + n)].view(a.shape))
+            n = math.prod(a.shape[len(lead) + 1:])
+            views.append(grads[ns * o * off:ns * o * (off + n)]
+                         .view(a.shape))
             off += n
     dws, dbs = views[0:2 * nl:2], views[1:2 * nl:2]
     drs, drbs = views[2 * nl::2], views[2 * nl + 1::2]
@@ -171,7 +197,7 @@ def subnet_train_bwd(g: torch.Tensor, xg: torch.Tensor,
         xg.device.index, g.data_ptr(), xg.data_ptr(),
         buf.data_ptr() if buf is not None else None, wpack.data_ptr(),
         dx.data_ptr(), part.data_ptr() if part is not None else None,
-        grads.data_ptr(), t, o, p, nl,
+        grads.data_ptr(), ns, t, o, p, nl,
         (ctypes.c_int * len(widths))(*widths), skip, BWD_ROWS,
         torch.cuda.current_stream(xg.device).cuda_stream)
     build.check(rc, "subnet_train_bwd launch")
@@ -184,49 +210,102 @@ def subnet_train_bwd(g: torch.Tensor, xg: torch.Tensor,
 subnet_train_bwd.launches = 0
 
 
+def _split(weights, nl: int, nch: int):
+    return (weights[:nl], weights[nl:2 * nl],
+            weights[2 * nl:2 * nl + nch], weights[2 * nl + nch:])
+
+
+def _to_front(info, in_dims, args):
+    """vmap rule helper: every tensor with its vmapped dimension moved to
+    the front (an unbatched one expanded), so one seed-axis launch runs
+    the whole batch."""
+    return [a if not isinstance(a, torch.Tensor)
+            else a.expand(info.batch_size, *a.shape) if d is None
+            else a.movedim(d, 0) for a, d in zip(args, in_dims)]
+
+
+class SubnetTrainBwdFn(torch.autograd.Function):
+    """K5 as a function of its own, so that a vmapped backward (the
+    ensemble's) reaches its vmap rule: one seed-axis launch.
+
+    apply(skip, nl, nch, g, xg, wpack, *acts, *weights) -> (dx, *dws,
+    *dbs, *drs, *drbs).  Not differentiable itself."""
+
+    @staticmethod
+    def forward(skip: int, nl: int, nch: int, g: torch.Tensor,
+                xg: torch.Tensor, wpack: torch.Tensor, *rest: torch.Tensor):
+        acts, weights = rest[:nl - 1], rest[nl - 1:]
+        lw, lb, sw, sb = _split(weights, nl, nch)
+        dx, dws, dbs, drs, drbs = subnet_train_bwd(
+            g, xg, acts, lw, lb, sw, sb, skip=skip, wpack=wpack)
+        return (dx, *dws, *dbs, *drs, *drbs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the sub-network's backward is differentiable "
+                           "once only")
+
+    @staticmethod
+    def vmap(info, in_dims, skip, nl, nch, *args):
+        outs = SubnetTrainBwdFn.forward(skip, nl, nch,
+                                        *_to_front(info, in_dims[3:], args))
+        return outs, (0,) * len(outs)
+
+
 class SubnetTrainFn(torch.autograd.Function):
-    """Differentiable grouped sub-network: the forward runs K4 and saves
-    the sub-layer inputs, the backward runs K5 on them (the plain
-    versions for CPU tensors).
+    """Differentiable grouped sub-network: the forward runs K4 and
+    returns the sub-layer inputs and packed weights beside the output
+    (for the backward; not differentiable), the backward runs K5
+    through :class:`SubnetTrainBwdFn` (the plain versions for CPU
+    tensors).  Works under ``torch.autograd`` and under ``torch.func``
+    (``grad``, and ``vmap`` over a leading seed axis).
 
     apply(skip, nl, nch, xg, *layer_ws, *layer_bs, *skip_ws, *skip_bs)
-    -> (B, O)."""
+    -> (out (B, O), wpack, *acts)."""
 
     @staticmethod
-    def forward(ctx, skip: int, nl: int, nch: int, xg: torch.Tensor,
-                *weights: torch.Tensor) -> torch.Tensor:
-        lw, lb = weights[:nl], weights[nl:2 * nl]
-        sw, sb = weights[2 * nl:2 * nl + nch], weights[2 * nl + nch:]
-        wpack = (pack_subnet_weights(lw, lb, sw, sb)
-                 if xg.device.type == "cuda" else None)
+    def forward(skip: int, nl: int, nch: int, xg: torch.Tensor,
+                *weights: torch.Tensor):
+        lw, lb, sw, sb = _split(weights, nl, nch)
+        wpack = pack_subnet_weights(lw, lb, sw, sb)
         out, acts = subnet_train_fwd(xg, lw, lb, sw, sb, skip=skip,
                                      wpack=wpack)
-        ctx.skip, ctx.nl, ctx.nch, ctx.wpack = skip, nl, nch, wpack
-        ctx.save_for_backward(xg, *acts, *weights)
-        return out
+        return (out, wpack, *acts)
 
     @staticmethod
-    @once_differentiable
-    def backward(ctx, g: torch.Tensor):
-        nl, nch = ctx.nl, ctx.nch
-        xg, *rest = ctx.saved_tensors
-        acts, weights = rest[:nl - 1], rest[nl - 1:]
-        lw, lb = weights[:nl], weights[nl:2 * nl]
-        sw, sb = weights[2 * nl:2 * nl + nch], weights[2 * nl + nch:]
-        dx, dws, dbs, drs, drbs = subnet_train_bwd(
-            g.contiguous(), xg, acts, lw, lb, sw, sb, skip=ctx.skip,
-            wpack=ctx.wpack)
-        return (None, None, None, dx, *dws, *dbs, *drs, *drbs)
+    def setup_context(ctx, inputs, output) -> None:
+        skip, nl, nch, xg, *weights = inputs
+        _out, wpack, *acts = output
+        ctx.mark_non_differentiable(wpack, *acts)
+        ctx.skip, ctx.nl, ctx.nch = skip, nl, nch
+        ctx.save_for_backward(xg, wpack, *acts, *weights)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor, *_unused):
+        grads = SubnetTrainBwdFn.apply(ctx.skip, ctx.nl, ctx.nch, g,
+                                       *ctx.saved_tensors)
+        return (None, None, None, *grads)
+
+    @staticmethod
+    def vmap(info, in_dims, skip, nl, nch, *args):
+        outs = SubnetTrainFn.forward(skip, nl, nch,
+                                     *_to_front(info, in_dims[3:], args))
+        return outs, (0,) * len(outs)
 
 
 def subnet_train_apply(fn_params: Dict, xg: torch.Tensor,
                        skip: int) -> torch.Tensor:
     """Differentiable (B, O, F) -> (B, O) evaluation of a ``core.subnet``
     param dict through :class:`SubnetTrainFn` (the ``kernel_train``
-    route): one K4 launch forward, one K5 launch backward."""
+    route): one K4 launch forward, one K5 launch backward, under
+    ``torch.func.vmap`` too."""
     lw = [lp["w"] for lp in fn_params["layers"]]
     lb = [lp["b"] for lp in fn_params["layers"]]
     sw = [sp["w"] for sp in fn_params.get("skips", [])]
     sb = [sp["b"] for sp in fn_params.get("skips", [])]
     return SubnetTrainFn.apply(skip, len(lw), len(sw), xg, *lw, *lb, *sw,
-                               *sb)
+                               *sb)[0]

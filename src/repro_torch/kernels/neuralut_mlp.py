@@ -35,11 +35,12 @@ def pack_subnet_weights(layer_ws: Sequence[torch.Tensor],
                         skip_bs: Sequence[torch.Tensor] = ()
                         ) -> torch.Tensor:
     """(O, P) float32: per neuron every layer's w (row-major) then b,
-    then every skip chunk's w then b — the offsets the kernel walks."""
+    then every skip chunk's w then b — the offsets the kernel walks.
+    Stacked weights (a leading seed axis S) give (S, O, P)."""
     parts = []
     for w, b in list(zip(layer_ws, layer_bs)) + list(zip(skip_ws, skip_bs)):
-        parts += [w.reshape(w.shape[0], -1), b]
-    return torch.cat(parts, dim=1).to(torch.float32).contiguous()
+        parts += [w.flatten(-2), b]
+    return torch.cat(parts, dim=-1).to(torch.float32).contiguous()
 
 
 def check_operands(xg: torch.Tensor,
@@ -47,18 +48,21 @@ def check_operands(xg: torch.Tensor,
                    layer_bs: Sequence[torch.Tensor],
                    skip_ws: Optional[Sequence[torch.Tensor]],
                    skip_bs: Optional[Sequence[torch.Tensor]],
-                   skip: int):
+                   skip: int, *, seeds: Optional[int] = None):
     """Check a CUDA launch's operands: float32 (T, O, F) input, weights
     of the shapes the widths imply on the same device, depth, skip
-    period and widths within the kernels' limits.  Returns (widths
+    period and widths within the kernels' limits.  With ``seeds=S``
+    every operand carries a leading seed axis S.  Returns (widths
     [F, n_1, ..., 1], skip_ws, skip_bs as lists); raises ValueError."""
     if xg.device.type != "cuda":
         raise ValueError(f"xg lies on {xg.device}; cpu or cuda only")
     check_exact_fp32()
-    if xg.dim() != 3 or xg.dtype != torch.float32:
-        raise ValueError(f"xg must be (T, O, F) float32, got "
-                         f"{tuple(xg.shape)} {xg.dtype}")
-    t, o, f = xg.shape
+    lead = () if seeds is None else (seeds,)
+    if xg.dim() != 3 + len(lead) or tuple(xg.shape[:len(lead)]) != lead \
+            or xg.dtype != torch.float32:
+        raise ValueError(f"xg must be {lead + ('T', 'O', 'F')} float32, "
+                         f"got {tuple(xg.shape)} {xg.dtype}")
+    t, o, f = xg.shape[-3:]
     nl = len(layer_ws)
     skip_ws, skip_bs = list(skip_ws or ()), list(skip_bs or ())
     if not 1 <= nl <= MAX_DEPTH or len(layer_bs) != nl:
@@ -68,16 +72,17 @@ def check_operands(xg: torch.Tensor,
                               or len(skip_bs) != nl // skip)):
         raise ValueError(f"skip={skip} does not divide {nl} layers into "
                          f"{len(skip_ws)} chunks")
-    widths = [f] + [int(w.shape[2]) for w in layer_ws]
+    widths = [f] + [int(w.shape[-1]) for w in layer_ws]
     if widths[-1] != 1:
         raise ValueError(f"last layer width {widths[-1]} != 1")
     if max(widths) > MAX_WIDTH:
         raise ValueError(f"widths {widths} exceed the kernel maximum "
                          f"{MAX_WIDTH}")
-    want = [((o, widths[i], widths[i + 1]), (o, widths[i + 1]))
+    want = [(lead + (o, widths[i], widths[i + 1]), lead + (o, widths[i + 1]))
             for i in range(nl)]
-    want += [((o, widths[c * skip], widths[(c + 1) * skip]),
-              (o, widths[(c + 1) * skip])) for c in range(len(skip_ws))]
+    want += [(lead + (o, widths[c * skip], widths[(c + 1) * skip]),
+              lead + (o, widths[(c + 1) * skip]))
+             for c in range(len(skip_ws))]
     for (ws, bs), (w, b) in zip(want, list(zip(layer_ws, layer_bs))
                                 + list(zip(skip_ws, skip_bs))):
         for name, a, shape in (("w", w, ws), ("b", b, bs)):

@@ -50,22 +50,27 @@ def grouped_subnet_ref(xg: torch.Tensor,
     return h[..., 0]
 
 
+# The training references take an optional leading seed axis S on every
+# operand (the seed ensemble), as the kernels do: "..." below is () or
+# (S,).
+
 def _mm(h, w, b=None):
-    """(B, O, ni) x (O, ni, no) -> (B, O, no), neuron-batched."""
-    out = torch.einsum("boi,oij->boj", h, w)
-    return out if b is None else out + b[None]
+    """(..., B, O, ni) x (..., O, ni, no) -> (..., B, O, no),
+    neuron-batched."""
+    out = torch.einsum("...boi,...oij->...boj", h, w)
+    return out if b is None else out + b.unsqueeze(-3)
 
 
 def _mm_t(g, w):
-    """Cotangent through the product: (B, O, no) x (O, ni, no) ->
-    (B, O, ni)."""
-    return torch.einsum("boj,oij->boi", g, w)
+    """Cotangent through the product: (..., B, O, no) x (..., O, ni, no)
+    -> (..., B, O, ni)."""
+    return torch.einsum("...boj,...oij->...boi", g, w)
 
 
 def _dw(a, g):
-    """Per-neuron weight gradient summed over rows: (B, O, ni) x
-    (B, O, no) -> (O, ni, no)."""
-    return torch.einsum("boi,boj->oij", a, g)
+    """Per-neuron weight gradient summed over rows: (..., B, O, ni) x
+    (..., B, O, no) -> (..., O, ni, no)."""
+    return torch.einsum("...boi,...boj->...oij", a, g)
 
 
 def subnet_train_fwd_ref(xg: torch.Tensor,
@@ -79,7 +84,7 @@ def subnet_train_fwd_ref(xg: torch.Tensor,
     Pallas body ``repro.kernels.neuralut_grad._fwd_kernel``: the output
     (B, O) and the input of every sub-layer i >= 1 (the post-ReLU
     activation, (B, O, n_i)), in order i = 1 .. L-1.  Plain tensors, no
-    autograd."""
+    autograd.  Every operand may carry a leading seed axis S."""
     L = len(layer_ws)
     acts: List[torch.Tensor] = [None] * (L - 1)
 
@@ -127,6 +132,7 @@ def subnet_train_bwd_ref(g: torch.Tensor, xg: torch.Tensor,
     [db_i], [dR_c], [dRb_c]), the weight gradients summed over B.  ReLU
     masks are recovered from the saved post-ReLU values (``a > 0``), so
     the gradient at 0 is 0, as ``jax.nn.relu``'s and ``torch.relu``'s.
+    Every operand may carry a leading seed axis S.
     """
     L = len(layer_ws)
     x = xg.to(torch.float32)
@@ -139,7 +145,7 @@ def subnet_train_bwd_ref(g: torch.Tensor, xg: torch.Tensor,
     def through_layer(i, gm):
         a = a_in(i)
         dws[i] = _dw(a, gm)
-        dbs[i] = gm.sum(dim=0)
+        dbs[i] = gm.sum(dim=-3)
         return _mm_t(gm, layer_ws[i]), a
 
     gh = g.to(torch.float32)[..., None]                  # (B, O, 1)
@@ -158,7 +164,7 @@ def subnet_train_bwd_ref(g: torch.Tensor, xg: torch.Tensor,
     for c in range(nch - 1, -1, -1):
         hc = a_in(c * skip)
         drs[c] = _dw(hc, gout)
-        drbs[c] = gout.sum(dim=0)
+        drbs[c] = gout.sum(dim=-3)
         ghc = _mm_t(gout, skip_ws[c])
         gm = gout
         for i in range((c + 1) * skip - 1, c * skip - 1, -1):
@@ -171,6 +177,16 @@ def subnet_train_bwd_ref(g: torch.Tensor, xg: torch.Tensor,
         else:
             dx = ghc
     return dx, dws, dbs, drs, drbs
+
+
+def lut_gather_ref(tables: torch.Tensor, addr: torch.Tensor) -> torch.Tensor:
+    """Plain per-layer lookup (the same function as
+    ``repro.kernels.ref.lut_gather_ref``): tables (O, T) int32, addr
+    (B, O) int -> (B, O) int32 with ``out[b, o] = tables[o, addr[b, o]]``.
+    Addresses are clamped into [0, T), as the CUDA kernel clamps them."""
+    o, t = tables.shape
+    rows = torch.arange(o, device=tables.device)[None, :]
+    return tables[rows, addr.long().clamp(0, t - 1)].to(torch.int32)
 
 
 # (in_bits, word_bits, slot_bits, beta_out) of one chain layer; see

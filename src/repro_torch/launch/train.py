@@ -2,13 +2,18 @@
 of ``repro.launch.train``): train -> convert -> serving bundle -> serve.
 
     python -m repro_torch.launch.train --arch neuralut-jsc-5l --epochs 20
+    python -m repro_torch.launch.train --arch neuralut-jsc-5l --epochs 20 \\
+        --seeds 4
     python -m repro_torch.launch.train --arch neuralut-jsc-5l --reduced \\
         --epochs 1 --device cpu
 
-Trains one seed on the device-resident synthetic JSC data (20,000
-training and 4,000 test rows, batch 256), converts the trained model to
-bit-packed truth tables (through the grouped sub-network kernel on the
-card), builds the in-memory ``ServeBundle``, serves the test set through
+Trains on the device-resident synthetic JSC data (20,000 training and
+4,000 test rows, batch 256): one seed, or with ``--seeds N`` (N > 1) N
+restarts together (``train_neuralut_ensemble``, one training-kernel
+launch per layer per step for all N), keeping the member with the best
+quantized test accuracy.  Then converts the trained model to bit-packed
+truth tables (through the grouped sub-network kernel on the card),
+builds the in-memory ``ServeBundle``, serves the test set through
 ``LUTServeEngine`` (the LUT-cascade kernel on the card) and checks that
 every served prediction equals ``lut_infer.predict``.  Runs on CUDA
 unless ``--device cpu``.
@@ -28,7 +33,8 @@ def train_neuralut_arch(args, cfg) -> Dict[str, Any]:
     from repro_torch.core import lut_infer as LI
     from repro_torch.core import model as M
     from repro_torch.core import truth_table as TT
-    from repro_torch.core.train import train_neuralut
+    from repro_torch.core.train import (ensemble_member, train_neuralut,
+                                        train_neuralut_ensemble)
     from repro_torch.data import device_dataset, jsc_synthetic
     from repro_torch.device import resolve_device
     from repro_torch.serve import LUTServeEngine, bundle_from_training
@@ -36,10 +42,8 @@ def train_neuralut_arch(args, cfg) -> Dict[str, Any]:
     if "jsc" not in cfg.name:
         raise SystemExit(f"--arch {args.arch}: only the JSC NeuraLUT "
                          "configs have a synthetic dataset wired here")
-    if args.seeds > 1:
-        raise NotImplementedError(
-            "--seeds > 1: the seed ensemble (train_neuralut_ensemble) "
-            + NOT_PORTED.format("Queue A, the seed ensemble"))
+    if args.seeds < 1:
+        raise SystemExit(f"--seeds {args.seeds}: need at least one seed")
     if args.registry:
         raise NotImplementedError(
             "--registry: the on-disk TableRegistry "
@@ -51,11 +55,26 @@ def train_neuralut_arch(args, cfg) -> Dict[str, Any]:
     lr = args.lr if args.lr is not None else 2e-3
 
     t0 = time.perf_counter()
-    params, state, hist = train_neuralut(
-        cfg, xtr, ytr, xte, yte, epochs=args.epochs, batch=256, lr=lr,
-        log_every=args.log_every, device=dev)
+    best = None
+    if args.seeds > 1:
+        params, state, hist = train_neuralut_ensemble(
+            cfg, xtr, ytr, xte, yte, seeds=tuple(range(args.seeds)),
+            epochs=args.epochs, batch=256, lr=lr,
+            log_every=args.log_every, device=dev)
+        final_q = hist["test_acc_q"][-1]
+        best = int(final_q.argmax())
+        print(f"seeds={args.seeds} acc_q per seed="
+              f"{[round(float(a), 4) for a in final_q]} -> best seed "
+              f"{best}", flush=True)
+        params, state = ensemble_member(params, state, best)
+        acc_q = float(final_q[best])
+        n_steps *= args.seeds
+    else:
+        params, state, hist = train_neuralut(
+            cfg, xtr, ytr, xte, yte, epochs=args.epochs, batch=256, lr=lr,
+            log_every=args.log_every, device=dev)
+        acc_q = hist["test_acc_q"][-1]
     dt = time.perf_counter() - t0  # history's fetch synchronized
-    acc_q = hist["test_acc_q"][-1]
     print(f"trained {args.epochs} epochs in {dt:.1f}s "
           f"({n_steps / dt:.1f} steps/s) acc_q={acc_q:.4f}", flush=True)
 
@@ -80,6 +99,7 @@ def train_neuralut_arch(args, cfg) -> Dict[str, Any]:
         raise RuntimeError(f"{mismatches} served predictions differ from "
                            "lut_infer.predict")
     return {"history": hist, "bundle": bundle, "acc_q": acc_q,
+            "best_seed": best,
             "served_acc": served_acc, "mismatches": mismatches,
             "steps": n_steps, "train_seconds": dt}
 
@@ -91,7 +111,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--epochs", type=int, default=20,
                     help="training epochs")
     ap.add_argument("--seeds", type=int, default=1,
-                    help="restarts (only 1 is ported)")
+                    help="restarts trained together; the best is kept")
     ap.add_argument("--registry", default=None,
                     help="save the bundle here (not ported)")
     ap.add_argument("--lr", type=float, default=None,

@@ -38,7 +38,9 @@ def adamw_update(grads, state: OptState, params, *, lr,
     """One AdamW step -> (new params, new state).  ``lr`` may be a
     float32 tensor (the SGDR schedule's).  The clip scale is
     ``min(1, clip / max(gnorm, 1e-12))`` with the norm over all leaves;
-    the step is ``lr * (mh / (sqrt(vh) + eps) + wd * p)``."""
+    the step is ``lr * (mh / (sqrt(vh) + eps) + wd * p)``.  Under
+    ``torch.func.vmap`` over a leading seed axis (the ensemble step)
+    the norm, and so the clip, is each seed's own."""
     count = state["count"] + 1
     cf = count.to(torch.float32)
     bc1 = 1.0 - beta1 ** cf

@@ -9,10 +9,13 @@
     oversized requests are served in max-bucket chunks.  ``warmup()``
     runs every bucket once, so the kernel library is built and loaded
     before the first client request.
-  * The forward is ``make_forward_fn``: input codes, the cascade plan
-    (the CUDA kernel on the card, the gather cascade on the CPU), class
-    values and argmax.  A failing forward fails its batch's futures with
-    the error; nothing falls back to another route.
+  * The forward is ``make_forward_fn``: input codes, the cascade plan,
+    class values and argmax.  The plan's route is ``fused`` (default:
+    the LUT-cascade kernel K1 over the bit-packed tables) or, with
+    ``fused=False``, ``layer`` (the per-layer lookup kernel K3 over the
+    unpacked int32 tables, five launches a batch on jsc-5l).  On the CPU
+    both run their plain versions.  A failing forward fails its batch's
+    futures with the error; nothing falls back to another route.
 
 Not ported yet: replicas and routing, health eviction, chaos hooks,
 deadlines, redispatch and the kernel-to-reference degradation wrapper.
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import lut_infer as LI
-from repro_torch.core.exec_plan import plan_cascade_exec
+from repro_torch.core.exec_plan import LayerOperands, plan_cascade_exec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.lut_cascade import CascadeOperands
 from repro_torch.serve.metrics import ServeMetrics
@@ -48,21 +51,30 @@ def pick_bucket(n: int, buckets: Sequence[int]) -> int:
     return buckets[-1]
 
 
-def make_forward_fn(bundle: ServeBundle, *, device: DeviceLike = None
+def make_forward_fn(bundle: ServeBundle, *, fused: bool = True,
+                    device: DeviceLike = None
                     ) -> Callable[[np.ndarray], torch.Tensor]:
     """(B, in_features) float32 -> (B,) int32 class predictions on
-    ``device`` (``None`` = CUDA).  The packed tables, connectivity and
-    quantizer scales are uploaded once, here."""
+    ``device`` (``None`` = CUDA).  The route's operands and the
+    quantizer scales are uploaded once, here: the fused route takes the
+    bit-packed tables only (the unpacked int32 tables are ~8x larger),
+    the per-layer route the unpacked tables as int32."""
     dev = resolve_device(device)
     cfg = bundle.cfg
-    plan = plan_cascade_exec(cfg)
-    bundle.prepack()
+    plan = plan_cascade_exec(cfg, fused=fused)
     params = bundle.serve_params(dev)
-    ops = CascadeOperands(
-        [torch.as_tensor(np.asarray(s["conn"], np.int32), device=dev)
-         for s in bundle.statics],
-        [torch.as_tensor(p, device=dev) for p in bundle.packed_tables],
-        plan.schedule, cfg.in_features)
+    conns = [torch.as_tensor(np.asarray(s["conn"], np.int32), device=dev)
+             for s in bundle.statics]
+    if plan.fused:
+        bundle.prepack()
+        ops = CascadeOperands(
+            conns, [torch.as_tensor(p, device=dev)
+                    for p in bundle.packed_tables],
+            plan.schedule, cfg.in_features)
+    else:
+        ops = LayerOperands(conns, [
+            torch.as_tensor(np.asarray(t).astype(np.int32), device=dev)
+            for t in bundle.tables], plan.schedule)
 
     def forward(x: np.ndarray) -> torch.Tensor:
         xt = torch.as_tensor(np.asarray(x, np.float32)).to(dev)
@@ -100,11 +112,13 @@ def _complete(future: Future, result=None, exc=None) -> bool:
 
 class LUTServeEngine:
     """Serve a ServeBundle behind a dynamic batcher (see module
-    docstring).  ``device=None`` serves on the CUDA device."""
+    docstring).  ``device=None`` serves on the CUDA device;
+    ``fused=False`` serves through the per-layer route."""
 
     def __init__(self, bundle: ServeBundle, *,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  max_wait_ms: float = 2.0,
+                 fused: bool = True,
                  device: DeviceLike = None):
         buckets = tuple(int(b) for b in buckets)
         if not buckets or list(buckets) != sorted(set(buckets)) \
@@ -116,7 +130,8 @@ class LUTServeEngine:
         self.max_wait_s = max_wait_ms / 1e3
         self.device = resolve_device(device)
         self.metrics = ServeMetrics()
-        self._forward = make_forward_fn(bundle, device=self.device)
+        self._forward = make_forward_fn(bundle, fused=fused,
+                                        device=self.device)
         self._queue: "queue.Queue" = queue.Queue()
         self._thread: Optional[threading.Thread] = None
         self._closed = False

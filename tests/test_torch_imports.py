@@ -47,6 +47,8 @@ def test_imports_with_jax_and_repro_blocked():
             "repro_torch.kernels.neuralut_grad", "repro_torch.core.train",
             "repro_torch.data.pipeline", "repro_torch.launch.train",
             "repro_torch.tree"} <= names
+    # and the per-layer serving slice's
+    assert "repro_torch.kernels.lut_gather" in names
 
 
 def test_no_source_imports_jax_or_repro():

@@ -183,7 +183,7 @@ def test_launch_train_cpu():
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["--seeds", "2"], NotImplementedError),
+    (["--seeds", "2", "--registry", "reg"], NotImplementedError),
     (["--registry", "reg"], NotImplementedError),
     (["--arch", "llama3-8b"], NotImplementedError),
     (["--arch", "polylut-add-jsc-2l"], NotImplementedError),
