@@ -23,7 +23,13 @@ then drives the port's paths at full width:
   seed-axis launch of each training kernel per layer per step, the
   best member converted and served; the seed-axis kernels against
   separate single-seed launches, a bit-identical rerun of ten ensemble
-  steps, and steps/s and the busy share at S = 4 beside S = 1.
+  steps, and steps/s and the busy share at S = 4 beside S = 1;
+* graph serving: the PolyLUT-Add LUT graph ``polylut-add-jsc-5l`` (adder
+  trees of two branches) seeded, calibrated, converted through the
+  grouped sub-network kernel once per branch, bundled and served through
+  the LUT-cascade kernel's DAG schedule, one launch per batch; that
+  schedule is first held against the plain DAG cascade at the model's
+  operands, on a diamond and on seeded random DAGs.
 
 The launch counts are set to 0 just before each path and read just
 after it.  Every phase that fails stops the run with a non-zero exit;
@@ -62,6 +68,9 @@ TRAIN_EPOCHS = 3           # 3 x 78 = 234 steps on 20,000 rows
 RERUN_STEPS = 10
 CASCADE_BATCHES = (1, 8, 64, 256, 1000, 4096)
 GATHER_BATCHES = CASCADE_BATCHES    # K3; 1000 fills no 256-thread block
+GRAPH_ARCH = "polylut-add-jsc-5l"   # PolyLUT-Add, arXiv:2406.04910
+DAG_SEEDS = (0, 1, 2, 3)            # random DAGs of each generator
+DAG_CASE_BATCHES = (1, 37, 300)
 ENSEMBLE_SEEDS = (0, 1, 2, 3)
 ENSEMBLE_EPOCHS = 2                 # 2 x 78 = 156 steps of 4 seeds
 TILE_SWEEP = (1, 2, 4, 8, 16, 32)   # K1 rows per block
@@ -351,25 +360,32 @@ def _random_chain(cfg, rng):
     return tables, statics
 
 
-def _cascade_table_bytes(codes, conns, packed, meta) -> int:
-    """Table bytes this batch's lookups need: per layer, the distinct
-    32-B sectors of the packed table that its addresses touch (never more
-    than the table), walking the plain gather cascade."""
+def _cascade_table_bytes(codes, conns, packed, schedule) -> int:
+    """Table bytes this batch's lookups need: per branch table, the
+    distinct 32-B sectors that its addresses touch (never more than the
+    table), walking the plain cascade over the node schedule (a chain's
+    layer meta is taken too)."""
     import torch
     from repro_torch.core.lut_infer import pack_index
-    c, total = codes, 0
-    for conn, pt, (in_bits, _wb, slot_bits, beta) in zip(conns, packed,
-                                                         meta):
-        o, words = pt.shape
-        addr = pack_index(c[:, conn.long()], in_bits)
-        wsel = (addr >> slot_bits).clamp(max=words - 1).long()
-        rows = torch.arange(o, device=pt.device)[None, :]
-        flat = rows * words + wsel                  # word index in the table
-        sectors = torch.unique(flat // (SECTOR_BYTES // pt.element_size()))
-        total += sectors.numel() * SECTOR_BYTES
-        word = pt[rows, wsel]
-        c = (word >> (beta * (addr & ((1 << slot_bits) - 1)))) \
-            & ((1 << beta) - 1)
+    from repro_torch.kernels.ref import as_schedule
+    bufs, total, k = [codes], 0, 0
+    for srcs, arity, in_bits, _wb, slot_bits, beta in as_schedule(schedule):
+        pool = torch.cat([bufs[s] for s in srcs], dim=1)
+        out = 0
+        for _a in range(arity):
+            pt = packed[k]
+            o, words = pt.shape
+            addr = pack_index(pool[:, conns[k].long()], in_bits)
+            k += 1
+            wsel = (addr >> slot_bits).clamp(max=words - 1).long()
+            rows = torch.arange(o, device=pt.device)[None, :]
+            flat = rows * words + wsel              # word index in the table
+            sectors = torch.unique(flat // (SECTOR_BYTES
+                                            // pt.element_size()))
+            total += sectors.numel() * SECTOR_BYTES
+            out = out + ((pt[rows, wsel] >> (beta * (addr & (
+                (1 << slot_bits) - 1)))) & ((1 << beta) - 1))
+        bufs.append(out)
     return total
 
 
@@ -463,10 +479,7 @@ def phase_main_path(cfg, dev):
 
     x_tr, _ = jsc_synthetic(20000, seed=0)
     x_te, y_te = jsc_synthetic(4000, seed=1)
-    rng = np.random.default_rng(3)
-    sizes = [int(s) for s in rng.choice([1, 2, 5, 8, 13, 31, 64, 100, 256],
-                                        70)] + [300, 1000]
-    starts = [int(rng.integers(0, len(x_te) - n)) for n in sizes]
+    sizes, starts = _requests(x_te)
 
     lut_cascade.launches = 0
     grouped_subnet.launches = 0
@@ -808,6 +821,343 @@ def phase_layer_serving(cfg, dev, served):
                 forwards=forwards)
 
 
+def _graph_random_net(cfg, rng):
+    """Random uniform per-node branch tables and connectivity at a
+    ``LUTGraphConfig``'s geometry."""
+    import numpy as np
+    statics, tables = [], []
+    for i, nd in enumerate(cfg.nodes):
+        statics.append({"conns": [
+            rng.integers(0, cfg.node_in_width(i), (nd.width, nd.fan_in)
+                         ).astype(np.int32) for _ in range(nd.arity)]})
+        tables.append([rng.integers(0, 2 ** cfg.beta,
+                                    (nd.width, cfg.table_size(i))
+                                    ).astype(np.uint16)
+                       for _ in range(nd.arity)])
+    return tables, statics
+
+
+def _dag_cases():
+    """(name, LUTGraphConfig) of the DAGs whose buffer liveness the
+    shipped PolyLUT-Add geometries (every node reads the one before it)
+    cannot show: a diamond; the reference's random DAGs
+    (tests/test_lut_graph.py: a rank of nodes over the input, a
+    classifier over a subset); deeper random DAGs whose nodes read one
+    to three earlier buffers, the input among them."""
+    import numpy as np
+    from repro_torch.core.nl_config import INPUT, LUTGraphConfig, LUTNodeSpec
+
+    def node(name, width=4, inputs=(INPUT,), arity=1):
+        return LUTNodeSpec(name=name, width=width, fan_in=2, inputs=inputs,
+                           arity=arity)
+    cases = [("diamond", LUTGraphConfig(
+        name="diamond", in_features=16, num_classes=5, beta=4,
+        nodes=(node("a", 64, arity=2), node("b", 48, arity=2),
+               node("c", 5, inputs=("a", "b"))), kind="linear"))]
+    for seed in DAG_SEEDS:
+        rng = np.random.default_rng(seed)
+        beta, arity = int(rng.integers(2, 4)), int(rng.choice([1, 2, 4]))
+        n_mid = int(rng.integers(1, 3))
+        mids = [node(f"m{j}", int(rng.integers(2, 5)), arity=arity)
+                for j in range(n_mid)]
+        picked = sorted(rng.choice(n_mid, int(rng.integers(1, n_mid + 1)),
+                                   replace=False).tolist())
+        cases.append((f"rank{seed}", LUTGraphConfig(
+            name="dag-prop", in_features=5, num_classes=3, beta=beta,
+            nodes=tuple(mids) + (node("cls", 3, tuple(
+                f"m{j}" for j in picked)),), kind="linear")))
+    for seed in DAG_SEEDS:
+        rng = np.random.default_rng(100 + seed)
+        beta = int(rng.integers(2, 4))
+        bits, names, nodes = {INPUT: beta}, [INPUT], []
+        n = int(rng.integers(3, 8))
+        for j in range(n):
+            last = j == n - 1
+            arity = 1 if last else int(rng.choice([1, 2]))
+            first = names[int(rng.integers(len(names)))]
+            same = [m for m in names if bits[m] == bits[first] and m != first]
+            extra = rng.choice(same, int(rng.integers(0, min(2, len(same))
+                                                      + 1)),
+                               replace=False).tolist() if same else []
+            nodes.append(node(f"n{j}", 3 if last else int(rng.integers(2, 70)),
+                              (first,) + tuple(extra), arity))
+            bits[f"n{j}"] = beta + arity.bit_length() - 1
+            names.append(f"n{j}")
+        cases.append((f"deep{seed}", LUTGraphConfig(
+            name="dag-deep", in_features=5, num_classes=3, beta=beta,
+            nodes=tuple(nodes), kind="linear")))
+    return cases
+
+
+def _graph_operands(cfg, tables, statics, dev):
+    import torch
+    from repro_torch.kernels.lut_cascade import (CascadeOperands,
+                                                 graph_cascade_meta,
+                                                 graph_cascade_tables)
+    conns = [torch.as_tensor(c, device=dev)
+             for st in statics for c in st["conns"]]
+    packed = [torch.as_tensor(p, device=dev)
+              for p in graph_cascade_tables(cfg, tables)]
+    return CascadeOperands(conns, packed, graph_cascade_meta(cfg),
+                           cfg.in_features)
+
+
+def phase_dag_cascade_kernel(dev):
+    """K1 on the DAG schedule against the plain DAG cascade (and the
+    graph_lut_forward oracle), bit for bit: random tables at full
+    polylut-add-jsc-5l operands at every batch size, timed, with its
+    bound and a tile sweep; then a diamond and seeded random DAGs."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.core import lut_infer as LI
+    from repro_torch.kernels.lut_cascade import lut_cascade
+    from repro_torch.kernels.ref import lut_cascade_ref
+    cfg = get_config(GRAPH_ARCH)
+    rng = np.random.default_rng(23)
+    tables, statics = _graph_random_net(cfg, rng)
+    ops = _graph_operands(cfg, tables, statics, dev)
+    conns, packed, sched = list(ops.conns), list(ops.packed), ops.schedule
+    log(f"K1 DAG {GRAPH_ARCH}: schedule {sched}; {len(conns)} branch tables,"
+        f" {sum(p.numel() * 4 for p in packed)} packed bytes; shared columns"
+        f" {ops.out_cols}, row pitch {ops.stride} codes")
+    conn_bytes = sum(c.numel() * 4 for c in ops.cols)
+    per_b = {}
+    for b in CASCADE_BATCHES:
+        codes = torch.as_tensor(rng.integers(
+            0, 2 ** cfg.node_in_bits(0), (b, cfg.in_features)
+        ).astype(np.int32), device=dev)
+
+        def kern():
+            return lut_cascade(codes, ops)
+
+        def plain():
+            return lut_cascade_ref(codes, conns, packed, sched)
+        got, want = kern(), plain()
+        oracle = LI.graph_lut_forward(cfg, tables, statics, codes)
+        torch.cuda.synchronize()
+        require(got.shape == (b, cfg.num_classes), f"K1 DAG B={b}: shape")
+        require(torch.equal(got, want), f"K1 DAG B={b}: differs from the "
+                f"plain DAG cascade in {int((got != want).sum())} codes")
+        require(torch.equal(got, oracle), f"K1 DAG B={b}: differs from "
+                "graph_lut_forward")
+        lookups = b * sum(nd.width * nd.arity for nd in cfg.nodes)
+        int_ops = float(b * sum(nd.width * (nd.arity * (2 * nd.fan_in + 4)
+                                            + nd.arity - 1)
+                                for nd in cfg.nodes))
+        table_bytes = _cascade_table_bytes(codes, conns, packed, sched)
+        nbytes = 4.0 * (codes.numel() + got.numel()) + table_bytes \
+            + conn_bytes
+        tm = timings(kern, plain, "lut_cascade_kernel", 50, 10)
+        bms, by = bound_ms(nbytes, int_ops)
+        per_b[b] = dict(bound_ms=bms, by=by, bytes=nbytes,
+                        table_bytes=table_bytes, lookups=lookups,
+                        err=float((got - want).abs().max()), **tm)
+        log(f"K1 DAG B={b}: bit-identical to plain and graph_lut_forward; "
+            f"kernel {tm['ms']:.4f} ms (call {tm['call_ms']:.4f}) plain "
+            f"{tm['plain_ms']:.4f} ms (call {tm['plain_call_ms']:.4f}) "
+            f"[{tm['timing']}] bound {bms:.6f} ms ({by}); "
+            f"{nbytes / 1e6:.4f} MB ({table_bytes} B of table sectors), "
+            f"{lookups} lookups, "
+            f"{lookups / (tm['ms'] * 1e-3):.3e} lookups/s")
+    sweep = {}
+    for b in SWEEP_BATCHES:
+        codes = torch.as_tensor(rng.integers(
+            0, 2 ** cfg.node_in_bits(0), (b, cfg.in_features)
+        ).astype(np.int32), device=dev)
+        want = lut_cascade_ref(codes, conns, packed, sched)
+        for rows in TILE_SWEEP:
+            got = lut_cascade(codes, ops, block_b=rows)
+            require(torch.equal(got, want), f"K1 DAG B={b} block_b={rows}: "
+                    "differs from the plain DAG cascade")
+            sweep[f"{b}/{rows}"] = device_ms(
+                lambda: lut_cascade(codes, ops, block_b=rows), 20,
+                "lut_cascade_kernel")
+        log(f"K1 DAG tile sweep B={b}: " + ", ".join(
+            f"block_b={r} {sweep[f'{b}/{r}'] or float('nan'):.4f} ms"
+            for r in TILE_SWEEP))
+    cases = []
+    for name, dcfg in _dag_cases():
+        dt, ds = _graph_random_net(dcfg, rng)
+        dops = _graph_operands(dcfg, dt, ds, dev)
+        late = any(0 in srcs for srcs, *_r in dops.schedule[1:])
+        widths = sum(nd.width for nd in dcfg.nodes[:-1])
+        for b in DAG_CASE_BATCHES:
+            codes = torch.as_tensor(rng.integers(
+                0, 2 ** dcfg.node_in_bits(0), (b, dcfg.in_features)
+            ).astype(np.int32), device=dev)
+            got = lut_cascade(codes, dops)
+            want = lut_cascade_ref(codes, list(dops.conns), list(dops.packed),
+                                   dops.schedule)
+            oracle = LI.graph_lut_forward(dcfg, dt, ds, codes)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want) and torch.equal(got, oracle),
+                    f"K1 DAG case {name} B={b}: differs from the plain DAG "
+                    f"cascade in {int((got != want).sum())} codes")
+        cases.append(dict(name=name, nodes=len(dcfg.nodes),
+                          input_read_late=late,
+                          columns_reused=dops.stride < widths))
+        nodes = [(n.name, n.width, n.inputs, n.arity) for n in dcfg.nodes]
+        log(f"K1 DAG case {name}: {nodes} beta={dcfg.beta}; columns "
+            f"{dops.out_cols} of {dops.stride}; bit-identical at "
+            f"B={DAG_CASE_BATCHES}")
+    require(any(c["input_read_late"] for c in cases),
+            "no DAG case reads the input after another node ran")
+    require(any(c["columns_reused"] for c in cases),
+            "no DAG case reuses the columns of a dead buffer")
+    return per_b, sweep, cases
+
+
+def _requests(x_te):
+    """The serving paths' 72 mixed-size requests (seeded)."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    sizes = [int(s) for s in rng.choice([1, 2, 5, 8, 13, 31, 64, 100, 256],
+                                        70)] + [300, 1000]
+    starts = [int(rng.integers(0, len(x_te) - n)) for n in sizes]
+    return sizes, starts
+
+
+def phase_graph_serving(dev):
+    """The port's serving path on a LUT graph at full polylut-add-jsc-5l:
+    seeded graph init and calibration, conversion through K2 once per
+    branch, a graph bundle, LUTServeEngine through K1's DAG schedule (one
+    launch per batch, no K3); predictions against predict
+    (graph_lut_forward) and the quantized float forward; the per-layer
+    route refused; p50/p99 one request at a time."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.core import lut_infer as LI
+    from repro_torch.core import model as M
+    from repro_torch.core import truth_table as TT
+    from repro_torch.core.exec_plan import plan_subnet_exec
+    from repro_torch.core.nl_config import UnsupportedTopology
+    from repro_torch.data import jsc_synthetic
+    from repro_torch.kernels.lut_cascade import lut_cascade
+    from repro_torch.kernels.lut_gather import lut_lookup
+    from repro_torch.kernels.neuralut_mlp import grouped_subnet
+    from repro_torch.serve import LUTServeEngine, bundle_from_training
+    from repro_torch.serve.engine import DEFAULT_BUCKETS
+
+    cfg = get_config(GRAPH_ARCH)
+    branches = sum(nd.arity for nd in cfg.nodes)
+    x_tr, _ = jsc_synthetic(20000, seed=0)
+    x_te, y_te = jsc_synthetic(4000, seed=1)
+    sizes, starts = _requests(x_te)
+    requests = [x_te[s:s + n] for s, n in zip(starts, sizes)]
+    kernels = {"lut_cascade": lut_cascade, "grouped_subnet": grouped_subnet,
+               "lut_lookup": lut_lookup}
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    params, state = M.model_init(cfg, torch.Generator().manual_seed(0),
+                                 device=dev)
+    params = M.calibrate_in_quant(cfg, params, x_tr)
+    statics = M.model_static(cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tables, packed = TT.convert_packed(cfg, params, state, statics)
+    t2 = time.perf_counter()
+    bundle = bundle_from_training(cfg, params, tables, statics,
+                                  packed_tables=packed)
+    with LUTServeEngine(bundle, device=dev) as eng:
+        eng.warmup()
+        t3 = time.perf_counter()
+        futs = [eng.submit(x) for x in requests]
+        preds = [f.result(timeout=300) for f in futs]
+        t4 = time.perf_counter()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    entries = sum(t.size for node in tables for t in node)
+    log(f"graph path ({GRAPH_ARCH}, {bundle.topology}): init+calibrate "
+        f"{t1 - t0:.3f} s, convert {t2 - t1:.3f} s ({entries} entries in "
+        f"{branches} branch tables, "
+        f"{sum(p.nbytes for p in bundle.packed_tables)} packed bytes), serve "
+        f"{len(sizes)} requests / {sum(sizes)} samples in {t4 - t3:.3f} s")
+    log(f"graph path launches: {launches}")
+    log(f"graph engine metrics: {eng.metrics.render()}")
+    require(launches["grouped_subnet"] == branches,
+            f"conversion launched K2 {launches['grouped_subnet']} times, want "
+            f"one per branch ({branches})")
+    require(launches["lut_cascade"] > 0, "graph serving never launched K1")
+    require(launches["lut_lookup"] == 0, "graph serving launched K3")
+
+    # Checks against the plain versions on the card (outside the count).
+    plain_tables, _ = TT.convert_packed(cfg, params, state, statics,
+                                        use_subnet_kernel=False)
+    flips = 0
+    for i, (node, pnode) in enumerate(zip(tables, plain_tables)):
+        for a, (t, pt) in enumerate(zip(node, pnode)):
+            d = np.abs(t.astype(np.int32) - pt.astype(np.int32))
+            require(int(d.max()) <= 1, f"node {i} branch {a}: kernel and "
+                    f"plain conversion differ by {int(d.max())} codes")
+            flips += int((d != 0).sum())
+            require(np.array_equal(LI.pack_tables(t, cfg.beta), packed[i][a]),
+                    f"node {i} branch {a}: device packing differs")
+    log(f"graph convert: kernel tables within +-1 of the plain conversion, "
+        f"{flips} flips of {entries} entries")
+    mismatched = correct = 0
+    lut_preds = []
+    for x, got in zip(requests, preds):
+        want = LI.predict(cfg, params, tables, statics,
+                          torch.as_tensor(x, device=dev)).cpu().numpy()
+        require(got.shape == (len(x),), f"prediction shape {got.shape}")
+        mismatched += int((got != want).sum())
+        lut_preds.append(want)
+    for (s, n), got in zip(zip(starts, sizes), preds):
+        correct += int((got == y_te[s:s + n]).sum())
+    require(mismatched == 0, f"{mismatched} served graph predictions differ "
+            "from the plain lut_infer.predict")
+    # The quantized float forward agrees with its LUT twin, the
+    # conversion invariant (tests/test_lut_graph.py): through the
+    # conversion's hidden-function route (K2), and, logged, through the
+    # eval default (the plain grouped product).
+    xs = torch.as_tensor(np.concatenate(requests), device=dev)
+    lut = np.concatenate(lut_preds)
+    agree = {}
+    for route, plan in (("convert", plan_subnet_exec(
+            cfg, purpose="convert", device=dev)), ("eval", None)):
+        _, vals, _ = M.model_apply(cfg, params, state, statics, xs,
+                                   exec_plan=plan)
+        agree[route] = int((torch.argmax(vals, -1).cpu().numpy()
+                            == lut).sum())
+    require(agree["convert"] == len(lut), f"the quantized float forward's "
+            f"argmax agrees with the LUT twin on {agree['convert']} of "
+            f"{len(lut)} samples")
+    log(f"graph serve: all {len(lut)} predictions equal the plain predict "
+        f"(graph_lut_forward); the float forward's argmax agrees on "
+        f"{agree['convert']} (K2 route) / {agree['eval']} (eval route) of "
+        f"{len(lut)}; accuracy of the random-init model "
+        f"{correct / len(lut):.4f}")
+    try:
+        LUTServeEngine(bundle, fused=False, device=dev)
+    except UnsupportedTopology as e:
+        log(f"graph per-layer route refused: {e}")
+    else:
+        require(False, "LUTServeEngine(fused=False) accepted a DAG")
+
+    # Latency one request at a time (no admission window).
+    forwards = sum(-(-len(x) // DEFAULT_BUCKETS[-1]) for x in requests)
+    with LUTServeEngine(bundle, max_wait_ms=0.0, device=dev) as eng:
+        eng.warmup()
+        torch.cuda.synchronize()
+        lut_cascade.launches = lut_lookup.launches = 0
+        one = [eng.predict(x) for x in requests]
+        seq = {"lut_cascade": lut_cascade.launches,
+               "lut_lookup": lut_lookup.launches}
+    rep = eng.metrics.report()
+    require(all(np.array_equal(a, b) for a, b in zip(one, preds)),
+            "one-at-a-time graph predictions differ from the batched run")
+    require(seq == {"lut_cascade": forwards, "lut_lookup": 0},
+            f"one-at-a-time graph launches {seq}, want {forwards} K1")
+    log(f"graph route: {len(requests)} requests one at a time, {forwards} "
+        f"batches; p50 {rep['p50_ms']:.3f} ms p99 {rep['p99_ms']:.3f} ms; "
+        f"launches {seq}")
+    return launches, dict(p50_ms=rep["p50_ms"], p99_ms=rep["p99_ms"],
+                          forwards=forwards, flips=flips,
+                          convert_s=t2 - t1, serve_s=t4 - t3)
+
+
 def _stacked_subnet(gen, seeds, o, f, depth, width, skip, dev):
     import torch
     ps = [_rand_subnet(gen, o, f, depth, width, skip, dev)
@@ -1071,17 +1421,19 @@ def main() -> int:
     phase_build()
     k2 = phase_subnet_kernel(cfg, dev)
     k1, tile_sweep = phase_cascade_kernel(cfg, dev)
+    k1_dag, dag_sweep, dag_cases = phase_dag_cascade_kernel(dev)
     k3 = phase_gather_kernel(cfg, dev)
     launches, served = phase_main_path(cfg, dev)
     layer = phase_layer_serving(cfg, dev, served)
+    graph_launches, graph = phase_graph_serving(dev)
     k4, k5 = phase_train_kernels(cfg, dev)
     train = phase_train_path(cfg, dev)
     seed_k = phase_seed_kernels(cfg, dev)
     ens = phase_ensemble_path(cfg, dev)
 
-    head = k1[HEADLINE_B]
+    head, dag_head = k1[HEADLINE_B], k1_dag[HEADLINE_B]
     kernels = [
-        {"name": "lut_cascade", "route": "cuda",
+        {"name": "lut_cascade", "schedule": "chain", "route": "cuda",
          "source": "src/repro_torch/csrc/lut_cascade.cu",
          "replaces": "src/repro/kernels/lut_cascade.py:253",
          "launches": launches["lut_cascade"],
@@ -1090,9 +1442,23 @@ def main() -> int:
          "bound_ms": head["bound_ms"], "bound_by": head["by"],
          "library_ms": None, "call_ms": head["call_ms"],
          "plain_call_ms": head["plain_call_ms"], "timing": head["timing"],
-         "shape": f"B={HEADLINE_B}",
+         "shape": f"neuralut-jsc-5l B={HEADLINE_B}",
          "by_batch": {str(b): r for b, r in k1.items()},
          "tile_sweep_ms": tile_sweep},
+        {"name": "lut_cascade", "schedule": "dag", "route": "cuda",
+         "source": "src/repro_torch/csrc/lut_cascade.cu",
+         "replaces": "src/repro/kernels/lut_cascade.py:253",
+         "launches": graph_launches["lut_cascade"],
+         "max_abs_err": max(r["err"] for r in k1_dag.values()),
+         "ms": dag_head["ms"], "plain_ms": dag_head["plain_ms"],
+         "bound_ms": dag_head["bound_ms"], "bound_by": dag_head["by"],
+         "library_ms": None, "call_ms": dag_head["call_ms"],
+         "plain_call_ms": dag_head["plain_call_ms"],
+         "timing": dag_head["timing"],
+         "shape": f"{GRAPH_ARCH} B={HEADLINE_B}",
+         "by_batch": {str(b): r for b, r in k1_dag.items()},
+         "tile_sweep_ms": dag_sweep, "dag_cases": dag_cases,
+         "graph_serving": graph},
         {"name": "grouped_subnet", "route": "cuda",
          "source": "src/repro_torch/csrc/neuralut_mlp.cu",
          "replaces": "src/repro/kernels/neuralut_mlp.py:89",
@@ -1161,12 +1527,18 @@ def main() -> int:
                                    ("err5", "same5", "k5_s4", "k5_s1"))}
                 for r in seed_k]})
     for k in kernels:
+        if k.get("schedule") == "dag":  # the graph path's K1 launches
+            k["launches_by_path"] = {"graph_serve": k["launches"]}
+            continue
         k["launches_by_path"] = {
             "serve": launches.get(k["name"], 0),
             "layer_serve": layer["launches"] if k["name"] == "lut_lookup"
             else 0,
             "train": train["launches"].get(k["name"], 0),
             "ensemble": ens["launches"].get(k["name"], 0)}
+        if k["name"] != "lut_cascade":
+            k["launches_by_path"]["graph_serve"] = graph_launches.get(
+                k["name"], 0)
     log(f"training: {train['steps']} steps, {train['train_s']:.3f} s, "
         f"{train['steps'] / train['train_s']:.2f} steps/s; epoch "
         f"{train['epoch_s']:.3f} s, device busy share "

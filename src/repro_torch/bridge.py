@@ -15,6 +15,11 @@ here.  This module imports no jax; the keys are the reference's:
     opt:    m, v (trees like params), count; the reference's ``master``
             tree is all None for float32 params and has no counterpart
 
+A LUT graph (``LUTGraphConfig``) has the same trees per node, except
+that an arity-A node (A > 1) holds per-branch lists ``fn[a]``, ``bn[a]``
+and, in the state, ``bn[a]`` (one shared ``quant``), and its statics are
+``{"conns": [conn_0, ..., conn_{A-1}]}``.
+
 With ``seeds=S`` every leaf carries a leading seed axis S (the seed
 ensemble's stacked trees; the optimizer's ``count`` is then (S,)).
 ``params_to_numpy`` goes the other way, so a test can start both
@@ -27,8 +32,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.model import model_spec
-from repro_torch.core.nl_config import NeuraLUTConfig
+from repro_torch.core.model import model_spec, node_static_conns
+from repro_torch.core.nl_config import NeuraLUTConfig, is_graph_config
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -61,7 +66,7 @@ def _convert(spec, tree, path: str, device: torch.device,
     return torch.as_tensor(a.copy(), device=device)
 
 
-def params_from_numpy(cfg: NeuraLUTConfig, params: Dict[str, Any],
+def params_from_numpy(cfg, params: Dict[str, Any],
                       state: Dict[str, Any], *,
                       device: DeviceLike = None,
                       seeds: Optional[int] = None
@@ -77,23 +82,41 @@ def params_from_numpy(cfg: NeuraLUTConfig, params: Dict[str, Any],
             _convert(spec_s, state, "", dev, lead))
 
 
-def statics_from_numpy(cfg: NeuraLUTConfig, statics: List[Dict[str, Any]]
-                       ) -> List[Dict[str, np.ndarray]]:
-    """Reference statics -> the port's (``conn`` as int32 numpy, checked
-    against each layer's (O, F) and source width)."""
+def _check_conn(where: str, conn, shape, width: int) -> np.ndarray:
+    conn = np.asarray(conn).astype(np.int32)
+    if conn.shape != shape:
+        raise ValueError(f"{where}: conn {conn.shape} != {shape}")
+    if conn.size and (conn.min() < 0 or conn.max() >= width):
+        raise ValueError(f"{where}: conn outside [0, {width})")
+    return conn
+
+
+def statics_from_numpy(cfg, statics: List[Dict[str, Any]]
+                       ) -> List[Dict[str, Any]]:
+    """Reference statics -> the port's, as int32 numpy checked against
+    each layer's (O, F) and source width: ``{"conn"}`` per chain layer,
+    ``{"conns": [...]}`` (one per branch, over the node's concatenated
+    source pool of ``node_in_width(i)`` channels) per graph node."""
     if len(statics) != cfg.num_layers:
         raise ValueError(f"{len(statics)} statics for "
                          f"{cfg.num_layers} layers")
     out = []
+    if is_graph_config(cfg):
+        for i, (nd, st) in enumerate(zip(cfg.nodes, statics)):
+            conns = node_static_conns(st)
+            if len(conns) != nd.arity:
+                raise ValueError(f"node {i}: {len(conns)} conns for "
+                                 f"arity {nd.arity}")
+            out.append({"conns": [
+                _check_conn(f"node {i} branch {a}", c,
+                            (nd.width, nd.fan_in), cfg.node_in_width(i))
+                for a, c in enumerate(conns)]})
+        return out
     w_prev = cfg.in_features
     for i, st in enumerate(statics):
-        conn = np.asarray(st["conn"]).astype(np.int32)
         o, f = cfg.layer_widths[i], cfg.layer_fan_in(i)
-        if conn.shape != (o, f):
-            raise ValueError(f"layer {i}: conn {conn.shape} != {(o, f)}")
-        if conn.size and (conn.min() < 0 or conn.max() >= w_prev):
-            raise ValueError(f"layer {i}: conn outside [0, {w_prev})")
-        out.append({"conn": conn})
+        out.append({"conn": _check_conn(f"layer {i}", st["conn"], (o, f),
+                                        w_prev)})
         w_prev = o
     return out
 

@@ -1,1 +1,2 @@
-"""NeuraLUT chain geometries (copies of ``repro.configs.neuralut_*``)."""
+"""NeuraLUT chain geometries and PolyLUT-Add LUT graphs (copies of
+``repro.configs.neuralut_*`` and ``repro.configs.polylut_add_*``)."""

@@ -1,5 +1,5 @@
 """Execution plans for the hidden function and for the LUT cascade
-(port of ``repro.core.exec_plan``, chain geometries).
+(port of ``repro.core.exec_plan``).
 
 ``SubnetExec`` routes the hidden function:
 
@@ -32,13 +32,15 @@ tests reach them).
 
 ``CascadeExec`` routes the bit-exact LUT cascade (the serving path):
 
-  * ``fused`` — the whole chain in one launch of
+  * ``fused`` — the whole network, chain or DAG, in one launch of
                 ``kernels/lut_cascade.lut_cascade`` (K1) over the
                 bit-packed tables: the serving default.
   * ``layer`` — one ``kernels/lut_gather.lut_lookup`` (K3) per layer
                 over the unpacked int32 tables, the connected codes
                 gathered and packed into addresses in plain PyTorch
-                between them (the reference's ``layer_kernel``).
+                between them (the reference's ``layer_kernel``).  It
+                walks one buffer per layer, so a DAG schedule raises
+                ``UnsupportedTopology`` when the plan is built.
 
 Each wrapper picks the kernel or its plain version from the codes'
 device: the CUDA kernel for a CUDA tensor, the plain version
@@ -58,8 +60,10 @@ from repro_torch.core.nl_config import (NeuraLUTConfig, UnsupportedTopology,
                                         is_graph_config)
 from repro_torch.core.lut_infer import pack_index
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.lut_cascade import cascade_meta, lut_cascade
+from repro_torch.kernels.lut_cascade import (cascade_meta,
+                                             graph_cascade_meta, lut_cascade)
 from repro_torch.kernels.lut_gather import lut_lookup
+from repro_torch.kernels.ref import NodeSched, as_schedule
 
 ROUTES = ("canonical", "neuron_leading", "kernel_infer", "kernel_train")
 PURPOSES = ("train", "eval", "convert")
@@ -121,7 +125,7 @@ def plan_subnet_exec(cfg: NeuraLUTConfig, *, purpose: str,
 class LayerOperands:
     """The per-layer route's operands of one converted chain, on one
     device: ``conns[i]`` (O_i, F_i) int64 and ``tables[i]`` (O_i, T_i)
-    int32 (unpacked), T_i = 2^(in_bits_i * F_i) by the plan's
+    int32 (unpacked), T_i = 2^(in_bits_i * F_i) by the plan's chain
     ``schedule``.  The serving forward builds this once and passes it
     with every batch."""
 
@@ -133,8 +137,8 @@ class LayerOperands:
             raise ValueError(f"{len(self.conns)} conns, {len(self.tables)} "
                              f"tables and {len(schedule)} layers disagree")
         for i, (c, t, m) in enumerate(zip(self.conns, self.tables,
-                                          schedule)):
-            want = (c.shape[0], 1 << (m[0] * c.shape[1]))
+                                          as_schedule(schedule))):
+            want = (c.shape[0], 1 << (m[2] * c.shape[1]))
             if t.dtype != torch.int32 or tuple(t.shape) != want \
                     or c.dim() != 2 or c.device != t.device:
                 raise ValueError(
@@ -147,47 +151,56 @@ class LayerOperands:
 class CascadeExec:
     """Execution plan for the bit-exact LUT cascade.
 
-    ``schedule`` is ``kernels.lut_cascade.cascade_meta(cfg)``: one
-    ``(in_bits, word_bits, slot_bits, beta)`` tuple per chain layer.
+    ``schedule`` is the node schedule (``kernels.ref.NodeSched``: srcs,
+    arity, in_bits, word_bits, slot_bits, beta per node); a chain's
+    ``cascade_meta`` is taken too and normalized to its nodes.
     ``route`` is ``fused`` (K1, over ``CascadeOperands``) or ``layer``
-    (K3 per layer, over :class:`LayerOperands`).
+    (K3 per layer, over :class:`LayerOperands`, chain schedules only).
     """
-    schedule: Tuple[Tuple[int, int, int, int], ...]
+    schedule: Tuple[NodeSched, ...]
     route: str = "fused"
 
     def __post_init__(self) -> None:
         if self.route not in CASCADE_ROUTES:
             raise ValueError(f"unknown cascade route {self.route!r}; one "
                              f"of {CASCADE_ROUTES}")
-        if any(len(m) != 4 for m in self.schedule):
+        object.__setattr__(self, "schedule", as_schedule(self.schedule))
+        if not self.fused and not self.is_chain:
             raise UnsupportedTopology(
-                "the cascade plan takes a chain schedule of (in_bits, "
-                "word_bits, slot_bits, beta) layers; DAG schedules are not "
-                "ported")
+                "the per-layer route walks one buffer per layer; a DAG "
+                "schedule (several sources or adder-tree nodes) needs the "
+                "fused route")
 
     @property
     def fused(self) -> bool:
         return self.route == "fused"
 
+    @property
+    def is_chain(self) -> bool:
+        """True iff node i reads only buffer i (the node before it, or
+        the input) and has one branch."""
+        return all(srcs == (i,) and arity == 1
+                   for i, (srcs, arity, *_r) in enumerate(self.schedule))
+
     def apply(self, codes: torch.Tensor, ops) -> torch.Tensor:
         """(B, in) int32 codes -> (B, classes) int32 output codes.
-        ``ops`` is the chain's ``kernels.lut_cascade.CascadeOperands``
+        ``ops`` is the network's ``kernels.lut_cascade.CascadeOperands``
         (fused) or :class:`LayerOperands` (layer)."""
         if self.fused:
             return lut_cascade(codes, ops)
         c = codes
-        for conn, table, (in_bits, *_rest) in zip(ops.conns, ops.tables,
-                                                  self.schedule):
+        for conn, table, (_s, _a, in_bits, *_r) in zip(
+                ops.conns, ops.tables, self.schedule):
             c = lut_lookup(table, pack_index(c[:, conn], in_bits))
         return c
 
 
 def plan_cascade_exec(cfg, *, fused: bool = True) -> CascadeExec:
-    """Build the cascade plan for a chain ``cfg``: ``fused`` (K1) or, with
-    ``fused=False``, ``layer`` (K3 per layer).  A non-chain
-    ``LUTGraphConfig`` raises ``UnsupportedTopology`` here, when the plan
-    is built, for either route."""
-    if is_graph_config(cfg):
-        cfg = cfg.as_chain()  # raises UnsupportedTopology for DAGs
-    return CascadeExec(schedule=cascade_meta(cfg),
-                       route="fused" if fused else "layer")
+    """Build the cascade plan for ``cfg``: ``fused`` (K1) for a chain or
+    any ``LUTGraphConfig``, or, with ``fused=False``, ``layer`` (K3 per
+    layer), for which a non-chain graph raises ``UnsupportedTopology``
+    here, when the plan is built.  A chain graph plans exactly as its
+    chain."""
+    sched = (graph_cascade_meta(cfg) if is_graph_config(cfg)
+             else as_schedule(cascade_meta(cfg)))
+    return CascadeExec(schedule=sched, route="fused" if fused else "layer")

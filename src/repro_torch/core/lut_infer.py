@@ -1,11 +1,12 @@
 """Bit-exact LUT-network inference on integer codes (port of
-``repro.core.lut_infer``, chain geometries).
+``repro.core.lut_infer``).
 
-``lut_forward`` is the integer oracle: what the generated ROMs compute,
-and what every cascade route — the plain gather cascade of
-``kernels/ref.py`` and the CUDA kernel of ``kernels/lut_cascade.py`` —
-must equal bit for bit.  The packed-word format is the JAX package's:
-``pack_tables`` here emits the same int32 words.
+``lut_forward`` (chains) and ``graph_lut_forward`` (LUT graphs) are the
+integer oracles: what the generated ROMs compute, and what every
+cascade route — the plain gather cascade of ``kernels/ref.py`` and the
+CUDA kernel of ``kernels/lut_cascade.py`` — must equal bit for bit.
+The packed-word format is the JAX package's: ``pack_tables`` here emits
+the same int32 words.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import quant
-from repro_torch.core.nl_config import NeuraLUTConfig
+from repro_torch.core.nl_config import (LUTGraphConfig, NeuraLUTConfig,
+                                        is_graph_config)
 
 Params = Dict
 
@@ -112,18 +114,44 @@ def input_codes(cfg: NeuraLUTConfig, params: Params,
 def lut_forward(cfg: NeuraLUTConfig, tables: Sequence,
                 statics: List[Dict], codes: torch.Tensor) -> torch.Tensor:
     """codes: (B, in_features) int -> (B, classes) int32 output codes,
-    by per-layer gather over the unpacked (O, T) tables."""
+    by per-layer gather over the unpacked (O, T) tables: the chain's
+    one-branch graph through :func:`graph_lut_forward`."""
+    return graph_lut_forward(cfg.graph(), tables, statics, codes)
+
+
+def graph_lut_forward(cfg: LUTGraphConfig, tables: Sequence,
+                      statics: List[Dict], codes: torch.Tensor
+                      ) -> torch.Tensor:
+    """Per-node LUT-DAG oracle: codes (B, in_features) int -> (B,
+    classes) int32 output codes.
+
+    ``tables[i]`` is node i's per-branch table list (a bare array is
+    taken for an arity-1 node); ``statics[i]`` holds ``"conns"`` (or
+    ``"conn"``).  Each branch looks its code up in its own table over
+    the node's concatenated source pool; an adder-tree node sums the
+    branch codes, which by the shared-quantizer contract is the node's
+    (beta + log2 A)-bit output code."""
     dev = codes.device
-    c = codes.to(torch.int32)
-    for i in range(cfg.num_layers):
-        conn = torch.as_tensor(np.asarray(statics[i]["conn"]),
-                               device=dev).long()
-        addr = pack_index(c[:, conn], cfg.layer_in_bits(i))   # (B, O)
-        tbl = torch.as_tensor(np.asarray(tables[i]).astype(np.int32),
-                              device=dev)                      # (O, T)
-        rows = torch.arange(tbl.shape[0], device=dev)[None, :]
-        c = tbl[rows, addr.long()]
-    return c
+    bufs = [codes.to(torch.int32)]
+    for i, nd in enumerate(cfg.nodes):
+        srcs = cfg.node_sources(i)
+        pool = (bufs[srcs[0]] if len(srcs) == 1
+                else torch.cat([bufs[s] for s in srcs], dim=1))
+        conns = (statics[i]["conns"] if "conns" in statics[i]
+                 else [statics[i]["conn"]])
+        tbls = (tables[i] if isinstance(tables[i], (list, tuple))
+                else [tables[i]])
+        out = None
+        for a in range(nd.arity):
+            conn = torch.as_tensor(np.asarray(conns[a]), device=dev).long()
+            addr = pack_index(pool[:, conn], cfg.node_in_bits(i))  # (B, O)
+            tbl = torch.as_tensor(np.asarray(tbls[a]).astype(np.int32),
+                                  device=dev)                      # (O, T)
+            rows = torch.arange(tbl.shape[0], device=dev)[None, :]
+            c = tbl[rows, addr.long()]
+            out = c if out is None else out + c
+        bufs.append(out)
+    return bufs[-1]
 
 
 def class_values(cfg: NeuraLUTConfig, params: Params,
@@ -133,10 +161,12 @@ def class_values(cfg: NeuraLUTConfig, params: Params,
     return (out_codes.to(torch.float32) - 2 ** (cfg.beta - 1)) * s
 
 
-def predict(cfg: NeuraLUTConfig, params: Params, tables, statics,
+def predict(cfg, params: Params, tables, statics,
             x: torch.Tensor) -> torch.Tensor:
     """(B, in_features) features -> (B,) int64 class predictions through
-    the oracle cascade (ties go to the first class, as ``jnp.argmax``)."""
+    the oracle cascade, chain or graph (ties go to the first class, as
+    ``jnp.argmax``)."""
     codes = input_codes(cfg, params, x)
-    out = lut_forward(cfg, tables, statics, codes)
+    fwd = graph_lut_forward if is_graph_config(cfg) else lut_forward
+    out = fwd(cfg, tables, statics, codes)
     return torch.argmax(class_values(cfg, params, out), dim=-1)

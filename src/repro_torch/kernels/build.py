@@ -95,7 +95,7 @@ def _build(out: Path) -> str:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_lut_cascade.argtypes = [
         _I, _P, _I, _I,        # device, codes, batch, in_width
-        _I, _P, _P, _P,        # nlayers, conn ptrs, packed ptrs, geometry
+        _I, _P,                # nodes, node descriptors
         _I, _I, _P, _P]        # rows per block, code stride, out, stream
     lib.repro_lut_cascade.restype = _I
     lib.repro_lut_gather.argtypes = [

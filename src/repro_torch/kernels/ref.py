@@ -193,30 +193,80 @@ def lut_gather_ref(tables: torch.Tensor, addr: torch.Tensor) -> torch.Tensor:
 # kernels/lut_cascade.cascade_meta.
 LayerMeta = Tuple[int, int, int, int]
 
+# (srcs, arity, in_bits, word_bits, slot_bits, beta_out) of one DAG node;
+# see kernels/lut_cascade.graph_cascade_meta.  ``srcs`` are buffer
+# indices (0 = the input codes, j + 1 = node j's output), concatenated in
+# that order into the pool every branch's connectivity indexes; the
+# node's ``arity`` branches each look up a ``beta_out``-bit code and the
+# node stores their sum.  Chain layer i is the node ((i,), 1, ...).
+NodeSched = Tuple[Tuple[int, ...], int, int, int, int, int]
+
+
+def as_schedule(meta) -> Tuple[NodeSched, ...]:
+    """Chain ``LayerMeta`` 4-tuples or a node schedule -> the node
+    schedule, with plain ints (hashable)."""
+    out = []
+    for i, m in enumerate(meta):
+        if len(m) == 4:
+            out.append(((i,), 1) + tuple(int(v) for v in m))
+        elif len(m) == 6:
+            out.append((tuple(int(b) for b in m[0]),)
+                       + tuple(int(v) for v in m[1:]))
+        else:
+            raise ValueError(f"node {i}: {m!r} is neither a chain layer "
+                             "(4 fields) nor a DAG node (6 fields)")
+    return tuple(out)
+
 
 def lut_cascade_ref(codes: torch.Tensor,
-                    conns: List[torch.Tensor],
-                    packed_tables: List[torch.Tensor],
-                    meta: Sequence[LayerMeta]) -> torch.Tensor:
-    """Plain cascade over bit-packed tables, in gather form.
+                    conns: Sequence[torch.Tensor],
+                    packed_tables: Sequence[torch.Tensor],
+                    schedule) -> torch.Tensor:
+    """Plain cascade over bit-packed tables, in gather form, walking a
+    node schedule (anything :func:`as_schedule` takes; a chain is the
+    degenerate DAG).
 
-    Per layer: gather the connected codes by ``conn`` (O, F), form the
-    address with ``pack_index`` (slot 0 = MSB), load word
-    ``addr >> slot_bits`` of the neuron's packed row and shift out slot
-    ``addr & (P - 1)``.  The same function as
-    ``repro.kernels.ref.lut_cascade_packed_ref`` without its f32
-    shift-matrix product, and bit-identical to ``lut_infer.lut_forward``
-    on the unpacked tables.  Codes must lie in [0, 2^in_bits).
+    ``conns`` and ``packed_tables`` are flat in (node, branch) order.
+    Per node: concatenate the source buffers into the pool; per branch
+    gather the connected codes by ``conn`` (O, F), form the address
+    with ``pack_index`` (slot 0 = MSB), load word ``addr >> slot_bits``
+    of the neuron's packed row and shift out slot ``addr & (P - 1)``;
+    sum the branch codes.  A buffer is dropped after its last reader.
+    The same function as ``repro.kernels.ref.lut_cascade_packed_ref``
+    (its DAG walk) without its f32 shift-matrix product, and
+    bit-identical to ``lut_infer.lut_forward`` / ``graph_lut_forward``
+    on the unpacked tables.  Input codes must lie in [0, 2^in_bits).
     codes: (B, W_0) int -> (B, O_last) int32.
     """
-    c = codes.to(torch.int32)
-    for conn, packed, (in_bits, _wb, slot_bits, beta) in zip(
-            conns, packed_tables, meta):
-        o, words = packed.shape
-        addr = pack_index(c[:, conn.long()], in_bits)          # (B, O)
-        wsel = (addr >> slot_bits).clamp(max=words - 1).long()
-        slot = addr & ((1 << slot_bits) - 1)
-        rows = torch.arange(o, device=packed.device)[None, :]
-        word = packed[rows, wsel]                              # (B, O)
-        c = (word >> (beta * slot)) & ((1 << beta) - 1)
-    return c.to(torch.int32)
+    sched = as_schedule(schedule)
+    branches = sum(arity for _s, arity, *_r in sched)
+    if not len(conns) == len(packed_tables) == branches:
+        raise ValueError(f"the schedule has {branches} branches, got "
+                         f"{len(conns)} conns and {len(packed_tables)} "
+                         "tables")
+    last_use = {}
+    for n, (srcs, *_r) in enumerate(sched):
+        for s in srcs:
+            last_use[s] = n
+    bufs: List[Optional[torch.Tensor]] = [codes.to(torch.int32)]
+    k = 0
+    for n, (srcs, arity, in_bits, _wb, slot_bits, beta) in enumerate(sched):
+        pool = (bufs[srcs[0]] if len(srcs) == 1
+                else torch.cat([bufs[s] for s in srcs], dim=1))
+        out = None
+        for _a in range(arity):
+            conn, packed = conns[k], packed_tables[k]
+            k += 1
+            o, words = packed.shape
+            addr = pack_index(pool[:, conn.long()], in_bits)    # (B, O)
+            wsel = (addr >> slot_bits).clamp(max=words - 1).long()
+            slot = addr & ((1 << slot_bits) - 1)
+            rows = torch.arange(o, device=packed.device)[None, :]
+            word = packed[rows, wsel]                           # (B, O)
+            code = (word >> (beta * slot)) & ((1 << beta) - 1)
+            out = code if out is None else out + code
+        for s in set(srcs):
+            if last_use[s] == n:
+                bufs[s] = None
+        bufs.append(out)
+    return bufs[-1].to(torch.int32)

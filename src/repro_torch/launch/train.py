@@ -126,6 +126,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = parse_args(argv)
     from repro_torch.config import get_config, list_archs
+    from repro_torch.core.nl_config import is_graph_config
     if args.arch not in list_archs():
         if args.arch.startswith(("neuralut", "polylut")):
             raise NotImplementedError(
@@ -134,8 +135,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         raise NotImplementedError(
             f"--arch {args.arch}: LM archs and their trainer "
             + NOT_PORTED.format("Queue A item 7"))
-    return train_neuralut_arch(args, get_config(args.arch,
-                                                reduced=args.reduced))
+    cfg = get_config(args.arch, reduced=args.reduced)
+    if is_graph_config(cfg):
+        raise NotImplementedError(
+            f"--arch {args.arch}: training a LUT graph (per-branch "
+            "training kernels and BN state) " + NOT_PORTED.format(
+                "Queue A item 2"))
+    return train_neuralut_arch(args, cfg)
 
 
 if __name__ == "__main__":

@@ -11,11 +11,13 @@
     before the first client request.
   * The forward is ``make_forward_fn``: input codes, the cascade plan,
     class values and argmax.  The plan's route is ``fused`` (default:
-    the LUT-cascade kernel K1 over the bit-packed tables) or, with
-    ``fused=False``, ``layer`` (the per-layer lookup kernel K3 over the
-    unpacked int32 tables, five launches a batch on jsc-5l).  On the CPU
-    both run their plain versions.  A failing forward fails its batch's
-    futures with the error; nothing falls back to another route.
+    the LUT-cascade kernel K1 over the bit-packed tables, one launch a
+    batch for a chain or a LUT graph) or, with ``fused=False``, ``layer``
+    (the per-layer lookup kernel K3 over the unpacked int32 tables, five
+    launches a batch on jsc-5l; a DAG raises ``UnsupportedTopology``, as
+    in the reference).  On the CPU both run their plain versions.  A
+    failing forward fails its batch's futures with the error; nothing
+    falls back to another route.
 
 Not ported yet: replicas and routing, health eviction, chaos hooks,
 deadlines, redispatch and the kernel-to-reference degradation wrapper.
@@ -33,6 +35,7 @@ import torch
 
 from repro_torch.core import lut_infer as LI
 from repro_torch.core.exec_plan import LayerOperands, plan_cascade_exec
+from repro_torch.core.model import node_static_conns
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.lut_cascade import CascadeOperands
 from repro_torch.serve.metrics import ServeMetrics
@@ -61,10 +64,10 @@ def make_forward_fn(bundle: ServeBundle, *, fused: bool = True,
     the per-layer route the unpacked tables as int32."""
     dev = resolve_device(device)
     cfg = bundle.cfg
-    plan = plan_cascade_exec(cfg, fused=fused)
+    plan = plan_cascade_exec(cfg, fused=fused)  # layer route: chains only
     params = bundle.serve_params(dev)
-    conns = [torch.as_tensor(np.asarray(s["conn"], np.int32), device=dev)
-             for s in bundle.statics]
+    conns = [torch.as_tensor(np.asarray(c, np.int32), device=dev)
+             for s in bundle.statics for c in node_static_conns(s)]
     if plan.fused:
         bundle.prepack()
         ops = CascadeOperands(
@@ -72,8 +75,10 @@ def make_forward_fn(bundle: ServeBundle, *, fused: bool = True,
                     for p in bundle.packed_tables],
             plan.schedule, cfg.in_features)
     else:
+        # One branch per layer here: a graph table is its one-item list.
         ops = LayerOperands(conns, [
-            torch.as_tensor(np.asarray(t).astype(np.int32), device=dev)
+            torch.as_tensor(np.asarray(t[0] if isinstance(t, list) else t)
+                            .astype(np.int32), device=dev)
             for t in bundle.tables], plan.schedule)
 
     def forward(x: np.ndarray) -> torch.Tensor:

@@ -1,50 +1,71 @@
 """The deployable serving artifact, in memory (port of
 ``repro.serve.registry``: ``ServeBundle``, ``bundle_from_training``,
-``prepack``; chain geometries).
+``prepack``, ``topology``).
 
 A bundle holds what the bit-exact LUT path needs and nothing else: the
 per-layer truth tables, the connectivity (which is not re-derivable
 across processes, see ``core.layers.layer_static``) and the learned
-quantizer scales of the input encoder and the output decoder.  The
-on-disk ``TableRegistry`` is not ported yet.
+quantizer scales of the input encoder and the output decoder.  A LUT
+graph's bundle holds per-node lists of branch tables and ``{"conns":
+[...]}`` statics; its packed tables are flat in (node, branch) order,
+the kernel's operand order, as in the reference.  The on-disk
+``TableRegistry`` is not ported yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core.nl_config import NeuraLUTConfig, is_graph_config
+from repro_torch.core.nl_config import (LUTGraphConfig, NeuraLUTConfig,
+                                        is_graph_config)
 
 
 @dataclass
 class ServeBundle:
-    """In-memory form of a converted chain model.  Arrays live on the
-    host; the engine uploads them to its device once."""
+    """In-memory form of a converted model, chain or LUT graph.  Arrays
+    live on the host; the engine uploads them to its device once."""
 
-    cfg: NeuraLUTConfig
-    tables: List[np.ndarray]                 # [(O_i, T_i) uint16]
-    statics: List[Dict[str, Any]]            # [{"conn": (O_i, F_i)}]
+    cfg: Union[NeuraLUTConfig, LUTGraphConfig]
+    tables: List              # chain [(O_i, T_i) uint16]; graph per node
+    #                           [[(O_i, T_i) uint16] per branch]
+    statics: List[Dict[str, Any]]  # [{"conn"}] / [{"conns": [...]}]
     in_log_s: np.ndarray                     # (in_features,) f32
     layer_log_s: List[np.ndarray]            # [(O_i,) f32]
-    # Cascade operands, filled by prepack(): bit-packed tables and the
-    # kernel geometry (kernels/lut_cascade.cascade_meta).
-    packed_tables: Optional[List[np.ndarray]] = None  # [(O_i, T_i/P) i32]
+    # Cascade operands, filled by prepack(): bit-packed tables, flat in
+    # (node, branch) order, and the kernel geometry
+    # (kernels/lut_cascade.cascade_meta / graph_cascade_meta).
+    packed_tables: Optional[List[np.ndarray]] = None  # [(O, T/P) int32]
     cascade_geom: Optional[tuple] = None
 
     def prepack(self) -> "ServeBundle":
-        """Bit-pack every layer's table and derive the cascade geometry;
+        """Bit-pack every table and derive the cascade geometry;
         idempotent, returns self.  Bundles built from
         ``truth_table.convert_packed`` arrive packed already."""
         from repro_torch.kernels.lut_cascade import (cascade_meta,
-                                                     cascade_tables)
+                                                     cascade_tables,
+                                                     graph_cascade_meta,
+                                                     graph_cascade_tables)
+        graph = is_graph_config(self.cfg)
         if self.packed_tables is None:
-            self.packed_tables = cascade_tables(self.cfg, self.tables)
+            self.packed_tables = (graph_cascade_tables if graph
+                                  else cascade_tables)(self.cfg, self.tables)
         if self.cascade_geom is None:
-            self.cascade_geom = cascade_meta(self.cfg)
+            self.cascade_geom = (graph_cascade_meta if graph
+                                 else cascade_meta)(self.cfg)
         return self
+
+    @property
+    def topology(self) -> tuple:
+        """Structural descriptor of the LUT network: ``("chain",
+        layer_widths)`` for a chain, ``("dag", per-node (name, width,
+        fan_in, inputs, arity))`` for a graph, as the reference's."""
+        if not is_graph_config(self.cfg):
+            return ("chain", tuple(self.cfg.layer_widths))
+        return ("dag", tuple((n.name, n.width, n.fan_in, tuple(n.inputs),
+                              n.arity) for n in self.cfg.nodes))
 
     def serve_params(self, device: torch.device) -> Dict[str, Any]:
         """The params subset ``core.lut_infer`` (input_codes /
@@ -61,26 +82,37 @@ def _host(a) -> np.ndarray:
         else np.asarray(a)
 
 
-def bundle_from_training(cfg: NeuraLUTConfig, params: Dict, tables: List,
+def _host_tree(v):
+    """Arrays (and lists of them, as a node's branches) on the host."""
+    if isinstance(v, (list, tuple)):
+        return [_host(a) for a in v]
+    return _host(v)
+
+
+def bundle_from_training(cfg, params: Dict, tables: List,
                          statics: List[Dict], *,
                          packed_tables: Optional[List] = None
                          ) -> ServeBundle:
     """Extract the deployable subset of a (params, tables, statics)
-    triple.  Pass the packed tables of ``truth_table.convert_packed``
-    and the bundle is serving-ready on the spot."""
+    triple, chain or LUT graph (per-node table lists from
+    ``truth_table.convert_graph``).  Pass the packed tables of
+    ``truth_table.convert_packed`` (per-node lists for a graph) and the
+    bundle is serving-ready on the spot."""
     if is_graph_config(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: LUT-graph (DAG) bundles are not ported")
+        tables = [node if isinstance(node, (list, tuple)) else [node]
+                  for node in tables]
     bundle = ServeBundle(
         cfg=cfg,
-        tables=[_host(t) for t in tables],
-        statics=[{k: _host(v) for k, v in s.items()} for s in statics],
+        tables=[_host_tree(t) for t in tables],
+        statics=[{k: _host_tree(v) for k, v in s.items()} for s in statics],
         in_log_s=_host(params["in_quant"]["log_s"]).astype(np.float32),
         layer_log_s=[_host(lp["quant"]["log_s"]).astype(np.float32)
                      for lp in params["layers"]],
     )
     if packed_tables is not None:
-        bundle.packed_tables = [_host(p).astype(np.int32)
-                                for p in packed_tables]
+        flat = [p for node in packed_tables
+                for p in (node if isinstance(node, (list, tuple))
+                          else [node])]
+        bundle.packed_tables = [_host(p).astype(np.int32) for p in flat]
         bundle.prepack()  # fills only cascade_geom
     return bundle

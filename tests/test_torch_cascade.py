@@ -20,6 +20,7 @@ from repro_torch.core.nl_config import (INPUT, LUTGraphConfig, LUTNodeSpec,
                                         UnsupportedTopology)
 from repro_torch.kernels.lut_cascade import (CascadeOperands, cascade_meta,
                                              cascade_tables, lut_cascade)
+from repro_torch.kernels.ref import as_schedule
 
 # Small shapes: one intra-op thread keeps these tests from loading the
 # CPU that the other test workers share.
@@ -131,12 +132,20 @@ def test_cascade_meta_and_geometry_checks():
 
 
 def test_non_chain_graph_raises_at_plan_time():
+    """A DAG plans on the fused route (K1 walks its node schedule) and
+    raises ``UnsupportedTopology`` on the per-layer route when the plan
+    is built; a chain written as a graph plans exactly as its chain."""
     _, pcfg = _cfgs("neuralut_jsc_2l", "reduced")
     dag = LUTGraphConfig(
         name="dag", in_features=16, num_classes=5, beta=3,
         nodes=(LUTNodeSpec("a", 8, 2, (INPUT,), 2),
                LUTNodeSpec("out", 5, 2, ("a",))))
+    fused = plan_cascade_exec(dag)
+    assert fused.fused and not fused.is_chain
+    assert fused.schedule == (((0,), 2, 3, 3, 3, 3), ((1,), 1, 4, 5, 3, 3))
     with pytest.raises(UnsupportedTopology):
-        plan_cascade_exec(dag)
-    chain = plan_cascade_exec(pcfg.graph())
-    assert chain.schedule == cascade_meta(pcfg)
+        plan_cascade_exec(dag, fused=False)
+    for fu in (True, False):
+        chain = plan_cascade_exec(pcfg.graph(), fused=fu)
+        assert chain == plan_cascade_exec(pcfg, fused=fu) and chain.is_chain
+        assert chain.schedule == as_schedule(cascade_meta(pcfg))
