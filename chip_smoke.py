@@ -18,7 +18,11 @@ then drives the port's paths at full width:
   grouped sub-network through the training forward and backward
   kernels, then conversion, bundle and engine as above; plus the first
   step's gradients against the plain autograd route, a bit-identical
-  rerun of ten steps, and the device's busy share of an epoch;
+  rerun of ten steps, and the device's busy share of an epoch; before
+  it the training kernels beyond the training batch (B 1 / 37 / 256 /
+  1000 x O 1 / 5 / 128 x S 1 / 3 on six sub-network geometries, two of
+  them deep enough to take every fallback of the launch plan; reruns
+  and seed-axis members bit for bit);
 * the seed ensemble: ``train_neuralut_ensemble`` of 4 seeds, one
   seed-axis launch of each training kernel per layer per step, the
   best member converted and served; the seed-axis kernels against
@@ -38,6 +42,11 @@ there is no CPU fallback.  Output, one line per finding, then:
     {"kernels": [...]}         per kernel: launches on the main path,
                                max error, kernel / plain / bound ms
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
+
+A narrower run for working on the training kernels:
+
+    python3 chip_smoke.py --turns PARENT    their device ms in turns with
+                                            the checkout at PARENT
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -122,6 +131,26 @@ def device_ms(fn, reps: int, kernel=""):
     us = sum(e.self_device_time_total for e in prof.key_averages()
              if any(k in e.key for k in names))
     return us / reps / 1e3 if us > 0 else None
+
+
+def kernels_per_call(fn, reps: int = 5) -> float:
+    """Device activities (kernels, memsets, copies) per call of ``fn``,
+    whatever their names, from ``torch.profiler`` traces of ``reps``
+    calls: the larger of two traces (a trace now and then misses some)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _ in "ab":
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        counts.append(sum(e.device_type == DeviceType.CUDA
+                          for e in prof.events()) / reps)
+    return max(counts)
 
 
 def timings(kern, plain, kernel: str, reps: int, plain_reps: int):
@@ -249,12 +278,18 @@ def _close(got, want, rtol, atol) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
+def widths_of(cfg, i):
+    """Layer i's sub-network widths: F, N, ..., N, 1."""
+    return [cfg.layer_fan_in(i)] + [cfg.width] * (cfg.depth - 1) + [1]
+
+
 def phase_train_kernels(cfg, dev):
     """K4 and K5 against their plain versions (and K5 against torch
     autograd of the plain grouped sub-network) at every jsc-5l layer's
     training shape; K5 rerun bit for bit."""
     import torch
-    from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
+    from repro_torch.kernels.neuralut_grad import (plan_train_launch,
+                                                   subnet_train_bwd,
                                                    subnet_train_fwd)
     from repro_torch.kernels.neuralut_mlp import pack_subnet_weights
     from repro_torch.kernels.ref import (grouped_subnet_ref,
@@ -318,31 +353,38 @@ def phase_train_kernels(cfg, dev):
         bwd_flops = 2.0 * fwd_flops
         bwd_bytes = 4.0 * (g.numel() + 2 * xg.numel()) + abytes + 2 * wbytes
 
-        tm4 = timings(lambda: subnet_train_fwd(xg, lw, lb, sw, sb, skip=S,
-                                               wpack=wpack),
+        # device time of every kernel a wrapper call launches, by no
+        # name: each must launch one (K5 sums its row tiles on chip)
+        k4_call = lambda: subnet_train_fwd(xg, lw, lb, sw, sb, skip=S,
+                                           wpack=wpack)
+        k5_call = lambda: subnet_train_bwd(g, xg, acts, lw, lb, sw, sb,
+                                           skip=S, wpack=wpack)
+        tm4 = timings(k4_call,
                       lambda: subnet_train_fwd_ref(xg, lw, lb, sw, sb,
-                                                   skip=S),
-                      "subnet_train_fwd_kernel", 20, 5)
-        tm5 = timings(lambda: subnet_train_bwd(g, xg, acts, lw, lb, sw, sb,
-                                               skip=S, wpack=wpack),
+                                                   skip=S), "", 20, 5)
+        tm5 = timings(k5_call,
                       lambda: subnet_train_bwd_ref(g, xg, r_acts, lw, sw,
-                                                   skip=S),
-                      ("subnet_train_bwd_kernel", "sum_tiles_kernel"),
-                      20, 5)
-        for rows, name, err, tm, nbytes, flops in (
-                (fwd_rows, "K4", e4, tm4, fwd_bytes, fwd_flops),
-                (bwd_rows, "K5", max(e5, e5a), tm5, bwd_bytes, bwd_flops)):
+                                                   skip=S), "", 20, 5)
+        plan = plan_train_launch(1, TRAIN_B, o, widths_of(cfg, i), S)
+        for rows, name, err, tm, nbytes, flops, call in (
+                (fwd_rows, "K4", e4, tm4, fwd_bytes, fwd_flops, k4_call),
+                (bwd_rows, "K5", max(e5, e5a), tm5, bwd_bytes, bwd_flops,
+                 k5_call)):
             bms, by = bound_ms(nbytes, flops)
+            per_call = kernels_per_call(call)
+            require(per_call == 1, f"{name} layer {i}: {per_call} device "
+                    "activities per wrapper call, want 1")
             rows.append(dict(err=err, bound_ms=bms, by=by, flops=flops,
-                             bytes=nbytes, **tm))
+                             bytes=nbytes, kernels_per_call=per_call,
+                             plan=plan._asdict(), **tm))
             log(f"{name} layer {i}: B={TRAIN_B} O={o} F={f} max_abs_err="
                 f"{err:.3e} kernel {tm['ms']:.4f} ms (call "
                 f"{tm['call_ms']:.4f}) plain {tm['plain_ms']:.4f} ms (call "
                 f"{tm['plain_call_ms']:.4f}) [{tm['timing']}] bound "
                 f"{bms:.5f} ms ({by}; {nbytes / 1e6:.3f} MB, "
-                f"{flops / 1e9:.4f} GFLOP)")
+                f"{flops / 1e9:.4f} GFLOP); {per_call:g} kernel per call")
         log(f"K5 layer {i}: max err vs plain {e5:.3e}, vs autograd "
-            f"{e5a:.3e}; rerun bit-identical")
+            f"{e5a:.3e}; rerun bit-identical; plan {plan}")
     return fwd_rows, bwd_rows
 
 
@@ -1230,19 +1272,15 @@ def phase_seed_kernels(cfg, dev):
             # time): the larger of two traces
             runs = [device_ms(fn, reps, kernel) for _ in "ab"]
             return max((r for r in runs if r), default=None)
-        ms = {
+        ms = {   # every kernel of the call, by no name
             "k4_s4": trace_ms(lambda: subnet_train_fwd(
-                xg, lw, lb, sw, sb, skip=sk, wpack=wpack), 20,
-                "subnet_train_fwd_kernel"),
+                xg, lw, lb, sw, sb, skip=sk, wpack=wpack), 20, ""),
             "k4_s1": trace_ms(lambda: subnet_train_fwd(
-                xg[0], *one, skip=sk, wpack=wpack[0]), 20,
-                "subnet_train_fwd_kernel"),
+                xg[0], *one, skip=sk, wpack=wpack[0]), 20, ""),
             "k5_s4": trace_ms(lambda: subnet_train_bwd(
-                g, xg, acts, lw, lb, sw, sb, skip=sk, wpack=wpack), 20,
-                ("subnet_train_bwd_kernel", "sum_tiles_kernel")),
+                g, xg, acts, lw, lb, sw, sb, skip=sk, wpack=wpack), 20, ""),
             "k5_s1": trace_ms(lambda: subnet_train_bwd(
-                g[0], xg[0], a1, *one, skip=sk, wpack=wpack[0]), 20,
-                ("subnet_train_bwd_kernel", "sum_tiles_kernel"))}
+                g[0], xg[0], a1, *one, skip=sk, wpack=wpack[0]), 20, "")}
         out_rows.append(dict(err4=e4, err5=e5, same4=same4, same5=same5,
                              **ms))
         log(f"seed axis layer {i} (O={o}, F={f}, S={ns}, B={TRAIN_B}): K4 "
@@ -1253,6 +1291,150 @@ def phase_seed_kernels(cfg, dev):
             + ", ".join(f"{k} {v or float('nan'):.4f} ms"
                         for k, v in ms.items()))
     return out_rows
+
+
+TRAIN_SHAPE_B = (1, 37, 256, 1000)
+TRAIN_SHAPE_O = (1, 5, 128)
+TRAIN_SHAPE_S = (1, 3)
+# (name, F, depth, width, skip, exact): jsc-5l's sub-network, the same
+# without skips, neuralut-hdr-5l's fan-in, the widest width the kernels
+# take, and two deep width-32 geometries whose blocks do not fit in
+# shared memory at the preferred tiles: depth 10 (K5: one neuron, its
+# packed row spread from global memory) and depth 16 (both kernels so,
+# and K5's block sums in global scratch).  exact: K5 is held against the
+# plain backward in float64 on the kernel's own activations (the same
+# ReLU masks) instead of the float32 plain version and autograd: at
+# depth 16 and B = 1000 the float32 plain version is itself further from
+# the exact gradient than K5's tolerance.
+TRAIN_GEOMETRIES = (("jsc-5l", 3, 4, 16, 2, False),
+                    ("skip 0", 3, 4, 16, 0, False),
+                    ("F=6", 6, 4, 16, 2, False),
+                    ("width 32", 3, 4, 32, 2, False),
+                    ("depth 10", 32, 10, 32, 1, True),
+                    ("depth 16", 32, 16, 32, 1, True))
+
+
+def _flat_grads(r):
+    return [r[0]] + [a for grp in r[1:] for a in grp]
+
+
+def phase_train_shapes(dev):
+    """K4 and K5 beyond the training batch: every B x O x S of
+    TRAIN_SHAPE_* for each of TRAIN_GEOMETRIES (ragged rows and neurons,
+    one row, several row tiles per cluster rank) against the plain
+    versions, K5 also against torch autograd of the plain grouped
+    sub-network; a rerun bit for bit, and every seed of a seed-axis
+    launch bit for bit against a single-seed launch on its operands."""
+    import torch
+    from repro_torch.kernels.neuralut_grad import (ACC_GLOBAL, STAGED,
+                                                   plan_train_launch,
+                                                   subnet_train_bwd,
+                                                   subnet_train_fwd)
+    from repro_torch.kernels.neuralut_mlp import pack_subnet_weights
+    from repro_torch.kernels.ref import (grouped_subnet_ref,
+                                         subnet_train_bwd_ref,
+                                         subnet_train_fwd_ref)
+    gen = torch.Generator().manual_seed(23)
+    e4max = e5max = 0.0
+    cases, plans = 0, []
+    for name, f, depth, width, sk, exact in TRAIN_GEOMETRIES:
+        for o in TRAIN_SHAPE_O:
+            for b in TRAIN_SHAPE_B:
+                for ns in TRAIN_SHAPE_S:
+                    where = f"{name} B={b} O={o} S={ns}"
+                    lw, lb, sw, sb = _weights(_stacked_subnet(
+                        gen, ns, o, f, depth, width, sk, dev))
+                    xg = torch.randn((ns, b, o, f), generator=gen).to(dev)
+                    g = torch.randn((ns, b, o), generator=gen).to(dev)
+                    wpack = pack_subnet_weights(lw, lb, sw, sb)
+                    try:
+                        out, acts = subnet_train_fwd(xg, lw, lb, sw, sb,
+                                                     skip=sk, wpack=wpack)
+                        grads = _flat_grads(subnet_train_bwd(
+                            g, xg, acts, lw, lb, sw, sb, skip=sk,
+                            wpack=wpack))
+                        r_out, r_acts = subnet_train_fwd_ref(
+                            xg, lw, lb, sw, sb, skip=sk)
+                        if exact:
+                            r_grads = _flat_grads(subnet_train_bwd_ref(
+                                *[[a.double() for a in grp] if isinstance(
+                                    grp, list) else grp.double()
+                                  for grp in (g, xg, acts, lw, sw)],
+                                skip=sk))
+                        else:
+                            r_grads = _flat_grads(subnet_train_bwd_ref(
+                                g, xg, r_acts, lw, sw, skip=sk))
+                        e4 = max([_close(out, r_out, K4_RTOL, K4_ATOL)]
+                                 + [_close(a, r, K4_RTOL, K4_ATOL)
+                                    for a, r in zip(acts, r_acts)])
+                        e5 = max(_close(a, r, K5_RTOL, K5_ATOL)
+                                 for a, r in zip(grads, r_grads))
+                        out2, acts2 = subnet_train_fwd(
+                            xg, lw, lb, sw, sb, skip=sk, wpack=wpack)
+                        grads2 = _flat_grads(subnet_train_bwd(
+                            g, xg, acts, lw, lb, sw, sb, skip=sk,
+                            wpack=wpack))
+                        require(torch.equal(out, out2) and all(
+                            torch.equal(a, c) for a, c in zip(acts, acts2)),
+                            "K4 rerun differs")
+                        require(all(torch.equal(a, c)
+                                    for a, c in zip(grads, grads2)),
+                                "K5 rerun differs")
+                        for s in range(ns):
+                            one = [[a[s] for a in grp]
+                                   for grp in (lw, lb, sw, sb)]
+                            o1, a1 = subnet_train_fwd(
+                                xg[s], *one, skip=sk, wpack=wpack[s])
+                            g1 = _flat_grads(subnet_train_bwd(
+                                g[s], xg[s], a1, *one, skip=sk,
+                                wpack=wpack[s]))
+                            require(torch.equal(out[s], o1) and all(
+                                torch.equal(a[s], c)
+                                for a, c in zip(acts, a1)),
+                                f"K4 seed {s} differs from its single-seed "
+                                "launch")
+                            require(all(torch.equal(a[s], c)
+                                        for a, c in zip(grads, g1)),
+                                    f"K5 seed {s} differs from its "
+                                    "single-seed launch")
+                            if exact:
+                                continue
+                            req = [a.detach().clone().requires_grad_(True)
+                                   for a in [xg[s]] + [x for grp in one
+                                                       for x in grp]]
+                            nl, nch = len(lw), len(sw)
+                            y = grouped_subnet_ref(
+                                req[0], req[1:1 + nl], req[1 + nl:1 + 2 * nl],
+                                req[1 + 2 * nl:1 + 2 * nl + nch],
+                                req[1 + 2 * nl + nch:], skip=sk)
+                            auto = torch.autograd.grad(y, req,
+                                                       grad_outputs=g[s])
+                            e5 = max([e5] + [_close(a, c, K5_RTOL, K5_ATOL)
+                                             for a, c in zip(g1, auto)])
+                        torch.cuda.synchronize()
+                    except RuntimeError as err:
+                        raise RuntimeError(f"{where}: {err}") from err
+                    e4max, e5max = max(e4max, e4), max(e5max, e5)
+                    cases += 1
+        plan = plan_train_launch(max(TRAIN_SHAPE_S), max(TRAIN_SHAPE_B),
+                                 max(TRAIN_SHAPE_O),
+                                 [f] + [width] * (depth - 1) + [1], sk)
+        plans.append(plan)
+        log(f"train shapes {name} (F={f}, depth {depth}, width {width}, "
+            f"skip {sk}): B {TRAIN_SHAPE_B} x O {TRAIN_SHAPE_O} x S "
+            f"{TRAIN_SHAPE_S} within tolerance (K5 against "
+            f"{'the float64 plain version' if exact else 'plain and autograd'}"
+            f"), reruns and seed members bit-identical; plan at B=1000, "
+            f"O=128, S=3: {plan}")
+    taken = {("K4", p.fwd_group, p.fwd_flags) for p in plans} | {
+        ("K5", p.bwd_group, p.bwd_flags) for p in plans}
+    want = {("K4", 4, STAGED), ("K4", 1, 0), ("K5", 2, STAGED),
+            ("K5", 1, 0), ("K5", 1, ACC_GLOBAL)}
+    require(want <= taken, f"the geometries took the plans {taken}, not "
+            f"every one of {want}")
+    log(f"train shapes: {cases} cases, K4 max err {e4max:.3e}, K5 max err "
+        f"{e5max:.3e}")
+    return dict(cases=cases, err4=e4max, err5=e5max)
 
 
 def phase_ensemble_path(cfg, dev):
@@ -1381,8 +1563,7 @@ def phase_ensemble_path(cfg, dev):
               if e.self_device_time_total > 0]
         busy = sum(u for u, _ in ev) / 1e6
         k4 = sum(u for u, k in ev if "subnet_train_fwd_kernel" in k)
-        k5 = sum(u for u, k in ev if "subnet_train_bwd_kernel" in k
-                 or "sum_tiles_kernel" in k)
+        k5 = sum(u for u, k in ev if "subnet_train_bwd_kernel" in k)
         by_s[n] = dict(
             steps_s=steps_per_epoch / wall, epoch_s=wall,
             epoch_s_each=walls[n], busy_share=busy / wall,
@@ -1402,6 +1583,55 @@ def phase_ensemble_path(cfg, dev):
                 best=best, acc_q=final_q.tolist(), by_s=by_s)
 
 
+TURN_CHILD = """
+import json, sys
+root = sys.argv[1]
+sys.path[:0] = [root, root + "/src"]
+import torch
+import chip_smoke as cs
+from repro_torch.config import get_config
+cs.phase_environment()
+cs.phase_build()
+cfg, dev = get_config("neuralut-jsc-5l"), torch.device("cuda")
+k4, k5 = cs.phase_train_kernels(cfg, dev)
+seed = cs.phase_seed_kernels(cfg, dev)
+print("TURN " + json.dumps(dict(
+    k4_s1=[r["ms"] for r in k4], k5_s1=[r["ms"] for r in k5],
+    k4_s4=[r["k4_s4"] for r in seed], k5_s4=[r["k5_s4"] for r in seed])))
+"""
+
+
+def turns_main(parent: str) -> int:
+    """``--turns PARENT``: the training kernels of the checkout at
+    ``PARENT`` (an unpacked ``git archive`` of the parent commit) and of
+    this one, in turns (parent, this, this, parent), one process each, on
+    one card: device ms of K4 and K5 at every jsc-5l training shape, B =
+    TRAIN_B, S = 1 and S = 4 (``phase_train_kernels``,
+    ``phase_seed_kernels`` of each checkout)."""
+    card = phase_environment()
+    parent = str(Path(parent).resolve())
+    turns = []
+    for name, root in (("parent", parent), ("this", str(ROOT)),
+                       ("this", str(ROOT)), ("parent", parent)):
+        run = subprocess.run([sys.executable, "-c", TURN_CHILD, root],
+                             capture_output=True, text=True, cwd=root,
+                             timeout=900)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / f"turn{len(turns) + 1}_{name}.log").write_text(
+            run.stdout + run.stderr)
+        line = [x for x in run.stdout.splitlines() if x.startswith("TURN ")]
+        require(run.returncode == 0 and line,
+                f"{name} turn failed: {run.stdout[-2000:]}{run.stderr[-2000:]}")
+        turns.append(dict(checkout=name, **json.loads(line[-1][5:])))
+        log(f"turn {len(turns)} ({name}): " + "; ".join(
+            f"{k} " + " / ".join(f"{v:.4f}" if v else "nan" for v in vs)
+            for k, vs in turns[-1].items() if k != "checkout"))
+    log(card)
+    print(json.dumps({"turns": turns, "card": card}))
+    return 0
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
@@ -1413,6 +1643,8 @@ def main() -> int:
               "needs one CUDA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    if sys.argv[1:2] == ["--turns"] and len(sys.argv) == 3:
+        return turns_main(sys.argv[2])
     from repro_torch.config import get_config
     dev = torch.device("cuda")
     cfg = get_config("neuralut-jsc-5l")
@@ -1427,6 +1659,7 @@ def main() -> int:
     layer = phase_layer_serving(cfg, dev, served)
     graph_launches, graph = phase_graph_serving(dev)
     k4, k5 = phase_train_kernels(cfg, dev)
+    shapes = phase_train_shapes(dev)
     train = phase_train_path(cfg, dev)
     seed_k = phase_seed_kernels(cfg, dev)
     ens = phase_ensemble_path(cfg, dev)
@@ -1495,20 +1728,18 @@ def main() -> int:
         "timing": k3_head[0]["timing"],
         "shape": f"sum of the 5 jsc-5l layers at B={HEADLINE_B}",
         "by_layer_batch": {f"{i}/{b}": r for (i, b), r in k3.items()}})
-    from repro_torch.kernels.neuralut_grad import BWD_ROWS
-    # K5's wrapper counts calls; each call runs its row-tile kernel and,
-    # when B > BWD_ROWS, the fixed-order sum of the tiles after it.
-    for name, src, line, rows, per_call in (
+    # kernels per launch: device activities per wrapper call, counted in
+    # phase_train_kernels's traces (required to be 1)
+    for name, src, line, rows in (
             ("subnet_train_fwd", "neuralut_grad.cu",
-             "src/repro/kernels/neuralut_grad.py:148", k4, 1),
+             "src/repro/kernels/neuralut_grad.py:148", k4),
             ("subnet_train_bwd", "neuralut_grad.cu",
-             "src/repro/kernels/neuralut_grad.py:261", k5,
-             1 + (TRAIN_B > BWD_ROWS))):
+             "src/repro/kernels/neuralut_grad.py:261", k5)):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}", "replaces": line,
             "launches": train["launches"][name],
-            "kernels_per_launch": per_call,
+            "kernels_per_launch": max(r["kernels_per_call"] for r in rows),
             "max_abs_err": max(r["err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -1525,7 +1756,8 @@ def main() -> int:
                 {k: r[k] for k in (("err4", "same4", "k4_s4", "k4_s1")
                                    if name.endswith("fwd") else
                                    ("err5", "same5", "k5_s4", "k5_s1"))}
-                for r in seed_k]})
+                for r in seed_k],
+            "shapes": shapes})
     for k in kernels:
         if k.get("schedule") == "dag":  # the graph path's K1 launches
             k["launches_by_path"] = {"graph_serve": k["launches"]}

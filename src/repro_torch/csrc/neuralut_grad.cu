@@ -14,422 +14,802 @@
 // twice the forward's arithmetic.  22 MB over 3.35 TB/s is ~6.6 us,
 // against ~2.2 us (forward) and ~4.4 us (backward) of fp32 work at
 // 67 TFLOP/s.  The widths (F <= 6, N <= 32) are far below a tensor-core
-// tile, and TF32 would break the fp32 contract of training parity.
+// tile, and TF32 would break the fp32 contract of training parity.  At
+// these sizes a launch holds ~8 warps per SM, so what a kernel pays is
+// the latency of one warp's walk and the instructions around it.
 //
-// Design (simple and deterministic first; no wgmma, no TMA):
-//  * K4 is the inference kernel (neuralut_mlp.cu) plus stores: one
-//    thread per (row, neuron), the neuron's ~700 weights in shared
-//    memory read as a broadcast, the hidden state in registers.  It
-//    stores the post-ReLU input of sub-layers 1 .. L-1 to `acts`, one
-//    (T, O, n_i) block per sub-layer: the reference's layout, so the
-//    wrapper hands out views of one buffer.  Stores are per thread
-//    contiguous (n_i floats, whole 32-byte sectors at n_i = 16).
-//  * K5 gives each block one neuron and a tile of ROWS rows.  Each
-//    thread walks its row's cotangent back through the layers in
-//    registers, reloading that row's saved activations, and writes dx.
-//    For every dense layer the block stages its rows' inputs and
-//    cotangents in shared memory and reduces them over the rows in a
-//    fixed order (row 0, 1, ..., ROWS-1) into one partial gradient per
-//    row tile.  A second small kernel sums the partials over the tiles
-//    in a fixed order.  No atomics anywhere, so a rerun on the same
-//    inputs is bit-identical.
+// Design.  A block holds G consecutive neurons and a tile of R = 32 rows;
+// warp k of the block owns neuron k and lane r row r, and a warp waits
+// for no other warp after the block's start (in K5, until the cluster's
+// reduction):
+//  * each warp copies its neuron's packed weights 16 bytes at a time
+//    (cp.async) and spreads them into its own shared-memory row, every
+//    output row padded to a multiple of 4 floats (zeros) and the bias as
+//    the row after the weights, so a thread's walk through the MLP reads
+//    each weight as a 16-byte broadcast that feeds 4 multiply-adds;
+//  * K4 stages each saved sub-layer input in the warp's shared tile and
+//    stores it row by row (n_i contiguous floats of the (S, T, O, n_i)
+//    layout per row, several rows per instruction);
+//  * K5 copies the tile's input and saved activations of its neuron once
+//    (cp.async) into shared memory, beside a column of ones, and keeps
+//    them there for the tile's whole backward walk.  A sub-layer's weight
+//    gradient is then a^T . gm over the warp's 32 rows, register-tiled:
+//    lane (p, q) owns input rows p, p + P, ... (the row of ones gives the
+//    bias) x 4 outputs q..q+3, and per row reads one 16-byte gm vector
+//    and one a value per input row, summing rows in order;
+//  * the row tiles of a neuron group are one thread-block cluster of C
+//    <= 8 blocks (rank = blockIdx.y).  Rank c walks row tiles c, c + C,
+//    c + 2C, ... in order, adding each tile's gradient into its own
+//    shared-memory sum; then every rank sums its share of the gradient
+//    elements over the ranks 0, 1, ..., C-1 through distributed shared
+//    memory and writes it.  One launch per call, no atomics, and the
+//    order of every sum depends only on (T, R, C) and the widths, never
+//    on S, G or scheduling: a rerun is bit-identical, and member s of a
+//    seed-axis launch is bit-identical to a single-seed launch on its
+//    operands;
+//  * one walk serves every geometry: skip chunks of `skip` layers, or
+//    chunks of one layer without a skip sub-layer when skip = 0, so the
+//    unrolled multiply-add code is emitted once per kernel;
+//  * the launch plan (train_plan.h) is made on the host per launch: the
+//    geometry (widths, offsets), which each block copies into shared
+//    memory, and G, the cluster and shared memory.  Activation offsets
+//    are computed from (S, T, O, width prefix sums), so nothing is
+//    indexed at run time outside shared memory (no stack frame).  Where
+//    a block would not fit in shared memory (deep width-32 geometries),
+//    the plan takes one neuron per block, spreads the packed row straight
+//    from global memory, and at last keeps K5's block sum in a slice of
+//    global scratch that the cluster sums the same way;
 //  * ReLU masks are recovered from the saved post-ReLU values (a > 0),
 //    so the gradient at 0 is 0, as in the reference.
-//  * Ragged edges are masked: rows past T load zeros and store nothing,
-//    so B and O need not divide any tile (the Pallas kernel requires
-//    it).
+//  * Ragged edges are masked: rows past T and neurons past O are never
+//    loaded or stored, so B and O need not divide any tile.
 //  * Gradients come out leaf-major: leaf k (layer w, layer b, ..., skip
 //    w, skip b, in the packing order) of neuron o, element e, lives at
 //    O * off_k + o * size_k + e, where off_k is the leaf's offset in a
 //    packed weight row; the wrapper views each leaf as its own tensor.
-//  * A leading seed axis S (the seed ensemble, one network per seed)
-//    is gridDim.z: every tensor carries S as its outermost dimension,
-//    and block (o, tile, s) works on seed s's rows, weights and
-//    gradients.  The kernels treat (s, o) as one of S * O neurons: row
-//    (s, t, o) is element (s * T + t) * O + o of the (S, T, O) arrays,
-//    the packed weights of (s, o) are row s * O + o, a gradient leaf is
-//    an (S, O, ...) block, and the tile partials and their fixed-order
-//    sum see S * O neurons.  So the sum stays per seed and in order, and
-//    S = 1 is the single-network launch.
+//  * A leading seed axis S (the seed ensemble) is gridDim.z: the kernels
+//    treat (s, o) as one of S * O neurons (row (s, t, o) is element
+//    (s * T + t) * O + o of the (S, T, O) arrays, the packed weights of
+//    (s, o) are row s * O + o, a gradient leaf is an (S, O, ...) block),
+//    and a block group never spans two seeds.
+#include <cooperative_groups.h>
+
 #include "subnet_geom.cuh"
+#include "train_plan.h"
 
-#define REPRO_TRAIN_FWD_THREADS 128
-#define REPRO_SUM_THREADS 256
+namespace cg = cooperative_groups;
 
-struct ActGeom {
-  long long off[REPRO_MAX_DEPTH];   // act i (i >= 1) at off[i], (S, T, O, n_i)
+__device__ __forceinline__ const int* sub_rec(const int* g, int u) {
+  return g + GH_WORDS + u * SU_WORDS;
+}
+__device__ __forceinline__ const int* act_rec(const int* g, int i) {
+  return g + g[GH_ACT] + i * AC_WORDS;
+}
+
+// The used part of the geometry into shared memory.
+__device__ __forceinline__ void copy_geom(const TrainGeom& geom, int* sg) {
+  const int used = geom.w[GH_USED];
+  for (int k = threadIdx.x; k < used; k += blockDim.x) sg[k] = geom.w[k];
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+// Wait for this thread's cp.async copies.
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+}
+
+// x / d for 0 <= x < 2^16 and 1 <= d <= 2^11 from d's divisor m =
+// ceil(2^32 / d) (0 for d = 1), made on the host (udiv_magic): one
+// multiply instead of a division.
+__device__ __forceinline__ int udiv(int x, int m) {
+  return m ? (int)__umulhi((unsigned)x, (unsigned)m) : x;
+}
+
+// Rows of n <= 32 contiguous floats, moved by one warp: lane (dr, j)
+// takes row r0 + dr of 32 / n rows per step, column j.  m: n's divisor.
+struct RowLanes {
+  int rpi, dr, j;
+  __device__ __forceinline__ RowLanes(int n, int m) {
+    const int lane = threadIdx.x & 31;
+    rpi = udiv(32, m);
+    dr = udiv(lane, m);
+    j = lane - dr * n;
+  }
+  __device__ __forceinline__ bool on(int r0, int rows) const {
+    return dr < rpi && r0 + dr < rows;
+  }
 };
 
-template <int NMAX>
-__device__ __forceinline__ void save_act(float* __restrict__ acts,
-                                         const ActGeom& ag,
-                                         const SubnetGeom& g, int i,
-                                         size_t row, const float (&v)[NMAX]) {
-  const int n = g.width[i];
-  float* dst = acts + ag.off[i] + row * n;
+// The warp's neuron's packed row (pstride floats at src) as it is into
+// the warp's scratch (pstride + 3 floats, 16-byte aligned), 16 bytes at
+// a time: raw[e] = src[e] with raw 16-byte aligned where src is.
+// Asynchronous: the warp waits (cp_async_wait, __syncwarp) and then
+// spreads the row out (spread_weights).
+__device__ __forceinline__ float* weights_raw(float* scratch,
+                                              const float* src) {
+  return scratch + (int)((reinterpret_cast<size_t>(src) >> 2) & 3);
+}
+__device__ __forceinline__ void issue_weights(float* __restrict__ scratch,
+                                              const float* __restrict__ src,
+                                              const int* sg) {
+  const int lane = threadIdx.x & 31, pstride = sg[GH_PSTRIDE];
+  float* raw = weights_raw(scratch, src);
+  const int head = min((4 - (int)(raw - scratch)) & 3, pstride);
+  const int nvec = (pstride - head) / 4, tail = head + 4 * nvec;
+  if (lane < head) cp_async4(raw + lane, src + lane);
+  for (int v = lane; v < nvec; v += 32)
+    cp_async16(raw + head + 4 * v, src + head + 4 * v);
+  if (tail + lane < pstride && lane < 4)
+    cp_async4(raw + tail + lane, src + tail + lane);
+}
+
+// The copied row into the padded layout w, 8 rows of a sub-layer per
+// lane loaded before any is stored.  Ends with the warp in step.
+__device__ __forceinline__ void spread_weights(float* __restrict__ w,
+                                               const float* __restrict__ raw,
+                                               const int* sg) {
+  const int nsub = sg[GH_NL] + sg[GH_NCH];
+  for (int u = 0; u < nsub; ++u) {
+    const int* su = sub_rec(sg, u);
+    const int nin = su[SU_NIN], nout = su[SU_NOUT], ldo = su[SU_LDO];
+    const RowLanes rl(ldo, su[SU_MLDO]);
+    float* d = w + su[SU_PAD] + rl.j;
+    const float* r = raw + su[SU_PK] + rl.j;
+    for (int p0 = 0; p0 <= nin; p0 += 8 * rl.rpi) {
+      float v[8];
 #pragma unroll
-  for (int j = 0; j < NMAX; ++j) {
-    if (j < n) dst[j] = v[j];
+      for (int m = 0; m < 8; ++m) {
+        const int p = p0 + m * rl.rpi;
+        v[m] = rl.on(p, nin + 1) && rl.j < nout ? r[(p + rl.dr) * nout]
+                                                 : 0.f;
+      }
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int p = p0 + m * rl.rpi;
+        if (rl.on(p, nin + 1)) d[(p + rl.dr) * ldo] = v[m];
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// y = h @ w + b for one row, w (nin, ldo) padded row-major with its bias
+// row after it: the products summed first, the bias added last, as the
+// reference einsum does.  Each 16-byte load feeds 4 multiply-adds.  Rows
+// go in chunks of 4 without a branch per row: h is 0 past nin, and a row
+// past nin reads the (finite) bias row, so it adds exact zeros.
+template <int NMAX>
+__device__ __forceinline__ void dense4(const float (&h)[NMAX],
+                                       float (&y)[NMAX],
+                                       const float* __restrict__ w, int nin,
+                                       int nout, int ldo) {
+  float acc[NMAX];
+#pragma unroll
+  for (int j = 0; j < NMAX; ++j) acc[j] = 0.f;
+#pragma unroll
+  for (int i0 = 0; i0 < NMAX; i0 += 4) {
+    if (i0 < nin) {
+#pragma unroll
+      for (int i = i0; i < i0 + 4; ++i) {
+        const float hi = h[i];
+        const float4* wr =
+            reinterpret_cast<const float4*>(w + min(i, nin) * ldo);
+#pragma unroll
+        for (int j = 0; j < NMAX; j += 4) {
+          if (j < nout) {
+            const float4 v = wr[j / 4];
+            acc[j] = fmaf(hi, v.x, acc[j]);
+            acc[j + 1] = fmaf(hi, v.y, acc[j + 1]);
+            acc[j + 2] = fmaf(hi, v.z, acc[j + 2]);
+            acc[j + 3] = fmaf(hi, v.w, acc[j + 3]);
+          }
+        }
+      }
+    }
+  }
+  const float4* b = reinterpret_cast<const float4*>(w + nin * ldo);
+#pragma unroll
+  for (int j = 0; j < NMAX; j += 4) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (j < nout) v = b[j / 4];
+    y[j] = (j < nout) ? acc[j] + v.x : 0.f;
+    y[j + 1] = (j + 1 < nout) ? acc[j + 1] + v.y : 0.f;
+    y[j + 2] = (j + 2 < nout) ? acc[j + 2] + v.z : 0.f;
+    y[j + 3] = (j + 3 < nout) ? acc[j + 3] + v.w : 0.f;
   }
 }
 
+// gn = w @ gm (the cotangent of the layer's input); gm is 0 past nout.
+// Output columns outer, rows inner: every row's sum advances together.
+// gn past nin is not 0 (the bias row's products): callers mask it.
 template <int NMAX>
-__global__ void __launch_bounds__(REPRO_TRAIN_FWD_THREADS)
-subnet_train_fwd_kernel(const float* __restrict__ xg,
-                        const float* __restrict__ wpack,
-                        float* __restrict__ out, float* __restrict__ acts,
-                        int T, int O, SubnetGeom g, ActGeom ag) {
-  extern __shared__ float sw[];
-  const int o = blockIdx.x;
-  const int s = blockIdx.z;
-  const float* src = wpack + ((size_t)s * O + o) * g.pstride;
-  for (int k = threadIdx.x; k < g.pstride; k += blockDim.x) sw[k] = src[k];
-  __syncthreads();
-  const int t = blockIdx.y * blockDim.x + threadIdx.x;
-  if (t >= T) return;
-
-  const size_t row = ((size_t)s * T + t) * O + o;
-  const int F = g.width[0];
-  const float* x = xg + row * F;
-  float h[NMAX], a[NMAX], r[NMAX], z[NMAX];
+__device__ __forceinline__ void back4(const float (&gm)[NMAX],
+                                      float (&gn)[NMAX],
+                                      const float* __restrict__ w, int nin,
+                                      int nout, int ldo) {
 #pragma unroll
-  for (int i = 0; i < NMAX; ++i) h[i] = (i < F) ? x[i] : 0.f;
-
-  if (g.skip == 0) {
-    for (int l = 0; l < g.nlayers; ++l) {
-      if (l > 0) save_act<NMAX>(acts, ag, g, l, row, h);
-      dense<NMAX>(h, a, sw + g.w_off[l], sw + g.b_off[l], g.width[l],
-                  g.width[l + 1]);
-      const bool act = l < g.nlayers - 1;
+  for (int i = 0; i < NMAX; ++i) gn[i] = 0.f;
 #pragma unroll
-      for (int j = 0; j < NMAX; ++j) h[j] = act ? fmaxf(a[j], 0.f) : a[j];
-    }
-  } else {
-    const int nch = g.nlayers / g.skip;
-    for (int c = 0; c < nch; ++c) {
-      const int l0 = c * g.skip;
-      if (c > 0) save_act<NMAX>(acts, ag, g, l0, row, h);
-      dense<NMAX>(h, r, sw + g.sw_off[c], sw + g.sb_off[c], g.width[l0],
-                  g.width[l0 + g.skip]);
+  for (int j = 0; j < NMAX; j += 4) {
+    if (j < nout) {
 #pragma unroll
-      for (int j = 0; j < NMAX; ++j) a[j] = h[j];
-      for (int s = 0; s < g.skip; ++s) {
-        const int l = l0 + s;
-        if (s > 0) save_act<NMAX>(acts, ag, g, l, row, a);
-        dense<NMAX>(a, z, sw + g.w_off[l], sw + g.b_off[l], g.width[l],
-                    g.width[l + 1]);
-        const bool act = s < g.skip - 1;
+      for (int i0 = 0; i0 < NMAX; i0 += 4) {
+        if (i0 < nin) {
 #pragma unroll
-        for (int j = 0; j < NMAX; ++j) a[j] = act ? fmaxf(z[j], 0.f) : z[j];
-      }
-      const bool act = c < nch - 1;
-#pragma unroll
-      for (int j = 0; j < NMAX; ++j) {
-        const float v = a[j] + r[j];
-        h[j] = act ? fmaxf(v, 0.f) : v;
+          for (int i = i0; i < i0 + 4; ++i) {
+            const float4 v = reinterpret_cast<const float4*>(
+                w + min(i, nin) * ldo)[j / 4];
+            gn[i] = fmaf(v.x, gm[j], gn[i]);
+            gn[i] = fmaf(v.y, gm[j + 1], gn[i]);
+            gn[i] = fmaf(v.z, gm[j + 2], gn[i]);
+            gn[i] = fmaf(v.w, gm[j + 3], gn[i]);
+          }
+        }
       }
     }
   }
-  out[row] = h[0];
+}
+
+// ---------------------------------------------------------------------------
+// K4
+
+// One warp's tile: its neuron, its rows and its shared floats (the
+// padded weights, then a staging tile of 32 x ld floats, ld odd).
+struct FwdWarp {
+  const int* sg;
+  float* w;
+  float* st;
+  int ld, k, r, rv;
+  size_t row0;   // element (s, t0, o) of the (S, T, O) arrays
+};
+
+// Stage this thread's n values of act i, then store the warp's rows (n
+// contiguous floats each) to act i's block of the buffer.
+template <int NMAX>
+__device__ __forceinline__ void save_act(const FwdWarp& f,
+                                         float* __restrict__ acts,
+                                         size_t block, int O, int i,
+                                         const float (&v)[NMAX]) {
+  const int* ac = act_rec(f.sg, i);
+  const int n = ac[AC_N];
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < NMAX; ++j)
+    if (j < n) f.st[f.r * f.ld + j] = v[j];
+  __syncwarp();
+  const RowLanes rl(n, ac[AC_MN]);
+  float* dst = acts + block * ac[AC_PW] + f.row0 * n + rl.j;
+  for (int r0 = 0; r0 < f.rv; r0 += rl.rpi)
+    if (rl.on(r0, f.rv)) {
+      const int r = r0 + rl.dr;
+      dst[(size_t)r * O * n] = f.st[r * f.ld + rl.j];
+    }
+}
+
+// Block (group, row tile, seed).  Shared memory: the geometry, then per
+// warp the padded weights and the staging tile.
+template <int NMAX>
+__global__ void __launch_bounds__(REPRO_TRAIN_THREADS, 1)
+subnet_train_fwd_kernel(const float* __restrict__ xg,
+                        const float* __restrict__ wpack,
+                        float* __restrict__ out, float* __restrict__ acts,
+                        int T, int O, TrainGeom geom) {
+  extern __shared__ __align__(16) float smem[];
+  int* sg = reinterpret_cast<int*>(smem);
+  copy_geom(geom, sg);
+  __syncthreads();
+  const int G = sg[GH_G], nl = sg[GH_NL], skip = sg[GH_SKIP];
+  const int k = threadIdx.x >> 5, r = threadIdx.x & 31;
+  const int o = blockIdx.x * G + k, t0 = blockIdx.y * REPRO_TRAIN_ROWS;
+  const int s = blockIdx.z;
+  if (o >= O) return;   // no block-wide barrier follows
+  FwdWarp f;
+  f.sg = sg;
+  f.w = smem + REPRO_GEOM_INTS + k * sg[GH_WARP_FWD];
+  f.st = f.w + sg[GH_PPAD];
+  f.k = k;
+  f.r = r;
+  f.rv = min(REPRO_TRAIN_ROWS, T - t0);
+  f.row0 = ((size_t)s * T + t0) * O + o;
+  const int F = act_rec(sg, 0)[AC_N];
+  int nst = F;
+  for (int i = 1; i < nl; ++i) nst = max(nst, act_rec(sg, i)[AC_N]);
+  f.ld = nst | 1;
+  const size_t block = (size_t)gridDim.z * T * O;   // one act's floats / n
+  {
+    const float* src = wpack + ((size_t)s * O + o) * sg[GH_PSTRIDE];
+    // two call sites, so that each load's state space stays known
+    if (sg[GH_FLAGS] & TF_STAGED) {
+      issue_weights(f.st, src, sg);   // the staging tile is the scratch
+      cp_async_wait();
+      __syncwarp();
+      spread_weights(f.w, weights_raw(f.st, src), sg);
+    } else {
+      spread_weights(f.w, src, sg);
+    }
+  }
+  {
+    const RowLanes rl(F, act_rec(sg, 0)[AC_MN]);
+    const float* src = xg + f.row0 * F + rl.j;
+    for (int r0 = 0; r0 < f.rv; r0 += rl.rpi)
+      if (rl.on(r0, f.rv)) {
+        const int rr = r0 + rl.dr;
+        cp_async4(f.st + rr * f.ld + rl.j, src + (size_t)rr * O * F);
+      }
+  }
+  cp_async_wait();
+  __syncwarp();
+
+  const bool valid = r < f.rv;
+  float h[NMAX], a[NMAX], res[NMAX], in[NMAX], y[NMAX];
+#pragma unroll
+  for (int j = 0; j < NMAX; ++j) {
+    h[j] = (valid && j < F) ? f.st[r * f.ld + j] : 0.f;
+    res[j] = 0.f;
+    a[j] = 0.f;
+  }
+  // chunks of `skip` layers after their skip sub-layer (q = -1), or of
+  // one layer and no skip when skip = 0
+  const int cs = skip ? skip : 1, nc = skip ? sg[GH_NCH] : nl;
+  for (int c = 0; c < nc; ++c) {
+    for (int q = skip ? -1 : 0; q < cs; ++q) {
+      const int l = c * cs + q;
+      if (q == 0) {
+#pragma unroll
+        for (int j = 0; j < NMAX; ++j) a[j] = h[j];
+      }
+      if (q >= 0 && l > 0) save_act<NMAX>(f, acts, block, O, l, a);
+#pragma unroll
+      for (int j = 0; j < NMAX; ++j) in[j] = q < 0 ? h[j] : a[j];
+      const int* su = sub_rec(sg, q < 0 ? nl + c : l);
+      dense4<NMAX>(in, y, f.w + su[SU_PAD], su[SU_NIN], su[SU_NOUT],
+                   su[SU_LDO]);
+      if (q < 0) {
+#pragma unroll
+        for (int j = 0; j < NMAX; ++j) res[j] = y[j];
+      } else if (q < cs - 1) {
+#pragma unroll
+        for (int j = 0; j < NMAX; ++j) a[j] = fmaxf(y[j], 0.f);
+      } else {
+        const bool act = c < nc - 1;
+#pragma unroll
+        for (int j = 0; j < NMAX; ++j) {
+          const float v = y[j] + res[j];
+          h[j] = act ? fmaxf(v, 0.f) : v;
+        }
+      }
+    }
+  }
+  if (valid) out[f.row0 + (size_t)r * O] = h[0];
 }
 
 // ---------------------------------------------------------------------------
 // K5
 
-struct BwdCtx {
-  const float* xg;
-  const float* acts;
-  float* grads;        // this tile's leaf-major gradient (S * O * pstride)
-  const float* sw;     // the neuron's packed weights (shared)
-  float* sa;           // ROWS x (NMAX + 1): the rows' layer inputs
-  float* sg;           // ROWS x (NMAX + 1): the rows' output cotangents
-  size_t row;          // (s * T + t) * O + o
-  int o, O, rows;      // neuron s * O + o of S * O
-  bool valid;          // t < T
+// One warp's tile: its neuron and rows, its shared floats (the padded
+// weights, the activation tiles, the gm staging tile) and the block's
+// gradient sum (G x pstride, leaf-major).
+struct BwdWarp {
+  const int* sg;
+  float* w;
+  float* tiles;
+  float* st;
+  float* acc;
+  float* spare;   // a word of the warp's past the sum: discarded stores
+  int G, k, r, rv;
+  bool first;   // the rank's first row tile: its sum starts here
 };
 
-// The input of sub-layer i for this thread's row (zeros past T).
+// Sub-layer u's weight gradient over the warp's rows, added into the
+// block's sum, and its input cotangent gn.  gm is 0 past NOUT.
 template <int NMAX>
-__device__ __forceinline__ void load_in(const BwdCtx& c, const SubnetGeom& g,
-                                        const ActGeom& ag, int i,
-                                        float (&a)[NMAX]) {
-  const int n = g.width[i];
-  const float* src = i == 0 ? c.xg + c.row * n : c.acts + ag.off[i] + c.row * n;
+__device__ __forceinline__ void grad_sub(const BwdWarp& b, int u,
+                                         const float (&gm)[NMAX],
+                                         float (&gn)[NMAX]) {
+  constexpr int JMAX = ((NMAX + 1) * NMAX + 127) / 128;  // input rows/lane
+  const int* su = sub_rec(b.sg, u);
+  const int nin = su[SU_NIN], nout = su[SU_NOUT], ldo = su[SU_LDO];
+  const int ldg = su[SU_LDG];
+  __syncwarp();   // the previous sub-layer's readers are done
+  {
+    float4* d = reinterpret_cast<float4*>(b.st + b.r * ldg);
 #pragma unroll
-  for (int j = 0; j < NMAX; ++j) a[j] = (c.valid && j < n) ? src[j] : 0.f;
-}
-
-// dW += a^T gm and db += gm over the block's rows, in row order, into
-// this tile's gradient at the leaf offsets (w_off, b_off) of a packed
-// row.  Every thread of the block must call it.
-template <int NMAX>
-__device__ __forceinline__ void accumulate(const BwdCtx& c, int nin, int nout,
-                                           const float (&a)[NMAX],
-                                           const float (&gm)[NMAX],
-                                           int w_off, int b_off) {
-  constexpr int LD = NMAX + 1;   // padded row: conflict-free staging
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int j = 0; j < NMAX; ++j) {
-    if (j < nin) c.sa[tid * LD + j] = a[j];
-    if (j < nout) c.sg[tid * LD + j] = gm[j];
+    for (int j = 0; j < NMAX; j += 4)
+      if (j < ldo) d[j / 4] = make_float4(gm[j], gm[j + 1], gm[j + 2],
+                                          gm[j + 3]);
   }
-  __syncthreads();
-  const int nw = nin * nout;
-  for (int e = tid; e < nw + nout; e += blockDim.x) {
-    float acc = 0.f;
-    if (e < nw) {
-      const int p = e / nout, q = e % nout;
-      for (int r = 0; r < c.rows; ++r)
-        acc = fmaf(c.sa[r * LD + p], c.sg[r * LD + q], acc);
-      c.grads[(size_t)c.O * w_off + (size_t)c.o * nw + e] = acc;
-    } else {
-      const int q = e - nw;
-      for (int r = 0; r < c.rows; ++r) acc += c.sg[r * LD + q];
-      c.grads[(size_t)c.O * b_off + (size_t)c.o * nout + q] = acc;
-    }
-  }
-  __syncthreads();
-}
-
-// gn = w @ gm (the cotangent of the layer's input), w (nin, nout)
-// row-major in shared memory.
-template <int NMAX>
-__device__ __forceinline__ void back(const float (&gm)[NMAX],
-                                     float (&gn)[NMAX],
-                                     const float* __restrict__ w, int nin,
-                                     int nout) {
+  __syncwarp();
+  // lane (pg, tq): input rows pg, pg + npg, ... (<= nin; row nin is the
+  // column of ones, the bias), outputs 4 tq .. 4 tq + 3
+  const int ntq = ldo / 4, npg = udiv(32, su[SU_MNTQ]);
+  const int lane = threadIdx.x & 31, pg = udiv(lane, su[SU_MNTQ]);
+  const int tq = lane - pg * ntq;
+  if (pg < npg) {
+    const int lda = su[SU_LDA];
+    const float* A = b.tiles + su[SU_TILE] + pg;
+    const float* Gm = b.st + 4 * tq;
+    float c[JMAX][4];
 #pragma unroll
-  for (int i = 0; i < NMAX; ++i) {
-    float acc = 0.f;
-    if (i < nin) {
-      const float* wr = w + i * nout;
+    for (int x = 0; x < JMAX; ++x)
 #pragma unroll
-      for (int j = 0; j < NMAX; ++j) {
-        if (j < nout) acc = fmaf(wr[j], gm[j], acc);
+      for (int y = 0; y < 4; ++y) c[x][y] = 0.f;
+#pragma unroll 8
+    for (int r = 0; r < b.rv; ++r, A += lda, Gm += ldg) {
+      const float4 gv = *reinterpret_cast<const float4*>(Gm);
+#pragma unroll
+      for (int x = 0; x < JMAX; ++x) {
+        if (pg + x * npg <= nin) {
+          const float av = A[x * npg];
+          c[x][0] = fmaf(av, gv.x, c[x][0]);
+          c[x][1] = fmaf(av, gv.y, c[x][1]);
+          c[x][2] = fmaf(av, gv.z, c[x][2]);
+          c[x][3] = fmaf(av, gv.w, c[x][3]);
+        }
       }
     }
-    gn[i] = acc;
+    // into the rank's sum: the tile's sum, or after the rank's first
+    // tile the earlier tiles' sum plus it (all loaded before any store);
+    // an element past the gradient goes to the warp's spare word
+    const int G = b.G, pk = su[SU_PK], nw = nin * nout;
+    float* dst[JMAX][4];
+#pragma unroll
+    for (int x = 0; x < JMAX; ++x) {
+      const int p = pg + x * npg;
+#pragma unroll
+      for (int y = 0; y < 4; ++y) {
+        const int q = 4 * tq + y;
+        dst[x][y] = q >= nout || p > nin
+                        ? b.spare
+                        : b.acc + (p < nin ? G * pk + b.k * nw + p * nout + q
+                                           : G * (pk + nw) + b.k * nout + q);
+      }
+    }
+    if (!b.first) {
+      float old[JMAX][4];
+#pragma unroll
+      for (int x = 0; x < JMAX; ++x)
+#pragma unroll
+        for (int y = 0; y < 4; ++y) old[x][y] = *dst[x][y];
+#pragma unroll
+      for (int x = 0; x < JMAX; ++x)
+#pragma unroll
+        for (int y = 0; y < 4; ++y) c[x][y] = old[x][y] + c[x][y];
+    }
+#pragma unroll
+    for (int x = 0; x < JMAX; ++x)
+#pragma unroll
+      for (int y = 0; y < 4; ++y) *dst[x][y] = c[x][y];
   }
+  back4<NMAX>(gm, gn, b.w + su[SU_PAD], nin, nout, ldo);
 }
 
-template <int NMAX>
-__global__ void __launch_bounds__(256)
+// Block (group, rank, seed) of a cluster of C blocks along y.  Shared
+// memory: the geometry, per warp the padded weights, activation tiles
+// and gm staging tile, then the block's gradient sum, which with
+// ACC_GLOBAL (the plan's TF_ACC_GLOBAL) is instead slice (s, group,
+// rank) of the scratch (G x pstride floats and a spare word per warp
+// each).  A template argument, so that the sum's state space is known
+// where it is read and written.
+template <int NMAX, bool ACC_GLOBAL>
+__global__ void __launch_bounds__(REPRO_TRAIN_THREADS, 1)
 subnet_train_bwd_kernel(const float* __restrict__ gout_in,
-                                        const float* __restrict__ xg,
-                                        const float* __restrict__ acts,
-                                        const float* __restrict__ wpack,
-                                        float* __restrict__ dx,
-                                        float* __restrict__ part, int T,
-                                        int O, SubnetGeom g, ActGeom ag) {
-  extern __shared__ float smem[];
-  const int o = blockIdx.x;
-  const int s = blockIdx.z;
-  const int rows = blockDim.x;
-  const int so = s * O + o;       // the neuron among S * O
-  float* sw = smem;
-  const float* src = wpack + (size_t)so * g.pstride;
-  for (int k = threadIdx.x; k < g.pstride; k += rows) sw[k] = src[k];
-  const int t = blockIdx.y * rows + threadIdx.x;
-  BwdCtx c;
-  c.xg = xg;
-  c.acts = acts;
-  c.grads = part + (size_t)blockIdx.y * gridDim.z * O * g.pstride;
-  c.sw = sw;
-  c.sa = smem + ((g.pstride + 3) & ~3);
-  c.sg = c.sa + rows * (NMAX + 1);
-  c.row = ((size_t)s * T + t) * O + o;
-  c.o = so;
-  c.O = gridDim.z * O;
-  c.rows = rows;
-  c.valid = t < T;
+                        const float* __restrict__ xg,
+                        const float* __restrict__ acts,
+                        const float* __restrict__ wpack,
+                        float* __restrict__ dx, float* __restrict__ grads,
+                        float* scratch, int T, int O, TrainGeom geom) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  int* sg = reinterpret_cast<int*>(smem);
+  copy_geom(geom, sg);
   __syncthreads();
+  const int G = sg[GH_G], nl = sg[GH_NL], skip = sg[GH_SKIP];
+  const int nch = sg[GH_NCH], pstride = sg[GH_PSTRIDE];
+  const int C = gridDim.y, rank = blockIdx.y, s = blockIdx.z;
+  const int o0 = blockIdx.x * G, gv = min(G, O - o0);
+  const size_t block = (size_t)gridDim.z * T * O;
+  BwdWarp b;
+  b.sg = sg;
+  b.G = G;
+  b.k = threadIdx.x >> 5;
+  b.r = threadIdx.x & 31;
+  b.w = smem + REPRO_GEOM_INTS + b.k * sg[GH_WARP_BWD];
+  b.tiles = b.w + sg[GH_PPAD];
+  const size_t slice = (size_t)G * pstride + ((G + 3) & ~3);
+  float* const slices =
+      ACC_GLOBAL ? scratch + ((size_t)s * gridDim.x + blockIdx.x) * C * slice
+                 : nullptr;
+  b.acc = ACC_GLOBAL ? slices + rank * slice
+                     : smem + REPRO_GEOM_INTS + G * sg[GH_WARP_BWD];
+  b.spare = b.acc + G * pstride + b.k;
+  b.st = b.tiles + sg[GH_STAGE];
+  const int F = act_rec(sg, 0)[AC_N];
+  const int ntiles = (T + REPRO_TRAIN_ROWS - 1) / REPRO_TRAIN_ROWS;
 
-  float gout[NMAX], gm[NMAX], gn[NMAX], a[NMAX];
-#pragma unroll
-  for (int j = 0; j < NMAX; ++j) gout[j] = 0.f;
-  gout[0] = c.valid ? gout_in[c.row] : 0.f;
+  if (b.k < gv) {
+    // a staged packed row goes through the gm staging tile while the
+    // first row tile's activations arrive
+    const float* wsrc = wpack + ((size_t)s * O + o0 + b.k) * pstride;
+    const bool staged = sg[GH_FLAGS] & TF_STAGED;
+    if (staged) issue_weights(b.st, wsrc, sg);
+    // ones in the tiles' column N (the bias's input)
+    for (int i = 0; i < nl; ++i) {
+      const int* ac = act_rec(sg, i);
+      b.tiles[ac[AC_TILE] + b.r * ac[AC_LDA] + ac[AC_N]] = 1.f;
+    }
 
-  if (g.skip == 0) {
+    for (int tile = rank; tile < ntiles; tile += C) {
+      const int t0 = tile * REPRO_TRAIN_ROWS;
+      b.rv = min(REPRO_TRAIN_ROWS, T - t0);
+      const size_t row0 = ((size_t)s * T + t0) * O + o0 + b.k;
+      __syncwarp();   // the previous tile's readers are done
+      // the neuron's input and saved activations for the tile, once; 16
+      // bytes at a time where the rows are 16-byte aligned
+      for (int i = 0; i < nl; ++i) {
+        const int* ac = act_rec(sg, i);
+        const int n = ac[AC_N], lda = ac[AC_LDA];
+        const float* base = i == 0 ? xg : acts + block * ac[AC_PW];
+        float* dst = b.tiles + ac[AC_TILE];
+        if (n % 4 == 0 && (reinterpret_cast<size_t>(base) & 15) == 0) {
+          const RowLanes rl(n / 4, ac[AC_MN4]);
+          const float* src = base + row0 * n + 4 * rl.j;
+          for (int r0 = 0; r0 < b.rv; r0 += rl.rpi)
+            if (rl.on(r0, b.rv)) {
+              const int r = r0 + rl.dr;
+              cp_async16(dst + r * lda + 4 * rl.j, src + (size_t)r * O * n);
+            }
+        } else {
+          const RowLanes rl(n, ac[AC_MN]);
+          const float* src = base + row0 * n + rl.j;
+          for (int r0 = 0; r0 < b.rv; r0 += rl.rpi)
+            if (rl.on(r0, b.rv)) {
+              const int r = r0 + rl.dr;
+              cp_async4(dst + r * lda + rl.j, src + (size_t)r * O * n);
+            }
+        }
+      }
+      cp_async_wait();
+      __syncwarp();
+      b.first = tile == rank;
+      if (b.first && staged) spread_weights(b.w, weights_raw(b.st, wsrc), sg);
+      if (b.first && !staged) spread_weights(b.w, wsrc, sg);
+
+      const bool valid = b.r < b.rv;
+      float gout[NMAX], ghc[NMAX], cur[NMAX], gn[NMAX];
 #pragma unroll
-    for (int j = 0; j < NMAX; ++j) gm[j] = gout[j];
-    for (int l = g.nlayers - 1; l >= 0; --l) {
-      load_in<NMAX>(c, g, ag, l, a);
-      accumulate<NMAX>(c, g.width[l], g.width[l + 1], a, gm, g.w_off[l],
-                       g.b_off[l]);
-      back<NMAX>(gm, gn, sw + g.w_off[l], g.width[l], g.width[l + 1]);
-      const bool mask = l > 0;
+      for (int j = 0; j < NMAX; ++j) {
+        gout[j] = 0.f;
+        ghc[j] = 0.f;
+      }
+      gout[0] = valid ? gout_in[row0 + (size_t)b.r * O] : 0.f;
+      // the forward's chunks backwards: the skip sub-layer (j = 0), then
+      // the chunk's layers from its last; skip = 0: one layer a chunk
+      const int cs = skip ? skip : 1, nc = skip ? nch : nl;
+      for (int c = nc - 1; c >= 0; --c) {
+        const int l0 = c * cs;
+        for (int j = skip ? 0 : 1; j <= cs; ++j) {
+          const int l = l0 + cs - j;
+          if (j <= 1) {
+#pragma unroll
+            for (int e = 0; e < NMAX; ++e) cur[e] = gout[e];
+          }
+          grad_sub<NMAX>(b, j == 0 ? nl + c : l, cur, gn);
+          if (j == 0) {
+#pragma unroll
+            for (int e = 0; e < NMAX; ++e) ghc[e] = gn[e];
+            continue;
+          }
+          // through the ReLU at the layer's input: inside the chunk, or
+          // at the chunk's input (where the skip's cotangent joins) for
+          // every chunk but the first
+          const bool first = l == l0;
+          const bool mask = first ? c > 0 : true;
+          const int* sl = sub_rec(sg, l);   // act l is layer l's input
+          const float* a = b.tiles + sl[SU_TILE] + b.r * sl[SU_LDA];
+          const int n = sl[SU_NIN];
+#pragma unroll
+          for (int e = 0; e < NMAX; ++e) {
+            const float v = first ? ghc[e] + gn[e] : gn[e];
+            cur[e] = e >= n ? 0.f : (mask && !(a[e] > 0.f)) ? 0.f : v;
+          }
+          if (first) {
+#pragma unroll
+            for (int e = 0; e < NMAX; ++e) gout[e] = cur[e];
+          }
+        }
+      }
+      // dx: the warp's rows of F contiguous floats through its stage
+      __syncwarp();
+      const int ldx = F | 1;
 #pragma unroll
       for (int j = 0; j < NMAX; ++j)
-        gm[j] = (mask && !(a[j] > 0.f)) ? 0.f : gn[j];
-    }
-  } else {
-    float hc[NMAX], ghc[NMAX];
-    const int nch = g.nlayers / g.skip;
-    for (int ch = nch - 1; ch >= 0; --ch) {
-      const int l0 = ch * g.skip;
-      load_in<NMAX>(c, g, ag, l0, hc);
-      accumulate<NMAX>(c, g.width[l0], g.width[l0 + g.skip], hc, gout,
-                       g.sw_off[ch], g.sb_off[ch]);
-      back<NMAX>(gout, ghc, sw + g.sw_off[ch], g.width[l0],
-                 g.width[l0 + g.skip]);
-#pragma unroll
-      for (int j = 0; j < NMAX; ++j) gm[j] = gout[j];
-      for (int l = l0 + g.skip - 1; l >= l0; --l) {
-        load_in<NMAX>(c, g, ag, l, a);
-        accumulate<NMAX>(c, g.width[l], g.width[l + 1], a, gm, g.w_off[l],
-                         g.b_off[l]);
-        back<NMAX>(gm, gn, sw + g.w_off[l], g.width[l], g.width[l + 1]);
-        const bool mask = l > l0;
-#pragma unroll
-        for (int j = 0; j < NMAX; ++j)
-          gm[j] = (mask && !(a[j] > 0.f)) ? 0.f : gn[j];
-      }
-      // inter-chunk ReLU boundary: the chunk's input hc is post-ReLU
-      const bool mask = ch > 0;
-#pragma unroll
-      for (int j = 0; j < NMAX; ++j) {
-        const float v = ghc[j] + gm[j];
-        gout[j] = (mask && !(hc[j] > 0.f)) ? 0.f : v;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NMAX; ++j) gm[j] = gout[j];
-  }
-  if (c.valid) {
-    const int F = g.width[0];
-    float* d = dx + c.row * F;
-#pragma unroll
-    for (int j = 0; j < NMAX; ++j) {
-      if (j < F) d[j] = gm[j];
+        if (j < F) b.st[b.r * ldx + j] = gout[j];
+      __syncwarp();
+      const RowLanes rl(F, act_rec(sg, 0)[AC_MN]);
+      for (int r0 = 0; r0 < b.rv; r0 += rl.rpi)
+        if (rl.on(r0, b.rv)) {
+          const int r = r0 + rl.dr;
+          dx[(row0 + (size_t)r * O) * F + rl.j] = b.st[r * ldx + rl.j];
+        }
     }
   }
+
+  // Sum the ranks' gradients, rank 0 first, each rank its share of the
+  // elements, and write them leaf-major.
+  cluster.sync();   // every rank's sum is written (release / acquire)
+  const int n = G * pstride;
+  const int lo = (int)((long long)n * rank / C);
+  const int hi = (int)((long long)n * (rank + 1) / C);
+  const float* rem[REPRO_MAX_CLUSTER];
+#pragma unroll
+  for (int q = 0; q < REPRO_MAX_CLUSTER; ++q)
+    rem[q] = q >= C       ? b.acc
+             : ACC_GLOBAL ? slices + q * slice
+                          : cluster.map_shared_rank(b.acc, q);
+  const size_t so0 = (size_t)s * O + o0;
+  const size_t SO = (size_t)gridDim.z * O;
+  // the leaves in packing order tile [0, n): leaf (u, 0) is sub-layer
+  // u's w, (u, 1) its b; a cursor follows this thread's rising f
+  int u = 0, leaf = 0, off = sub_rec(sg, 0)[SU_PK];
+  int sz = sub_rec(sg, 0)[SU_NIN] * sub_rec(sg, 0)[SU_NOUT];
+  constexpr int BATCH = 4;   // loads in flight per rank before a store
+  for (int f0 = lo; f0 < hi; f0 += BATCH * blockDim.x) {
+    float v[BATCH];
+#pragma unroll
+    for (int m = 0; m < BATCH; ++m) {
+      const int f = f0 + m * blockDim.x + threadIdx.x;
+      v[m] = 0.f;
+      if (f < hi) {
+        v[m] = rem[0][f];
+#pragma unroll
+        for (int q = 1; q < REPRO_MAX_CLUSTER; ++q)
+          if (q < C) v[m] += rem[q][f];
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < BATCH; ++m) {
+      const int f = f0 + m * blockDim.x + threadIdx.x;
+      if (f >= hi) break;
+      while (f >= G * (off + sz)) {   // next leaf
+        if (leaf == 0) {
+          leaf = 1;
+          off += sz;
+          sz = sub_rec(sg, u)[SU_NOUT];
+        } else {
+          ++u;
+          leaf = 0;
+          off = sub_rec(sg, u)[SU_PK];
+          sz = sub_rec(sg, u)[SU_NIN] * sub_rec(sg, u)[SU_NOUT];
+        }
+      }
+      if (f - G * off < gv * sz)
+        grads[SO * off + so0 * sz + (f - G * off)] = v[m];
+    }
+  }
+  cluster.sync();   // no rank leaves while another reads its sum
 }
 
-// out[e] = part[0][e] + part[1][e] + ... in tile order.
-__global__ void __launch_bounds__(REPRO_SUM_THREADS)
-sum_tiles_kernel(const float* __restrict__ part, float* __restrict__ out,
-                 long long n, int ntiles) {
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < n; e += (long long)gridDim.x * blockDim.x) {
-    float s = part[e];
-    for (int k = 1; k < ntiles; ++k) s += part[(long long)k * n + e];
-    out[e] = s;
-  }
-}
-
-static void act_geom(const SubnetGeom& g, int S, int T, int O,
-                     ActGeom* ag) {
-  long long off = 0;
-  ag->off[0] = 0;
-  for (int i = 1; i < g.nlayers; ++i) {
-    ag->off[i] = off;
-    off += (long long)S * T * O * g.width[i];
-  }
-}
+// ---------------------------------------------------------------------------
+// Host side
 
 template <int NMAX>
 static int launch_fwd(const float* xg, const float* wpack, float* out,
-                      float* acts, int S, int T, int O, const SubnetGeom& g,
-                      const ActGeom& ag, cudaStream_t stream) {
-  const size_t smem = (size_t)g.pstride * sizeof(float);
-  const int e = repro_allow_smem(subnet_train_fwd_kernel<NMAX>, smem);
+                      float* acts, int S, int T, int O, const TrainPlan& p,
+                      cudaStream_t stream) {
+  const int G = p.fwd.w[GH_G];
+  int e = repro_allow_smem(subnet_train_fwd_kernel<NMAX>, p.smem_fwd);
   if (e) return e;
-  const dim3 grid(O, (T + REPRO_TRAIN_FWD_THREADS - 1) /
-                         REPRO_TRAIN_FWD_THREADS, S);
-  subnet_train_fwd_kernel<NMAX><<<grid, REPRO_TRAIN_FWD_THREADS, smem,
-                                  stream>>>(xg, wpack, out, acts, T, O, g,
-                                            ag);
+  const dim3 grid((O + G - 1) / G, p.tiles, S);
+  subnet_train_fwd_kernel<NMAX><<<grid, G * REPRO_TRAIN_ROWS, p.smem_fwd,
+                                  stream>>>(xg, wpack, out, acts, T, O,
+                                            p.fwd);
   return (int)cudaGetLastError();
 }
 
-template <int NMAX>
+template <int NMAX, bool ACC_GLOBAL>
 static int launch_bwd(const float* gout, const float* xg, const float* acts,
-                      const float* wpack, float* dx, float* part,
-                      float* grads, int S, int T, int O, int rows,
-                      const SubnetGeom& g, const ActGeom& ag,
+                      const float* wpack, float* dx, float* grads,
+                      float* scratch, int S, int T, int O, const TrainPlan& p,
                       cudaStream_t stream) {
-  const size_t smem = (size_t)(((g.pstride + 3) & ~3) +
-                               2 * rows * (NMAX + 1)) * sizeof(float);
-  int e = repro_allow_smem(subnet_train_bwd_kernel<NMAX>, smem);
+  const int G = p.bwd.w[GH_G];
+  int e = repro_allow_smem(subnet_train_bwd_kernel<NMAX, ACC_GLOBAL>,
+                           p.smem_bwd);
   if (e) return e;
-  const int ntiles = (T + rows - 1) / rows;
-  const dim3 grid(O, ntiles, S);
-  subnet_train_bwd_kernel<NMAX><<<grid, rows, smem, stream>>>(
-      gout, xg, acts, wpack, dx, ntiles == 1 ? grads : part, T, O, g, ag);
-  e = (int)cudaGetLastError();
-  if (e || ntiles == 1) return e;
-  const long long n = (long long)S * O * g.pstride;
-  long long blocks = (n + REPRO_SUM_THREADS - 1) / REPRO_SUM_THREADS;
-  if (blocks > 4096) blocks = 4096;
-  sum_tiles_kernel<<<(int)blocks, REPRO_SUM_THREADS, 0, stream>>>(
-      part, grads, n, ntiles);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((O + G - 1) / G, p.cluster, S);
+  cfg.blockDim = dim3(G * REPRO_TRAIN_ROWS, 1, 1);
+  cfg.dynamicSmemBytes = p.smem_bwd;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = p.cluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = (int)cudaLaunchKernelEx(&cfg, subnet_train_bwd_kernel<NMAX, ACC_GLOBAL>,
+                              gout, xg, acts, wpack, dx, grads, scratch, T, O,
+                              p.bwd);
+  if (e) return e;
   return (int)cudaGetLastError();
+}
+
+// Shared by both entries: check the sizes and make the plan.  Returns 0
+// or a cudaError_t.
+static int train_setup(int S, int T, int O, int pstride, int nlayers,
+                       const int* widths, int skip, TrainPlan* p,
+                       int* nmax) {
+  SubnetGeom g;
+  int rc = repro_subnet_geom(nlayers, widths, skip, pstride, &g, nmax);
+  if (rc) return rc;
+  return train_plan(g, *nmax, S, T, O, p);
 }
 
 // S seeds (S = 1: one network).  xg (S, T, O, F), out (S, T, O), the
 // packed weights (S, O, pstride) as in neuralut_mlp.cu.  widths:
-// nlayers + 1 ints (F, N, ..., N, 1).  acts: the sub-layer inputs
-// i = 1 .. nlayers-1, one (S, T, O, n_i) block after another.
+// nlayers + 1 ints (F, N, ..., N, 1), each <= 32.  acts: the sub-layer
+// inputs i = 1 .. nlayers-1, one (S, T, O, n_i) block after another.
 extern "C" int repro_subnet_train_fwd(int device, const float* xg,
                                       const float* wpack, float* out,
                                       float* acts, int S, int T, int O,
                                       int pstride, int nlayers,
                                       const int* widths, int skip,
                                       void* stream) {
-  if (S < 1 || S > 65535 || T < 1 || O < 1)
-    return (int)cudaErrorInvalidValue;
-  SubnetGeom g;
+  TrainPlan p;
   int nmax = 0;
-  int rc = repro_subnet_geom(nlayers, widths, skip, pstride, &g, &nmax);
+  int rc = train_setup(S, T, O, pstride, nlayers, widths, skip, &p, &nmax);
   if (rc) return rc;
-  ActGeom ag;
-  act_geom(g, S, T, O, &ag);
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
-  if (nmax <= 8)
-    return launch_fwd<8>(xg, wpack, out, acts, S, T, O, g, ag, st);
-  if (nmax <= 16)
-    return launch_fwd<16>(xg, wpack, out, acts, S, T, O, g, ag, st);
-  if (nmax <= 32)
-    return launch_fwd<32>(xg, wpack, out, acts, S, T, O, g, ag, st);
-  return (int)cudaErrorInvalidValue;
+  if (nmax <= 8) return launch_fwd<8>(xg, wpack, out, acts, S, T, O, p, st);
+  if (nmax <= 16) return launch_fwd<16>(xg, wpack, out, acts, S, T, O, p, st);
+  return launch_fwd<32>(xg, wpack, out, acts, S, T, O, p, st);
 }
 
 // S seeds as in repro_subnet_train_fwd.  gout: (S, T, O) cotangent of
 // the output.  dx: (S, T, O, F).  grads: the leaf-major gradient
-// (S * O * pstride floats).  rows: rows per block, a multiple of 32 in
-// [32, 256]; part: ceil(T / rows) * S * O * pstride floats of scratch
-// (unused, may be null, when one tile holds every row).
+// (S * O * pstride floats).  scratch: scratch_floats floats of global
+// memory, at least the plan's TP_SCRATCH (NULL and 0 when that is 0).
 extern "C" int repro_subnet_train_bwd(int device, const float* gout,
                                       const float* xg, const float* acts,
                                       const float* wpack, float* dx,
-                                      float* part, float* grads, int S,
-                                      int T, int O, int pstride,
-                                      int nlayers, const int* widths,
-                                      int skip, int rows, void* stream) {
-  if (S < 1 || S > 65535 || T < 1 || O < 1 || rows < 32 || rows > 256 ||
-      rows % 32)
-    return (int)cudaErrorInvalidValue;
-  SubnetGeom g;
+                                      float* grads, float* scratch,
+                                      long long scratch_floats, int S, int T,
+                                      int O, int pstride, int nlayers,
+                                      const int* widths, int skip,
+                                      void* stream) {
+  TrainPlan p;
   int nmax = 0;
-  int rc = repro_subnet_geom(nlayers, widths, skip, pstride, &g, &nmax);
+  int rc = train_setup(S, T, O, pstride, nlayers, widths, skip, &p, &nmax);
   if (rc) return rc;
-  if (T > rows && part == nullptr) return (int)cudaErrorInvalidValue;
-  ActGeom ag;
-  act_geom(g, S, T, O, &ag);
+  if (p.scratch && (scratch == nullptr || scratch_floats < p.scratch))
+    return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
+  // a sum in global scratch only where a block of one neuron does not
+  // fit: deep geometries, which NMAX = 32 serves whatever their widths
+  if (p.bwd.w[GH_FLAGS] & TF_ACC_GLOBAL)
+    return launch_bwd<32, true>(gout, xg, acts, wpack, dx, grads, scratch, S,
+                                T, O, p, st);
   if (nmax <= 8)
-    return launch_bwd<8>(gout, xg, acts, wpack, dx, part, grads, S, T, O,
-                         rows, g, ag, st);
+    return launch_bwd<8, false>(gout, xg, acts, wpack, dx, grads, scratch, S,
+                                T, O, p, st);
   if (nmax <= 16)
-    return launch_bwd<16>(gout, xg, acts, wpack, dx, part, grads, S, T, O,
-                          rows, g, ag, st);
-  if (nmax <= 32)
-    return launch_bwd<32>(gout, xg, acts, wpack, dx, part, grads, S, T, O,
-                          rows, g, ag, st);
-  return (int)cudaErrorInvalidValue;
+    return launch_bwd<16, false>(gout, xg, acts, wpack, dx, grads, scratch, S,
+                                 T, O, p, st);
+  return launch_bwd<32, false>(gout, xg, acts, wpack, dx, grads, scratch, S,
+                               T, O, p, st);
 }

@@ -54,7 +54,8 @@ def _sources():
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for src in _sources() + sorted(CSRC.glob("*.cuh")):
+    for src in _sources() + sorted(CSRC.glob("*.cuh")) + sorted(
+            CSRC.glob("*.h")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"
@@ -114,10 +115,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_subnet_train_fwd.restype = _I
     lib.repro_subnet_train_bwd.argtypes = [
         _I, _P, _P, _P, _P,    # device, g, xg, acts, packed weights
-        _P, _P, _P,            # dx, tile partials, grads
+        _P, _P,                # dx, grads
+        _P, ctypes.c_longlong,  # scratch, its floats
         _I, _I, _I, _I,        # seeds, T, O, params per neuron
-        _I, _P, _I, _I, _P]    # nlayers, widths, skip, rows, stream
+        _I, _P, _I, _P]        # nlayers, widths, skip, stream
     lib.repro_subnet_train_bwd.restype = _I
+    lib.repro_subnet_train_plan.argtypes = [
+        _I, _I, _I,            # seeds, T, O
+        _I, _P, _I, _P]        # nlayers, widths, skip, out (long long[])
+    lib.repro_subnet_train_plan.restype = _I
     lib.repro_cuda_error_string.argtypes = [_I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -7,9 +7,15 @@ wrappers of the CUDA kernels in ``csrc/neuralut_grad.cu`` (port of
   (B, O, F) input through its neuron's MLP with skips in one launch and
   saves the input of every sub-layer i >= 1, (B, O, n_i) each.
 * :func:`subnet_train_bwd` (K5) walks the output's cotangent back in one
-  launch (plus a small fixed-order sum over row tiles) and returns dx
-  and the weight gradients of every sub-layer and skip chunk, summed
-  over B without atomics: a rerun is bit-identical.
+  launch and returns dx and the weight gradients of every sub-layer and
+  skip chunk, summed over B without atomics (the row tiles of a neuron
+  group are one thread-block cluster that sums its ranks' partials on
+  chip, in rank order): a rerun is bit-identical.
+* :func:`plan_train_launch` reads the launch plan that the kernels' C
+  entries make for themselves (``csrc/train_plan.h``): neurons per block,
+  row tiles, K5's cluster, shared memory, and the global scratch that K5
+  needs where its block sum does not fit in shared memory (deep width-32
+  geometries), which the wrapper allocates.
 * :class:`SubnetTrainFn` ties the two together as an autograd function
   (K5 behind its own :class:`SubnetTrainBwdFn`);
   :func:`subnet_train_apply` runs a ``core.subnet`` parameter dict
@@ -33,19 +39,50 @@ tests/test_train_kernel.py), the spread of float32 summation order.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from collections import namedtuple
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.neuralut_mlp import (MAX_SHARED_BYTES, MAX_WIDTH,
-                                              check_operands,
+from repro_torch.kernels.neuralut_mlp import (check_operands,
                                               pack_subnet_weights)
 from repro_torch.kernels.ref import subnet_train_bwd_ref, subnet_train_fwd_ref
 
-BWD_ROWS = 64         # rows per K5 block (a multiple of 32, <= 256)
 Tensors = List[torch.Tensor]
+
+# The numbers of ``repro_subnet_train_plan``, in the order of its TP_*
+# words (csrc/train_plan.h).
+TrainPlan = namedtuple("TrainPlan", (
+    "fwd_group", "fwd_flags", "bwd_group", "bwd_flags", "tiles", "cluster",
+    "smem_fwd", "smem_bwd", "scratch", "pstride"))
+STAGED, ACC_GLOBAL = 1, 2   # the flags' bits: TF_STAGED, TF_ACC_GLOBAL
+
+
+def plan_train_launch(seeds: int, t: int, o: int, widths: Sequence[int],
+                      skip: int, lib=None) -> TrainPlan:
+    """The plan of a K4 and a K5 launch of ``seeds`` x ``t`` rows x ``o``
+    neurons, as the C entries make it (``lib``: the kernels' library, or
+    any library built from ``csrc/train_plan.h``); raises ValueError for
+    a launch that they refuse."""
+    return _plan(seeds, t, o, tuple(widths), skip,
+                 lib or build.load_library())
+
+
+@functools.lru_cache(maxsize=256)   # every training step asks again
+def _plan(seeds, t, o, widths, skip, lib) -> TrainPlan:
+    out = (ctypes.c_longlong * len(TrainPlan._fields))()
+    rc = lib.repro_subnet_train_plan(
+        seeds, t, o, len(widths) - 1, (ctypes.c_int * len(widths))(*widths),
+        skip, out)
+    if rc:
+        raise ValueError(f"the training kernels take no launch of {seeds} x "
+                         f"{t} x {o} at widths {widths}, skip {skip} "
+                         "(widths <= 32, depth <= 16, skip 0 or a divisor of "
+                         "the depth)")
+    return TrainPlan(*out)
 
 
 def _seeds(xg: torch.Tensor) -> Optional[int]:
@@ -73,10 +110,6 @@ def _launch_args(xg, layer_ws, layer_bs, skip_ws, skip_bs, skip, wpack):
             or not wpack.is_contiguous():
         raise ValueError(f"packed weights {tuple(wpack.shape)} on "
                          f"{wpack.device} != {lead + (o, p)} on {xg.device}")
-    # K5's block holds the packed row and two (rows, NMAX + 1) stages
-    if 4 * (p + 4 + 2 * BWD_ROWS * (MAX_WIDTH + 1)) > MAX_SHARED_BYTES:
-        raise ValueError(f"{p} weights per neuron exceed the block's "
-                         "shared memory")
     return widths, skip_ws, skip_bs, wpack, seeds or 1
 
 
@@ -176,9 +209,6 @@ def subnet_train_bwd(g: torch.Tensor, xg: torch.Tensor,
     xg, g = xg.contiguous(), g.contiguous()
     dx = torch.empty(lead + (t, o, f), dtype=torch.float32, device=xg.device)
     grads = torch.empty(ns * o * p, dtype=torch.float32, device=xg.device)
-    ntiles = -(-t // BWD_ROWS)
-    part = (torch.empty(ntiles * ns * o * p, dtype=torch.float32,
-                        device=xg.device) if ntiles > 1 else None)
     leaves = list(zip(layer_ws, layer_bs)) + list(zip(skip_ws, skip_bs))
     views, off = [], 0
     for w, b in leaves:  # leaf-major: leaf k at S * O * (its row offset)
@@ -193,20 +223,22 @@ def subnet_train_bwd(g: torch.Tensor, xg: torch.Tensor,
         dx.zero_()
         grads.zero_()
         return dx, dws, dbs, drs, drbs
+    # the block sums' global scratch, where the plan keeps them there
+    n_scratch = plan_train_launch(ns, t, o, widths, skip).scratch
+    scratch = torch.empty(n_scratch, dtype=torch.float32,
+                          device=xg.device) if n_scratch else None
     rc = build.load_library().repro_subnet_train_bwd(
         xg.device.index, g.data_ptr(), xg.data_ptr(),
         buf.data_ptr() if buf is not None else None, wpack.data_ptr(),
-        dx.data_ptr(), part.data_ptr() if part is not None else None,
-        grads.data_ptr(), ns, t, o, p, nl,
-        (ctypes.c_int * len(widths))(*widths), skip, BWD_ROWS,
+        dx.data_ptr(), grads.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, n_scratch,
+        ns, t, o, p, nl, (ctypes.c_int * len(widths))(*widths), skip,
         torch.cuda.current_stream(xg.device).cuda_stream)
     build.check(rc, "subnet_train_bwd launch")
     subnet_train_bwd.launches += 1
     return dx, dws, dbs, drs, drbs
 
 
-# Counts calls: each runs subnet_train_bwd_kernel and, when B > BWD_ROWS,
-# sum_tiles_kernel after it.
 subnet_train_bwd.launches = 0
 
 

@@ -132,10 +132,12 @@ def subnet_train_bwd_ref(g: torch.Tensor, xg: torch.Tensor,
     [db_i], [dR_c], [dRb_c]), the weight gradients summed over B.  ReLU
     masks are recovered from the saved post-ReLU values (``a > 0``), so
     the gradient at 0 is 0, as ``jax.nn.relu``'s and ``torch.relu``'s.
-    Every operand may carry a leading seed axis S.
+    Every operand may carry a leading seed axis S.  Float64 operands
+    stay float64 (an exact oracle for the float32 kernel).
     """
     L = len(layer_ws)
-    x = xg.to(torch.float32)
+    dt = torch.float64 if xg.dtype == torch.float64 else torch.float32
+    x = xg.to(dt)
     dws: List[torch.Tensor] = [None] * L
     dbs: List[torch.Tensor] = [None] * L
 
@@ -148,7 +150,7 @@ def subnet_train_bwd_ref(g: torch.Tensor, xg: torch.Tensor,
         dbs[i] = gm.sum(dim=-3)
         return _mm_t(gm, layer_ws[i]), a
 
-    gh = g.to(torch.float32)[..., None]                  # (B, O, 1)
+    gh = g.to(dt)[..., None]                             # (B, O, 1)
     if skip == 0:
         gm = gh
         for i in range(L - 1, -1, -1):

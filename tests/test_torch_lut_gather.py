@@ -184,13 +184,14 @@ def test_ctypes_signatures_match_the_c_sources():
             return fn
     lib = build._bind(Lib())
     found = {}
-    for src in sorted(Path(build.CSRC).glob("*.cu")):
+    for src in sorted(Path(build.CSRC).glob("*.cu")) + sorted(
+            Path(build.CSRC).glob("*.h")):
         for name, params in re.findall(
                 r'extern "C" [\w\s*]*?\b(repro_\w+)\(([^)]*)\)',
                 src.read_text()):
             found[name] = len([p for p in params.split(",") if p.strip()])
     assert {"repro_lut_cascade", "repro_lut_gather", "repro_grouped_subnet",
             "repro_subnet_train_fwd", "repro_subnet_train_bwd",
-            "repro_cuda_error_string"} <= set(found)
+            "repro_subnet_train_plan", "repro_cuda_error_string"} <= set(found)
     for name, n in found.items():
         assert len(getattr(lib, name).argtypes) == n, name

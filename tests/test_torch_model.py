@@ -14,6 +14,7 @@ import torch
 
 from repro.core import model as JM
 from repro.core import quant as JQ
+from repro.core.sparsity import random_connectivity
 from repro_torch import bridge
 from repro_torch.config import get_config
 from repro_torch.core import model as M
@@ -55,13 +56,28 @@ def numpy_model(jcfg, seed):
     return fill(spec_p), fill(spec_s)
 
 
-def bridged_model(mod, variant="reduced", seed=0):
+def fixed_connectivity(jcfg, statics, seed):
+    """``statics`` with every layer's connectivity redrawn from
+    ``np.random.default_rng(seed)``: the same in every process, where
+    ``model_static`` seeds it with the salted ``hash``."""
+    rng = np.random.default_rng(seed)
+    widths = [jcfg.in_features] + list(jcfg.layer_widths)
+    return [dict(st, conn=random_connectivity(
+        widths[i], widths[i + 1], jcfg.layer_fan_in(i),
+        seed=int(rng.integers(2 ** 31))))
+        for i, st in enumerate(statics)]
+
+
+def bridged_model(mod, variant="reduced", seed=0, conn_seed=None):
     """A seeded model in both packages: the JAX trees (jnp) and their
-    bridged port counterpart on the CPU, with the same connectivity."""
+    bridged port counterpart on the CPU, with the same connectivity
+    (``model_static``'s, or drawn from ``conn_seed`` when it is given)."""
     jcfg = getattr(importlib.import_module(f"repro.configs.{mod}"),
                    variant)()
     pcfg = get_config(mod.replace("_", "-"), reduced=variant == "reduced")
     statics = JM.model_static(jcfg)
+    if conn_seed is not None:
+        statics = fixed_connectivity(jcfg, statics, conn_seed)
     params_np, state_np = numpy_model(jcfg, seed)
     p, s = bridge.params_from_numpy(pcfg, params_np, state_np,
                                     device="cpu")

@@ -88,8 +88,9 @@ def test_model_loss_grads_and_bn_state_match_jax(route):
 
 
 def _steps_both(n_steps, route="neuron_leading"):
+    # connectivity from a fixed seed, not the per-process salted hash
     (jcfg, jp, js, jst), (pcfg, p, s, st) = bridged_model(
-        "neuralut_jsc_5l", seed=3)
+        "neuralut_jsc_5l", seed=3, conn_seed=0)
     jo = JA.adamw_init(jp)
     o = bridge.opt_from_numpy(pcfg, jax.tree.map(
         lambda a: None if a is None else np.asarray(a), jo,
@@ -113,7 +114,8 @@ def _steps_both(n_steps, route="neuron_leading"):
 
 def test_one_optimizer_step_matches_jax():
     (jp, js, jo, jl), (p, s, o, pl), (jcfg, jst, pcfg, st) = _steps_both(1)
-    _, (_, p0, s0, _) = bridged_model("neuralut_jsc_5l", seed=3)
+    _, (_, p0, s0, _) = bridged_model("neuralut_jsc_5l", seed=3,
+                                      conn_seed=0)
     (x, y), = _batches(jcfg, 1, seed=4)
     _, g, _ = TR.loss_and_grads(
         pcfg, p0, s0, st, torch.as_tensor(x), torch.as_tensor(y),
