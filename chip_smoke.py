@@ -43,15 +43,19 @@ there is no CPU fallback.  Output, one line per finding, then:
                                max error, kernel / plain / bound ms
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
-A narrower run for working on the training kernels:
+Before the paths: an empty kernel's device time (the launch floor), and
+where a warm conversion spends its time, stage by stage.  A narrower run
+for working on the kernels:
 
-    python3 chip_smoke.py --turns PARENT    their device ms in turns with
-                                            the checkout at PARENT
+    python3 chip_smoke.py --turns PARENT    K2's, K1's, K4's and K5's
+                                            device ms in turns with the
+                                            checkout at PARENT
 
 Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -83,6 +87,9 @@ DAG_CASE_BATCHES = (1, 37, 300)
 ENSEMBLE_SEEDS = (0, 1, 2, 3)
 ENSEMBLE_EPOCHS = 2                 # 2 x 78 = 156 steps of 4 seeds
 TILE_SWEEP = (1, 2, 4, 8, 16, 32)   # K1 rows per block
+K2_SWEEP_R = (1, 2, 4)              # K2 rows per thread
+K2_SWEEP_G = (4, 8)                 # K2 neurons per block
+K2_SWEEP_ROWS = (32, 64, 128, 256, 512, 1024)   # K2 rows per block
 SWEEP_BATCHES = (8, 64, 256, 4096)  # the engine's buckets > 1, bench size
 SECTOR_BYTES = 32          # the smallest global-memory access of the card
 HEADLINE_B = 256           # the engine's largest bucket
@@ -202,10 +209,37 @@ def phase_build():
     secs = time.perf_counter() - t0
     log(f"build: {secs:.2f} s ({'compiled' if build.build_log else 'cached'}"
         f" {build.library_path().name})")
+    heavy, func = [], ""
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line \
                 or line.startswith("---"):
             log(f"  ptxas {line.strip()}")
+        if "Function properties for" in line:
+            func = line.split("for")[-1].strip()
+        if "stack frame" in line and line.strip() != (
+                "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+                "loads"):
+            heavy.append(f"{func}: {line.strip()}")
+    require(not heavy, f"ptxas reports a stack frame or spills: {heavy}")
+
+
+def phase_launch_floor(dev):
+    """Device ms of an empty kernel (csrc/launch_floor.cu): the floor
+    under any launch, beside which K1's and K3's times are read."""
+    import torch
+    from repro_torch.kernels import build
+    lib = build.load_library()
+
+    def empty():
+        build.check(lib.repro_launch_floor(
+            dev.index or 0, torch.cuda.current_stream(dev).cuda_stream),
+            "launch_floor launch")
+    ms = device_ms(empty, 200, "launch_floor_kernel")
+    require(ms is not None, "the profiler shows no device time of the "
+            "empty kernel")
+    log(f"launch floor: an empty kernel (1 block of 32 threads) takes "
+        f"{ms:.5f} ms of device time")
+    return ms
 
 
 def _rand_subnet(gen, o, f, depth, width, skip, dev):
@@ -220,25 +254,34 @@ def _rand_subnet(gen, o, f, depth, width, skip, dev):
             for k, v in spec.items()}
 
 
+def out_hash(x) -> str:
+    """sha256 of a float32 tensor's bytes after ``+ 0.0`` (signed zeros
+    compare equal): whether two kernels gave the same bits."""
+    import hashlib
+    return hashlib.sha256((x + 0.0).cpu().numpy().tobytes()).hexdigest()
+
+
 def phase_subnet_kernel(cfg, dev):
     """K2 against the plain grouped sub-network at every jsc-5l layer's
-    conversion shape."""
+    conversion shape, with the launch plan it took; then every rows per
+    thread R and rows per block of K2_SWEEP, each bit-identical to the
+    plan's launch, timed."""
     import torch
-    from repro_torch.kernels.neuralut_mlp import subnet_kernel_apply
+    from repro_torch.kernels.neuralut_mlp import (_launch, pack_subnet_weights,
+                                                  plan_subnet_launch,
+                                                  subnet_kernel_apply)
     from repro_torch.kernels.ref import grouped_subnet_ref
     gen = torch.Generator().manual_seed(11)
     rows = []
     for i, o in enumerate(cfg.layer_widths):
         t, f = cfg.table_size(i), cfg.layer_fan_in(i)
+        widths = widths_of(cfg, i)
         p = _rand_subnet(gen, o, f, cfg.depth, cfg.width, cfg.skip, dev)
         codes = torch.randint(0, 2 ** cfg.layer_in_bits(i), (t, o, f),
                               generator=gen)
         xg = ((codes - 2 ** (cfg.layer_in_bits(i) - 1)).float()
               * 0.3).to(dev)
-        lw = [lp["w"] for lp in p["layers"]]
-        lb = [lp["b"] for lp in p["layers"]]
-        sw = [sp["w"] for sp in p.get("skips", [])]
-        sb = [sp["b"] for sp in p.get("skips", [])]
+        lw, lb, sw, sb = _weights(p)
 
         def kern():
             return subnet_kernel_apply(p, xg, cfg.skip)
@@ -259,13 +302,39 @@ def phase_subnet_kernel(cfg, dev):
             a.numel() for a in lw + lb + sw + sb))
         tm = timings(kern, plain, "grouped_subnet_kernel", 20, 5)
         bms, by = bound_ms(nbytes, flops)
+        plan = plan_subnet_launch(dev, t, o, widths, cfg.skip)
+        # the tile sweep: the same bits whatever the tile, and its time
+        wpack = pack_subnet_weights(lw, lb, sw, sb)
+        sweep = {}
+        for force in itertools.product(K2_SWEEP_R, K2_SWEEP_G,
+                                       K2_SWEEP_ROWS):
+            try:
+                sp = plan_subnet_launch(dev, t, o, widths, cfg.skip, force)
+            except ValueError:
+                continue    # no such tile (rows not a multiple of 32 R)
+            y = torch.empty_like(got)
+
+            def tile():
+                _launch(xg, wpack, y, widths, cfg.skip, force)
+            tile()
+            torch.cuda.synchronize()
+            require(torch.equal(y, got), f"K2 layer {i} tile {force}: "
+                    f"differs from the plan's launch ({plan})")
+            sweep["/".join(map(str, force))] = dict(
+                ms=device_ms(tile, 20, "grouped_subnet_kernel"),
+                regs=sp.regs)
         rows.append(dict(err=float(err.max()), bound_ms=bms, by=by,
-                         flops=flops, **tm))
+                         flops=flops, plan=plan._asdict(), hash=out_hash(got),
+                         sweep_ms=sweep, **tm))
         log(f"K2 layer {i}: T={t} O={o} F={f} max_abs_err="
             f"{float(err.max()):.3e} kernel {tm['ms']:.4f} ms (call "
             f"{tm['call_ms']:.4f}) plain {tm['plain_ms']:.4f} ms (call "
             f"{tm['plain_call_ms']:.4f}) [{tm['timing']}] bound "
-            f"{bms:.4f} ms ({by}, {flops / 1e9:.3f} GFLOP)")
+            f"{bms:.4f} ms ({by}, {flops / 1e9:.3f} GFLOP, "
+            f"{flops / (tm['ms'] * 1e-3) / 1e12:.2f} TFLOP/s); plan {plan}; "
+            f"sha256 {rows[-1]['hash'][:16]}")
+        log(f"K2 layer {i} tile sweep (R/neurons/rows: ms): " + ", ".join(
+            f"{k} {v['ms'] or float('nan'):.4f}" for k, v in sweep.items()))
     return rows
 
 
@@ -449,7 +518,9 @@ def phase_cascade_kernel(cfg, dev):
               for p in cascade_tables(cfg, tables)]
     conns = [torch.as_tensor(s["conn"], device=dev) for s in statics]
     ops = CascadeOperands(conns, packed, meta, cfg.in_features)
-    conn_bytes = sum(c.numel() * 4 for c in conns)
+    prog_bytes = ops.prog.numel() * 8   # descriptors and code columns
+    log(f"K1 chain: node columns {ops.out_cols}, row pitch {ops.pitch} "
+        f"codes, program {prog_bytes} bytes")
     per_b = {}
     for b in CASCADE_BATCHES:
         codes = torch.as_tensor(rng.integers(
@@ -474,7 +545,7 @@ def phase_cascade_kernel(cfg, dev):
                             for i, o in enumerate(cfg.layer_widths)))
         table_bytes = _cascade_table_bytes(codes, conns, packed, meta)
         nbytes = 4.0 * (codes.numel() + got.numel()) + table_bytes \
-            + conn_bytes
+            + prog_bytes
         tm = timings(kern, plain, "lut_cascade_kernel", 50, 10)
         bms, by = bound_ms(nbytes, int_ops)
         per_b[b] = dict(bound_ms=bms, by=by, bytes=nbytes,
@@ -582,6 +653,97 @@ def phase_main_path(cfg, dev):
     requests = [x_te[s:s + n] for s, n in zip(starts, sizes)]
     return launches, dict(bundle=bundle, requests=requests, preds=preds,
                           params=params, tables=tables, statics=statics)
+
+
+CONVERT_STAGES = ("enumerate+dequantize", "K2", "BN+quantize",
+                  "transpose+pack", "device-to-host")
+
+
+def phase_convert_stages(cfg, dev):
+    """Where a warm conversion of full neuralut-jsc-5l spends its time:
+    a cold ``convert_packed`` (first launches, module loading), a warm
+    one timed whole, then the warm work of ``truth_table._sweep`` stage
+    by stage, each stage synchronized at its end and timed on the host
+    clock (what a caller waits for it), summed over the five layers; the
+    staged tables must equal the warm call's."""
+    import numpy as np
+    import torch
+    from repro_torch.core import model as M
+    from repro_torch.core import quant
+    from repro_torch.core import truth_table as TT
+    from repro_torch.core.exec_plan import plan_subnet_exec
+    from repro_torch.core.lut_infer import pack_tables_torch
+    from repro_torch.data import jsc_synthetic
+
+    params, state = M.model_init(cfg, torch.Generator().manual_seed(0),
+                                 device=dev)
+    params = M.calibrate_in_quant(cfg, params, jsc_synthetic(20000, seed=0)[0])
+    statics = M.model_static(cfg)
+    t0 = time.perf_counter()
+    TT.convert_packed(cfg, params, state, statics)
+    cold = time.perf_counter() - t0
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tables, packed = TT.convert_packed(cfg, params, state, statics)
+        walls.append(time.perf_counter() - t0)
+    g = cfg.graph()
+    plan = plan_subnet_exec(g, purpose="convert", device=dev)
+
+    def staged():
+        ms = dict.fromkeys(CONVERT_STAGES, 0.0)
+        out = []
+
+        def stage(name, fn):
+            t = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            ms[name] += (time.perf_counter() - t) * 1e3
+            return r
+        for i in range(g.num_layers):
+            scales = TT._graph_pool_scales(g, params, i)
+            lp, ls = params["layers"][i], state["layers"][i]
+            (fn, bn_p, bn_s), = M.node_branch_params(g.nodes[i], lp, ls)
+            conn = torch.as_tensor(statics[i]["conn"], device=dev).long()
+            slot_scale = scales[conn]
+            beta_in, fan_in = g.layer_in_bits(i), g.layer_fan_in(i)
+            t = g.table_size(i)
+            require(t <= TT.SWEEP_BATCH, f"layer {i}: {t} codes > one sweep")
+
+            def dequant():
+                shifts = torch.tensor([beta_in * (fan_in - 1 - j)
+                                       for j in range(fan_in)], device=dev)
+                codes = (torch.arange(t, device=dev)[:, None] >> shifts[None]
+                         ) & (2 ** beta_in - 1)
+                return (codes[:, None, :].to(torch.float32)
+                        - 2 ** (beta_in - 1)) * slot_scale[None]
+            vals = stage("enumerate+dequantize", dequant)
+            f = stage("K2", lambda: plan.apply(fn, vals))
+            q = stage("BN+quantize", lambda: quant.quant_codes(
+                lp["quant"], quant.bn_apply(bn_p, bn_s, f, train=False)[0],
+                g.beta))
+
+            def pack():
+                table = q.T.contiguous()
+                return table, pack_tables_torch(table, g.beta)
+            table, pk = stage("transpose+pack", pack)
+            out.append(stage("device-to-host", lambda: (
+                table.cpu().numpy().astype(np.uint16), pk.cpu().numpy())))
+        return ms, out
+    staged()
+    ms, out = staged()
+    for i, ((tb, pk), t, p) in enumerate(zip(out, tables, packed)):
+        require(np.array_equal(tb, t) and np.array_equal(pk, p),
+                f"layer {i}: the staged conversion differs from "
+                "convert_packed")
+    total = sum(ms.values())
+    log(f"convert stages (warm, synchronized per stage, ms over the 5 "
+        f"layers): " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f"; sum {total:.3f}; convert_packed cold {cold * 1e3:.3f} ms, "
+        f"warm {', '.join(f'{w * 1e3:.3f}' for w in walls)} ms")
+    return dict(stage_ms=ms, stage_sum_ms=total, cold_ms=cold * 1e3,
+                warm_ms=[w * 1e3 for w in walls])
 
 
 def _flat(tree):
@@ -961,9 +1123,10 @@ def phase_dag_cascade_kernel(dev):
     ops = _graph_operands(cfg, tables, statics, dev)
     conns, packed, sched = list(ops.conns), list(ops.packed), ops.schedule
     log(f"K1 DAG {GRAPH_ARCH}: schedule {sched}; {len(conns)} branch tables,"
-        f" {sum(p.numel() * 4 for p in packed)} packed bytes; shared columns"
-        f" {ops.out_cols}, row pitch {ops.stride} codes")
-    conn_bytes = sum(c.numel() * 4 for c in ops.cols)
+        f" {sum(p.numel() * 4 for p in packed)} packed bytes; node columns"
+        f" {ops.out_cols}, row pitch {ops.pitch} codes, program "
+        f"{ops.prog.numel() * 8} bytes")
+    prog_bytes = ops.prog.numel() * 8   # descriptors and code columns
     per_b = {}
     for b in CASCADE_BATCHES:
         codes = torch.as_tensor(rng.integers(
@@ -989,7 +1152,7 @@ def phase_dag_cascade_kernel(dev):
                                 for nd in cfg.nodes))
         table_bytes = _cascade_table_bytes(codes, conns, packed, sched)
         nbytes = 4.0 * (codes.numel() + got.numel()) + table_bytes \
-            + conn_bytes
+            + prog_bytes
         tm = timings(kern, plain, "lut_cascade_kernel", 50, 10)
         bms, by = bound_ms(nbytes, int_ops)
         per_b[b] = dict(bound_ms=bms, by=by, bytes=nbytes,
@@ -1583,37 +1746,88 @@ def phase_ensemble_path(cfg, dev):
                 best=best, acc_q=final_q.tolist(), by_s=by_s)
 
 
+TURN_BATCHES = (1, 8, 64, 256, 4096)   # K1 in turns
+
+# One turn of ``--turns``: run in its own process from the root of a
+# checkout, with that checkout's package and chip_smoke.py, so it uses
+# only what both checkouts have.
 TURN_CHILD = """
-import json, sys
+import hashlib, json, sys
 root = sys.argv[1]
 sys.path[:0] = [root, root + "/src"]
+import numpy as np
 import torch
 import chip_smoke as cs
 from repro_torch.config import get_config
+from repro_torch.kernels.lut_cascade import (CascadeOperands, cascade_meta,
+                                             cascade_tables, lut_cascade)
+from repro_torch.kernels.neuralut_mlp import subnet_kernel_apply
 cs.phase_environment()
 cs.phase_build()
 cfg, dev = get_config("neuralut-jsc-5l"), torch.device("cuda")
+batches = json.loads(sys.argv[2])
+
+
+def digest(x):
+    return hashlib.sha256((x + 0).cpu().numpy().tobytes()).hexdigest()
+
+
+# K2 at the conversion shapes (phase_subnet_kernel's operands)
+gen = torch.Generator().manual_seed(11)
+k2, k2_hash = [], []
+for i, o in enumerate(cfg.layer_widths):
+    t, f = cfg.table_size(i), cfg.layer_fan_in(i)
+    p = cs._rand_subnet(gen, o, f, cfg.depth, cfg.width, cfg.skip, dev)
+    codes = torch.randint(0, 2 ** cfg.layer_in_bits(i), (t, o, f),
+                          generator=gen)
+    xg = ((codes - 2 ** (cfg.layer_in_bits(i) - 1)).float() * 0.3).to(dev)
+    fn = lambda: subnet_kernel_apply(p, xg, cfg.skip)
+    k2_hash.append(digest(fn() + 0.0))
+    k2.append(cs.device_ms(fn, 20, "grouped_subnet_kernel"))
+# K1, chain (phase_cascade_kernel's tables) and DAG (phase_dag_...'s)
+rng = np.random.default_rng(7)
+tables, statics = cs._random_chain(cfg, rng)
+ops = CascadeOperands(
+    [torch.as_tensor(s["conn"], device=dev) for s in statics],
+    [torch.as_tensor(p, device=dev) for p in cascade_tables(cfg, tables)],
+    cascade_meta(cfg), cfg.in_features)
+gcfg = get_config(cs.GRAPH_ARCH)
+gops = cs._graph_operands(gcfg, *cs._graph_random_net(
+    gcfg, np.random.default_rng(23)), dev)
+k1, k1_dag, k1_hash = [], [], []
+for b in batches:
+    for o, c, ms in ((ops, cfg, k1), (gops, gcfg, k1_dag)):
+        x = torch.as_tensor(rng.integers(0, 2 ** c.layer_in_bits(0), (
+            b, c.in_features)).astype(np.int32), device=dev)
+        k1_hash.append(digest(lut_cascade(x, o)))
+        ms.append(cs.device_ms(lambda: lut_cascade(x, o), 50,
+                               "lut_cascade_kernel"))
 k4, k5 = cs.phase_train_kernels(cfg, dev)
 seed = cs.phase_seed_kernels(cfg, dev)
 print("TURN " + json.dumps(dict(
+    k2=k2, k1_chain=k1, k1_dag=k1_dag,
     k4_s1=[r["ms"] for r in k4], k5_s1=[r["ms"] for r in k5],
-    k4_s4=[r["k4_s4"] for r in seed], k5_s4=[r["k5_s4"] for r in seed])))
+    k4_s4=[r["k4_s4"] for r in seed], k5_s4=[r["k5_s4"] for r in seed],
+    k2_hash=k2_hash, k1_hash=k1_hash)))
 """
 
 
 def turns_main(parent: str) -> int:
-    """``--turns PARENT``: the training kernels of the checkout at
-    ``PARENT`` (an unpacked ``git archive`` of the parent commit) and of
-    this one, in turns (parent, this, this, parent), one process each, on
-    one card: device ms of K4 and K5 at every jsc-5l training shape, B =
-    TRAIN_B, S = 1 and S = 4 (``phase_train_kernels``,
-    ``phase_seed_kernels`` of each checkout)."""
+    """``--turns PARENT``: the kernels of the checkout at ``PARENT`` (an
+    unpacked ``git archive`` of the parent commit) and of this one, in
+    turns (parent, this, this, parent), one process each, on one card:
+    device ms of K2 at the five jsc-5l conversion shapes (with a sha256
+    of its outputs at each), of K1 on the chain and the DAG at
+    TURN_BATCHES (outputs hashed too), and of K4 and K5 at every jsc-5l
+    training shape, B = TRAIN_B, S = 1 and S = 4 (``phase_train_kernels``
+    and ``phase_seed_kernels`` of each checkout)."""
     card = phase_environment()
     parent = str(Path(parent).resolve())
     turns = []
     for name, root in (("parent", parent), ("this", str(ROOT)),
                        ("this", str(ROOT)), ("parent", parent)):
-        run = subprocess.run([sys.executable, "-c", TURN_CHILD, root],
+        run = subprocess.run([sys.executable, "-c", TURN_CHILD, root,
+                              json.dumps(TURN_BATCHES)],
                              capture_output=True, text=True, cwd=root,
                              timeout=900)
         out = ROOT / "chiprun_out"
@@ -1626,9 +1840,19 @@ def turns_main(parent: str) -> int:
         turns.append(dict(checkout=name, **json.loads(line[-1][5:])))
         log(f"turn {len(turns)} ({name}): " + "; ".join(
             f"{k} " + " / ".join(f"{v:.4f}" if v else "nan" for v in vs)
-            for k, vs in turns[-1].items() if k != "checkout"))
+            for k, vs in turns[-1].items() if k.startswith("k")
+            and not k.endswith("hash")))
+    for t in turns[1:]:
+        require(t["k1_hash"] == turns[0]["k1_hash"], f"K1's outputs differ "
+                f"between the checkouts ({t['checkout']})")
+    same = [a == b for a, b in zip(turns[1]["k2_hash"], turns[0]["k2_hash"])]
+    log(f"K1 outputs bit-identical across the checkouts; K2 outputs "
+        f"bit-identical to the parent's at layers "
+        f"{[i for i, v in enumerate(same) if v]} of {len(same)} (sha256 "
+        f"after + 0.0: {turns[1]['k2_hash']} / parent "
+        f"{turns[0]['k2_hash']})")
     log(card)
-    print(json.dumps({"turns": turns, "card": card}))
+    print(json.dumps({"turns": turns, "card": card, "k2_same": same}))
     return 0
 
 
@@ -1651,11 +1875,13 @@ def main() -> int:
 
     card = phase_environment()
     phase_build()
+    floor = phase_launch_floor(dev)
     k2 = phase_subnet_kernel(cfg, dev)
     k1, tile_sweep = phase_cascade_kernel(cfg, dev)
     k1_dag, dag_sweep, dag_cases = phase_dag_cascade_kernel(dev)
     k3 = phase_gather_kernel(cfg, dev)
     launches, served = phase_main_path(cfg, dev)
+    stages = phase_convert_stages(cfg, dev)
     layer = phase_layer_serving(cfg, dev, served)
     graph_launches, graph = phase_graph_serving(dev)
     k4, k5 = phase_train_kernels(cfg, dev)
@@ -1673,7 +1899,7 @@ def main() -> int:
          "max_abs_err": max(r["err"] for r in k1.values()),
          "ms": head["ms"], "plain_ms": head["plain_ms"],
          "bound_ms": head["bound_ms"], "bound_by": head["by"],
-         "library_ms": None, "call_ms": head["call_ms"],
+         "library_ms": None, "floor_ms": floor, "call_ms": head["call_ms"],
          "plain_call_ms": head["plain_call_ms"], "timing": head["timing"],
          "shape": f"neuralut-jsc-5l B={HEADLINE_B}",
          "by_batch": {str(b): r for b, r in k1.items()},
@@ -1685,7 +1911,8 @@ def main() -> int:
          "max_abs_err": max(r["err"] for r in k1_dag.values()),
          "ms": dag_head["ms"], "plain_ms": dag_head["plain_ms"],
          "bound_ms": dag_head["bound_ms"], "bound_by": dag_head["by"],
-         "library_ms": None, "call_ms": dag_head["call_ms"],
+         "library_ms": None, "floor_ms": floor,
+         "call_ms": dag_head["call_ms"],
          "plain_call_ms": dag_head["plain_call_ms"],
          "timing": dag_head["timing"],
          "shape": f"{GRAPH_ARCH} B={HEADLINE_B}",
@@ -1707,7 +1934,7 @@ def main() -> int:
          "plain_call_ms": sum(r["plain_call_ms"] for r in k2),
          "timing": k2[0]["timing"],
          "shape": "sum of the 5 jsc-5l conversion layers",
-         "by_layer": k2},
+         "by_layer": k2, "convert_stages": stages},
     ]
     k3_head = [k3[(i, HEADLINE_B)] for i in range(cfg.num_layers)]
     kernels.append({
@@ -1723,6 +1950,7 @@ def main() -> int:
         else "operations",
         "library_ms": sum(r["library_ms"] for r in k3_head),
         "library_call": "tables[o_idx, addr] (advanced indexing, int32)",
+        "floor_ms": floor,
         "call_ms": sum(r["call_ms"] for r in k3_head),
         "plain_call_ms": sum(r["plain_call_ms"] for r in k3_head),
         "timing": k3_head[0]["timing"],

@@ -79,155 +79,8 @@
 
 namespace cg = cooperative_groups;
 
-__device__ __forceinline__ const int* sub_rec(const int* g, int u) {
-  return g + GH_WORDS + u * SU_WORDS;
-}
 __device__ __forceinline__ const int* act_rec(const int* g, int i) {
   return g + g[GH_ACT] + i * AC_WORDS;
-}
-
-// The used part of the geometry into shared memory.
-__device__ __forceinline__ void copy_geom(const TrainGeom& geom, int* sg) {
-  const int used = geom.w[GH_USED];
-  for (int k = threadIdx.x; k < used; k += blockDim.x) sg[k] = geom.w[k];
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-// Wait for this thread's cp.async copies.
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
-}
-
-// x / d for 0 <= x < 2^16 and 1 <= d <= 2^11 from d's divisor m =
-// ceil(2^32 / d) (0 for d = 1), made on the host (udiv_magic): one
-// multiply instead of a division.
-__device__ __forceinline__ int udiv(int x, int m) {
-  return m ? (int)__umulhi((unsigned)x, (unsigned)m) : x;
-}
-
-// Rows of n <= 32 contiguous floats, moved by one warp: lane (dr, j)
-// takes row r0 + dr of 32 / n rows per step, column j.  m: n's divisor.
-struct RowLanes {
-  int rpi, dr, j;
-  __device__ __forceinline__ RowLanes(int n, int m) {
-    const int lane = threadIdx.x & 31;
-    rpi = udiv(32, m);
-    dr = udiv(lane, m);
-    j = lane - dr * n;
-  }
-  __device__ __forceinline__ bool on(int r0, int rows) const {
-    return dr < rpi && r0 + dr < rows;
-  }
-};
-
-// The warp's neuron's packed row (pstride floats at src) as it is into
-// the warp's scratch (pstride + 3 floats, 16-byte aligned), 16 bytes at
-// a time: raw[e] = src[e] with raw 16-byte aligned where src is.
-// Asynchronous: the warp waits (cp_async_wait, __syncwarp) and then
-// spreads the row out (spread_weights).
-__device__ __forceinline__ float* weights_raw(float* scratch,
-                                              const float* src) {
-  return scratch + (int)((reinterpret_cast<size_t>(src) >> 2) & 3);
-}
-__device__ __forceinline__ void issue_weights(float* __restrict__ scratch,
-                                              const float* __restrict__ src,
-                                              const int* sg) {
-  const int lane = threadIdx.x & 31, pstride = sg[GH_PSTRIDE];
-  float* raw = weights_raw(scratch, src);
-  const int head = min((4 - (int)(raw - scratch)) & 3, pstride);
-  const int nvec = (pstride - head) / 4, tail = head + 4 * nvec;
-  if (lane < head) cp_async4(raw + lane, src + lane);
-  for (int v = lane; v < nvec; v += 32)
-    cp_async16(raw + head + 4 * v, src + head + 4 * v);
-  if (tail + lane < pstride && lane < 4)
-    cp_async4(raw + tail + lane, src + tail + lane);
-}
-
-// The copied row into the padded layout w, 8 rows of a sub-layer per
-// lane loaded before any is stored.  Ends with the warp in step.
-__device__ __forceinline__ void spread_weights(float* __restrict__ w,
-                                               const float* __restrict__ raw,
-                                               const int* sg) {
-  const int nsub = sg[GH_NL] + sg[GH_NCH];
-  for (int u = 0; u < nsub; ++u) {
-    const int* su = sub_rec(sg, u);
-    const int nin = su[SU_NIN], nout = su[SU_NOUT], ldo = su[SU_LDO];
-    const RowLanes rl(ldo, su[SU_MLDO]);
-    float* d = w + su[SU_PAD] + rl.j;
-    const float* r = raw + su[SU_PK] + rl.j;
-    for (int p0 = 0; p0 <= nin; p0 += 8 * rl.rpi) {
-      float v[8];
-#pragma unroll
-      for (int m = 0; m < 8; ++m) {
-        const int p = p0 + m * rl.rpi;
-        v[m] = rl.on(p, nin + 1) && rl.j < nout ? r[(p + rl.dr) * nout]
-                                                 : 0.f;
-      }
-#pragma unroll
-      for (int m = 0; m < 8; ++m) {
-        const int p = p0 + m * rl.rpi;
-        if (rl.on(p, nin + 1)) d[(p + rl.dr) * ldo] = v[m];
-      }
-    }
-  }
-  __syncwarp();
-}
-
-// y = h @ w + b for one row, w (nin, ldo) padded row-major with its bias
-// row after it: the products summed first, the bias added last, as the
-// reference einsum does.  Each 16-byte load feeds 4 multiply-adds.  Rows
-// go in chunks of 4 without a branch per row: h is 0 past nin, and a row
-// past nin reads the (finite) bias row, so it adds exact zeros.
-template <int NMAX>
-__device__ __forceinline__ void dense4(const float (&h)[NMAX],
-                                       float (&y)[NMAX],
-                                       const float* __restrict__ w, int nin,
-                                       int nout, int ldo) {
-  float acc[NMAX];
-#pragma unroll
-  for (int j = 0; j < NMAX; ++j) acc[j] = 0.f;
-#pragma unroll
-  for (int i0 = 0; i0 < NMAX; i0 += 4) {
-    if (i0 < nin) {
-#pragma unroll
-      for (int i = i0; i < i0 + 4; ++i) {
-        const float hi = h[i];
-        const float4* wr =
-            reinterpret_cast<const float4*>(w + min(i, nin) * ldo);
-#pragma unroll
-        for (int j = 0; j < NMAX; j += 4) {
-          if (j < nout) {
-            const float4 v = wr[j / 4];
-            acc[j] = fmaf(hi, v.x, acc[j]);
-            acc[j + 1] = fmaf(hi, v.y, acc[j + 1]);
-            acc[j + 2] = fmaf(hi, v.z, acc[j + 2]);
-            acc[j + 3] = fmaf(hi, v.w, acc[j + 3]);
-          }
-        }
-      }
-    }
-  }
-  const float4* b = reinterpret_cast<const float4*>(w + nin * ldo);
-#pragma unroll
-  for (int j = 0; j < NMAX; j += 4) {
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (j < nout) v = b[j / 4];
-    y[j] = (j < nout) ? acc[j] + v.x : 0.f;
-    y[j + 1] = (j + 1 < nout) ? acc[j + 1] + v.y : 0.f;
-    y[j + 2] = (j + 2 < nout) ? acc[j + 2] + v.z : 0.f;
-    y[j + 3] = (j + 3 < nout) ? acc[j + 3] + v.w : 0.f;
-  }
 }
 
 // gn = w @ gm (the cotangent of the layer's input); gm is 0 past nout.
@@ -304,12 +157,12 @@ __global__ void __launch_bounds__(REPRO_TRAIN_THREADS, 1)
 subnet_train_fwd_kernel(const float* __restrict__ xg,
                         const float* __restrict__ wpack,
                         float* __restrict__ out, float* __restrict__ acts,
-                        int T, int O, TrainGeom geom) {
+                        int T, int O, GeomRecord geom) {
   extern __shared__ __align__(16) float smem[];
   int* sg = reinterpret_cast<int*>(smem);
   copy_geom(geom, sg);
   __syncthreads();
-  const int G = sg[GH_G], nl = sg[GH_NL], skip = sg[GH_SKIP];
+  const int G = sg[GH_G], nl = sg[GH_NL];
   const int k = threadIdx.x >> 5, r = threadIdx.x & 31;
   const int o = blockIdx.x * G + k, t0 = blockIdx.y * REPRO_TRAIN_ROWS;
   const int s = blockIdx.z;
@@ -352,46 +205,15 @@ subnet_train_fwd_kernel(const float* __restrict__ xg,
   __syncwarp();
 
   const bool valid = r < f.rv;
-  float h[NMAX], a[NMAX], res[NMAX], in[NMAX], y[NMAX];
+  float h[1][NMAX];
 #pragma unroll
-  for (int j = 0; j < NMAX; ++j) {
-    h[j] = (valid && j < F) ? f.st[r * f.ld + j] : 0.f;
-    res[j] = 0.f;
-    a[j] = 0.f;
-  }
-  // chunks of `skip` layers after their skip sub-layer (q = -1), or of
-  // one layer and no skip when skip = 0
-  const int cs = skip ? skip : 1, nc = skip ? sg[GH_NCH] : nl;
-  for (int c = 0; c < nc; ++c) {
-    for (int q = skip ? -1 : 0; q < cs; ++q) {
-      const int l = c * cs + q;
-      if (q == 0) {
-#pragma unroll
-        for (int j = 0; j < NMAX; ++j) a[j] = h[j];
-      }
-      if (q >= 0 && l > 0) save_act<NMAX>(f, acts, block, O, l, a);
-#pragma unroll
-      for (int j = 0; j < NMAX; ++j) in[j] = q < 0 ? h[j] : a[j];
-      const int* su = sub_rec(sg, q < 0 ? nl + c : l);
-      dense4<NMAX>(in, y, f.w + su[SU_PAD], su[SU_NIN], su[SU_NOUT],
-                   su[SU_LDO]);
-      if (q < 0) {
-#pragma unroll
-        for (int j = 0; j < NMAX; ++j) res[j] = y[j];
-      } else if (q < cs - 1) {
-#pragma unroll
-        for (int j = 0; j < NMAX; ++j) a[j] = fmaxf(y[j], 0.f);
-      } else {
-        const bool act = c < nc - 1;
-#pragma unroll
-        for (int j = 0; j < NMAX; ++j) {
-          const float v = y[j] + res[j];
-          h[j] = act ? fmaxf(v, 0.f) : v;
-        }
-      }
-    }
-  }
-  if (valid) out[f.row0 + (size_t)r * O] = h[0];
+  for (int j = 0; j < NMAX; ++j)
+    h[0][j] = (valid && j < F) ? f.st[r * f.ld + j] : 0.f;
+  subnet_forward<NMAX, 1>(
+      sg, f.w, h, [&](int l, const float (&a)[1][NMAX]) {
+        save_act<NMAX>(f, acts, block, O, l, a[0]);
+      });
+  if (valid) out[f.row0 + (size_t)r * O] = h[0][0];
 }
 
 // ---------------------------------------------------------------------------
@@ -508,7 +330,7 @@ subnet_train_bwd_kernel(const float* __restrict__ gout_in,
                         const float* __restrict__ acts,
                         const float* __restrict__ wpack,
                         float* __restrict__ dx, float* __restrict__ grads,
-                        float* scratch, int T, int O, TrainGeom geom) {
+                        float* scratch, int T, int O, GeomRecord geom) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   int* sg = reinterpret_cast<int*>(smem);

@@ -25,91 +25,26 @@
 
 #define REPRO_TRAIN_ROWS 32        // rows per block: the lanes of a warp
 #define REPRO_TRAIN_THREADS 256    // G * 32 at most
-#define REPRO_MAX_SUBS (2 * REPRO_MAX_DEPTH)
 #define REPRO_MAX_CLUSTER 8        // portable cluster size
-#define REPRO_MAX_SMEM 232448      // dynamic shared memory of a block
-
-// The geometry, compact: the header, then one record per sub-layer u
-// (layers 0 .. L-1, then skip chunks 0 .. nch-1), then one per
-// activation i (the input of layer i; 0 = x).
-// Header: depth, skip period, chunks, packed and padded row lengths,
-// neurons per block, K4's and K5's shared floats per warp, where the
-// activation records start, words used, where K5's gm staging tile
-// starts after the activation tiles, and the TF_* flags.
-enum { GH_NL, GH_SKIP, GH_NCH, GH_PSTRIDE, GH_PPAD, GH_G, GH_WARP_FWD,
-       GH_WARP_BWD, GH_ACT, GH_USED, GH_STAGE, GH_FLAGS, GH_WORDS = 12 };
-// TF_STAGED: the packed rows come into shared memory as they are (16
-// bytes at a time) before they are spread out; else they are spread out
-// straight from global memory.  TF_ACC_GLOBAL (K5): the block's gradient
-// sum lives in a slice of global scratch, not in shared memory.
-enum { TF_STAGED = 1, TF_ACC_GLOBAL = 2 };
-// Sub-layer: input and output width, padded output stride (multiple of
-// 4), offset of w in a packed row (b follows at PK + NIN * NOUT), offset
-// of w in the padded row (b at PAD + NIN * LDO), its input activation,
-// K5's gm staging stride (LDO, or LDO + 4 to make it 4 mod 8), and the
-// stride and offset of the input activation's tile in K5 (copied from
-// its record, so that a sub-layer's fields are one load away), and the
-// divisors (udiv) of LDO and LDO / 4.
-enum { SU_NIN, SU_NOUT, SU_LDO, SU_PK, SU_PAD, SU_IN, SU_LDG, SU_LDA,
-       SU_TILE, SU_MLDO, SU_MNTQ, SU_WORDS = 12 };
-// Activation: width, prefix sum of widths 1 .. i-1 (act i's block in
-// the activation buffer starts at S * T * O * PW), K5's tile stride (a
-// multiple of 4, > N: the column N holds ones), the tile's offset in
-// the warp's shared floats, and the divisors of N and N / 4 (0 when 4
-// does not divide N).
-enum { AC_N, AC_PW, AC_LDA, AC_TILE, AC_MN, AC_MN4, AC_WORDS = 8 };
-#define REPRO_GEOM_INTS \
-  (GH_WORDS + REPRO_MAX_SUBS * SU_WORDS + REPRO_MAX_DEPTH * AC_WORDS)
-
-struct TrainGeom {
-  int w[REPRO_GEOM_INTS];
-};
-
-static inline int round4(int n) { return (n + 3) & ~3; }
-
-// udiv's divisor for d: ceil(2^32 / d), or 0 for d = 1.
-static inline int udiv_magic(int d) {
-  return d == 1 ? 0 : (int)(unsigned)((0x100000000ull + d - 1) / d);
-}
 
 // The geometry for G neurons per block and the TF_* flags; *smem_fwd /
 // *smem_bwd: the two kernels' dynamic shared memory with it.
-static void train_geom(const SubnetGeom& g, int G, int flags, TrainGeom* tg,
+static void train_geom(const SubnetGeom& g, int G, int flags, GeomRecord* tg,
                        size_t* smem_fwd, size_t* smem_bwd) {
-  for (int k = 0; k < REPRO_GEOM_INTS; ++k) tg->w[k] = 0;
+  subnet_record(g, tg);
   int* h = tg->w;
-  const int nl = g.nlayers, skip = g.skip, nch = skip ? nl / skip : 0;
+  const int nl = g.nlayers, nch = h[GH_NCH];
   const int R = REPRO_TRAIN_ROWS;
-  h[GH_NL] = nl;
-  h[GH_SKIP] = skip;
-  h[GH_NCH] = nch;
-  h[GH_PSTRIDE] = g.pstride;
   h[GH_G] = G;
   h[GH_FLAGS] = flags;
-  int ppad = 0, ldg_max = 4;
+  const int ppad = h[GH_PPAD];
+  int ldg_max = 4;
   for (int u = 0; u < nl + nch; ++u) {
-    int* su = h + GH_WORDS + u * SU_WORDS;
-    const bool layer = u < nl;
-    const int in = layer ? u : (u - nl) * skip;
-    const int nin = g.width[in];
-    const int nout = layer ? g.width[u + 1] : g.width[in + skip];
-    const int ldo = round4(nout);
-    su[SU_NIN] = nin;
-    su[SU_NOUT] = nout;
-    su[SU_LDO] = ldo;
-    su[SU_PK] = layer ? g.w_off[u] : g.sw_off[u - nl];
-    su[SU_PAD] = ppad;
-    su[SU_IN] = in;
-    su[SU_LDG] = ldo % 8 ? ldo : ldo + 4;
-    su[SU_MLDO] = udiv_magic(ldo);
-    su[SU_MNTQ] = udiv_magic(ldo / 4);
-    ppad += (nin + 1) * ldo;
-    ldg_max = su[SU_LDG] > ldg_max ? su[SU_LDG] : ldg_max;
+    const int ldg = h[GH_WORDS + u * SU_WORDS + SU_LDG];
+    ldg_max = ldg > ldg_max ? ldg : ldg_max;
   }
-  const int act = GH_WORDS + (nl + nch) * SU_WORDS;
-  h[GH_ACT] = act;
+  const int act = h[GH_ACT];
   h[GH_USED] = act + nl * AC_WORDS;
-  h[GH_PPAD] = ppad;
   int tiles = 0, pw = 0, nst = 1;
   for (int i = 0; i < nl; ++i) {
     int* ac = h + act + i * AC_WORDS;
@@ -131,9 +66,11 @@ static void train_geom(const SubnetGeom& g, int G, int flags, TrainGeom* tg,
     su[SU_TILE] = ac[AC_TILE];
   }
   // per warp, in floats, each part 16-byte aligned: K4 the weights and
-  // a staging tile (R x (nst | 1)); K5 the weights, the activation tiles
-  // and a gm (or dx) staging tile.  A staged packed row first passes
-  // through the staging tile as it comes (pstride + 3 floats).
+  // a staging tile (R x (nst | 1), at least the 32 floats past the
+  // weights that the forward walk, dense4, may read); K5 the weights,
+  // the activation tiles and a gm (or dx) staging tile.  A staged packed
+  // row first passes through the staging tile as it comes (pstride + 3
+  // floats).
   const int f1 = g.width[0] | 1;
   const int scratch = flags & TF_STAGED ? round4(g.pstride + 3) : 0;
   const int st_fwd = round4(R * (nst | 1));
@@ -149,7 +86,7 @@ static void train_geom(const SubnetGeom& g, int G, int flags, TrainGeom* tg,
 }
 
 struct TrainPlan {
-  TrainGeom fwd, bwd;        // each kernel's geometry, its G and flags
+  GeomRecord fwd, bwd;       // each kernel's geometry, its G and flags
   size_t smem_fwd, smem_bwd;
   long long scratch;         // floats of K5's global sums (0: none)
   int tiles, cluster;        // row tiles; K5's ranks per neuron group

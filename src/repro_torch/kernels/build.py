@@ -96,8 +96,9 @@ def _build(out: Path) -> str:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_lut_cascade.argtypes = [
         _I, _P, _I, _I,        # device, codes, batch, in_width
-        _I, _P,                # nodes, node descriptors
-        _I, _I, _P, _P]        # rows per block, code stride, out, stream
+        _I, _P, _I,            # nodes, program, its 16-byte chunks
+        _I, _I,                # largest arity, widest node
+        _I, _I, _P, _P]        # rows per block, row pitch, out, stream
     lib.repro_lut_cascade.restype = _I
     lib.repro_lut_gather.argtypes = [
         _I, _P, _P, _P,        # device, tables, addr, out
@@ -106,8 +107,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_grouped_subnet.argtypes = [
         _I, _P, _P, _P,        # device, xg, packed weights, out
         _I, _I, _I,            # T, O, params per neuron
-        _I, _P, _I, _P]        # nlayers, widths, skip, stream
+        _I, _P, _I,            # nlayers, widths, skip
+        _P, _P]                # forced tile (int[3] or NULL), stream
     lib.repro_grouped_subnet.restype = _I
+    lib.repro_grouped_subnet_launch_plan.argtypes = [
+        _I, _I, _I,            # device, T, O
+        _I, _P, _I,            # nlayers, widths, skip
+        _P, _P]                # forced tile, out (long long[])
+    lib.repro_grouped_subnet_launch_plan.restype = _I
+    lib.repro_grouped_subnet_plan.argtypes = [
+        _I, _I, _I, _P, _I,    # T, O, nlayers, widths, skip
+        _I, _P,                # SMs, registers at R = 1, 2, 4
+        _P, _P]                # forced tile, out (long long[])
+    lib.repro_grouped_subnet_plan.restype = _I
     lib.repro_subnet_train_fwd.argtypes = [
         _I, _P, _P, _P, _P,    # device, xg, packed weights, out, acts
         _I, _I, _I, _I,        # seeds, T, O, params per neuron
@@ -124,6 +136,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         _I, _I, _I,            # seeds, T, O
         _I, _P, _I, _P]        # nlayers, widths, skip, out (long long[])
     lib.repro_subnet_train_plan.restype = _I
+    lib.repro_launch_floor.argtypes = [_I, _P]   # device, stream
+    lib.repro_launch_floor.restype = _I
     lib.repro_cuda_error_string.argtypes = [_I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

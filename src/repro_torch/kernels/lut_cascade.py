@@ -29,24 +29,24 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import (LayerMeta, NodeSched, as_schedule,
                                      lut_cascade_ref)
 
-# As csrc/lut_cascade.cu: REPRO_MAX_NODES, REPRO_MAX_ARITY, REPRO_SRC_*
-# and the node descriptor of REPRO_DESC_WORDS int64 words (9 geometry
-# fields, then MAX_ARITY column and MAX_ARITY table pointers).
+# As csrc/lut_cascade.cu: REPRO_MAX_NODES, REPRO_MAX_ARITY and the node
+# descriptor of REPRO_DESC_WORDS int64 words (9 geometry fields, then
+# MAX_ARITY column offsets and MAX_ARITY table pointers, then a pad word).
 MAX_NODES = 16
 MAX_ARITY = 4
-SRC_SHARED, SRC_INPUT, SRC_MIXED = 0, 1, 2
-DESC_WORDS = 9 + 2 * MAX_ARITY
-# Shared memory of one H100 block, less the kernel's descriptor copy.
-MAX_SHARED_BYTES = 227 * 1024 - 8 * MAX_NODES * DESC_WORDS
-CODE_BITS = 16  # the kernel keeps inter-node codes as uint16
+DESC_WORDS = 9 + 2 * MAX_ARITY + 1
+# Shared memory of one H100 block.
+MAX_SHARED_BYTES = 227 * 1024
+CODE_BITS = 16  # the kernel keeps codes, and column positions, as uint16
 
 # Batch rows per block.  A thread walks its (row, neuron) items of a
 # node one after another, each a chain of dependent loads, so a block's
 # time grows with its rows, and the engine's batches (at most 256 rows)
-# do not fill the card even at one row per block.  Chosen from
-# chip_smoke.py's tile sweeps at the engine's bucket sizes, on the chain
-# and on the DAG (PERF.md); 8 rows win only at thousands of rows, which
-# no serving batch reaches.
+# do not fill the card even at one row per block; a block's prologue
+# (the program into shared memory) is the same for any rows.  Chosen
+# from chip_smoke.py's tile sweeps at the engine's bucket sizes, on the
+# chain and on the DAG (PERF.md); 2-8 rows win only at thousands of rows,
+# which no serving batch reaches.
 DEFAULT_BLOCK_B = 1
 
 
@@ -137,12 +137,17 @@ class CascadeOperands:
     buffers concatenated in ``srcs`` order), ``packed[k]`` (O, T / P)
     int32, all on one device; ``schedule`` is a node schedule or a
     chain's ``cascade_meta``; ``in_width`` is the input code count.
-    Every shape, source index, bit width and the shared-memory row are
-    checked here; the code columns (each branch's connectivity rewritten
-    into shared-memory or input columns) and the kernel's node
-    descriptors (``desc``) are built here, once.  Holding the tensors
-    keeps the pointers the kernel reads alive; the serving forward
-    builds this once and passes it with every batch."""
+    Every shape, source index, bit width and the block's shared memory
+    are checked here, and the kernel's program is built here, once: a
+    row's code array holds the W_0 input codes, then each buffer that a
+    later node reads in its own columns (``out_cols``, ``stride``
+    columns in all), so ``cols[k]`` (O, F) int32 is branch k's
+    connectivity rewritten into positions in that array (input column j
+    at j, buffer column c at W_0 + c), and ``prog`` holds the node
+    descriptors (``desc``) and every branch's positions, 16-bit, each
+    neuron's padded to a multiple of 4.  Holding the tensors keeps the
+    pointers the kernel reads alive; the serving forward builds this
+    once and passes it with every batch."""
 
     def __init__(self, conns: Sequence[torch.Tensor],
                  packed_tables: Sequence[torch.Tensor], schedule,
@@ -181,43 +186,81 @@ class CascadeOperands:
                                  f"codes sum to {bits[i + 1]} bits > "
                                  f"{CODE_BITS}")
             widths.append(shape[0])
+        if bits.get(0, 0) > CODE_BITS:
+            raise ValueError(f"{bits[0]}-bit input codes > {CODE_BITS}")
         self.out_width = widths[-1]
+        self.max_width = max(widths[1:])
+        self.max_arity = max(arity for _s, arity, *_r in self.schedule)
         self.out_cols, self.stride = _plan_code_columns(self.schedule,
                                                        widths)
-        if 2 * self.stride > MAX_SHARED_BYTES:
-            raise ValueError(f"a row of {self.stride} codes exceeds the "
-                             "block's shared memory")
+        self.pitch = self.in_width + self.stride
+        if 2 * self.pitch > MAX_SHARED_BYTES or self.pitch >= 1 << CODE_BITS:
+            raise ValueError(f"a row of {self.pitch} codes exceeds the "
+                             "block's shared memory or 16-bit positions")
         self.cols = self._code_columns(widths)
-        desc, k = [], 0
-        for node, col in zip(self.schedule, self.out_cols):
-            srcs, arity, in_bits, wb, sb, beta = node
-            src = (SRC_INPUT if set(srcs) == {0} else
-                   SRC_MIXED if 0 in srcs else SRC_SHARED)
-            o, f = self.conns[k].shape
-            pad = [k] * (MAX_ARITY - arity)  # unused: branch 0's pointers
-            branches = list(range(k, k + arity)) + pad
-            desc.append([o, f, in_bits, 1 << wb, sb, beta, arity, col, src]
-                        + [self.cols[b].data_ptr() for b in branches]
-                        + [self.packed[b].data_ptr() for b in branches])
-            k += arity
-        # The kernel's node descriptors, on the operands' device.
-        self.desc = torch.tensor(desc, dtype=torch.int64, device=self.device)
+        self.desc, self.prog = self._program()
+        if self.prog.numel() * 8 + 2 * self.pitch > MAX_SHARED_BYTES:
+            raise ValueError(f"the program's {self.prog.numel() * 8} bytes "
+                             "(node descriptors and code columns) and a row "
+                             "exceed the block's shared memory")
 
     def _code_columns(self, widths) -> Tuple[torch.Tensor, ...]:
-        """Each branch's conn rewritten into columns: c >= 0 a shared
-        column of the row, c < 0 input column -1 - c."""
+        """Each branch's conn rewritten into positions in a row's code
+        array: input column j at j, buffer column c at W_0 + c."""
         cols, k = [], 0
         for srcs, arity, *_r in self.schedule:
             parts = []
             for s in srcs:
                 j = torch.arange(widths[s], dtype=torch.int32,
                                  device=self.device)
-                parts.append(-1 - j if s == 0 else self.out_cols[s - 1] + j)
+                parts.append(j if s == 0
+                             else self.in_width + self.out_cols[s - 1] + j)
             colmap = torch.cat(parts)
             for _a in range(arity):
                 cols.append(colmap[self.conns[k].long()].contiguous())
                 k += 1
         return tuple(cols)
+
+    def _program(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(desc, prog): the (nodes, DESC_WORDS) int64 node descriptors,
+        and the kernel's program, int64 words on the operands' device:
+        the descriptors, then the column area (every branch's positions
+        as uint16, (O, round4(F)) each, pad entries 0), 16-byte padded."""
+        areas, off, desc, k = [], 0, [], 0
+        for node, col in zip(self.schedule, self.out_cols):
+            srcs, arity, in_bits, wb, sb, beta = node
+            o, f = self.conns[k].shape
+            offs = []
+            for _a in range(arity):
+                c = torch.zeros((o, -(-f // 4) * 4), dtype=torch.int32,
+                                device=self.device)
+                c[:, :f] = self.cols[k]
+                areas.append(c.flatten())
+                offs.append(off)
+                off += c.numel()
+                k += 1
+            pad = [0] * (MAX_ARITY - arity)   # unused branches
+            ptrs = [self.packed[b].data_ptr() for b in range(k - arity, k)]
+            desc.append([o, f, in_bits, 1 << wb, sb, beta, arity,
+                         col if col < 0 else self.in_width + col,
+                         _udiv_magic(o)] + offs + pad + ptrs + pad + [0])
+        desc = torch.tensor(desc, dtype=torch.int64, device=self.device)
+        area = torch.cat(areas)
+        area = torch.cat([area, area.new_zeros(-area.numel() % 8)])
+        return desc, torch.cat([desc.flatten(), _pack_u16(area)])
+
+
+def _udiv_magic(d: int) -> int:
+    """The kernel's divisor for d (csrc/subnet_geom.h udiv_magic):
+    ceil(2^32 / d), or 0 for d = 1."""
+    return 0 if d == 1 else -(-(1 << 32) // d)
+
+
+def _pack_u16(area: torch.Tensor) -> torch.Tensor:
+    """int32 values < 2^16, a multiple of 4 of them -> int64 words of 4
+    little-endian uint16 each."""
+    v = area.to(torch.int64).reshape(-1, 4)
+    return v[:, 0] | (v[:, 1] << 16) | (v[:, 2] << 32) | (v[:, 3] << 48)
 
 
 def _check_sources(i: int, srcs, in_bits: int, bits: Dict[int, int]) -> None:
@@ -287,13 +330,18 @@ def lut_cascade(codes: torch.Tensor, ops: CascadeOperands, *,
     if b == 0:
         return out
     rows = max(1, min(int(block_b), b))
-    if rows * ops.stride * 2 > MAX_SHARED_BYTES:
-        raise ValueError(f"block_b={rows} rows of {ops.stride} codes "
-                         "exceed the block's shared memory")
+    if ops.prog.numel() * 8 + rows * ops.pitch * 2 > MAX_SHARED_BYTES:
+        raise ValueError(f"block_b={rows} rows of {ops.pitch} codes and the "
+                         f"{ops.prog.numel() * 8}-byte program exceed the "
+                         "block's shared memory")
+    if rows * ops.max_width ** 2 > 1 << 32:
+        raise ValueError(f"block_b={rows} rows of {ops.max_width} codes: "
+                         "more items than the kernel's divisor is exact for")
     rc = build.load_library().repro_lut_cascade(
         codes.device.index, codes.data_ptr(), b, ops.in_width,
-        len(ops.schedule), ops.desc.data_ptr(), rows, ops.stride,
-        out.data_ptr(), torch.cuda.current_stream(codes.device).cuda_stream)
+        len(ops.schedule), ops.prog.data_ptr(), ops.prog.numel() // 2,
+        ops.max_arity, ops.max_width, rows, ops.pitch, out.data_ptr(),
+        torch.cuda.current_stream(codes.device).cuda_stream)
     build.check(rc, "lut_cascade launch")
     lut_cascade.launches += 1
     return out

@@ -3,11 +3,16 @@
 ``repro.kernels.ops.subnet_kernel_apply``).
 
 Every (row, neuron) pair of a (T, O, F) input runs through its neuron's
-L-layer ReLU MLP with skip chunks in one launch; one thread per pair,
-the neuron's weights in shared memory, the hidden state in registers.
-Widths, depth and skip period are runtime arguments; rows and neurons
-need not divide any tile (the JAX kernel raises on shapes that do not
-divide, this one masks the ragged edge).  The plain version is
+L-layer ReLU MLP with skip chunks in one launch: a block holds up to 8
+neurons (a warp each, its weights spread in shared memory) x a tile of
+rows, each thread carries R rows through the walk at a time, and the
+block's inputs and outputs pass through shared memory in whole rows.
+The launch plan (R, the block's neurons and rows) is made by the C
+entry from the card's SM count and the kernels' register counts
+(``csrc/mlp_plan.h``; :func:`plan_subnet_launch` reads it).  Widths,
+depth and skip period are runtime arguments; rows and neurons need not
+divide any tile (the JAX kernel raises on shapes that do not divide,
+this one masks the ragged edge).  The plain version is
 ``kernels.ref.grouped_subnet_ref``, which the wrapper runs for tensors
 on the CPU; on the card the two agree to atol/rtol 1e-5 (fp32 summation
 order and FMA contraction).
@@ -15,6 +20,7 @@ order and FMA contraction).
 from __future__ import annotations
 
 import ctypes
+from collections import namedtuple
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -25,8 +31,14 @@ from repro_torch.kernels.ref import grouped_subnet_ref
 
 MAX_WIDTH = 32        # largest NMAX instantiation in csrc/neuralut_mlp.cu
 MAX_DEPTH = 16        # REPRO_MAX_DEPTH
-MAX_ROWS = 65535 * 256  # grid.y limit x rows per block
+MAX_ROWS = 65535 * 256  # grid.y limit x 256 rows per block
 MAX_SHARED_BYTES = 227 * 1024
+
+# The numbers of ``repro_grouped_subnet_launch_plan``, in the order of
+# its MP_* words (csrc/mlp_plan.h), then the chosen kernel's registers.
+SubnetPlan = namedtuple("SubnetPlan", (
+    "rows_per_thread", "neurons", "rows", "flags", "smem", "grid_x",
+    "grid_y", "pstride", "ppad", "regs"))
 
 
 def pack_subnet_weights(layer_ws: Sequence[torch.Tensor],
@@ -112,25 +124,54 @@ def grouped_subnet(xg: torch.Tensor,
     widths, skip_ws, skip_bs = check_operands(xg, layer_ws, layer_bs,
                                               skip_ws, skip_bs, skip)
     t, o, _ = xg.shape
-    nl = len(layer_ws)
     wpack = pack_subnet_weights(layer_ws, layer_bs, skip_ws, skip_bs)
-    if wpack.shape[1] * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"{wpack.shape[1]} weights per neuron exceed the "
-                         "block's shared memory")
     xg = xg.contiguous()
     out = torch.empty((t, o), dtype=torch.float32, device=xg.device)
     if t == 0 or o == 0:
         return out
-    rc = build.load_library().repro_grouped_subnet(
-        xg.device.index, xg.data_ptr(), wpack.data_ptr(), out.data_ptr(),
-        t, o, wpack.shape[1], nl, (ctypes.c_int * len(widths))(*widths),
-        skip, torch.cuda.current_stream(xg.device).cuda_stream)
-    build.check(rc, "grouped_subnet launch")
+    _launch(xg, wpack, out, widths, skip)
     grouped_subnet.launches += 1
     return out
 
 
 grouped_subnet.launches = 0
+
+
+def _force(force: Optional[Sequence[int]]):
+    return None if force is None else (ctypes.c_int * 3)(*force)
+
+
+def _launch(xg: torch.Tensor, wpack: torch.Tensor, out: torch.Tensor,
+            widths: Sequence[int], skip: int,
+            force: Optional[Sequence[int]] = None) -> None:
+    """One launch of the kernel on checked operands (``force``: (R,
+    neurons per block, rows per block) instead of the plan's, 0 = the
+    plan's; for a tile sweep)."""
+    t, o, _ = xg.shape
+    rc = build.load_library().repro_grouped_subnet(
+        xg.device.index, xg.data_ptr(), wpack.data_ptr(), out.data_ptr(),
+        t, o, wpack.shape[1], len(widths) - 1,
+        (ctypes.c_int * len(widths))(*widths), skip, _force(force),
+        torch.cuda.current_stream(xg.device).cuda_stream)
+    build.check(rc, "grouped_subnet launch")
+
+
+def plan_subnet_launch(device: torch.device, t: int, o: int,
+                       widths: Sequence[int], skip: int,
+                       force: Optional[Sequence[int]] = None) -> SubnetPlan:
+    """The plan the C entry makes for a launch of ``t`` rows x ``o``
+    neurons at ``widths`` / ``skip`` on the CUDA ``device`` (``force`` as
+    for :func:`_launch`); raises ValueError for a launch that it
+    refuses."""
+    words = (ctypes.c_longlong * len(SubnetPlan._fields))()
+    rc = build.load_library().repro_grouped_subnet_launch_plan(
+        torch.device(device).index or 0, t, o, len(widths) - 1,
+        (ctypes.c_int * len(widths))(*widths), skip, _force(force), words)
+    if rc:
+        raise ValueError(f"the grouped sub-network kernel takes no launch of "
+                         f"{t} x {o} at widths {widths}, skip {skip}, tile "
+                         f"{force or 'planned'}")
+    return SubnetPlan(*words)
 
 
 def subnet_kernel_apply(fn_params: Dict, xg: torch.Tensor,

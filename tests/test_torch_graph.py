@@ -13,8 +13,9 @@ serving path against the JAX package on the same inputs:
 * the plain DAG cascade and ``graph_lut_forward`` are bit-identical to
   the reference's ``graph_lut_forward`` and its Pallas ``lut_cascade``
   (interpret mode) on a diamond and on random DAGs;
-* the shared-memory code columns the kernel is launched with keep every
-  buffer until its last reader (an emulation of the kernel's walk);
+* the program the kernel copies into shared memory (node descriptors,
+  16-bit code positions) keeps every buffer until its last reader (an
+  emulation of the kernel's walk over that program);
 * serving a converted graph equals the reference's ``predict``.
 
 The CUDA kernel itself runs only on the card (``chip_smoke.py``).
@@ -42,7 +43,9 @@ from repro_torch.core import truth_table as TT
 from repro_torch.core.exec_plan import plan_cascade_exec, plan_subnet_exec
 from repro_torch.core.nl_config import (INPUT, LUTGraphConfig, LUTNodeSpec,
                                         UnsupportedTopology)
-from repro_torch.kernels.lut_cascade import (CascadeOperands, cascade_meta,
+from repro_torch.kernels.lut_cascade import (DESC_WORDS, MAX_ARITY,
+                                             MAX_SHARED_BYTES,
+                                             CascadeOperands, cascade_meta,
                                              cascade_tables,
                                              graph_cascade_meta,
                                              graph_cascade_tables,
@@ -299,37 +302,58 @@ def _ops(cfg, tables, statics):
 
 
 def _emulate_kernel(ops: CascadeOperands, codes: np.ndarray) -> np.ndarray:
-    """The CUDA kernel's walk in numpy, one row at a time: every branch
-    reads its codes through the launch's code columns (>= 0 a column of
-    the row's shared array, < 0 an input column), and each node stores
-    into its output columns or, the last one, the output."""
+    """The CUDA kernel's walk in numpy, one row at a time, over the
+    program it copies into shared memory (``ops.prog``): the node
+    descriptors, then the column area, each branch's (O, round4(F))
+    16-bit positions in a row's code array.  The array starts with the
+    row's input codes; every branch reads its codes through its
+    positions, and each node stores into its output positions or, the
+    last one, the output."""
     b = codes.shape[0]
+    nn = len(ops.schedule)
+    prog = ops.prog.numpy()
+    assert prog.size % 2 == 0          # whole 16-byte copies
+    desc = prog[:nn * DESC_WORDS].reshape(nn, DESC_WORDS)
+    assert np.array_equal(desc, ops.desc.numpy())
+    area = prog[nn * DESC_WORDS:].view(np.uint16)   # little-endian
+    tables = {p.data_ptr(): p.numpy().view(np.uint32).astype(np.int64)
+              for p in ops.packed}
     out = np.zeros((b, ops.out_width), np.int64)
-    cols = [c.numpy() for c in ops.cols]
-    packed = [pt.numpy().view(np.uint32).astype(np.int64)
-              for pt in ops.packed]
     for r in range(b):
-        row = np.full(ops.stride, -1, np.int64)  # -1: never written
-        k = 0
-        for n, (_s, arity, in_bits, _wb, sb, beta) in enumerate(
-                ops.schedule):
+        row = np.full(ops.pitch, -1, np.int64)  # -1: never written
+        row[:ops.in_width] = codes[r]
+        for d in desc:
+            o, f, in_bits, words, sb, beta, arity, out_col, magic = (
+                int(v) for v in d[:9])
+            # the kernel's row of item idx: umulhi(idx, magic), exact for
+            # every item of a tile the wrapper launches (rows * O^2 <=
+            # 2^32)
+            idx = np.arange(max(1, min(32, (1 << 32) // o ** 2)) * o,
+                            dtype=np.uint64)
+            assert np.array_equal(idx * np.uint64(magic) >> np.uint64(32)
+                                  if magic else idx, idx // np.uint64(o))
+            f4 = -(-f // 4) * 4
             total = 0
-            for _a in range(arity):
-                col = cols[k]
-                v = np.where(col < 0, codes[r][np.maximum(-1 - col, 0)],
-                             row[np.maximum(col, 0)])
+            for a in range(arity):
+                off = int(d[9 + a])
+                assert off % 4 == 0     # 8-byte aligned neuron rows
+                pos = area[off:off + o * f4].reshape(o, f4).astype(np.int64)
+                assert (pos < ops.pitch).all()
+                v = row[pos[:, :f]]
                 assert (v >= 0).all(), "a branch read an unwritten column"
-                addr = np.zeros(col.shape[0], np.int64)
-                for j in range(col.shape[1]):
+                addr = np.zeros(o, np.int64)
+                for j in range(f):
                     addr = (addr << in_bits) + v[:, j]
-                word = packed[k][np.arange(col.shape[0]), addr >> sb]
+                table = tables[int(d[9 + MAX_ARITY + a])]
+                assert table.shape == (o, words)
+                word = table[np.arange(o), addr >> sb]
                 total = total + ((word >> (beta * (addr & ((1 << sb) - 1))))
                                  & ((1 << beta) - 1))
-                k += 1
-            if ops.out_cols[n] < 0:
+            if out_col < 0:
                 out[r] = total
             else:
-                row[ops.out_cols[n]:ops.out_cols[n] + len(total)] = total
+                assert out_col >= ops.in_width
+                row[out_col:out_col + o] = total
     return out.astype(np.int32)
 
 
@@ -415,9 +439,10 @@ def test_diamond_dag_bit_exact():
                _node("c", inputs=("a", "b"))), kind="linear")
     ops = _check_dag(cfg, seed=7, b=13)
     assert ops.out_cols == [0, 4, -1] and ops.stride == 7
-    # branches of a and b read input columns, c's read shared columns
-    assert all(ops.cols[k].max() < 0 for k in range(4))
-    assert ops.cols[4].min() >= 0
+    # branches of a and b read input columns, c's read the nodes' columns
+    assert ops.pitch == 6 + 7
+    assert all(ops.cols[k].max() < 6 for k in range(4))
+    assert ops.cols[4].min() >= 6
 
 
 def test_random_dag_bit_exact_property():
@@ -559,6 +584,22 @@ def test_cascade_operands_reject_bad_graphs():
     mt, ms = _random_net(many, seed=3)
     with pytest.raises(ValueError, match="kernel maximum"):
         _ops(many, mt, ms)
+
+
+def test_cascade_operands_reject_columns_beyond_shared_memory():
+    """Two 14,000-wide nodes: a row of their codes fits in a block's
+    shared memory, their 16-bit code columns (4 per neuron) with it do
+    not."""
+    wide = LUTGraphConfig(
+        name="wide", in_features=4, num_classes=2, beta=2,
+        nodes=(_node("a", width=14000, fan_in=3),
+               _node("b", width=14000, fan_in=3, inputs=("a",)),
+               _node("c", width=2, inputs=("b",))), kind="linear")
+    wt, ws = _random_net(wide, seed=4)
+    row = 2 * (4 + 2 * 14000)
+    assert row < MAX_SHARED_BYTES < row + 2 * 2 * 14000 * 4
+    with pytest.raises(ValueError, match="program.*shared memory"):
+        _ops(wide, wt, ws)
 
 
 # ---------------------------------------------------------------------------

@@ -191,7 +191,9 @@ def test_ctypes_signatures_match_the_c_sources():
                 src.read_text()):
             found[name] = len([p for p in params.split(",") if p.strip()])
     assert {"repro_lut_cascade", "repro_lut_gather", "repro_grouped_subnet",
+            "repro_grouped_subnet_launch_plan", "repro_grouped_subnet_plan",
             "repro_subnet_train_fwd", "repro_subnet_train_bwd",
-            "repro_subnet_train_plan", "repro_cuda_error_string"} <= set(found)
+            "repro_subnet_train_plan", "repro_launch_floor",
+            "repro_cuda_error_string"} <= set(found)
     for name, n in found.items():
         assert len(getattr(lib, name).argtypes) == n, name
