@@ -33,7 +33,18 @@ then drives the port's paths at full width:
   grouped sub-network kernel once per branch, bundled and served through
   the LUT-cascade kernel's DAG schedule, one launch per batch; that
   schedule is first held against the plain DAG cascade at the model's
-  operands, on a diamond and on seeded random DAGs.
+  operands, on a diamond and on seeded random DAGs;
+* graph training: ``train_neuralut`` on ``polylut-add-jsc-5l``, one call
+  of each training kernel per branch per step (7), each one kernel,
+  converted once per branch and served on the DAG schedule; one step's
+  gradients against the plain autograd route; then 4 seeds together,
+  still 7 seed-axis calls of each per step, the best member served;
+  steps/s, the busy share and K4/K5 device ms per step; before it the
+  training kernels at the graph's branch widths (O 64, 32 and 5);
+* the LogicNets (``linear``) and PolyLUT (``poly``) neuron kinds on the
+  ``neuralut-jsc-5l`` chain: trained on the plain route (they launch no
+  sub-network kernel), converted and served through the LUT-cascade
+  kernel.
 
 The launch counts are set to 0 just before each path and read just
 after it.  Every phase that fails stops the run with a non-zero exit;
@@ -86,6 +97,12 @@ DAG_SEEDS = (0, 1, 2, 3)            # random DAGs of each generator
 DAG_CASE_BATCHES = (1, 37, 300)
 ENSEMBLE_SEEDS = (0, 1, 2, 3)
 ENSEMBLE_EPOCHS = 2                 # 2 x 78 = 156 steps of 4 seeds
+GRAPH_TRAIN_EPOCHS = 2              # polylut-add-jsc-5l, 156 steps
+GRAPH_ENSEMBLE_SEEDS = (0, 1, 2, 3)
+GRAPH_ENSEMBLE_EPOCHS = 1           # 78 steps of 4 seeds
+GRAPH_BRANCH_O = (64, 32, 5)        # the widths of its branches
+GRAPH_BRANCH_S = (1, 4)
+KIND_EPOCHS = 1                     # linear and poly on the jsc-5l chain
 TILE_SWEEP = (1, 2, 4, 8, 16, 32)   # K1 rows per block
 K2_SWEEP_R = (1, 2, 4)              # K2 rows per thread
 K2_SWEEP_G = (4, 8)                 # K2 neurons per block
@@ -1589,6 +1606,7 @@ def phase_train_shapes(dev):
             f"{'the float64 plain version' if exact else 'plain and autograd'}"
             f"), reruns and seed members bit-identical; plan at B=1000, "
             f"O=128, S=3: {plan}")
+    branch_rows = _branch_shapes(dev, gen)
     taken = {("K4", p.fwd_group, p.fwd_flags) for p in plans} | {
         ("K5", p.bwd_group, p.bwd_flags) for p in plans}
     want = {("K4", 4, STAGED), ("K4", 1, 0), ("K5", 2, STAGED),
@@ -1597,7 +1615,87 @@ def phase_train_shapes(dev):
             f"every one of {want}")
     log(f"train shapes: {cases} cases, K4 max err {e4max:.3e}, K5 max err "
         f"{e5max:.3e}")
-    return dict(cases=cases, err4=e4max, err5=e5max)
+    return dict(cases=cases, err4=e4max, err5=e5max, branches=branch_rows)
+
+
+def _branch_shapes(dev, gen):
+    """K4 and K5 at the branch widths of polylut-add-jsc-5l (O =
+    GRAPH_BRANCH_O; F 3, L 4, N 16, S 2) at the training batch, for S =
+    GRAPH_BRANCH_S: against the plain versions (K5 also against
+    autograd), one kernel per call by the profiler's count, device ms
+    beside the bound."""
+    import torch
+    from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
+                                                   subnet_train_fwd)
+    from repro_torch.kernels.neuralut_mlp import pack_subnet_weights
+    from repro_torch.kernels.ref import (grouped_subnet_ref,
+                                         subnet_train_bwd_ref,
+                                         subnet_train_fwd_ref)
+    f, depth, width, sk = 3, 4, 16, 2
+    rows = []
+    for o in GRAPH_BRANCH_O:
+        for ns in GRAPH_BRANCH_S:
+            lw, lb, sw, sb = _weights(_stacked_subnet(
+                gen, ns, o, f, depth, width, sk, dev))
+            xg = torch.randn((ns, TRAIN_B, o, f), generator=gen).to(dev)
+            g = torch.randn((ns, TRAIN_B, o), generator=gen).to(dev)
+            wpack = pack_subnet_weights(lw, lb, sw, sb)
+            out, acts = subnet_train_fwd(xg, lw, lb, sw, sb, skip=sk,
+                                         wpack=wpack)
+            grads = _flat_grads(subnet_train_bwd(g, xg, acts, lw, lb, sw, sb,
+                                                 skip=sk, wpack=wpack))
+            r_out, r_acts = subnet_train_fwd_ref(xg, lw, lb, sw, sb, skip=sk)
+            r_grads = _flat_grads(subnet_train_bwd_ref(g, xg, r_acts, lw, sw,
+                                                       skip=sk))
+            e4 = max([_close(out, r_out, K4_RTOL, K4_ATOL)]
+                     + [_close(a, r, K4_RTOL, K4_ATOL)
+                        for a, r in zip(acts, r_acts)])
+            e5 = max(_close(a, r, K5_RTOL, K5_ATOL)
+                     for a, r in zip(grads, r_grads))
+            req = [a.detach().clone().requires_grad_(True)
+                   for a in [xg] + lw + lb + sw + sb]
+            nl, nch = len(lw), len(sw)
+            y = torch.stack([grouped_subnet_ref(
+                req[0][s], [a[s] for a in req[1:1 + nl]],
+                [a[s] for a in req[1 + nl:1 + 2 * nl]],
+                [a[s] for a in req[1 + 2 * nl:1 + 2 * nl + nch]],
+                [a[s] for a in req[1 + 2 * nl + nch:]], skip=sk)
+                for s in range(ns)])
+            auto = torch.autograd.grad(y, req, grad_outputs=g)
+            e5 = max([e5] + [_close(a, c, K5_RTOL, K5_ATOL)
+                             for a, c in zip(grads, auto)])
+            torch.cuda.synchronize()
+            k4 = lambda: subnet_train_fwd(xg, lw, lb, sw, sb, skip=sk,
+                                          wpack=wpack)
+            k5 = lambda: subnet_train_bwd(g, xg, acts, lw, lb, sw, sb,
+                                          skip=sk, wpack=wpack)
+            tm4 = timings(k4, lambda: subnet_train_fwd_ref(
+                xg, lw, lb, sw, sb, skip=sk), "", 20, 5)
+            tm5 = timings(k5, lambda: subnet_train_bwd_ref(
+                g, xg, r_acts, lw, sw, skip=sk), "", 20, 5)
+            macs = sum(int(w.shape[-2] * w.shape[-1]) for w in lw + sw)
+            wbytes = 4.0 * sum(a.numel() for a in lw + lb + sw + sb)
+            abytes = 4.0 * sum(a.numel() for a in acts)
+            fwd_flops = 2.0 * macs * ns * TRAIN_B * o
+            b4 = bound_ms(4.0 * (xg.numel() + out.numel()) + wbytes + abytes,
+                          fwd_flops)
+            b5 = bound_ms(4.0 * (g.numel() + 2 * xg.numel()) + abytes
+                          + 2 * wbytes, 2.0 * fwd_flops)
+            per = (kernels_per_call(k4), kernels_per_call(k5))
+            require(per == (1, 1), f"branch O={o} S={ns}: {per} device "
+                    "activities per K4 / K5 call, want 1")
+            rows.append(dict(o=o, seeds=ns, err4=e4, err5=e5,
+                             k4_ms=tm4["ms"], k4_plain_ms=tm4["plain_ms"],
+                             k4_bound_ms=b4[0], k5_ms=tm5["ms"],
+                             k5_plain_ms=tm5["plain_ms"], k5_bound_ms=b5[0],
+                             timing=tm4["timing"]))
+            log(f"graph branch shape O={o} F={f} S={ns} B={TRAIN_B}: K4 max "
+                f"err {e4:.3e}, {tm4['ms']:.4f} ms (plain {tm4['plain_ms']:.4f}"
+                f", bound {b4[0]:.5f} {b4[1]}); K5 max err {e5:.3e} (vs plain "
+                f"and autograd), {tm5['ms']:.4f} ms (plain "
+                f"{tm5['plain_ms']:.4f}, bound {b5[0]:.5f} {b5[1]}); "
+                f"[{tm4['timing']}/{tm5['timing']}] 1 kernel per call")
+    return rows
 
 
 def phase_ensemble_path(cfg, dev):
@@ -1746,6 +1844,368 @@ def phase_ensemble_path(cfg, dev):
                 best=best, acc_q=final_q.tolist(), by_s=by_s)
 
 
+def _epoch_profile(run, steps):
+    """Wall s of one epoch ``run()`` (warmed up, no profiler), then the
+    device time of a profiled epoch: (wall, busy s, K4 ms per step, K5
+    ms per step, top kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    te = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - te
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ev = [(e.self_device_time_total, e.key) for e in prof.key_averages()
+          if e.self_device_time_total > 0]
+    busy = sum(u for u, _ in ev) / 1e6
+    k4 = sum(u for u, k in ev if "subnet_train_fwd_kernel" in k) / 1e3
+    k5 = sum(u for u, k in ev if "subnet_train_bwd_kernel" in k) / 1e3
+    return wall, busy, k4 / steps, k5 / steps, sorted(ev, reverse=True)[:8]
+
+
+def _step_kernel_count(step_once, traces: int = 5):
+    """CUDA kernels named subnet_train_fwd_kernel / _bwd_kernel in a
+    profiled trace of one step ``step_once()``, with the wrappers' calls
+    in that step: (K4 kernels, K5 kernels, K4 calls, K5 calls).  A trace
+    now and then misses a kernel, never adds one: each count is the
+    largest of up to ``traces`` traces, stopping once both reach their
+    calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
+                                                   subnet_train_fwd)
+    step_once()
+    torch.cuda.synchronize()
+    c4 = c5 = 0
+    for _ in range(traces):
+        l4, l5 = subnet_train_fwd.launches, subnet_train_bwd.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step_once()
+            torch.cuda.synchronize()
+        n4 = subnet_train_fwd.launches - l4
+        n5 = subnet_train_bwd.launches - l5
+        ev = sorted((e.time_range.start, e.name) for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+        c4 = max(c4, sum("subnet_train_fwd_kernel" in n for _, n in ev))
+        c5 = max(c5, sum("subnet_train_bwd_kernel" in n for _, n in ev))
+        if (c4, c5) == (n4, n5):
+            break
+        log(f"  a trace of one step: {n4} K4 / {n5} K5 calls, its K4/K5 "
+            "kernels in order: " + "".join(
+                "F" if "fwd_kernel" in n else "B" for _, n in ev
+                if "subnet_train" in n) + f" ({len(ev)} device events)")
+    return c4, c5, n4, n5
+
+
+def _served_check(cfg, params, tables, statics, served, xte, what):
+    from repro_torch.core import lut_infer as LI
+    want = LI.predict(cfg, params, tables, statics, xte).cpu().numpy()
+    mismatched = int((served != want).sum())
+    require(mismatched == 0, f"{what}: {mismatched} served predictions "
+            "differ from the plain lut_infer.predict")
+
+
+def _flips(tables, plain_tables, what) -> int:
+    """Entries where two conversions differ; fails beyond +-1 code."""
+    import numpy as np
+    flips = 0
+    for i, (node, pnode) in enumerate(zip(tables, plain_tables)):
+        node = node if isinstance(node, list) else [node]
+        pnode = pnode if isinstance(pnode, list) else [pnode]
+        for a, (t, pt) in enumerate(zip(node, pnode)):
+            d = np.abs(t.astype(np.int32) - pt.astype(np.int32))
+            require(int(d.max()) <= 1, f"{what} node {i} branch {a}: the "
+                    f"conversions differ by {int(d.max())} codes")
+            flips += int((d != 0).sum())
+    return flips
+
+
+def phase_graph_train_path(cfg, dev):
+    """Training a LUT graph at full polylut-add-jsc-5l: train_neuralut on
+    kernel_train (one K4 and one K5 call per branch per step, each one
+    kernel), conversion through K2 once per branch, a graph bundle, the
+    engine on K1's DAG schedule; one step's gradients against the plain
+    autograd route; steps/s, busy share and K4/K5 device ms per step;
+    then GRAPH_ENSEMBLE_SEEDS seeds together (still one seed-axis call
+    per branch per step), the best member served."""
+    import numpy as np
+    import torch
+    from repro_torch.core import model as M
+    from repro_torch.core import train as TR
+    from repro_torch.core import truth_table as TT
+    from repro_torch.core.exec_plan import plan_subnet_exec
+    from repro_torch.data import device_dataset, jsc_synthetic
+    from repro_torch.kernels.lut_cascade import lut_cascade
+    from repro_torch.kernels.lut_gather import lut_lookup
+    from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
+                                                   subnet_train_fwd)
+    from repro_torch.kernels.neuralut_mlp import grouped_subnet
+    from repro_torch.optim import adamw_init
+    from repro_torch.serve import LUTServeEngine, bundle_from_training
+
+    branches = sum(nd.arity for nd in cfg.nodes)
+    xtr, ytr = device_dataset(jsc_synthetic, 20000, seed=0, device=dev)
+    xte, yte = device_dataset(jsc_synthetic, 4000, seed=1, device=dev)
+    spe = len(xtr) // TRAIN_B
+    kernels = {"lut_cascade": lut_cascade, "grouped_subnet": grouped_subnet,
+               "subnet_train_fwd": subnet_train_fwd,
+               "subnet_train_bwd": subnet_train_bwd, "lut_lookup": lut_lookup}
+
+    def counts():
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    def serve(params, state, what):
+        statics = M.model_static(cfg)
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        tables, packed = TT.convert_packed(cfg, params, state, statics)
+        conv = counts()
+        t1 = time.perf_counter()
+        bundle = bundle_from_training(cfg, params, tables, statics,
+                                      packed_tables=packed)
+        with LUTServeEngine(bundle, device=dev) as eng:
+            served = eng.predict(xte.cpu().numpy())
+        t2 = time.perf_counter()
+        launches = counts()
+        require(conv["grouped_subnet"] == branches, f"{what}: conversion "
+                f"launched K2 {conv['grouped_subnet']} times, want one per "
+                f"branch ({branches})")
+        require(launches["lut_cascade"] > 0 and launches["lut_lookup"] == 0,
+                f"{what}: serving launched {launches}, want K1 and no K3")
+        plain, _ = TT.convert_packed(cfg, params, state, statics,
+                                     use_subnet_kernel=False)
+        flips = _flips(tables, plain, what)
+        _served_check(cfg, params, tables, statics, served, xte, what)
+        acc = float((served == yte.cpu().numpy()).mean())
+        log(f"{what}: convert {t1 - t0:.3f} s ({branches} K2 launches, "
+            f"{flips} flips of {sum(t.size for n in tables for t in n)} "
+            f"entries against the plain conversion), serve {len(served)} "
+            f"rows {t2 - t1:.3f} s; every prediction equals the plain "
+            f"predict; served accuracy {acc:.4f}; launches {launches}")
+        return launches, flips, acc
+
+    # one seed
+    for fn in kernels.values():
+        fn.launches = 0
+    steps = GRAPH_TRAIN_EPOCHS * spe
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, hist = TR.train_neuralut(
+        cfg, xtr, ytr, xte, yte, epochs=GRAPH_TRAIN_EPOCHS, batch=TRAIN_B,
+        lr=2e-3, weight_decay=1e-4, seed=0, device=dev)
+    t1 = time.perf_counter()
+    train_launches = counts()
+    log(f"graph train path ({cfg.name}, {branches} branches): {steps} steps "
+        f"in {t1 - t0:.3f} s ({steps / (t1 - t0):.2f} steps/s incl. eval); "
+        f"history {json.dumps(hist)}; training launches {train_launches}")
+    for k in ("subnet_train_fwd", "subnet_train_bwd"):
+        require(train_launches[k] == branches * steps,
+                f"graph {k}: {train_launches[k]} calls in {steps} steps, want "
+                f"{branches} per step (one per branch)")
+    require(train_launches["grouped_subnet"] == 0, "training launched K2")
+    require(all(np.isfinite(v) for vs in hist.values() for v in vs),
+            "non-finite graph training history")
+    require(hist["loss"][-1] < hist["loss"][0],
+            f"graph loss did not fall: {hist['loss']}")
+    serve_launches, flips, acc = serve(params, state, "graph train path")
+
+    # one step from the same init: kernel_train against plain autograd,
+    # and one kernel for each wrapper call in a profiled step
+    sd = M.device_statics(M.model_static(cfg), dev)
+    p0, s0 = M.model_init(cfg, torch.Generator().manual_seed(0), device=dev)
+    p0 = M.calibrate_in_quant(cfg, p0, xtr)
+    ib = TR.epoch_batches(len(xtr), spe, TRAIN_B, seed=0, epoch=0,
+                          device=dev)
+    plan_k = plan_subnet_exec(cfg, purpose="train", device=dev)
+    plan_c = plan_subnet_exec(cfg, purpose="train", device=dev,
+                              route="canonical")
+    require(plan_k.route == "kernel_train", f"train plan {plan_k.route}")
+    lk, gk, sk = TR.loss_and_grads(cfg, p0, s0, sd, xtr[ib[0]], ytr[ib[0]],
+                                   exec_plan=plan_k)
+    lc, gc, sc = TR.loss_and_grads(cfg, p0, s0, sd, xtr[ib[0]], ytr[ib[0]],
+                                   exec_plan=plan_c)
+    torch.cuda.synchronize()
+    gerr = max(_close(a, b, K5_RTOL, K5_ATOL)
+               for a, b in zip(_flat(gk), _flat(gc)))
+    serr = max(_close(a, b, K4_RTOL, K4_ATOL)
+               for a, b in zip(_flat(sk), _flat(sc)))
+    step = TR.make_step_fn(cfg, lr=2e-3, weight_decay=1e-4, t0=steps,
+                           exec_plan=plan_k)
+    c4, c5, n4, n5 = _step_kernel_count(lambda: step(
+        p0, s0, adamw_init(p0), sd, xtr[ib[0]], ytr[ib[0]]))
+    require((n4, n5) == (branches, branches) and (c4, c5) == (n4, n5),
+            f"one graph step: {n4} K4 and {n5} K5 wrapper calls, {c4} K4 and "
+            f"{c5} K5 kernels in its trace; want {branches} of each")
+    log(f"graph step 1: loss kernel_train {float(lk):.7f} canonical "
+        f"{float(lc):.7f}; {len(_flat(gk))} gradient leaves within rtol "
+        f"{K5_RTOL} / atol {K5_ATOL} (max err {gerr:.3e}), BN state max err "
+        f"{serr:.3e}; a profiled step holds {c4} K4 and {c5} K5 kernels for "
+        f"{n4} / {n5} wrapper calls: 1 kernel per call")
+
+    def epoch():
+        p, s, o = p0, s0, adamw_init(p0)
+        for k in range(spe):
+            p, s, o, _ = step(p, s, o, sd, xtr[ib[k]], ytr[ib[k]])
+    wall, busy, k4, k5, top = _epoch_profile(epoch, spe)
+    one = dict(steps_s=spe / wall, epoch_s=wall, busy_share=busy / wall,
+               k4_ms_step=k4, k5_ms_step=k5, device_ms_step=busy * 1e3 / spe)
+    log(f"graph training epoch S=1 ({spe} steps, no eval): {wall:.3f} s, "
+        f"{spe / wall:.2f} steps/s, device busy {busy:.4f} s = "
+        f"{busy / wall:.4f}; per step K4 {k4:.4f} ms + K5 {k5:.4f} ms over "
+        f"{branches} branches, all device {busy * 1e3 / spe:.4f} ms")
+    log("  device time by kernel (ms): " + ", ".join(
+        f"{k[:48]} {u / 1e3:.2f}" for u, k in top))
+
+    # the ensemble
+    ns = len(GRAPH_ENSEMBLE_SEEDS)
+    esteps = GRAPH_ENSEMBLE_EPOCHS * spe
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eparams, estate, ehist = TR.train_neuralut_ensemble(
+        cfg, xtr, ytr, xte, yte, seeds=GRAPH_ENSEMBLE_SEEDS,
+        epochs=GRAPH_ENSEMBLE_EPOCHS, batch=TRAIN_B, lr=2e-3,
+        weight_decay=1e-4, device=dev)
+    t1 = time.perf_counter()
+    ens_launches = counts()
+    for k in ("subnet_train_fwd", "subnet_train_bwd"):
+        require(ens_launches[k] == branches * esteps,
+                f"graph ensemble {k}: {ens_launches[k]} calls in {esteps} "
+                f"steps, want {branches} per step whatever S")
+    require(all(np.isfinite(v).all() for v in ehist.values()),
+            "non-finite graph ensemble history")
+    final_q = ehist["test_acc_q"][-1]
+    best = int(final_q.argmax())
+    log(f"graph ensemble: {ns} seeds x {esteps} steps in {t1 - t0:.3f} s "
+        f"({esteps / (t1 - t0):.2f} ensemble steps/s incl. eval); acc_q per "
+        f"seed {[round(float(a), 4) for a in final_q]}, best {best}; "
+        f"training launches {ens_launches}")
+    pb, sb = TR.ensemble_member(eparams, estate, best)
+    ens_serve, ens_flips, _ = serve(pb, sb, "graph ensemble best member")
+    estep = TR.make_ensemble_step_fn(cfg, lr=2e-3, weight_decay=1e-4,
+                                     t0=esteps, exec_plan=plan_k)
+    einit = TR.init_ensemble(cfg, GRAPH_ENSEMBLE_SEEDS, xtr, device=dev)
+    eidx = torch.stack([TR.epoch_batches(len(xtr), spe, TRAIN_B, seed=s,
+                                         epoch=0, device=dev)
+                        for s in GRAPH_ENSEMBLE_SEEDS], dim=1)
+    # Logged, not required: late in this process a trace of the vmapped
+    # step misses one K4 kernel (6 of 7 in every trace of two full runs;
+    # 7 of 7 with this phase alone in a fresh process).  One kernel per
+    # seed-axis call is required at every branch shape, S = 1 and 4, in
+    # phase_train_shapes (GRAPH_BRANCH_O), and 7 calls per step above.
+    c4, c5, n4, n5 = _step_kernel_count(lambda: estep(
+        *einit, sd, xtr[eidx[0]], ytr[eidx[0]]))
+    require((n4, n5) == (branches, branches),
+            f"one graph ensemble step: {n4} K4 / {n5} K5 calls; want "
+            f"{branches} of each")
+
+    def eepoch():
+        p, s, o = einit
+        for k in range(spe):
+            p, s, o, _ = estep(p, s, o, sd, xtr[eidx[k]], ytr[eidx[k]])
+    wall, busy, k4, k5, top = _epoch_profile(eepoch, spe)
+    four = dict(steps_s=spe / wall, epoch_s=wall, busy_share=busy / wall,
+                k4_ms_step=k4, k5_ms_step=k5,
+                device_ms_step=busy * 1e3 / spe)
+    log(f"graph ensemble epoch S={ns} ({spe} steps, no eval): {wall:.3f} s, "
+        f"{spe / wall:.2f} steps/s, device busy {busy:.4f} s = "
+        f"{busy / wall:.4f}; per step K4 {k4:.4f} ms + K5 {k5:.4f} ms over "
+        f"{branches} branches (one seed-axis launch each), all device "
+        f"{busy * 1e3 / spe:.4f} ms; a profiled step shows {c4} K4 and {c5} "
+        f"K5 kernels for {n4} / {n5} calls")
+    log("  device time by kernel (ms): " + ", ".join(
+        f"{k[:48]} {u / 1e3:.2f}" for u, k in top))
+    return dict(
+        train=dict(launches={k: train_launches[k] + serve_launches[k]
+                             for k in kernels}, steps=steps,
+                   train_s=t1 - t0, flips=flips, served_acc=acc,
+                   grad_err=gerr, **one),
+        ensemble=dict(launches={k: ens_launches[k] + ens_serve[k]
+                                for k in kernels}, steps=esteps, seeds=ns,
+                      best=best, flips=ens_flips, **four))
+
+
+def phase_kinds(cfg, dev):
+    """The LogicNets (linear) and PolyLUT (poly, degree 2) kinds on the
+    JSC chain geometry ``cfg``: trained for KIND_EPOCHS on the plain route
+    (no K2, K4 or K5 launch: these kinds have no kernel), converted,
+    served through K1's chain; every prediction equals ``predict``, the
+    tables equal the same conversion on the CPU but for +-1 flips."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import model as M
+    from repro_torch.core import train as TR
+    from repro_torch.core import truth_table as TT
+    from repro_torch.data import device_dataset, jsc_synthetic
+    from repro_torch.kernels.lut_cascade import lut_cascade
+    from repro_torch.kernels.lut_gather import lut_lookup
+    from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
+                                                   subnet_train_fwd)
+    from repro_torch.kernels.neuralut_mlp import grouped_subnet
+    from repro_torch.serve import LUTServeEngine, bundle_from_training
+    from repro_torch.tree import tree_map
+
+    xtr, ytr = device_dataset(jsc_synthetic, 20000, seed=0, device=dev)
+    xte, yte = device_dataset(jsc_synthetic, 4000, seed=1, device=dev)
+    kernels = {"lut_cascade": lut_cascade, "grouped_subnet": grouped_subnet,
+               "subnet_train_fwd": subnet_train_fwd,
+               "subnet_train_bwd": subnet_train_bwd, "lut_lookup": lut_lookup}
+    out = {}
+    for kind in ("linear", "poly"):
+        kcfg = dataclasses.replace(cfg, kind=kind, degree=2)
+        steps = KIND_EPOCHS * (len(xtr) // TRAIN_B)
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, hist = TR.train_neuralut(
+            kcfg, xtr, ytr, xte, yte, epochs=KIND_EPOCHS, batch=TRAIN_B,
+            lr=2e-3, weight_decay=1e-4, seed=0, device=dev)
+        t1 = time.perf_counter()
+        statics = M.model_static(kcfg)
+        tables, packed = TT.convert_packed(kcfg, params, state, statics)
+        t2 = time.perf_counter()
+        bundle = bundle_from_training(kcfg, params, tables, statics,
+                                      packed_tables=packed)
+        with LUTServeEngine(bundle, device=dev) as eng:
+            served = eng.predict(xte.cpu().numpy())
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        log(f"kind {kind} ({kcfg.name} geometry): {steps} steps in "
+            f"{t1 - t0:.3f} s ({steps / (t1 - t0):.2f} steps/s incl. eval), "
+            f"convert {t2 - t1:.3f} s; history {json.dumps(hist)}; launches "
+            f"{launches}")
+        require(all(launches[k] == 0 for k in ("grouped_subnet",
+                                               "subnet_train_fwd",
+                                               "subnet_train_bwd")),
+                f"kind {kind}: launched a subnet kernel: {launches}")
+        require(launches["lut_cascade"] > 0 and launches["lut_lookup"] == 0,
+                f"kind {kind}: serving launched {launches}, want K1 only")
+        require(all(np.isfinite(v) for vs in hist.values() for v in vs),
+                f"kind {kind}: non-finite history")
+        _served_check(kcfg, params, tables, statics, served, xte,
+                      f"kind {kind}")
+        cpu = torch.device("cpu")
+        host_tables = TT.convert(kcfg, tree_map(lambda a: a.to(cpu), params),
+                                 tree_map(lambda a: a.to(cpu), state),
+                                 statics)
+        flips = _flips(tables, host_tables, f"kind {kind}")
+        acc = float((served == yte.cpu().numpy()).mean())
+        log(f"kind {kind}: all {len(served)} served predictions equal the "
+            f"plain predict, accuracy {acc:.4f}; tables against the CPU's "
+            f"conversion: {flips} flips of {sum(t.size for t in tables)}")
+        out[kind] = dict(launches=launches, steps=steps, train_s=t1 - t0,
+                         flips=flips, served_acc=acc)
+    return out
+
+
 TURN_BATCHES = (1, 8, 64, 256, 4096)   # K1 in turns
 
 # One turn of ``--turns``: run in its own process from the root of a
@@ -1889,6 +2349,8 @@ def main() -> int:
     train = phase_train_path(cfg, dev)
     seed_k = phase_seed_kernels(cfg, dev)
     ens = phase_ensemble_path(cfg, dev)
+    gtrain = phase_graph_train_path(get_config(GRAPH_ARCH), dev)
+    kinds = phase_kinds(cfg, dev)
 
     head, dag_head = k1[HEADLINE_B], k1_dag[HEADLINE_B]
     kernels = [
@@ -1985,20 +2447,38 @@ def main() -> int:
                                    if name.endswith("fwd") else
                                    ("err5", "same5", "k5_s4", "k5_s1"))}
                 for r in seed_k],
-            "shapes": shapes})
+            "shapes": shapes,
+            "graph_branch_shapes": [
+                {k: r[k] for k in r if not k.startswith(
+                    "k5" if name.endswith("fwd") else "k4")}
+                for r in shapes["branches"]],
+            "graph_per_step": {
+                f"S={n}": {"ms": r["k4_ms_step" if name.endswith("fwd")
+                                  else "k5_ms_step"],
+                           "steps_s": r["steps_s"],
+                           "busy_share": r["busy_share"]}
+                for n, r in ((1, gtrain["train"]), (
+                    gtrain["ensemble"]["seeds"], gtrain["ensemble"]))}})
     for k in kernels:
-        if k.get("schedule") == "dag":  # the graph path's K1 launches
-            k["launches_by_path"] = {"graph_serve": k["launches"]}
+        name = k["name"]
+        if k.get("schedule") == "dag":  # the graph paths' K1 launches
+            k["launches_by_path"] = {
+                "graph_serve": k["launches"],
+                "graph_train": gtrain["train"]["launches"][name],
+                "graph_ensemble": gtrain["ensemble"]["launches"][name]}
             continue
         k["launches_by_path"] = {
-            "serve": launches.get(k["name"], 0),
-            "layer_serve": layer["launches"] if k["name"] == "lut_lookup"
-            else 0,
-            "train": train["launches"].get(k["name"], 0),
-            "ensemble": ens["launches"].get(k["name"], 0)}
-        if k["name"] != "lut_cascade":
-            k["launches_by_path"]["graph_serve"] = graph_launches.get(
-                k["name"], 0)
+            "serve": launches.get(name, 0),
+            "layer_serve": layer["launches"] if name == "lut_lookup" else 0,
+            "train": train["launches"].get(name, 0),
+            "ensemble": ens["launches"].get(name, 0),
+            **{f"kind_{kind}": r["launches"][name]
+               for kind, r in kinds.items()}}
+        if name != "lut_cascade":
+            k["launches_by_path"].update(
+                graph_serve=graph_launches.get(name, 0),
+                graph_train=gtrain["train"]["launches"][name],
+                graph_ensemble=gtrain["ensemble"]["launches"][name])
     log(f"training: {train['steps']} steps, {train['train_s']:.3f} s, "
         f"{train['steps'] / train['train_s']:.2f} steps/s; epoch "
         f"{train['epoch_s']:.3f} s, device busy share "
@@ -2010,6 +2490,17 @@ def main() -> int:
         f"{r['busy_share']:.4f}, K4 {r['k4_ms_step']:.4f} + K5 "
         f"{r['k5_ms_step']:.4f} ms device per step"
         for n, r in ens["by_s"].items()))
+    for what, r in (("graph training S=1", gtrain["train"]), (
+            f"graph ensemble S={gtrain['ensemble']['seeds']}",
+            gtrain["ensemble"])):
+        log(f"{what} ({GRAPH_ARCH}): epoch without eval {r['epoch_s']:.3f} s"
+            f", {r['steps_s']:.2f} steps/s, device busy share "
+            f"{r['busy_share']:.4f}, K4 {r['k4_ms_step']:.4f} + K5 "
+            f"{r['k5_ms_step']:.4f} ms device per step over the 7 branches")
+    log("kinds: " + "; ".join(
+        f"{kind}: {r['steps'] / r['train_s']:.2f} steps/s incl. eval, "
+        f"served accuracy {r['served_acc']:.4f}"
+        for kind, r in kinds.items()))
     log(card)  # nvidia-smi's "name, power.limit", as it printed them
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

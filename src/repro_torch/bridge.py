@@ -11,7 +11,7 @@ here.  This module imports no jax; the keys are the reference's:
             layers[i].fn.layers[j].{w,b}, layers[i].fn.skips[c].{w,b},
             layers[i].bn.{g,b}, layers[i].quant.log_s
     state:  layers[i].bn.{mean,var}
-    statics: layers[i].conn
+    statics: layers[i].conn (and layers[i].exps for the poly kind)
     opt:    m, v (trees like params), count; the reference's ``master``
             tree is all None for float32 params and has no counterpart
 
@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.core.model import model_spec, node_static_conns
 from repro_torch.core.nl_config import NeuraLUTConfig, is_graph_config
+from repro_torch.core.subnet import monomial_exponents
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -96,28 +97,37 @@ def statics_from_numpy(cfg, statics: List[Dict[str, Any]]
     """Reference statics -> the port's, as int32 numpy checked against
     each layer's (O, F) and source width: ``{"conn"}`` per chain layer,
     ``{"conns": [...]}`` (one per branch, over the node's concatenated
-    source pool of ``node_in_width(i)`` channels) per graph node."""
+    source pool of ``node_in_width(i)`` channels) per graph node; for
+    the poly kind also ``exps``, which must equal
+    ``subnet.monomial_exponents(F, degree)``."""
     if len(statics) != cfg.num_layers:
         raise ValueError(f"{len(statics)} statics for "
                          f"{cfg.num_layers} layers")
     out = []
-    if is_graph_config(cfg):
-        for i, (nd, st) in enumerate(zip(cfg.nodes, statics)):
+    for i, st in enumerate(statics):
+        f, where = cfg.layer_fan_in(i), f"layer {i}"
+        if is_graph_config(cfg):
+            nd = cfg.nodes[i]
             conns = node_static_conns(st)
             if len(conns) != nd.arity:
                 raise ValueError(f"node {i}: {len(conns)} conns for "
                                  f"arity {nd.arity}")
-            out.append({"conns": [
+            d = {"conns": [
                 _check_conn(f"node {i} branch {a}", c,
-                            (nd.width, nd.fan_in), cfg.node_in_width(i))
-                for a, c in enumerate(conns)]})
-        return out
-    w_prev = cfg.in_features
-    for i, st in enumerate(statics):
-        o, f = cfg.layer_widths[i], cfg.layer_fan_in(i)
-        out.append({"conn": _check_conn(f"layer {i}", st["conn"], (o, f),
-                                        w_prev)})
-        w_prev = o
+                            (nd.width, f), cfg.node_in_width(i))
+                for a, c in enumerate(conns)]}
+        else:
+            w_prev = cfg.in_features if i == 0 else cfg.layer_widths[i - 1]
+            d = {"conn": _check_conn(where, st["conn"],
+                                     (cfg.layer_widths[i], f), w_prev)}
+        if cfg.kind == "poly":
+            want = monomial_exponents(f, cfg.degree)
+            if "exps" not in st or not np.array_equal(st["exps"], want):
+                raise ValueError(f"{where}: exps missing or not the "
+                                 f"monomials of degree <= {cfg.degree} in "
+                                 f"{f} inputs")
+            d["exps"] = want
+        out.append(d)
     return out
 
 

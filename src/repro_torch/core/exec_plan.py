@@ -6,7 +6,9 @@
   * ``canonical``      — the plain (B, O, n) grouped product
                          (``core.subnet.subnet_apply``): the reference
                          the truth tables are defined against, and the
-                         autograd oracle of the kernel routes.
+                         autograd oracle of the kernel routes.  The
+                         only route of the linear and poly kinds, whose
+                         whole hidden function is one product.
   * ``neuron_leading`` — the same ops in (O, B, n) layout
                          (``subnet_apply(batch_leading=True)``): the
                          CPU training route; equal to canonical to
@@ -19,16 +21,18 @@
                          the forward saves the sub-layer inputs, the
                          backward computes dx and every weight gradient.
 
-  purpose   on CPU           on CUDA
-  -------   --------------   ------------
-  train     neuron_leading   kernel_train
-  eval      canonical        canonical
-  convert   canonical        kernel_infer
+  purpose   linear/poly   subnet on CPU    subnet on CUDA
+  -------   -----------   --------------   --------------
+  train     canonical     neuron_leading   kernel_train
+  eval      canonical     canonical        canonical
+  convert   canonical     canonical        kernel_infer
 
-A ``kernel_infer`` route for training is rejected when the plan is
-built: it has no backward.  The kernel routes take CUDA tensors (their
-wrappers run the plain versions for CPU tensors, which is how the CPU
-tests reach them).
+The kernels compute the subnet kind only, so the planner clamps the
+linear and poly kinds to ``canonical`` whatever route is asked for, as
+the reference's planner does.  A ``kernel_infer`` route for training is
+rejected when the plan is built: it has no backward.  The kernel routes
+take CUDA tensors (their wrappers run the plain versions for CPU
+tensors, which is how the CPU tests reach them).
 
 ``CascadeExec`` routes the bit-exact LUT cascade (the serving path):
 
@@ -53,6 +57,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import subnet
@@ -73,47 +78,58 @@ CASCADE_ROUTES = ("fused", "layer")
 @dataclass(frozen=True)
 class SubnetExec:
     """Execution plan for one model's hidden functions (hashable; one
-    plan serves every layer)."""
-    kind: str
+    plan serves every layer).  ``kind``, ``skip`` and ``degree`` are
+    model-wide."""
+    kind: str                  # "subnet" | "linear" | "poly"
     route: str
     skip: int = 0
+    degree: int = 0
 
     def __post_init__(self) -> None:
-        if self.kind != "subnet":
-            raise NotImplementedError(
-                f"kind {self.kind!r}: only the subnet kind is ported")
         if self.route not in ROUTES:
             raise ValueError(f"unknown route {self.route!r}; one of "
                              f"{ROUTES}")
+        if self.kind != "subnet" and self.route != "canonical":
+            raise ValueError(f"kind {self.kind!r} only runs the "
+                             f"canonical route, got {self.route!r}")
 
     @property
     def differentiable(self) -> bool:
         """Whether autograd may flow through :meth:`apply`."""
         return self.route != "kernel_infer"
 
-    def apply(self, p: Dict[str, Any], xg: torch.Tensor) -> torch.Tensor:
-        """Evaluate the hidden function: (B, O, F) -> (B, O)."""
+    def apply(self, p: Dict[str, Any], xg: torch.Tensor, *,
+              exps: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Evaluate the hidden function: (B, O, F) -> (B, O).  ``exps``:
+        the poly kind's monomial exponents (``subnet.monomial_exponents``)."""
         if self.route == "kernel_infer":
             from repro_torch.kernels.neuralut_mlp import subnet_kernel_apply
             return subnet_kernel_apply(p, xg, self.skip)
         if self.route == "kernel_train":
             from repro_torch.kernels.neuralut_grad import subnet_train_apply
             return subnet_train_apply(p, xg, self.skip)
-        return subnet.subnet_apply(
-            p, xg, self.skip, batch_leading=self.route == "neuron_leading")
+        return subnet.apply_hidden(
+            self.kind, p, xg, skip=self.skip, exps=exps,
+            batch_leading=self.route == "neuron_leading")
 
 
 def plan_subnet_exec(cfg: NeuraLUTConfig, *, purpose: str,
                      device: DeviceLike = None,
                      route: Optional[str] = None) -> SubnetExec:
     """Pick the hidden-function route for ``purpose`` on ``device``
-    (``None`` = CUDA).  ``route`` overrides the default."""
+    (``None`` = CUDA).  ``route`` overrides the default; the linear and
+    poly kinds take ``canonical`` whatever it says."""
     if purpose not in PURPOSES:
         raise ValueError(f"unknown purpose {purpose!r}; one of {PURPOSES}")
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"unknown route {route!r}; one of {ROUTES}")
     if purpose == "train" and route == "kernel_infer":
         raise ValueError("kernel_infer is forward-only; training needs a "
                          "differentiable route (kernel_train, canonical or "
                          "neuron_leading)")
+    if cfg.kind != "subnet":
+        return SubnetExec(kind=cfg.kind, route="canonical",
+                          degree=cfg.degree if cfg.kind == "poly" else 0)
     if route is None:
         on_cuda = resolve_device(device).type == "cuda"
         route = {"train": "kernel_train" if on_cuda else "neuron_leading",

@@ -1,5 +1,5 @@
 """Circuit-level NeuraLUT layer: sparse gather -> hidden function -> BN
--> quantize (port of ``repro.core.layers``, subnet kind)."""
+-> quantize (port of ``repro.core.layers``)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
@@ -17,7 +17,8 @@ Params = Dict[str, Any]
 
 def layer_static(cfg: NeuraLUTConfig, idx: int, in_width: int,
                  out_width: int) -> Dict[str, np.ndarray]:
-    """Non-trainable per-layer constants: the connectivity.
+    """Non-trainable per-layer constants: the connectivity, and the
+    monomial exponents of the poly kind (a host array).
 
     Seeded by ``hash((cfg.name, idx))`` as in the reference.  Python
     salts string hashes per process, so the connectivity differs between
@@ -26,17 +27,28 @@ def layer_static(cfg: NeuraLUTConfig, idx: int, in_width: int,
     """
     conn = random_connectivity(in_width, out_width, cfg.layer_fan_in(idx),
                                seed=hash((cfg.name, idx)) % (2 ** 31))
-    return {"conn": conn}
+    st = {"conn": conn}
+    if cfg.kind == "poly":
+        st["exps"] = subnet.monomial_exponents(cfg.layer_fan_in(idx),
+                                               cfg.degree)
+    return st
+
+
+def fn_spec(cfg, fan_in: int, out_width: int) -> Params:
+    """Shape tree of ``out_width`` hidden functions of ``cfg``'s kind over
+    ``fan_in`` inputs (a layer's, or one branch of a graph node's)."""
+    if cfg.kind == "linear":
+        return subnet.linear_spec(out_width, fan_in)
+    if cfg.kind == "poly":
+        return subnet.poly_spec(out_width, fan_in, cfg.degree)
+    return subnet.subnet_spec(out_width, fan_in, cfg.depth, cfg.width,
+                              cfg.skip)
 
 
 def layer_spec(cfg: NeuraLUTConfig, idx: int, out_width: int
                ) -> Tuple[Params, Params]:
     """(params, state) shape trees for one circuit layer."""
-    if cfg.kind != "subnet":
-        raise NotImplementedError(
-            f"kind {cfg.kind!r}: only the subnet kind is ported")
-    fn = subnet.subnet_spec(out_width, cfg.layer_fan_in(idx), cfg.depth,
-                            cfg.width, cfg.skip)
+    fn = fn_spec(cfg, cfg.layer_fan_in(idx), out_width)
     bn_p, bn_s = quant.bn_spec(out_width)
     return ({"fn": fn, "bn": bn_p, "quant": quant.quant_spec(out_width)},
             {"bn": bn_s})
@@ -56,7 +68,7 @@ def layer_apply(cfg: NeuraLUTConfig, idx: int, p: Params, state: Params,
         conn = torch.as_tensor(np.asarray(conn))
     conn = conn.to(device=x.device, dtype=torch.long)  # no-op if resident
     xg = x[:, conn]                                   # (B, O, F)
-    f = exec_plan.apply(p["fn"], xg)
+    f = exec_plan.apply(p["fn"], xg, exps=static.get("exps"))
     pre, new_bn = quant.bn_apply(p["bn"], state["bn"], f, train=train,
                                  momentum=cfg.bn_momentum)
     return quant.quant_apply(p["quant"], pre, cfg.beta), pre, {"bn": new_bn}

@@ -13,8 +13,8 @@ Every entry point accepts a ``LUTGraphConfig`` too and routes to the
 An arity-A adder-tree node carries A branches, each with its own
 connectivity, hidden function and batch norm, quantized through ONE
 shared quantizer and summed, so the node's output is exactly a
-``beta + log2(A)``-bit code (core/nl_config.py).  Only the ``subnet``
-kind is ported.
+``beta + log2(A)``-bit code (core/nl_config.py).  Every neuron kind
+(``subnet``, ``linear``, ``poly``) runs on chains and graphs alike.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ from repro_torch.core.exec_plan import SubnetExec, plan_subnet_exec
 from repro_torch.core.nl_config import (LUTGraphConfig, LUTNodeSpec,
                                         NeuraLUTConfig, is_graph_config)
 from repro_torch.core.sparsity import random_connectivity
-from repro_torch.core.subnet import subnet_spec
+from repro_torch.core.subnet import monomial_exponents
 from repro_torch.device import DeviceLike, resolve_device
 
 Params = Dict[str, Any]
@@ -128,10 +128,22 @@ def calibrate_in_quant(cfg, params: Params, x_train) -> Params:
 
 
 def device_statics(statics: List[Dict], device) -> List[Dict]:
-    """``statics`` with every ``conn`` as an int64 tensor on ``device``,
-    so a training step moves no connectivity to the device."""
-    return [{k: torch.as_tensor(np.asarray(v)).to(device, torch.long)
-             for k, v in st.items()} for st in statics]
+    """``statics`` with every connectivity as an int64 tensor on
+    ``device`` (``conn``, or a graph node's ``conns``, one tensor per
+    branch), so a training step moves no connectivity to the device.
+    The poly kind's ``exps`` stay a host array: ``subnet.poly_apply``
+    reads its loop bounds from them."""
+    def conn(c):
+        return torch.as_tensor(np.asarray(c)).to(device, torch.long)
+    out = []
+    for st in statics:
+        d = dict(st)
+        if "conn" in st:
+            d["conn"] = conn(st["conn"])
+        if "conns" in st:
+            d["conns"] = [conn(c) for c in st["conns"]]
+        out.append(d)
+    return out
 
 
 def model_apply(cfg, params: Params, state: Params,
@@ -181,20 +193,13 @@ def node_branch_params(nd: LUTNodeSpec, lp: Params, ls: Params
             for a in range(nd.arity)]
 
 
-def _subnet_only(cfg: LUTGraphConfig) -> None:
-    if cfg.kind != "subnet":
-        raise NotImplementedError(
-            f"kind {cfg.kind!r}: only the subnet kind is ported (the "
-            "linear and poly kinds are ROADMAP.md, Queue A item 2)")
-
-
 def graph_static(cfg: LUTGraphConfig) -> List[Dict]:
     """Per-node constants: one connectivity per branch over the node's
-    concatenated source pool.  Branch 0 of node ``i`` is seeded by
-    ``hash((name, i))``, branch ``a`` by ``hash((name, i, a))``, as in
-    the reference; the hash is salted per process (``layers.layer_static``),
-    so carry ``conns`` with the model."""
-    _subnet_only(cfg)
+    concatenated source pool (and the poly kind's ``exps``).  Branch 0
+    of node ``i`` is seeded by ``hash((name, i))``, branch ``a`` by
+    ``hash((name, i, a))``, as in the reference; the hash is salted per
+    process (``layers.layer_static``), so carry ``conns`` with the
+    model."""
     out = []
     for i, nd in enumerate(cfg.nodes):
         pool_w = cfg.node_in_width(i)
@@ -203,7 +208,10 @@ def graph_static(cfg: LUTGraphConfig) -> List[Dict]:
             key = (cfg.name, i) if a == 0 else (cfg.name, i, a)
             conns.append(random_connectivity(
                 pool_w, nd.width, nd.fan_in, seed=hash(key) % (2 ** 31)))
-        out.append({"conns": conns})
+        st: Dict[str, Any] = {"conns": conns}
+        if cfg.kind == "poly":
+            st["exps"] = monomial_exponents(nd.fan_in, cfg.degree)
+        out.append(st)
     return out
 
 
@@ -211,12 +219,10 @@ def graph_spec(cfg: LUTGraphConfig) -> Tuple[Params, Params]:
     """(params, state) shape trees of a graph: per node the layer tree
     for arity 1, per-branch ``fn`` and ``bn`` lists (one shared
     ``quant``) for arity > 1."""
-    _subnet_only(cfg)
     lp, ls = [], []
     for nd in cfg.nodes:
         def fn():
-            return subnet_spec(nd.width, nd.fan_in, cfg.depth, cfg.width,
-                               cfg.skip)
+            return L.fn_spec(cfg, nd.fan_in, nd.width)
         bn_p, bn_s = quant.bn_spec(nd.width)
         if nd.arity == 1:
             lp.append({"fn": fn(), "bn": bn_p,
@@ -279,6 +285,7 @@ def graph_apply(cfg: LUTGraphConfig, params: Params, state: Params,
         pool = graph_pool(cfg, bufs, i)
         lp, ls = params["layers"][i], state["layers"][i]
         conns = node_static_conns(statics[i])
+        exps = statics[i].get("exps")
         y = None
         branch_states = []
         for a, (fnp, bnp, bns) in enumerate(node_branch_params(nd, lp, ls)):
@@ -286,7 +293,7 @@ def graph_apply(cfg: LUTGraphConfig, params: Params, state: Params,
             if not isinstance(conn, torch.Tensor):
                 conn = torch.as_tensor(np.asarray(conn))
             xg = pool[:, conn.to(device=x.device, dtype=torch.long)]
-            f = exec_plan.apply(fnp, xg)
+            f = exec_plan.apply(fnp, xg, exps=exps)
             pre, nbn = quant.bn_apply(bnp, bns, f, train=train,
                                       momentum=cfg.bn_momentum)
             qa = quant.quant_apply(lp["quant"], pre, cfg.beta)

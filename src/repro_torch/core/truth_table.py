@@ -3,8 +3,9 @@
 For every layer (every branch of every node of a LUT graph) all
 2^{beta_in * F} input code combinations are enumerated on the device of
 the parameters, dequantized with the *source* channel's learned scale,
-run through the hidden function (the route of a ``SubnetExec``: the
-CUDA kernel on the card, the canonical grouped product on the CPU),
+run through the hidden function (the route of a ``SubnetExec``: for the
+subnet kind the CUDA kernel on the card and the canonical grouped
+product on the CPU; the linear and poly kinds' plain product anywhere),
 batch-normed in eval mode, quantized back to codes and bit-packed on
 the device.  The sweep runs a layer in
 chunks of ``SWEEP_BATCH`` codes; the chunking bounds memory and does not
@@ -26,6 +27,7 @@ from repro_torch.core.exec_plan import SubnetExec, plan_subnet_exec
 from repro_torch.core.lut_infer import pack_tables_torch, packed_slots
 from repro_torch.core.model import node_branch_params, node_static_conns
 from repro_torch.core.nl_config import LUTGraphConfig, is_graph_config
+from repro_torch.core.subnet import monomial_exponents
 
 Params = Dict
 
@@ -73,13 +75,15 @@ def _sweep(cfg, idx: int, slot_scale: torch.Tensor, fn: Params,
     shifts = torch.tensor([beta_in * (fan_in - 1 - j)
                            for j in range(fan_in)], device=dev)
     offs = 2 ** (beta_in - 1)
+    exps = (monomial_exponents(fan_in, exec_plan.degree)
+            if exec_plan.kind == "poly" else None)
     chunks = []
     for start in range(0, t, SWEEP_BATCH):
         codes_i = torch.arange(start, min(start + SWEEP_BATCH, t), device=dev)
         codes = (codes_i[:, None] >> shifts[None, :]) & (2 ** beta_in - 1)
         # (chunk, O, F) dequantized values: scale of the SOURCE channel.
         vals = (codes[:, None, :].to(torch.float32) - offs) * slot_scale[None]
-        f = exec_plan.apply(fn, vals)
+        f = exec_plan.apply(fn, vals, exps=exps)
         pre, _ = quant.bn_apply(bn_p, bn_s, f, train=False)
         chunks.append(quant.quant_codes(quant_p, pre, cfg.beta))
     table = torch.cat(chunks).T.contiguous()                   # (O, T)

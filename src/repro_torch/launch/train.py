@@ -2,21 +2,24 @@
 of ``repro.launch.train``): train -> convert -> serving bundle -> serve.
 
     python -m repro_torch.launch.train --arch neuralut-jsc-5l --epochs 20
-    python -m repro_torch.launch.train --arch neuralut-jsc-5l --epochs 20 \\
-        --seeds 4
+    python -m repro_torch.launch.train --arch polylut-add-jsc-5l \\
+        --epochs 20 --seeds 4
     python -m repro_torch.launch.train --arch neuralut-jsc-5l --reduced \\
         --epochs 1 --device cpu
 
-Trains on the device-resident synthetic JSC data (20,000 training and
-4,000 test rows, batch 256): one seed, or with ``--seeds N`` (N > 1) N
-restarts together (``train_neuralut_ensemble``, one training-kernel
-launch per layer per step for all N), keeping the member with the best
-quantized test accuracy.  Then converts the trained model to bit-packed
-truth tables (through the grouped sub-network kernel on the card),
-builds the in-memory ``ServeBundle``, serves the test set through
-``LUTServeEngine`` (the LUT-cascade kernel on the card) and checks that
-every served prediction equals ``lut_infer.predict``.  Runs on CUDA
-unless ``--device cpu``.
+Takes the JSC chains (``neuralut-jsc-*``) and the PolyLUT-Add LUT graphs
+(``polylut-add-jsc-*``).  Trains on the device-resident synthetic JSC
+data (20,000 training and 4,000 test rows, batch 256): one seed, or with
+``--seeds N`` (N > 1) N restarts together (``train_neuralut_ensemble``),
+keeping the member with the best quantized test accuracy.  On the card
+every step makes one call of each training kernel per layer, or per
+branch of a graph node, for all N seeds.  Then converts the trained
+model to bit-packed truth tables (through the grouped sub-network kernel
+on the card, once per layer or branch), builds the in-memory
+``ServeBundle``, serves the test set through ``LUTServeEngine`` (the
+LUT-cascade kernel on the card, a graph on its DAG schedule) and checks
+that every served prediction equals ``lut_infer.predict``.  Runs on
+CUDA unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -81,9 +84,12 @@ def train_neuralut_arch(args, cfg) -> Dict[str, Any]:
     statics = M.model_static(cfg)
     t0 = time.perf_counter()
     tables, packed = TT.convert_packed(cfg, params, state, statics)
-    print(f"converted {sum(t.size for t in tables)} table entries in "
+    # a graph's tables come as per-node lists of branch tables
+    flat_t = [t for n in tables for t in (n if isinstance(n, list) else [n])]
+    flat_p = [p for n in packed for p in (n if isinstance(n, list) else [n])]
+    print(f"converted {sum(t.size for t in flat_t)} table entries in "
           f"{time.perf_counter() - t0:.2f}s (packed "
-          f"{sum(p.nbytes for p in packed) / 1024:.1f} KiB)", flush=True)
+          f"{sum(p.nbytes for p in flat_p) / 1024:.1f} KiB)", flush=True)
     bundle = bundle_from_training(cfg, params, tables, statics,
                                   packed_tables=packed)
     x_np = xte.cpu().numpy()
@@ -126,22 +132,15 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = parse_args(argv)
     from repro_torch.config import get_config, list_archs
-    from repro_torch.core.nl_config import is_graph_config
     if args.arch not in list_archs():
         if args.arch.startswith(("neuralut", "polylut")):
-            raise NotImplementedError(
-                f"--arch {args.arch}: this NeuraLUT geometry "
-                + NOT_PORTED.format("Queue A item 2"))
+            raise SystemExit(f"--arch {args.arch}: unknown; the NeuraLUT "
+                             f"archs are {', '.join(list_archs())}")
         raise NotImplementedError(
             f"--arch {args.arch}: LM archs and their trainer "
             + NOT_PORTED.format("Queue A item 7"))
-    cfg = get_config(args.arch, reduced=args.reduced)
-    if is_graph_config(cfg):
-        raise NotImplementedError(
-            f"--arch {args.arch}: training a LUT graph (per-branch "
-            "training kernels and BN state) " + NOT_PORTED.format(
-                "Queue A item 2"))
-    return train_neuralut_arch(args, cfg)
+    return train_neuralut_arch(args, get_config(args.arch,
+                                                reduced=args.reduced))
 
 
 if __name__ == "__main__":

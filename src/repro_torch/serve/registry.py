@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core.nl_config import (LUTGraphConfig, NeuraLUTConfig,
                                         is_graph_config)
+from repro_torch.core.subnet import monomial_exponents
 
 
 @dataclass
@@ -31,7 +32,8 @@ class ServeBundle:
     cfg: Union[NeuraLUTConfig, LUTGraphConfig]
     tables: List              # chain [(O_i, T_i) uint16]; graph per node
     #                           [[(O_i, T_i) uint16] per branch]
-    statics: List[Dict[str, Any]]  # [{"conn"}] / [{"conns": [...]}]
+    statics: List[Dict[str, Any]]  # [{"conn"}] / [{"conns": [...]}],
+    #                                 and "exps" for the poly kind
     in_log_s: np.ndarray                     # (in_features,) f32
     layer_log_s: List[np.ndarray]            # [(O_i,) f32]
     # Cascade operands, filled by prepack(): bit-packed tables, flat in
@@ -97,14 +99,19 @@ def bundle_from_training(cfg, params: Dict, tables: List,
     triple, chain or LUT graph (per-node table lists from
     ``truth_table.convert_graph``).  Pass the packed tables of
     ``truth_table.convert_packed`` (per-node lists for a graph) and the
-    bundle is serving-ready on the spot."""
+    bundle is serving-ready on the spot.  A poly model's statics carry
+    its monomial exponents, as the reference's registry restores them."""
     if is_graph_config(cfg):
         tables = [node if isinstance(node, (list, tuple)) else [node]
                   for node in tables]
+    statics = [{k: _host_tree(v) for k, v in s.items()} for s in statics]
+    if cfg.kind == "poly":
+        for i, s in enumerate(statics):
+            s["exps"] = monomial_exponents(cfg.layer_fan_in(i), cfg.degree)
     bundle = ServeBundle(
         cfg=cfg,
         tables=[_host_tree(t) for t in tables],
-        statics=[{k: _host_tree(v) for k, v in s.items()} for s in statics],
+        statics=statics,
         in_log_s=_host(params["in_quant"]["log_s"]).astype(np.float32),
         layer_log_s=[_host(lp["quant"]["log_s"]).astype(np.float32)
                      for lp in params["layers"]],

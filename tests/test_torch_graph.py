@@ -181,8 +181,13 @@ def test_graph_init_and_statics():
     for a, b in zip(jax.tree.leaves(bridge.params_to_numpy(pc)),
                     jax.tree.leaves(bridge.params_to_numpy(pg))):
         assert np.array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        M.model_static(dataclasses.replace(pcfg, kind="poly"))
+    # the poly kind's statics carry the reference's monomial exponents
+    jcfg, _ = _cfgs("polylut_add_jsc_5l", "full")
+    want = JM.model_static(dataclasses.replace(jcfg, kind="poly"))
+    got = M.model_static(dataclasses.replace(pcfg, kind="poly"))
+    for w, g in zip(want, got):
+        assert len(g["conns"]) == len(w["conns"])
+        assert np.array_equal(g["exps"], w["exps"])
 
 
 # ---------------------------------------------------------------------------

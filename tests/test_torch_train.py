@@ -188,7 +188,8 @@ def test_launch_train_cpu():
     (["--seeds", "2", "--registry", "reg"], NotImplementedError),
     (["--registry", "reg"], NotImplementedError),
     (["--arch", "llama3-8b"], NotImplementedError),
-    (["--arch", "polylut-add-jsc-2l"], NotImplementedError),
+    (["--arch", "polylut-add-jsc-2l", "--registry", "reg"],
+     NotImplementedError),
     (["--arch", "neuralut-hdr-5l"], SystemExit),
 ])
 def test_launch_train_refuses_what_is_not_ported(argv, err):
