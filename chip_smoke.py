@@ -44,7 +44,17 @@ then drives the port's paths at full width:
 * the LogicNets (``linear``) and PolyLUT (``poly``) neuron kinds on the
   ``neuralut-jsc-5l`` chain: trained on the plain route (they launch no
   sub-network kernel), converted and served through the LUT-cascade
-  kernel.
+  kernel;
+* the serving stack, right after graph serving, over the bundles of
+  the two serving paths: a ``TableRegistry`` round trip (verified,
+  bit-identical), a corrupted version refused and quarantined by the
+  ``IntegrityProbe``, ``LUTServeEngine`` with two replicas on the card,
+  chaos (eviction and redispatch, ``DispatchFailed``,
+  ``DeadlineExceeded``), ``MultiTenantEngine`` (shedding, a committed
+  and a rolled-back hot swap) and ``launch.serve`` against the registry;
+  latency at replicas 1 and 2 and the registry's seconds, in turns.
+  Before and after it, a probe of the profiler: how many traces of a
+  training kernel's calls come back with records missing.
 
 The launch counts are set to 0 just before each path and read just
 after it.  Every phase that fails stops the run with a non-zero exit;
@@ -1377,7 +1387,462 @@ def phase_graph_serving(dev):
         f"launches {seq}")
     return launches, dict(p50_ms=rep["p50_ms"], p99_ms=rep["p99_ms"],
                           forwards=forwards, flips=flips,
-                          convert_s=t2 - t1, serve_s=t4 - t3)
+                          convert_s=t2 - t1, serve_s=t4 - t3), dict(
+        bundle=bundle, requests=requests, preds=preds)
+
+
+SERVING_TIMING_TURNS = (1, 2, 2, 1)   # replicas, in turns
+PROBE_TRACES = 40                     # traces per profiler_probe
+REGISTRY_REPS = 3
+
+
+def _flip_table_byte(reg, name, version, key="tables/#0"):
+    """Flip the last data byte of one stored table (an npz member) in a
+    registry version: the bundle's bytes change, its files stay whole."""
+    import zipfile
+    shard = reg.root / name / f"step_{version:010d}" / "shard_0.npz"
+    with zipfile.ZipFile(shard) as z:
+        info = z.getinfo(key + ".npy")
+    raw = bytearray(shard.read_bytes())
+    h = info.header_offset
+    name_len = int.from_bytes(raw[h + 26:h + 28], "little")
+    extra_len = int.from_bytes(raw[h + 28:h + 30], "little")
+    raw[h + 30 + name_len + extra_len + info.compress_size - 1] ^= 0x01
+    shard.write_bytes(bytes(raw))
+
+
+def _last_lookups(bundle, x):
+    """(class, address) per row of x: the last layer's table entry that
+    the row's predicted class reads."""
+    import numpy as np
+    import torch
+    from repro_torch.core import lut_infer as LI
+    from repro_torch.core.model import node_static_conns
+    from repro_torch.kernels.ref import lut_cascade_ref
+    cfg, dev = bundle.prepack().cfg, torch.device("cpu")
+    params = bundle.serve_params(dev)
+    codes = LI.input_codes(cfg, params, torch.as_tensor(x))
+    conns = [torch.as_tensor(np.asarray(c, np.int64)) for s in bundle.statics
+             for c in node_static_conns(s)]
+    packed = [torch.as_tensor(p) for p in bundle.packed_tables]
+    sched = bundle.cascade_geom
+    prev = lut_cascade_ref(codes, conns[:-1], packed[:-1], sched[:-1])
+    out = lut_cascade_ref(codes, conns, packed, sched)
+    cls = torch.argmax(LI.class_values(cfg, params, out), -1)
+    in_bits = cfg.layer_in_bits(cfg.num_layers - 1)
+    rows = torch.arange(len(x))[:, None]
+    addr = LI.pack_index(prev[rows, conns[-1][cls]], in_bits)
+    return cls.tolist(), addr.tolist()
+
+
+def profiler_probe(dev, traces: int = PROBE_TRACES):
+    """Whether ``torch.profiler`` drops device records, and whether that
+    depends on what ran before: ``traces`` traces, each of 5 calls of K4
+    at the first graph branch shape (O = 64, S = 1) and 5 of a PyTorch
+    elementwise kernel (the control).  The K4 wrapper counts every
+    launch, so a trace with fewer than 5 K4 records lost them in the
+    profiler, not in the launch.  Returns the short traces of each."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.neuralut_grad import subnet_train_fwd
+    from repro_torch.kernels.neuralut_mlp import pack_subnet_weights
+    gen = torch.Generator().manual_seed(11)
+    f, depth, width, sk, reps = 3, 4, 16, 2, 5
+    lw, lb, sw, sb = _weights(_stacked_subnet(
+        gen, 1, GRAPH_BRANCH_O[0], f, depth, width, sk, dev))
+    xg = torch.randn((1, TRAIN_B, GRAPH_BRANCH_O[0], f),
+                     generator=gen).to(dev)
+    wpack = pack_subnet_weights(lw, lb, sw, sb)
+    y = torch.zeros(1 << 16, device=dev)
+    subnet_train_fwd(xg, lw, lb, sw, sb, skip=sk, wpack=wpack)
+    y.add_(1.0)
+    torch.cuda.synchronize()
+    short = {"traces": traces, "k4": 0, "control": 0}
+    before = subnet_train_fwd.launches
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                subnet_train_fwd(xg, lw, lb, sw, sb, skip=sk, wpack=wpack)
+                y.add_(1.0)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        k4 = sum("subnet_train_fwd" in n for n in names)
+        short["k4"] += k4 < reps
+        short["control"] += len(names) - k4 < reps
+    launched = subnet_train_fwd.launches - before
+    require(launched == traces * reps,
+            f"profiler probe: K4 launched {launched} of {traces * reps}")
+    return short
+
+
+def phase_serving_stack(dev, card, served, graph_served):
+    """The port's serving stack over the bundles phase_main_path
+    (neuralut-jsc-5l) and phase_graph_serving (polylut-add-jsc-5l) built
+    (nothing is trained here): (a) both saved to a TableRegistry and
+    loaded back verified, bit-identical, and served; (b) a corrupted
+    version refused, quarantined by the IntegrityProbe, the intact one
+    served; (c) LUTServeEngine with 2 replicas on one card, a burst of
+    the 72 requests; (d) chaos: eviction and redispatch, DispatchFailed,
+    DeadlineExceeded; (e) MultiTenantEngine
+    (3 jsc-5l tenants and the graph), shedding, a committed and a rolled
+    back hot swap; (f) the launch.serve CLI against the registry.  Every
+    served prediction is held to lut_infer.predict (the requests'
+    predictions of the earlier phases, which equal it).  Times, in turns
+    in this call: one request at a time at replicas 1 vs 2, and the
+    registry's save / load / verify seconds.  Fails if a thread it
+    started outlives it or the host thread is left on another stream."""
+    import contextlib
+    import io
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.config import config_fingerprint
+    from repro_torch.core import lut_infer as LI
+    from repro_torch.core.model import node_static_conns
+    from repro_torch.data import jsc_synthetic
+    from repro_torch.kernels.lut_cascade import lut_cascade
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.runtime import ChaosHarness, ReplicaHealthTracker
+    from repro_torch.serve import (BundleIntegrityError, DeadlineExceeded,
+                                   DispatchFailed, IntegrityProbe,
+                                   LUTServeEngine, MultiTenantEngine,
+                                   NoHealthyReplicas, TableRegistry, Tenant,
+                                   TenantOverloaded)
+
+    t_phase = time.perf_counter()
+    threads0 = set(threading.enumerate())
+    chain, graph = served["bundle"], graph_served["bundle"]
+    requests = served["requests"]
+    want = {chain.cfg.name: served["preds"],
+            graph.cfg.name: graph_served["preds"]}
+    reqs = {chain.cfg.name: requests,
+            graph.cfg.name: graph_served["requests"]}
+
+    def burst(eng, xs):
+        futs = [eng.submit(x) for x in xs]
+        return [f.result(timeout=300) for f in futs]
+
+    def exact(got, exp, what):
+        bad = sum(int((g != w).sum()) for g, w in zip(got, exp))
+        require(bad == 0 and len(got) == len(exp),
+                f"{what}: {bad} predictions differ from lut_infer.predict")
+
+    def arrays(b):
+        return ([t for n in b.tables
+                 for t in (n if isinstance(n, list) else [n])],
+                [c for s in b.statics for c in node_static_conns(s)],
+                [b.in_log_s] + list(b.layer_log_s), b.packed_tables)
+
+    lut_cascade.launches = 0
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_registry_")
+    root = tmp.name
+    try:
+        # (a) save, load verified, bit-identical, served.
+        reg = TableRegistry(root)
+        reg_s = {"save": [], "load": [], "verify": []}
+        for b in (chain, graph):
+            name = b.cfg.name
+            before = lut_cascade.launches
+            for _ in range(REGISTRY_REPS if b is chain else 1):
+                t0 = time.perf_counter()
+                reg.save(name, b, version=0)
+                t1 = time.perf_counter()
+                loaded = reg.load(name, verify=True)
+                t2 = time.perf_counter()
+                report = reg.verify(name)
+                t3 = time.perf_counter()
+                if b is chain:
+                    reg_s["save"].append(t1 - t0)
+                    reg_s["load"].append(t2 - t1)
+                    reg_s["verify"].append(t3 - t2)
+            require(report["ok"] and report["checked"] > 0,
+                    f"{name}: verify {report}")
+            for part, (xs, ys) in zip(("tables", "conns", "scales",
+                                       "packed tables"),
+                                      zip(arrays(b), arrays(loaded))):
+                require(len(xs) == len(ys) and all(
+                    np.asarray(x).dtype == np.asarray(y).dtype
+                    and np.array_equal(x, y) for x, y in zip(xs, ys)),
+                    f"{name}: loaded {part} differ from the saved ones")
+            fp = config_fingerprint(b.cfg)
+            require(config_fingerprint(loaded.cfg) == fp
+                    and CheckpointStore(str(reg.root / name)).meta(0)[
+                        "fingerprint"] == fp,
+                    f"{name}: fingerprint changed")
+            with LUTServeEngine(loaded, device=dev) as eng:
+                eng.warmup()
+                got = burst(eng, reqs[name])
+            if b is graph:
+                # the only DAG launches of the phase: the tenants' graph
+                # group runs the plain cross-tenant forward
+                dag = lut_cascade.launches - before
+            exact(got, want[name], f"registry-loaded {name}")
+            log(f"serving stack (a): {name} saved and loaded verified "
+                f"({report['checked']} arrays checked, "
+                f"{b.num_table_bytes} table bytes, fingerprint {fp}); "
+                f"tables, conns, scales and packed tables bit-identical; "
+                f"{len(got)} requests served exactly")
+
+        # (b) a corrupted version: refused, quarantined, fallen back.
+        name = chain.cfg.name
+        reg.save(name, chain, version=1)
+        _flip_table_byte(reg, name, 1)
+        try:
+            reg.load(name)
+        except BundleIntegrityError as e:
+            log(f"serving stack (b): corrupted v1 refused: {e}")
+        else:
+            require(False, "a corrupted bundle loaded")
+        found = IntegrityProbe(reg).run_once()
+        require([(r["name"], r["version"]) for r in found] == [(name, 1)]
+                and reg.versions(name) == [0],
+                f"the probe found {found}, versions {reg.versions(name)}")
+        fallback = reg.load(name)
+        with LUTServeEngine(fallback, device=dev) as eng:
+            got = eng.predict(requests[0])
+        exact([got], want[name][:1], "the intact version after quarantine")
+        log(f"serving stack (b): IntegrityProbe quarantined v1; load "
+            f"serves v{reg.versions(name)[-1]} exactly")
+
+        # (c) two replicas on one card, the 72 requests as a burst.
+        with LUTServeEngine(chain, replicas=2, device=dev) as eng:
+            eng.warmup()
+            before = lut_cascade.launches
+            got = burst(eng, requests)
+            launched = lut_cascade.launches - before
+        exact(got, want[name], "replicas=2 burst")
+        batches = [int(m.report()["batches"]) for m in eng.replica_metrics]
+        require(all(n > 0 for n in batches),
+                f"batches per replica {batches}: a replica served nothing")
+        require(dev.type == "cpu" or launched == eng.forwards,
+                f"K1 launched {launched} times for {eng.forwards} "
+                "dispatched forwards")
+        log(f"serving stack (c): replicas=2 on {eng.device}: batches per "
+            f"replica {batches}, {eng.forwards} forwards, K1 launches "
+            f"{launched}; every prediction exact")
+
+        # (d) chaos: eviction + redispatch, DispatchFailed, deadlines.
+        chaos = ChaosHarness(schedule={"serve.replica": [0]})
+        health = ReplicaHealthTracker(2, max_consecutive_failures=1)
+        with LUTServeEngine(chain, replicas=2, device=dev, health=health,
+                            chaos=chaos) as eng:
+            eng.warmup()
+            got = [eng.predict(requests[0])] + burst(eng, requests[1:])
+        exact(got, want[name], "after replica 0's eviction")
+        served0 = int(eng.replica_metrics[0].report()["batches"])
+        require(health.healthy_ids() == [1] and served0 == 0
+                and eng.metrics.redispatches == 1,
+                f"healthy {health.healthy_ids()}, replica 0 served "
+                f"{served0} batches, {eng.metrics.redispatches} "
+                "redispatches")
+        chaos = ChaosHarness(rates={"serve.replica": 1.0})
+        outcomes = []
+        with LUTServeEngine(chain, replicas=2, device=dev,
+                            max_dispatch_retries=0, chaos=chaos) as eng:
+            for x in requests[:7]:
+                try:
+                    eng.predict(x)
+                    outcomes.append("served")
+                except (DispatchFailed, NoHealthyReplicas) as e:
+                    outcomes.append(type(e).__name__)
+        require(outcomes == ["DispatchFailed"] * 6 + ["NoHealthyReplicas"]
+                and eng.health.healthy_ids() == [],
+                f"both replicas failing, no retries: {outcomes}")
+        with LUTServeEngine(chain, device=dev) as eng:
+            fut = eng.submit(requests[0], timeout_s=1e-9)
+            try:
+                fut.result(timeout=60)
+            except DeadlineExceeded:
+                pass
+            else:
+                require(False, "an expired request was served")
+            got = eng.predict(requests[1])
+        exact([got], want[name][1:2], "after a deadline")
+        require(eng.metrics.deadline_exceeded == 1,
+                f"deadline_exceeded {eng.metrics.deadline_exceeded}")
+        log(f"serving stack (d): replica 0 evicted after an injected "
+            f"failure, its batch redispatched, the survivor served all "
+            f"{len(requests)} requests exactly; both replicas failing with "
+            f"no retries: {outcomes}; an expired request got "
+            f"DeadlineExceeded")
+
+        # (e) tenants: 3 jsc-5l (as launch.serve builds them) + the graph.
+        rng = np.random.default_rng(7)
+        tenants = [Tenant("primary", chain, priority=1),
+                   Tenant("tenant1", launch_serve._variant(chain, rng)),
+                   Tenant("tenant2", launch_serve._variant(chain, rng),
+                          rate_limit=2.0, burst=2),
+                   Tenant("graph", graph)]
+        x_all = np.concatenate(requests)
+        tenant_want = {t.name: LI.predict(
+            t.bundle.cfg, t.bundle.serve_params(dev), t.bundle.tables,
+            t.bundle.statics, torch.as_tensor(x_all, device=dev)
+        ).cpu().numpy() for t in tenants if t.name != "graph"}
+        offs = np.cumsum([0] + [len(x) for x in requests])
+        probe = jsc_synthetic(4000, seed=1)[0][:64]
+
+        def predict(b, x):
+            return LI.predict(b.cfg, b.serve_params(dev), b.tables,
+                              b.statics, torch.as_tensor(x, device=dev)
+                              ).cpu().numpy()
+        # The changed candidate: one last-layer entry that a probe row's
+        # predicted class reads, set to the lowest code.
+        old_probe = predict(chain, probe)
+        for cls, addr in zip(*_last_lookups(chain, probe)):
+            bad = launch_serve._repacked(chain)
+            if bad.tables[-1][cls, addr] == 0:
+                continue
+            bad.tables[-1][cls, addr] = 0
+            if (predict(bad, probe) != old_probe).any():
+                break
+        else:
+            require(False, "no single table entry changes a probe "
+                    "prediction")
+        shed = 0
+        with MultiTenantEngine(tenants, device=dev) as mt:
+            mt.warmup()
+            futs = {t.name: [] for t in tenants}
+            for i, x in enumerate(requests):
+                for t in ("primary", "tenant1"):
+                    futs[t].append((i, mt.submit(t, x)))
+                futs["graph"].append((i, mt.submit(
+                    "graph", graph_served["requests"][i])))
+            for i, x in enumerate(requests[:6]):
+                try:
+                    futs["tenant2"].append((i, mt.submit("tenant2", x)))
+                except TenantOverloaded as e:
+                    require(e.reason == "rate_limited", str(e))
+                    shed += 1
+            for t, fs in futs.items():
+                got = [f.result(timeout=300) for _, f in fs]
+                exp = ([graph_served["preds"][i] for i, _ in fs]
+                       if t == "graph" else
+                       [tenant_want[t][offs[i]:offs[i + 1]] for i, _ in fs])
+                exact(got, exp, f"tenant {t}")
+            stop = threading.Event()
+            traffic_err = []
+
+            def traffic():
+                while not stop.is_set():
+                    try:
+                        got = mt.predict("primary", probe)
+                    except Exception as e:
+                        traffic_err.append(e)
+                        return
+                    if not (np.array_equal(got, old_probe)):
+                        traffic_err.append("a probe prediction changed")
+
+            th = threading.Thread(target=traffic, daemon=True)
+            th.start()
+            try:
+                good = mt.swap("primary", launch_serve._repacked(chain),
+                               shadow_samples=256, timeout_s=120.0)
+                rolled = mt.swap("primary", bad, shadow_samples=256,
+                                 timeout_s=120.0)
+            finally:
+                stop.set()
+                th.join(timeout=120)
+            still = mt.predict("primary", probe)
+        require(not th.is_alive() and not traffic_err,
+                f"live traffic during the swaps: {traffic_err[:3]}")
+        require(mt.num_groups == 2, f"{mt.num_groups} geometry groups")
+        require(shed >= 3 and mt.tenant_metrics("tenant2").shed == shed,
+                f"the rate-limited tenant shed {shed} of 6")
+        require(good.status == "committed" and good.mismatches == 0
+                and good.shadow_samples >= 256,
+                f"the re-packed swap: {good}")
+        require(rolled.status == "rolled_back" and rolled.mismatches > 0
+                and np.array_equal(still, old_probe),
+                f"the changed candidate: {rolled}")
+        log(f"serving stack (e): 4 tenants in {mt.num_groups} geometry "
+            f"groups, every tenant's predictions equal its own predict; "
+            f"tenant2 (2 req/s, burst 2) shed {shed} of 6; swap onto a "
+            f"re-packed copy {good.status} ({good.shadow_samples} rows "
+            f"mirrored, {good.mismatches} mismatches, cutover "
+            f"{good.cutover_latency_s * 1e3:.3f} ms); one entry changed "
+            f"(class {cls}, address {addr}): {rolled.status} "
+            f"({rolled.mismatches} mismatches), the incumbent still serves")
+
+        # (f) the CLI against the registry: no retraining.
+        cli = {}
+        arch = name.removesuffix("-reduced")
+        common = ["--arch", arch, "--registry", root, "--requests", "40",
+                  "--replicas", "2", "--device", dev.type] + (
+                      ["--reduced"] if arch != name else [])
+        for argv in ([], ["--tenants", "3", "--swap"]):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                res = launch_serve.main(common + argv)
+            text = out.getvalue()
+            for line in text.splitlines():
+                log(f"  launch.serve {' '.join(argv)}| {line}")
+            require("no retraining" in text and res["mismatches"] == 0,
+                    f"launch.serve {argv}: retrained or mismatched")
+            cli[" ".join(argv) or "lut"] = res
+        require(cli["--tenants 3 --swap"]["swap"].status == "committed",
+                "the CLI's swap did not commit")
+
+        # Replicas 1 vs 2 in turns: one request at a time (no admission
+        # window), then the 72 requests as a burst, each its own batch
+        # (no window) and coalesced (the default 2 ms window): whether
+        # two executors on one card serve a burst faster than one.
+        timing = {1: [], 2: []}
+        for r in SERVING_TIMING_TURNS:
+            turn = {}
+            for wait_ms in (0.0, 2.0):
+                with LUTServeEngine(chain, replicas=r, max_wait_ms=wait_ms,
+                                    device=dev) as eng:
+                    eng.warmup()
+                    if wait_ms == 0.0:
+                        got = [eng.predict(x) for x in requests]
+                        rep = eng.metrics.report()
+                        exact(got, want[name], f"replicas={r} one at a time")
+                        turn.update(p50_ms=rep["p50_ms"], p99_ms=rep["p99_ms"])
+                    t0 = time.perf_counter()
+                    got = burst(eng, requests)
+                    turn[f"burst_ms_wait{wait_ms:g}"] = \
+                        (time.perf_counter() - t0) * 1e3
+                    turn[f"forwards_wait{wait_ms:g}"] = eng.forwards
+                exact(got, want[name], f"replicas={r} burst")
+            timing[r].append(turn)
+    finally:
+        tmp.cleanup()
+    # Nothing of the phase outlives it: every engine joined its
+    # dispatcher and executor threads, the traffic thread ended, and the
+    # host thread is back on the default stream with nothing pending.
+    torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+    left = [t.name for t in threading.enumerate() if t not in threads0]
+    require(not left, f"threads alive after the serving stack: {left}")
+    require(dev.type == "cpu" or torch.cuda.current_stream(dev)
+            == torch.cuda.default_stream(dev),
+            "the host thread left on an executor's stream")
+    k1 = {"chain": lut_cascade.launches - dag, "dag": dag}
+    require(dev.type == "cpu" or (k1["chain"] > 0 and k1["dag"] > 0),
+            f"the serving stack's K1 launches {k1}")
+    secs = {k: sorted(v) for k, v in reg_s.items()}
+    for r, turns in timing.items():
+        log(f"serving stack timing, replicas={r} ({card}): one at a time "
+            "p50 / p99 ms " + ", ".join(
+                f"{t['p50_ms']:.3f} / {t['p99_ms']:.3f}" for t in turns)
+            + "; burst of 72 requests, no window " + ", ".join(
+                f"{t['burst_ms_wait0']:.2f}" for t in turns)
+            + " ms, 2 ms window " + ", ".join(
+                f"{t['burst_ms_wait2']:.2f} ({t['forwards_wait2']} forwards)"
+                for t in turns) + " ms")
+    log(f"serving stack timing, registry ({card}), {name} "
+        f"({chain.num_table_bytes} table bytes), sorted over "
+        f"{REGISTRY_REPS} reps: save {secs['save']} s, load (verified, "
+        f"packed) {secs['load']} s, verify {secs['verify']} s")
+    total = time.perf_counter() - t_phase
+    log(f"serving stack: K1 launches chain {k1['chain']}, DAG {k1['dag']}; "
+        f"{total:.2f} s")
+    return {"k1": k1, "timing": timing, "registry_s": secs,
+            "seconds": total, "swap_cutover_ms":
+            good.cutover_latency_s * 1e3, "shed": shed}
 
 
 def _stacked_subnet(gen, seeds, o, f, depth, width, skip, dev):
@@ -2343,7 +2808,14 @@ def main() -> int:
     launches, served = phase_main_path(cfg, dev)
     stages = phase_convert_stages(cfg, dev)
     layer = phase_layer_serving(cfg, dev, served)
-    graph_launches, graph = phase_graph_serving(dev)
+    graph_launches, graph, graph_served = phase_graph_serving(dev)
+    probe = {"before": profiler_probe(dev)}
+    stack = phase_serving_stack(dev, card, served, graph_served)
+    probe["after"] = profiler_probe(dev)
+    log("profiler probe (K4 at O=64 S=1 and a PyTorch control, 5 calls a "
+        "trace), short traces before / after the serving stack: " + "; ".join(
+            f"{k} {probe['before'][k]} / {probe['after'][k]} of "
+            f"{probe['before']['traces']}" for k in ("k4", "control")))
     k4, k5 = phase_train_kernels(cfg, dev)
     shapes = phase_train_shapes(dev)
     train = phase_train_path(cfg, dev)
@@ -2465,7 +2937,8 @@ def main() -> int:
             k["launches_by_path"] = {
                 "graph_serve": k["launches"],
                 "graph_train": gtrain["train"]["launches"][name],
-                "graph_ensemble": gtrain["ensemble"]["launches"][name]}
+                "graph_ensemble": gtrain["ensemble"]["launches"][name],
+                "serving_stack": stack["k1"]["dag"]}
             continue
         k["launches_by_path"] = {
             "serve": launches.get(name, 0),
@@ -2474,7 +2947,12 @@ def main() -> int:
             "ensemble": ens["launches"].get(name, 0),
             **{f"kind_{kind}": r["launches"][name]
                for kind, r in kinds.items()}}
-        if name != "lut_cascade":
+        if name == "lut_cascade":
+            k["launches_by_path"]["serving_stack"] = stack["k1"]["chain"]
+            k["serving_stack"] = {key: stack[key] for key in (
+                "timing", "registry_s", "seconds", "swap_cutover_ms")}
+            k["serving_stack"]["profiler_probe"] = probe
+        else:
             k["launches_by_path"].update(
                 graph_serve=graph_launches.get(name, 0),
                 graph_train=gtrain["train"]["launches"][name],

@@ -27,6 +27,7 @@ COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 # ptxas's per-kernel register / shared-memory / spill report of the
 # last build in this process ("" when the library was already built).
@@ -153,6 +154,15 @@ def load_library() -> ctypes.CDLL:
                 build_log = _build(path)
             _lib = _bind(ctypes.CDLL(str(path)))
         return _lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the launch count of a kernel
+    wrapper.  Serving executors launch from several threads at once, and
+    ``+= 1`` on an attribute is a read, an add and a write that two
+    threads can interleave, so the add holds a lock."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def check(rc: int, what: str) -> None:

@@ -343,7 +343,7 @@ def lut_cascade(codes: torch.Tensor, ops: CascadeOperands, *,
         ops.max_arity, ops.max_width, rows, ops.pitch, out.data_ptr(),
         torch.cuda.current_stream(codes.device).cuda_stream)
     build.check(rc, "lut_cascade launch")
-    lut_cascade.launches += 1
+    build.count_launch(lut_cascade)
     return out
 
 

@@ -46,7 +46,7 @@ def lut_lookup(tables: torch.Tensor, addr: torch.Tensor) -> torch.Tensor:
         out.data_ptr(), b, o, t,
         torch.cuda.current_stream(addr.device).cuda_stream)
     build.check(rc, "lut_lookup launch")
-    lut_lookup.launches += 1
+    build.count_launch(lut_lookup)
     return out
 
 

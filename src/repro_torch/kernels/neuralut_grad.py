@@ -149,7 +149,7 @@ def subnet_train_fwd(xg: torch.Tensor,
         nl, (ctypes.c_int * len(widths))(*widths), skip,
         torch.cuda.current_stream(xg.device).cuda_stream)
     build.check(rc, "subnet_train_fwd launch")
-    subnet_train_fwd.launches += 1
+    build.count_launch(subnet_train_fwd)
     return out, acts
 
 
@@ -235,7 +235,7 @@ def subnet_train_bwd(g: torch.Tensor, xg: torch.Tensor,
         ns, t, o, p, nl, (ctypes.c_int * len(widths))(*widths), skip,
         torch.cuda.current_stream(xg.device).cuda_stream)
     build.check(rc, "subnet_train_bwd launch")
-    subnet_train_bwd.launches += 1
+    build.count_launch(subnet_train_bwd)
     return dx, dws, dbs, drs, drbs
 
 

@@ -130,7 +130,7 @@ def grouped_subnet(xg: torch.Tensor,
     if t == 0 or o == 0:
         return out
     _launch(xg, wpack, out, widths, skip)
-    grouped_subnet.launches += 1
+    build.count_launch(grouped_subnet)
     return out
 
 

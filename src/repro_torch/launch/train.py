@@ -16,10 +16,11 @@ every step makes one call of each training kernel per layer, or per
 branch of a graph node, for all N seeds.  Then converts the trained
 model to bit-packed truth tables (through the grouped sub-network kernel
 on the card, once per layer or branch), builds the in-memory
-``ServeBundle``, serves the test set through ``LUTServeEngine`` (the
-LUT-cascade kernel on the card, a graph on its DAG schedule) and checks
-that every served prediction equals ``lut_infer.predict``.  Runs on
-CUDA unless ``--device cpu``.
+``ServeBundle`` (saved to the ``TableRegistry`` at ``--registry`` when
+given, where ``launch.serve`` loads it), serves the test set through
+``LUTServeEngine`` (the LUT-cascade kernel on the card, a graph on its
+DAG schedule) and checks that every served prediction equals
+``lut_infer.predict``.  Runs on CUDA unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ import argparse
 import time
 from typing import Any, Dict, Optional, Sequence
 
-NOT_PORTED = "is not ported yet (ROADMAP.md, {})"
+from repro_torch import NOT_PORTED
 
 
 def train_neuralut_arch(args, cfg) -> Dict[str, Any]:
@@ -40,17 +41,14 @@ def train_neuralut_arch(args, cfg) -> Dict[str, Any]:
                                         train_neuralut_ensemble)
     from repro_torch.data import device_dataset, jsc_synthetic
     from repro_torch.device import resolve_device
-    from repro_torch.serve import LUTServeEngine, bundle_from_training
+    from repro_torch.serve import (LUTServeEngine, TableRegistry,
+                                   bundle_from_training)
 
     if "jsc" not in cfg.name:
         raise SystemExit(f"--arch {args.arch}: only the JSC NeuraLUT "
                          "configs have a synthetic dataset wired here")
     if args.seeds < 1:
         raise SystemExit(f"--seeds {args.seeds}: need at least one seed")
-    if args.registry:
-        raise NotImplementedError(
-            "--registry: the on-disk TableRegistry "
-            + NOT_PORTED.format("Queue A item 3"))
     dev = resolve_device(args.device)
     xtr, ytr = device_dataset(jsc_synthetic, 20000, seed=0, device=dev)
     xte, yte = device_dataset(jsc_synthetic, 4000, seed=1, device=dev)
@@ -91,7 +89,11 @@ def train_neuralut_arch(args, cfg) -> Dict[str, Any]:
           f"{time.perf_counter() - t0:.2f}s (packed "
           f"{sum(p.nbytes for p in flat_p) / 1024:.1f} KiB)", flush=True)
     bundle = bundle_from_training(cfg, params, tables, statics,
-                                  packed_tables=packed)
+                                  packed_tables=packed,
+                                  meta={"train_acc_q": float(acc_q)})
+    if args.registry:
+        path = TableRegistry(args.registry).save(cfg.name, bundle)
+        print(f"saved serving-ready bundle -> {path}", flush=True)
     x_np = xte.cpu().numpy()
     with LUTServeEngine(bundle, device=dev) as eng:
         served = eng.predict(x_np)
@@ -119,7 +121,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--seeds", type=int, default=1,
                     help="restarts trained together; the best is kept")
     ap.add_argument("--registry", default=None,
-                    help="save the bundle here (not ported)")
+                    help="save the bundle to this TableRegistry")
     ap.add_argument("--lr", type=float, default=None,
                     help="default 2e-3")
     ap.add_argument("--log-every", type=int, default=10,

@@ -49,6 +49,11 @@ def test_imports_with_jax_and_repro_blocked():
             "repro_torch.tree"} <= names
     # and the per-layer serving slice's
     assert "repro_torch.kernels.lut_gather" in names
+    # and the serving stack's
+    assert {"repro_torch.checkpoint.store", "repro_torch.runtime.chaos",
+            "repro_torch.runtime.fault", "repro_torch.serve.registry",
+            "repro_torch.serve.engine", "repro_torch.serve.tenants",
+            "repro_torch.launch.serve", "repro_torch.config.base"} <= names
 
 
 def test_no_source_imports_jax_or_repro():

@@ -1,0 +1,96 @@
+"""The port's serving CLI on the CPU, end to end: the first run trains,
+converts and saves the bundle, the second loads it ("no retraining"),
+and ``--tenants 3 --swap`` serves three tenants and commits a hot swap;
+every served prediction is checked against ``lut_infer.predict`` by the
+CLI itself.  ``launch.train --registry`` saves a bundle the server
+loads.  What is not ported raises and names its ROADMAP item."""
+import numpy as np
+import pytest
+import torch
+
+from repro.serve import TableRegistry as JTableRegistry
+from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
+from repro_torch.serve import TableRegistry
+
+torch.set_num_threads(1)
+
+COMMON = ["--reduced", "--epochs", "1", "--device", "cpu", "--requests",
+          "12", "--batch", "16"]
+
+
+@pytest.mark.parametrize("arch", ["neuralut-jsc-2l", "polylut-add-jsc-2l"])
+def test_cli_trains_once_then_serves_from_the_registry(tmp_path, capsys,
+                                                       arch):
+    argv = ["--arch", arch, "--registry", str(tmp_path)] + COMMON
+    first = launch_serve.main(argv)
+    out = capsys.readouterr().out
+    assert "training" in out and "saved bundle" in out
+    assert "no retraining" not in out and first["mismatches"] == 0
+    name = first["bundle"].cfg.name
+    assert TableRegistry(tmp_path).versions(name) == [0]
+    second = launch_serve.main(argv + ["--replicas", "2"])
+    out = capsys.readouterr().out
+    assert "no retraining" in out and "integrity verified" in out
+    assert "training " not in out and second["mismatches"] == 0
+    assert len(second["replica_batches"]) == 2
+    assert second["bundle"].meta["train_acc_q"] == \
+        pytest.approx(first["bundle"].meta["train_acc_q"])
+    # the reference's registry reads what the port's CLI saved
+    jb = JTableRegistry(tmp_path).load(name)
+    assert np.array_equal(np.asarray(jb.in_log_s),
+                          first["bundle"].in_log_s)
+
+
+def test_cli_tenants_and_swap_commit(tmp_path, capsys):
+    argv = ["--arch", "neuralut-jsc-2l", "--registry", str(tmp_path)] \
+        + COMMON
+    launch_serve.main(argv)
+    capsys.readouterr()
+    res = launch_serve.main(argv + ["--tenants", "3", "--swap",
+                                    "--rate-limit", "1000"])
+    out = capsys.readouterr().out
+    assert "no retraining" in out and "3 tenants -> 1 geometry" in out
+    assert "swap: status=committed" in out
+    assert res["swap"].status == "committed" and res["swap"].mismatches == 0
+    assert res["mismatches"] == 0 and res["groups"] == 1
+
+
+def test_train_registry_feeds_the_server(tmp_path, capsys):
+    launch_train.main(["--arch", "neuralut-jsc-2l", "--reduced",
+                       "--epochs", "1", "--device", "cpu", "--registry",
+                       str(tmp_path), "--log-every", "0"])
+    out = capsys.readouterr().out
+    assert "saved serving-ready bundle" in out
+    res = launch_serve.main(["--arch", "neuralut-jsc-2l", "--registry",
+                             str(tmp_path)] + COMMON)
+    assert "no retraining" in capsys.readouterr().out
+    assert res["mismatches"] == 0
+
+
+def test_cli_without_registry_does_not_persist(tmp_path, capsys,
+                                               monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    res = launch_serve.main(["--arch", "neuralut-jsc-2l", "--registry", ""]
+                            + COMMON)
+    assert "saved bundle" not in capsys.readouterr().out
+    assert res["mismatches"] == 0 and not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("argv,exc,match", [
+    (["--mode", "lm"], NotImplementedError, "Queue A item 7"),
+    (["--sharded"], NotImplementedError, "Queue A item 3"),
+    (["--kernel"], SystemExit, "no route to force"),
+    (["--arch", "llama3-8b"], SystemExit, "unknown"),
+])
+def test_cli_refuses_what_is_not_ported(tmp_path, argv, exc, match):
+    with pytest.raises(exc, match=match):
+        launch_serve.main(argv + ["--registry", str(tmp_path), "--device",
+                                  "cpu"])
+
+
+def test_cli_needs_cuda_unless_asked_for_the_cpu(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        launch_serve.main(["--arch", "neuralut-jsc-2l", "--reduced",
+                           "--epochs", "1", "--registry", str(tmp_path)])

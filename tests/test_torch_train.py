@@ -185,16 +185,31 @@ def test_launch_train_cpu():
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["--seeds", "2", "--registry", "reg"], NotImplementedError),
-    (["--registry", "reg"], NotImplementedError),
+    (["--seeds", "2", "--registry", "reg"], None),
+    (["--registry", "reg"], None),
     (["--arch", "llama3-8b"], NotImplementedError),
-    (["--arch", "polylut-add-jsc-2l", "--registry", "reg"],
-     NotImplementedError),
+    (["--arch", "polylut-add-jsc-2l", "--registry", "reg"], None),
     (["--arch", "neuralut-hdr-5l"], SystemExit),
 ])
-def test_launch_train_refuses_what_is_not_ported(argv, err):
+def test_launch_train_refuses_what_is_not_ported(argv, err, tmp_path,
+                                                 capsys):
+    """LM archs and archs without a dataset are refused; ``--registry``
+    (refused until the serving stack was ported) saves the served bundle
+    to a TableRegistry, bit-identical on load."""
+    from repro_torch.serve import TableRegistry
     base = ["--arch", "neuralut-jsc-5l", "--reduced", "--epochs", "1",
-            "--device", "cpu"]
+            "--device", "cpu", "--log-every", "0"]
+    argv = [str(tmp_path) if a == "reg" else a for a in argv]
+    if err is None:
+        out = LT.main(base + argv)
+        assert "saved serving-ready bundle" in capsys.readouterr().out
+        name = out["bundle"].cfg.name
+        loaded = TableRegistry(tmp_path).load(name)
+        assert TableRegistry(tmp_path).versions(name) == [0]
+        assert loaded.meta["train_acc_q"] == pytest.approx(out["acc_q"])
+        for a, b in zip(loaded.packed_tables, out["bundle"].packed_tables):
+            assert np.array_equal(a, b)
+        return
     with pytest.raises(err) as e:
         LT.main(base + argv)
     if err is NotImplementedError:
