@@ -45,6 +45,19 @@ then drives the port's paths at full width:
   ``neuralut-jsc-5l`` chain: trained on the plain route (they launch no
   sub-network kernel), converted and served through the LUT-cascade
   kernel;
+* the Pareto sweep (``repro_torch.sweep``) at the paper grid's full
+  widths (three LogicNets and three NeuraLUT geometries, 196 pooled
+  synthetic-MNIST inputs, F 6, beta 2; 3 seeds, 3 epochs where the
+  launcher's default is 10): four stacked group runs, one K4 and one K5
+  launch per NeuraLUT layer per step for all units of a group (none for
+  LogicNets), every point's best member converted (K2), saved to a
+  registry, loaded back and served through the LUT-cascade kernel with
+  0 mismatches; each NeuraLUT point of the padded group alone in a
+  group equal to the per-point ensemble bit for bit, the padded group's
+  first gradients, one step and whole run against it, a rerun and a
+  resume bit for bit, the launcher once; before
+  it K4/K5 over the sweep's unit axes (U = 3 and 6) against single-unit
+  launches, and K2 at the sweep's conversion shapes;
 * the serving stack, right after graph serving, over the bundles of
   the two serving paths: a ``TableRegistry`` round trip (verified,
   bit-identical), a corrupted version refused and quarantined by the
@@ -114,6 +127,32 @@ GRAPH_BRANCH_O = (64, 32, 5)        # the widths of its branches
 GRAPH_BRANCH_S = (1, 4)
 KIND_EPOCHS = 1                     # linear and poly on the jsc-5l chain
 TILE_SWEEP = (1, 2, 4, 8, 16, 32)   # K1 rows per block
+# The Pareto sweep (paper Figs. 6-7 grid, repro_torch.sweep) on
+# mnist_pooled 6000 / 2000 rows (launch.sweep's defaults), seeds 0-2,
+# batch 256: 23 steps per epoch.  Depth cut: 3 epochs where the
+# launcher's default is 10.
+SWEEP_SEEDS = (0, 1, 2)
+SWEEP_EPOCHS = 3
+SWEEP_ROWS = (6000, 2000)
+SWEEP_LR = 3e-3                     # run_pareto_sweep's default
+# The padded NeuraLUT group (U = 6) against train_neuralut_ensemble per
+# point (S = 3).  A one-point group and the ensemble run one code path
+# and must agree bit for bit.  Across unit counts (on the card) and
+# padded lanes a unit's float32 reductions (BN's sums over the batch, a
+# per-lane quantizer scale's gradient) round in another order; Adam
+# turns that rounding on the leaves whose exact gradient is 0 (the
+# biases feeding BN) into lr-sized steps, which BN then subtracts, and
+# the signal drifts slowly after them.  So the whole run is held
+# at limits set from PR 19's card readings over 69 steps (four runs):
+# histories up to 6.0e-3, params where |grad| > 1e-5 and BN variances up
+# to 2.3e-3, the other params up to 2.3e-2 and the BN means up to 4.7e-2.
+SWEEP_HIST_ATOL = 1.5e-2            # loss, test_acc, test_acc_q
+SWEEP_SIGNAL_ATOL = 1e-2            # params where |grad| > 1e-5, BN var
+SWEEP_ZERO_ATOL = 2e-1              # the other params and the BN means
+# K4/K5 at the sweep's shapes (F 6, sub-network 16/16/16/16, skip 2):
+# the NeuraLUT groups' unit axes and layer widths
+SWEEP_UNIT_SHAPES = ((3, (64, 32, 10)), (6, (48, 10)))
+SWEEP_K2_O = (64, 48, 32, 10)       # conversion widths, 4096 rows each
 K2_SWEEP_R = (1, 2, 4)              # K2 rows per thread
 K2_SWEEP_G = (4, 8)                 # K2 neurons per block
 K2_SWEEP_ROWS = (32, 64, 128, 256, 512, 1024)   # K2 rows per block
@@ -167,17 +206,20 @@ def device_ms(fn, reps: int, kernel=""):
     return us / reps / 1e3 if us > 0 else None
 
 
-def kernels_per_call(fn, reps: int = 5) -> float:
+def kernels_per_call(fn, reps: int = 5, traces: int = 4) -> float:
     """Device activities (kernels, memsets, copies) per call of ``fn``,
     whatever their names, from ``torch.profiler`` traces of ``reps``
-    calls: the larger of two traces (a trace now and then misses some)."""
+    calls.  A trace now and then misses records (once all of a trace's),
+    never adds one: the largest count of two traces, and of up to
+    ``traces`` while it stays below one activity per call, which no
+    launching call can make."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     counts = []
-    for _ in "ab":
+    while len(counts) < 2 or (max(counts) < 1 and len(counts) < traces):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -1860,6 +1902,62 @@ def _weights(p):
             [sp["b"] for sp in p.get("skips", [])])
 
 
+def _unit_axis_layer(gen, ns, o, f, depth, width, sk, dev):
+    """K4 and K5 over a leading seed (or sweep unit) axis of ``ns`` at
+    B = TRAIN_B, O = ``o``, F = ``f``: one launch against the plain
+    versions over the same axis and against ``ns`` separate single-unit
+    launches, at the K4/K5 tolerances, and a rerun of the ``ns``-wide
+    launches bit for bit.  Returns (errors and whether the single-unit
+    launches gave the same bits, the operands)."""
+    import torch
+    from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
+                                                   subnet_train_fwd)
+    from repro_torch.kernels.neuralut_mlp import pack_subnet_weights
+    from repro_torch.kernels.ref import (subnet_train_bwd_ref,
+                                         subnet_train_fwd_ref)
+    lw, lb, sw, sb = _weights(_stacked_subnet(
+        gen, ns, o, f, depth, width, sk, dev))
+    xg = torch.randn((ns, TRAIN_B, o, f), generator=gen).to(dev)
+    g = torch.randn((ns, TRAIN_B, o), generator=gen).to(dev)
+    wpack = pack_subnet_weights(lw, lb, sw, sb)
+    out, acts = subnet_train_fwd(xg, lw, lb, sw, sb, skip=sk, wpack=wpack)
+    grads = subnet_train_bwd(g, xg, acts, lw, lb, sw, sb, skip=sk,
+                             wpack=wpack)
+    r_out, r_acts = subnet_train_fwd_ref(xg, lw, lb, sw, sb, skip=sk)
+    r_grads = subnet_train_bwd_ref(g, xg, r_acts, lw, sw, skip=sk)
+    flat = [grads[0]] + [a for grp in grads[1:] for a in grp]
+    e4 = max([_close(out, r_out, K4_RTOL, K4_ATOL)]
+             + [_close(a, r, K4_RTOL, K4_ATOL)
+                for a, r in zip(acts, r_acts)])
+    e5 = max(_close(a, r, K5_RTOL, K5_ATOL) for a, r in
+             zip(flat, [r_grads[0]] + [a for grp in r_grads[1:]
+                                       for a in grp]))
+    same4 = same5 = True
+    for s in range(ns):
+        one = [[a[s] for a in grp] for grp in (lw, lb, sw, sb)]
+        o1, a1 = subnet_train_fwd(xg[s], *one, skip=sk, wpack=wpack[s])
+        g1 = subnet_train_bwd(g[s], xg[s], a1, *one, skip=sk,
+                              wpack=wpack[s])
+        flat1 = [g1[0]] + [a for grp in g1[1:] for a in grp]
+        e4 = max([e4, _close(out[s], o1, K4_RTOL, K4_ATOL)]
+                 + [_close(a[s], b, K4_RTOL, K4_ATOL)
+                    for a, b in zip(acts, a1)])
+        e5 = max([e5] + [_close(a[s], b, K5_RTOL, K5_ATOL)
+                         for a, b in zip(flat, flat1)])
+        same4 &= torch.equal(out[s], o1) and all(
+            torch.equal(a[s], b) for a, b in zip(acts, a1))
+        same5 &= all(torch.equal(a[s], b) for a, b in zip(flat, flat1))
+    o2, a2 = subnet_train_fwd(xg, lw, lb, sw, sb, skip=sk, wpack=wpack)
+    g2 = subnet_train_bwd(g, xg, a2, lw, lb, sw, sb, skip=sk, wpack=wpack)
+    flat2 = [g2[0]] + [a for grp in g2[1:] for a in grp]
+    require(torch.equal(o2, out) and all(torch.equal(a, b) for a, b in
+                                         zip(a2 + flat2, acts + flat)),
+            f"K4/K5 at {ns} x O={o}: a rerun on the same inputs differs")
+    torch.cuda.synchronize()
+    return (dict(err4=e4, err5=e5, same4=same4, same5=same5),
+            (xg, g, lw, lb, sw, sb, wpack, acts))
+
+
 def phase_seed_kernels(cfg, dev):
     """K4 and K5 over a leading seed axis (S = 4, one launch) against S
     separate single-seed launches and against the plain versions over
@@ -1868,74 +1966,41 @@ def phase_seed_kernels(cfg, dev):
     import torch
     from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
                                                    subnet_train_fwd)
-    from repro_torch.kernels.neuralut_mlp import pack_subnet_weights
-    from repro_torch.kernels.ref import (subnet_train_bwd_ref,
-                                         subnet_train_fwd_ref)
     gen = torch.Generator().manual_seed(19)
     ns, sk = len(ENSEMBLE_SEEDS), cfg.skip
     out_rows = []
     for i, o in enumerate(cfg.layer_widths):
         f = cfg.layer_fan_in(i)
-        lw, lb, sw, sb = _weights(_stacked_subnet(
-            gen, ns, o, f, cfg.depth, cfg.width, sk, dev))
-        xg = torch.randn((ns, TRAIN_B, o, f), generator=gen).to(dev)
-        g = torch.randn((ns, TRAIN_B, o), generator=gen).to(dev)
-        wpack = pack_subnet_weights(lw, lb, sw, sb)
-        out, acts = subnet_train_fwd(xg, lw, lb, sw, sb, skip=sk, wpack=wpack)
-        grads = subnet_train_bwd(g, xg, acts, lw, lb, sw, sb, skip=sk,
-                                 wpack=wpack)
-        r_out, r_acts = subnet_train_fwd_ref(xg, lw, lb, sw, sb, skip=sk)
-        r_grads = subnet_train_bwd_ref(g, xg, r_acts, lw, sw, skip=sk)
-        flat = [grads[0]] + [a for grp in grads[1:] for a in grp]
-        e4 = max([_close(out, r_out, K4_RTOL, K4_ATOL)]
-                 + [_close(a, r, K4_RTOL, K4_ATOL)
-                    for a, r in zip(acts, r_acts)])
-        e5 = max(_close(a, r, K5_RTOL, K5_ATOL) for a, r in
-                 zip(flat, [r_grads[0]] + [a for grp in r_grads[1:]
-                                           for a in grp]))
-        same4 = same5 = True
-        for s in range(ns):
-            one = [[a[s] for a in grp] for grp in (lw, lb, sw, sb)]
-            o1, a1 = subnet_train_fwd(xg[s], *one, skip=sk, wpack=wpack[s])
-            g1 = subnet_train_bwd(g[s], xg[s], a1, *one, skip=sk,
-                                  wpack=wpack[s])
-            flat1 = [g1[0]] + [a for grp in g1[1:] for a in grp]
-            e4 = max([e4, _close(out[s], o1, K4_RTOL, K4_ATOL)]
-                     + [_close(a[s], b, K4_RTOL, K4_ATOL)
-                        for a, b in zip(acts, a1)])
-            e5 = max([e5] + [_close(a[s], b, K5_RTOL, K5_ATOL)
-                             for a, b in zip(flat, flat1)])
-            same4 &= torch.equal(out[s], o1) and all(
-                torch.equal(a[s], b) for a, b in zip(acts, a1))
-            same5 &= all(torch.equal(a[s], b) for a, b in zip(flat, flat1))
-        torch.cuda.synchronize()
+        row, (xg, g, lw, lb, sw, sb, wpack, acts) = _unit_axis_layer(
+            gen, ns, o, f, cfg.depth, cfg.width, sk, dev)
         one = [[a[0] for a in grp] for grp in (lw, lb, sw, sb)]
         o1, a1 = subnet_train_fwd(xg[0], *one, skip=sk, wpack=wpack[0])
-
-        def trace_ms(fn, reps, kernel):
-            # a trace now and then misses kernels (no or too little device
-            # time): the larger of two traces
-            runs = [device_ms(fn, reps, kernel) for _ in "ab"]
-            return max((r for r in runs if r), default=None)
         ms = {   # every kernel of the call, by no name
-            "k4_s4": trace_ms(lambda: subnet_train_fwd(
-                xg, lw, lb, sw, sb, skip=sk, wpack=wpack), 20, ""),
-            "k4_s1": trace_ms(lambda: subnet_train_fwd(
-                xg[0], *one, skip=sk, wpack=wpack[0]), 20, ""),
-            "k5_s4": trace_ms(lambda: subnet_train_bwd(
-                g, xg, acts, lw, lb, sw, sb, skip=sk, wpack=wpack), 20, ""),
-            "k5_s1": trace_ms(lambda: subnet_train_bwd(
-                g[0], xg[0], a1, *one, skip=sk, wpack=wpack[0]), 20, "")}
-        out_rows.append(dict(err4=e4, err5=e5, same4=same4, same5=same5,
-                             **ms))
+            "k4_s4": _trace_ms(lambda: subnet_train_fwd(
+                xg, lw, lb, sw, sb, skip=sk, wpack=wpack), 20),
+            "k4_s1": _trace_ms(lambda: subnet_train_fwd(
+                xg[0], *one, skip=sk, wpack=wpack[0]), 20),
+            "k5_s4": _trace_ms(lambda: subnet_train_bwd(
+                g, xg, acts, lw, lb, sw, sb, skip=sk, wpack=wpack), 20),
+            "k5_s1": _trace_ms(lambda: subnet_train_bwd(
+                g[0], xg[0], a1, *one, skip=sk, wpack=wpack[0]), 20)}
+        out_rows.append(dict(**row, **ms))
         log(f"seed axis layer {i} (O={o}, F={f}, S={ns}, B={TRAIN_B}): K4 "
             f"vs {ns} single-seed launches and the plain version max err "
-            f"{e4:.3e} ({'bit-identical' if same4 else 'within tolerance'}"
-            f" to the single-seed launches), K5 {e5:.3e} "
-            f"({'bit-identical' if same5 else 'within tolerance'}); device "
-            + ", ".join(f"{k} {v or float('nan'):.4f} ms"
-                        for k, v in ms.items()))
+            f"{row['err4']:.3e} ("
+            f"{'bit-identical' if row['same4'] else 'within tolerance'}"
+            f" to the single-seed launches), K5 {row['err5']:.3e} ("
+            f"{'bit-identical' if row['same5'] else 'within tolerance'}); "
+            "device " + ", ".join(f"{k} {v or float('nan'):.4f} ms"
+                                  for k, v in ms.items()))
     return out_rows
+
+
+def _trace_ms(fn, reps, kernel=""):
+    """Device ms per call: the larger of two traces (a trace now and then
+    misses kernels: no or too little device time)."""
+    runs = [device_ms(fn, reps, kernel) for _ in "ab"]
+    return max((r for r in runs if r), default=None)
 
 
 TRAIN_SHAPE_B = (1, 37, 256, 1000)
@@ -2252,10 +2317,11 @@ def phase_ensemble_path(cfg, dev):
                                              device=dev) for s in seeds],
                            dim=1)
 
-    def run(init, idx):
+    def run(init, idx):     # idx: (steps, S, batch)
         p, s, o = init
+        st = TR.unit_statics(sd, idx.shape[1])
         for ib in idx:
-            p, s, o, _ = step(p, s, o, sd, xtr[ib], ytr[ib])
+            p, s, o, _ = step(p, s, o, st, xtr[ib], ytr[ib])
         torch.cuda.synchronize()
         return _flat(p) + _flat(s) + _flat(o)
     init = TR.init_ensemble(cfg, ENSEMBLE_SEEDS, xtr, device=dev)
@@ -2557,6 +2623,7 @@ def phase_graph_train_path(cfg, dev):
     estep = TR.make_ensemble_step_fn(cfg, lr=2e-3, weight_decay=1e-4,
                                      t0=esteps, exec_plan=plan_k)
     einit = TR.init_ensemble(cfg, GRAPH_ENSEMBLE_SEEDS, xtr, device=dev)
+    esd = TR.unit_statics(sd, ns)
     eidx = torch.stack([TR.epoch_batches(len(xtr), spe, TRAIN_B, seed=s,
                                          epoch=0, device=dev)
                         for s in GRAPH_ENSEMBLE_SEEDS], dim=1)
@@ -2566,7 +2633,7 @@ def phase_graph_train_path(cfg, dev):
     # seed-axis call is required at every branch shape, S = 1 and 4, in
     # phase_train_shapes (GRAPH_BRANCH_O), and 7 calls per step above.
     c4, c5, n4, n5 = _step_kernel_count(lambda: estep(
-        *einit, sd, xtr[eidx[0]], ytr[eidx[0]]))
+        *einit, esd, xtr[eidx[0]], ytr[eidx[0]]))
     require((n4, n5) == (branches, branches),
             f"one graph ensemble step: {n4} K4 / {n5} K5 calls; want "
             f"{branches} of each")
@@ -2574,7 +2641,7 @@ def phase_graph_train_path(cfg, dev):
     def eepoch():
         p, s, o = einit
         for k in range(spe):
-            p, s, o, _ = estep(p, s, o, sd, xtr[eidx[k]], ytr[eidx[k]])
+            p, s, o, _ = estep(p, s, o, esd, xtr[eidx[k]], ytr[eidx[k]])
     wall, busy, k4, k5, top = _epoch_profile(eepoch, spe)
     four = dict(steps_s=spe / wall, epoch_s=wall, busy_share=busy / wall,
                 k4_ms_step=k4, k5_ms_step=k5,
@@ -2671,13 +2738,552 @@ def phase_kinds(cfg, dev):
     return out
 
 
+def _sweep_subnet_geometry():
+    """(F, depth, width, skip) of the grid's NeuraLUT points."""
+    from repro_torch.sweep import PAPER_SWEEP, paper_point_cfg
+    c = paper_point_cfg("neuralut", *PAPER_SWEEP["neuralut"][0])
+    return c.fan_in, c.depth, c.width, c.skip, c.layer_in_bits(0)
+
+
+def phase_sweep_kernels(dev):
+    """K4 and K5 over the sweep's unit axes (U = 3 at O = 64/32/10, U = 6
+    at O = 48/10; F = 6, sub-network 16/16/16/16, skip 2, B = TRAIN_B)
+    against U separate single-unit launches and the plain versions,
+    reruns bit for bit; device ms per launch and per group step beside
+    the bound.  K2 at the sweep's conversion shapes (4096 rows x O =
+    64/48/32/10) against its plain version, with its bound."""
+    import torch
+    from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
+                                                   subnet_train_fwd)
+    from repro_torch.kernels.neuralut_mlp import subnet_kernel_apply
+    from repro_torch.kernels.ref import grouped_subnet_ref
+    f, depth, width, sk, in_bits = _sweep_subnet_geometry()
+    gen = torch.Generator().manual_seed(29)
+    out = {"train": {}, "k2": {}}
+    for units, widths in SWEEP_UNIT_SHAPES:
+        rows = []
+        for o in widths:
+            row, (xg, g, lw, lb, sw, sb, wpack, acts) = _unit_axis_layer(
+                gen, units, o, f, depth, width, sk, dev)
+            macs = sum(int(w.shape[-2] * w.shape[-1]) for w in lw + sw)
+            wbytes = 4.0 * sum(a.numel() for a in lw + lb + sw + sb)
+            abytes = 4.0 * sum(a.numel() for a in acts)
+            fwd_flops = 2.0 * macs * TRAIN_B * o * units
+            b4 = bound_ms(4.0 * (xg.numel() + g.numel()) + wbytes + abytes,
+                          fwd_flops)
+            b5 = bound_ms(4.0 * (g.numel() + 2 * xg.numel()) + abytes
+                          + 2 * wbytes, 2 * fwd_flops)
+            row.update(
+                o=o, k4_ms=_trace_ms(lambda: subnet_train_fwd(
+                    xg, lw, lb, sw, sb, skip=sk, wpack=wpack), 20),
+                k5_ms=_trace_ms(lambda: subnet_train_bwd(
+                    g, xg, acts, lw, lb, sw, sb, skip=sk, wpack=wpack), 20),
+                k4_bound_ms=b4[0], k4_by=b4[1], k5_bound_ms=b5[0],
+                k5_by=b5[1])
+            rows.append(row)
+            log(f"sweep K4/K5 U={units} O={o} F={f} B={TRAIN_B}: against "
+                f"{units} single-unit launches and the plain version max "
+                f"err K4 {row['err4']:.3e} ("
+                f"{'bit-identical' if row['same4'] else 'within tolerance'}"
+                f"), K5 {row['err5']:.3e} ("
+                f"{'bit-identical' if row['same5'] else 'within tolerance'}"
+                f"); reruns bit-identical; device K4 "
+                f"{row['k4_ms'] or float('nan'):.4f} ms (bound "
+                f"{b4[0]:.5f}, {b4[1]}), K5 "
+                f"{row['k5_ms'] or float('nan'):.4f} ms (bound "
+                f"{b5[0]:.5f}, {b5[1]})")
+        step = {k: None if any(r[k] is None for r in rows)
+                else sum(r[k] for r in rows)
+                for k in ("k4_ms", "k5_ms", "k4_bound_ms", "k5_bound_ms")}
+        out["train"][f"U={units}"] = dict(layers=rows, per_step=step)
+        log(f"sweep K4/K5 per group step at U={units} (O={widths}): K4 "
+            f"{step['k4_ms'] or float('nan'):.4f} ms (bound "
+            f"{step['k4_bound_ms']:.5f}), K5 "
+            f"{step['k5_ms'] or float('nan'):.4f} ms (bound "
+            f"{step['k5_bound_ms']:.5f})")
+    t = 2 ** (in_bits * f)
+    for o in SWEEP_K2_O:
+        p = _rand_subnet(gen, o, f, depth, width, sk, dev)
+        codes = torch.randint(0, 2 ** in_bits, (t, o, f), generator=gen)
+        xg = ((codes - 2 ** (in_bits - 1)).float() * 0.3).to(dev)
+        lw, lb, sw, sb = _weights(p)
+
+        def kern():
+            return subnet_kernel_apply(p, xg, sk)
+
+        def plain():
+            return grouped_subnet_ref(xg, lw, lb, sw, sb, skip=sk)
+        err = _close(kern(), plain(), K2_RTOL, K2_ATOL)
+        macs = sum(int(w.shape[1] * w.shape[2]) for w in lw + sw)
+        flops = 2.0 * macs * t * o
+        nbytes = 4.0 * (xg.numel() + t * o + sum(
+            a.numel() for a in lw + lb + sw + sb))
+        tm = timings(kern, plain, "grouped_subnet_kernel", 20, 5)
+        bms, by = bound_ms(nbytes, flops)
+        out["k2"][str(o)] = dict(err=err, bound_ms=bms, by=by, **tm)
+        log(f"sweep K2 T={t} O={o} F={f}: max_abs_err {err:.3e}, kernel "
+            f"{tm['ms']:.4f} ms (call {tm['call_ms']:.4f}) plain "
+            f"{tm['plain_ms']:.4f} ms [{tm['timing']}] bound {bms:.4f} ms "
+            f"({by})")
+    return out
+
+
+def _paths(tree, prefix=""):
+    """[(path, leaf)] of a params / state tree, in sorted-key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, t in enumerate(tree)
+                for x in _paths(t, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
+
+
+def _member_diffs(cfg, got, ref, x, y, dev):
+    """Largest |got - ref| of a trained member (params, state) against
+    its reference, split by the reference's gradient on (x, y): params
+    where |g| > 1e-5 ("signal"), the other params ("zero": the biases
+    feeding BN, whose exact gradient is 0), BN means and BN variances;
+    with the worst paths.  ``signal_tol`` is the signal's largest
+    |got - ref| / (1e-6 + 1e-3 |ref|)."""
+    from repro_torch.core import model as M
+    from repro_torch.core import train as TR
+    from repro_torch.core.exec_plan import plan_subnet_exec
+    _, grads, _ = TR.loss_and_grads(
+        cfg, *ref, M.device_statics(M.model_static(cfg), dev), x, y,
+        exec_plan=plan_subnet_exec(cfg, purpose="train", device=dev))
+    out = dict(signal=0.0, signal_tol=0.0, zero=0.0, mean=0.0, var=0.0,
+               signal_elems=0)
+    worst = []
+    for (path, a), (_, b), (_, g) in zip(_paths(got[0]), _paths(ref[0]),
+                                         _paths(grads)):
+        d, m = (a - b).abs(), g.abs() > 1e-5
+        out["signal_elems"] += int(m.sum())
+        for key, sel in (("signal", m), ("zero", ~m)):
+            if bool(sel.any()):
+                out[key] = max(out[key], float(d[sel].max()))
+        if bool(m.any()):   # in units of the one-step rtol 1e-3 / atol 1e-6
+            out["signal_tol"] = max(out["signal_tol"], float(
+                (d[m] / (1e-6 + 1e-3 * b[m].abs())).max()))
+        worst.append((path, float(d.max())))
+    for path, d in _tree_diffs(got[1], ref[1]):
+        key = path.rsplit("/", 1)[-1]
+        out[key] = max(out[key], d)
+        worst.append((path, d))
+    out["worst"] = sorted(worst, key=lambda kv: -kv[1])[:4]
+    return out
+
+
+def _first_grads(cfg, params, state, statics, xb, yb, dev):
+    """Each unit's loss gradient at (params, state) on its own batch,
+    vmapped over the unit axis as the group step takes it (no optimizer
+    update)."""
+    import torch
+    from repro_torch.core import model as M
+    from repro_torch.core.exec_plan import plan_subnet_exec
+    from torch.utils import _pytree as pytree
+    plan = plan_subnet_exec(cfg, purpose="train", device=dev)
+
+    def loss(p, s, st, x, y):
+        logits, _, _ = M.model_apply(cfg, p, s, st, x, train=True,
+                                     exec_plan=plan)
+        return M.ce_loss(logits, y)
+    dims = pytree.tree_map(
+        lambda v: 0 if isinstance(v, torch.Tensor) else None, statics)
+    return torch.func.vmap(torch.func.grad(loss), in_dims=(
+        0, 0, dims, 0, 0))(params, state, statics, xb, yb)
+
+
+def _grad_witness(g, xtr, ytr, dev):
+    """The first step's gradients of each point of group ``g`` (U units)
+    against its own ensemble's (S = len(g.seeds)), from the same inits
+    on the same batches: per point, the leaves whose gradient differs,
+    the largest |difference| and the number of elements that differ."""
+    import torch
+    from repro_torch.core import model as M
+    from repro_torch.core import train as TR
+    from repro_torch.sweep import member_params_state, stack_group_operands
+    from repro_torch.tree import tree_map
+    n, spe = len(xtr), len(xtr) // TRAIN_B
+    params, state, _, statics, useeds = stack_group_operands(
+        g, xtr, device=dev)
+    idx = torch.stack([TR.epoch_batches(n, spe, TRAIN_B, seed=s, epoch=0,
+                                        device=dev)[0] for s in useeds])
+    gg = _first_grads(g.padded_cfg, params, state, statics, xtr[idx],
+                      ytr[idx], dev)
+    ns, out = len(g.seeds), {}
+    for pi, pt in enumerate(g.points):
+        p0, s0, _ = TR.init_ensemble(pt.cfg, g.seeds, xtr, device=dev)
+        st = TR.unit_statics(M.device_statics(M.model_static(pt.cfg), dev),
+                             ns)
+        ib = idx[pi * ns:(pi + 1) * ns]
+        ge = _first_grads(pt.cfg, p0, s0, st, xtr[ib], ytr[ib], dev)
+        rows = []
+        for si in range(ns):
+            a, _ = member_params_state(g, gg, state, pi, si)
+            b = tree_map(lambda t: t[si], ge)
+            for (path, x), (_, y) in zip(_paths(a), _paths(b)):
+                d = (x - y).abs()
+                if bool((d > 0).any()):
+                    rows.append((si, path, float(d.max()),
+                                 int((d > 0).sum()), x.numel()))
+        out[pt.name] = rows
+    return out
+
+
+def _tree_diffs(a, b):
+    """[(path, max |a - b|)] over two trees of one structure, largest
+    first."""
+    out = [(p, float((x - y).abs().max())) for (p, x), (_, y) in
+           zip(_paths(a), _paths(b))]
+    return sorted(out, key=lambda kv: -kv[1])
+
+
+def phase_sweep(dev):
+    """The Pareto sweep at the paper grid's full widths
+    (``paper_sweep_points``: LogicNets 128x64x32x10, 64x32x32x10,
+    48x24x10 and NeuraLUT 64x32x10, 48x10, 32x10, 196 inputs, beta 2, F
+    6) on mnist_pooled, SWEEP_SEEDS per point, SWEEP_EPOCHS: four group
+    runs, one K4 and one K5 launch per NeuraLUT layer per step (none for
+    LogicNets), each point's best member converted (K2 for NeuraLUT),
+    saved to a TableRegistry, loaded back verified and served through
+    LUTServeEngine (K1) with 0 mismatches against lut_infer.predict; the
+    padded NeuraLUT group against train_neuralut_ensemble per point (a
+    one-point group bit for bit; the group's first gradients, one step
+    at float32 tolerance, the whole run at the SWEEP_* limits); a
+    rerun of that group and a resume of the whole sweep bit for bit;
+    the busy share of one group epoch; launch.sweep through main()."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import lut_infer as LI
+    from repro_torch.core import model as M
+    from repro_torch.core import train as TR
+    from repro_torch.core import truth_table as TT
+    from repro_torch.core.exec_plan import plan_cascade_exec
+    from repro_torch.data import device_dataset, mnist_pooled
+    from repro_torch.kernels.lut_cascade import (CascadeOperands,
+                                                 lut_cascade)
+    from repro_torch.kernels.lut_gather import lut_lookup
+    from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
+                                                   subnet_train_fwd)
+    from repro_torch.kernels.neuralut_mlp import grouped_subnet
+    from repro_torch.kernels.ref import lut_cascade_ref
+    from repro_torch.launch import sweep as launch_sweep
+    from repro_torch.runtime.straggler import StepWatchdog
+    from repro_torch.runtime.tracker import CallbackTracker
+    from repro_torch.serve import (LUTServeEngine, TableRegistry,
+                                   bundle_from_training)
+    from repro_torch.sweep import (make_group_train_fn, paper_sweep_points,
+                                   plan_sweep, run_pareto_sweep,
+                                   stack_group_operands)
+    from repro_torch.sweep.runner import HIST_KEYS
+    from repro_torch.tree import tree_map
+
+    xtr, ytr = device_dataset(mnist_pooled, SWEEP_ROWS[0], seed=0,
+                              device=dev)
+    xte, yte = device_dataset(mnist_pooled, SWEEP_ROWS[1], seed=1,
+                              device=dev)
+    points = paper_sweep_points()
+    groups = plan_sweep(points, seeds=SWEEP_SEEDS)
+    steps_per_epoch = SWEEP_ROWS[0] // TRAIN_B
+    steps = SWEEP_EPOCHS * steps_per_epoch
+    kernels = {"lut_cascade": lut_cascade, "grouped_subnet": grouped_subnet,
+               "subnet_train_fwd": subnet_train_fwd,
+               "subnet_train_bwd": subnet_train_bwd, "lut_lookup": lut_lookup}
+    kw = dict(seeds=SWEEP_SEEDS, epochs=SWEEP_EPOCHS, batch=TRAIN_B,
+              lr=SWEEP_LR, device=dev)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_")
+    jdir, regdir = f"{tmp.name}/journal", f"{tmp.name}/registry"
+
+    def counts():
+        return {k: fn.launches for k, fn in kernels.items()}
+    records = []
+    tracker = CallbackTracker(lambda m, step, summary: records.append(
+        (step, dict(m), counts())))
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_pareto_sweep(points, xtr, ytr, xte, yte, tracker=tracker,
+                           convert=True, resume=jdir,
+                           watchdog=StepWatchdog(), **kw)
+    t1 = time.perf_counter()
+    train_launches = counts()
+
+    # one record per point, in group order; K4/K5 per group from the
+    # counts at each group's records (conversion launches neither)
+    require([s for s, _, _ in records] == list(range(len(points))),
+            f"record steps {[s for s, _, _ in records]}")
+    require([m["point"] for _, m, _ in records] == [p.name for p in points],
+            "records out of point order")
+    require(all(m["status"] == "ok" and np.isfinite(m["err"])
+                for _, m, _ in records), "a point failed or diverged: "
+            + str([(m["point"], m["status"], m["err"]) for _, m, _ in
+                   records]))
+    prev = {"subnet_train_fwd": 0, "subnet_train_bwd": 0}
+    group_rows = []
+    for run in res.groups:
+        g = run.group
+        _, _, c = records[g.point_offset]
+        got = {k: c[k] - prev[k] for k in prev}
+        prev = {k: c[k] for k in prev}
+        want = (g.padded_cfg.num_layers * steps
+                if g.padded_cfg.kind == "subnet" else 0)
+        require(got["subnet_train_fwd"] == got["subnet_train_bwd"] == want,
+                f"group {g.index} ({g.padded_cfg.kind}, "
+                f"{g.padded_cfg.num_layers} layers, {steps} steps): K4/K5 "
+                f"launches {got}, want {want} each")
+        units = g.num_units
+        group_rows.append(dict(
+            index=g.index, kind=g.padded_cfg.kind, units=units,
+            widths=g.padded_cfg.layer_widths, cold_s=run.cold_s,
+            warm_s=run.warm_s, convert_s=run.convert_s,
+            seed_steps_s=units * steps / (run.cold_s + run.warm_s),
+            k4=got["subnet_train_fwd"], k5=got["subnet_train_bwd"],
+            straggler=run.straggler))
+        log(f"sweep {g.describe()}: cold {run.cold_s:.3f} s + warm "
+            f"{run.warm_s:.3f} s, {units} units x {steps} steps = "
+            f"{units * steps / (run.cold_s + run.warm_s):.2f} seed-steps/s "
+            f"(incl. eval), convert {run.convert_s:.3f} s; K4/K5 launches "
+            f"{got['subnet_train_fwd']}/{got['subnet_train_bwd']}")
+    n_k2 = sum(p.cfg.num_layers for p in points if p.cfg.kind == "subnet")
+    require(train_launches["grouped_subnet"] == n_k2,
+            f"conversion made {train_launches['grouped_subnet']} K2 "
+            f"launches, want {n_k2} (one per NeuraLUT layer)")
+    log(f"sweep: {len(points)} points / {len(res.groups)} groups in "
+        f"{t1 - t0:.3f} s (cold {res.cold_s:.3f} + warm {res.warm_s:.3f}); "
+        f"launches {train_launches}")
+
+    # conversion against the plain conversion (+-1 rule), the bundles
+    # through a registry and the engine (K1), 0 mismatches
+    for fn in kernels.values():
+        fn.launches = 0
+    reg = TableRegistry(regdir)
+    frontier, served_k1 = [], {}
+    for r in res.points:
+        cfg = r.point.cfg
+        statics = M.model_static(cfg)
+        tables, packed = r.packed
+        reg.save(r.name, bundle_from_training(
+            cfg, r.params, tables, statics, packed_tables=packed,
+            meta={"sweep_err": r.err, "tag": r.point.tag}))
+        bundle = reg.load(r.name)
+        k1_before = lut_cascade.launches
+        with LUTServeEngine(bundle, device=dev) as eng:
+            served = eng.predict(xte.cpu().numpy())
+        served_k1[r.name] = lut_cascade.launches - k1_before
+        require(served_k1[r.name] > 0, f"{r.name}: serving launched no K1")
+        _served_check(cfg, r.params, tables, statics, served, xte,
+                      f"sweep {r.name}")
+        frontier.append(dict(point=r.name, tag=r.point.tag, err=r.err,
+                             err_mean=r.err_mean, best_seed=r.best_seed,
+                             luts=r.est.luts, latency_ns=r.est.latency_ns,
+                             served_acc=float((served == yte.cpu().numpy())
+                                              .mean())))
+    serve_launches = counts()
+    flips = {}
+    cpu = torch.device("cpu")
+    for r in res.points:
+        plain = TT.convert(r.point.cfg, tree_map(lambda a: a.to(cpu),
+                                                 r.params),
+                           tree_map(lambda a: a.to(cpu), r.state),
+                           M.model_static(r.point.cfg))
+        flips[r.name] = _flips(r.packed[0], plain, f"sweep {r.name}")
+    log(f"sweep serving: every bundle saved, loaded back verified and "
+        f"served ({len(xte)} rows each), 0 mismatches; K1 launches "
+        f"{served_k1}; conversion against the plain one on the CPU: flips "
+        f"{flips} of {[sum(t.size for t in r.packed[0]) for r in res.points]}")
+    for row in frontier:
+        log(f"sweep frontier [{row['tag']:>9}] {row['point']:<26} err "
+            f"{row['err']:.4f} (mean {row['err_mean']:.4f}) luts "
+            f"{row['luts']:.1f} latency {row['latency_ns']:.3f} ns; served "
+            f"accuracy {row['served_acc']:.4f}")
+
+    # K1 at each bundle's operands, B = HEADLINE_B, with its bound
+    k1 = {}
+    for r in res.points:
+        bundle = reg.load(r.name)
+        conns = [torch.as_tensor(np.asarray(s["conn"], np.int32), device=dev)
+                 for s in bundle.statics]
+        packed = [torch.as_tensor(p, device=dev)
+                  for p in bundle.packed_tables]
+        sched = plan_cascade_exec(bundle.cfg).schedule
+        ops = CascadeOperands(conns, packed, sched, bundle.cfg.in_features)
+        codes = LI.input_codes(bundle.cfg, bundle.serve_params(dev),
+                               xte[:HEADLINE_B])
+        got = lut_cascade(codes, ops)
+        want = lut_cascade_ref(codes, conns, packed, sched)
+        require(torch.equal(got, want), f"{r.name}: K1 differs from the "
+                "plain cascade")
+        int_ops = float(HEADLINE_B * sum(
+            o * (2 * bundle.cfg.layer_fan_in(i) + 4)
+            for i, o in enumerate(bundle.cfg.layer_widths)))
+        nbytes = 4.0 * (codes.numel() + got.numel()) + ops.prog.numel() * 8 \
+            + _cascade_table_bytes(codes, conns, packed, sched)
+        tm = timings(lambda: lut_cascade(codes, ops),
+                     lambda: lut_cascade_ref(codes, conns, packed, sched),
+                     "lut_cascade_kernel", 50, 10)
+        bms, by = bound_ms(nbytes, int_ops)
+        k1[r.name] = dict(bound_ms=bms, by=by, bytes=nbytes, **tm)
+        log(f"sweep K1 {r.name} B={HEADLINE_B}: bit-identical to the plain "
+            f"cascade; kernel {tm['ms']:.4f} ms (call {tm['call_ms']:.4f}) "
+            f"plain {tm['plain_ms']:.4f} ms [{tm['timing']}] bound "
+            f"{bms:.6f} ms ({by})")
+
+    # the padded NeuraLUT group (U = 6) against train_neuralut_ensemble
+    # (S = 3) per point.  First each point as a group of its own (U = 3):
+    # one code path with the ensemble, so bit for bit.  Then one step of
+    # the U = 6 group through run_pareto_sweep (one batch of rows, one
+    # epoch): the leaves that first differ, and its signal at the
+    # one-step tolerances.  Then the whole run at the SWEEP_* limits.
+    g_pad = next(g for g in groups if g.padded_cfg.kind == "subnet"
+                 and len(g.points) > 1)
+    equiv = {}
+    gw = _grad_witness(g_pad, xtr, ytr, dev)
+    for name, rows in gw.items():
+        log(f"sweep first-step gradients of group {g_pad.index} "
+            f"(U={g_pad.num_units}) against the ensemble's "
+            f"(S={len(SWEEP_SEEDS)}), {name}: {len(rows)} (seed, leaf) "
+            "pairs differ; (seed, leaf, max |diff|, elements differing, "
+            f"elements): {sorted(rows, key=lambda r: -r[2])[:8]}")
+    xb, yb = xtr[:TRAIN_B], ytr[:TRAIN_B]
+    one = dict(kw, epochs=1)
+    step_group = run_pareto_sweep(g_pad.points, xb, yb, xte, yte,
+                                  convert=True, **one)
+    for pi, pt in enumerate(g_pad.points):
+        ens = TR.train_neuralut_ensemble(
+            pt.cfg, xtr, ytr, xte, yte, seeds=SWEEP_SEEDS,
+            epochs=SWEEP_EPOCHS, batch=TRAIN_B, lr=SWEEP_LR, device=dev)
+        alone = run_pareto_sweep([pt], xtr, ytr, xte, yte, convert=True,
+                                 **kw).points[0]
+        same = all(np.array_equal(alone.history[k], ens[2][k])
+                   for k in HIST_KEYS) and all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(
+                _paths((alone.params, alone.state)),
+                _paths(TR.ensemble_member(ens[0], ens[1],
+                                          alone.best_seed))))
+        require(same, f"{pt.name}: a one-point group (U={len(SWEEP_SEEDS)})"
+                " differs from train_neuralut_ensemble")
+
+        # one step, U = 6 against the ensemble's (= the one-point group's)
+        r1 = step_group.points[pi]
+        e1 = TR.train_neuralut_ensemble(
+            pt.cfg, xb, yb, xte, yte, seeds=SWEEP_SEEDS, epochs=1,
+            batch=TRAIN_B, lr=SWEEP_LR, device=dev)
+        d1 = _member_diffs(pt.cfg, (r1.params, r1.state),
+                           TR.ensemble_member(e1[0], e1[1], r1.best_seed),
+                           xb, yb, dev)
+        loss1 = float(np.abs(r1.history["loss"] / e1[2]["loss"] - 1).max())
+        first = [(p, d) for p, d in _tree_diffs(
+            {"params": r1.params, "state": r1.state},
+            dict(zip(("params", "state"), TR.ensemble_member(
+                e1[0], e1[1], r1.best_seed)))) if d > 0]
+        log(f"sweep one step of group {g_pad.index} (U={g_pad.num_units}) "
+            f"against the ensemble (S={len(SWEEP_SEEDS)}), {pt.name} seed "
+            f"{r1.best_seed}: loss rel. err {loss1:.3e}; signal {d1['signal']:.3e} "
+            f"over {d1['signal_elems']} elements, zero-gradient "
+            f"{d1['zero']:.3e}, BN mean {d1['mean']:.3e} var "
+            f"{d1['var']:.3e}; {len(first)} leaves differ: {first[:6]}")
+        require(loss1 <= 1e-5 and d1["signal_tol"] <= 1.0
+                and d1["var"] <= 1e-5 and d1["mean"] <= 1e-5,
+                f"{pt.name}: one group step disagrees with the ensemble's "
+                f"at the one-step tolerances: {d1}")
+
+        # the whole run (the main sweep's results)
+        r = res.points[g_pad.point_offset + pi]
+        hd = {k: float(np.abs(r.history[k] - ens[2][k]).max())
+              for k in HIST_KEYS}
+        md = _member_diffs(pt.cfg, (r.params, r.state),
+                           TR.ensemble_member(ens[0], ens[1], r.best_seed),
+                           xb, yb, dev)
+        equiv[pt.name] = dict(one_point_group_bitwise=same,
+                              first_grads=gw[pt.name][:8],
+                              step=dict(d1, loss_rel=loss1,
+                                        leaves_differing=len(first),
+                                        first=first[:6]),
+                              history=hd, member=md)
+        log(f"sweep vs train_neuralut_ensemble, {pt.name} (group "
+            f"{g_pad.index}, U={g_pad.num_units}, {SWEEP_EPOCHS} epochs): "
+            f"one-point group (U={len(SWEEP_SEEDS)}) bit-identical; history "
+            f"max diff {hd}; best member (seed {r.best_seed}) signal "
+            f"{md['signal']:.3e} over {md['signal_elems']} elements, "
+            f"zero-gradient {md['zero']:.3e}, BN mean {md['mean']:.3e} var "
+            f"{md['var']:.3e}; largest at {md['worst']}")
+        require(max(hd.values()) <= SWEEP_HIST_ATOL
+                and max(md["signal"], md["var"]) <= SWEEP_SIGNAL_ATOL
+                and max(md["zero"], md["mean"]) <= SWEEP_ZERO_ATOL,
+                f"{pt.name}: the sweep and the ensemble disagree beyond "
+                f"the SWEEP_* limits: history {hd}, member {md}")
+
+    # a rerun of that group alone, bit for bit; then a resume of the
+    # whole sweep: every group replayed, no training launch
+    rerun = run_pareto_sweep(g_pad.points, xtr, ytr, xte, yte, **kw)
+    for a in rerun.points:
+        b = next(p for p in res.points if p.name == a.name)
+        require(all(np.array_equal(a.history[k], b.history[k])
+                     for k in a.history), f"rerun of {a.name} differs")
+    k4_before = subnet_train_fwd.launches
+    resumed = run_pareto_sweep(points, xtr, ytr, xte, yte, resume=jdir, **kw)
+    require(all(g.replayed for g in resumed.groups), "resume retrained")
+    require(subnet_train_fwd.launches == k4_before,
+            f"resume launched K4 {subnet_train_fwd.launches - k4_before} "
+            "times")
+    for a, b in zip(resumed.points, res.points):
+        require(a.err == b.err and all(np.array_equal(
+            a.history[k], b.history[k]) for k in a.history),
+            f"resume of {a.name} differs")
+    log(f"sweep rerun of group {g_pad.index} bit-identical; resume "
+        f"replayed {len(resumed.groups)} groups bit-identically with 0 K4 "
+        "launches")
+
+    # one group epoch of each NeuraLUT group (U = 3 and 6): wall, busy
+    # share and K4/K5 device ms per step, from a profiled epoch
+    epoch = {}
+    for g in groups:
+        if g.padded_cfg.kind != "subnet":
+            continue
+        ops = stack_group_operands(g, xtr, device=dev)
+        fn = make_group_train_fn(g.padded_cfg, n=SWEEP_ROWS[0],
+                                 batch=TRAIN_B, epochs=1, lr=SWEEP_LR,
+                                 weight_decay=1e-4, device=dev)
+        wall, busy, k4, k5, top = _epoch_profile(
+            lambda: fn(*ops, xtr, ytr, xte, yte), steps_per_epoch)
+        u = g.num_units
+        epoch[f"U={u}"] = dict(epoch_s=wall, busy_share=busy / wall,
+                               seed_steps_s=u * steps_per_epoch / wall,
+                               k4_ms_step=k4, k5_ms_step=k5)
+        log(f"sweep group epoch U={u} {g.padded_cfg.layer_widths} "
+            f"({steps_per_epoch} steps + eval): {wall:.3f} s wall, "
+            f"{u * steps_per_epoch / wall:.2f} seed-steps/s, device busy "
+            f"{busy:.4f} s = {busy / wall:.4f}; per step K4 {k4:.4f} ms, "
+            f"K5 {k5:.4f} ms")
+        log("  device time by kernel (ms): " + ", ".join(
+            f"{k[:48]} {us / 1e3:.2f}" for us, k in top))
+
+    # the launcher, once, against a temporary registry
+    t2 = time.perf_counter()
+    cli = launch_sweep.main(["--seeds", "2", "--epochs", "1", "--registry",
+                             f"{tmp.name}/cli_registry", "--quiet",
+                             "--device", str(dev)])
+    require(len(cli["saved"]) == len(points) and not any(
+        cli["mismatches"].values()), f"launch.sweep: {cli['mismatches']}")
+    log(f"launch.sweep --seeds 2 --epochs 1: {len(cli['saved'])} bundles "
+        f"saved and served with 0 mismatches in "
+        f"{time.perf_counter() - t2:.3f} s")
+    tmp.cleanup()
+    return dict(launches=train_launches, serve_launches=serve_launches,
+                groups=group_rows, frontier=frontier, flips=flips, k1=k1,
+                equivalence=equiv, epoch=epoch, seconds=t1 - t0)
+
+
 TURN_BATCHES = (1, 8, 64, 256, 4096)   # K1 in turns
 
 # One turn of ``--turns``: run in its own process from the root of a
 # checkout, with that checkout's package and chip_smoke.py, so it uses
 # only what both checkouts have.
 TURN_CHILD = """
-import hashlib, json, sys
+import hashlib, json, sys, time
 root = sys.argv[1]
 sys.path[:0] = [root, root + "/src"]
 import numpy as np
@@ -2729,8 +3335,26 @@ for b in batches:
                                "lut_cascade_kernel"))
 k4, k5 = cs.phase_train_kernels(cfg, dev)
 seed = cs.phase_seed_kernels(cfg, dev)
+# the seed ensemble as users call it (train_neuralut_ensemble, 4 seeds,
+# one epoch: 78 steps of 256 rows and the test eval) on the jsc-5l chain
+# and the PolyLUT-Add graph: wall seconds of two calls after a warm-up
+from repro_torch.core import train as TR
+from repro_torch.data import device_dataset, jsc_synthetic
+xtr, ytr = device_dataset(jsc_synthetic, 20000, seed=0, device=dev)
+xte, yte = device_dataset(jsc_synthetic, 4000, seed=1, device=dev)
+ensemble = {}
+for arch in ("neuralut-jsc-5l", cs.GRAPH_ARCH):
+    walls = []
+    for _ in range(3):
+        t = time.perf_counter()
+        _, _, hist = TR.train_neuralut_ensemble(
+            get_config(arch), xtr, ytr, xte, yte, seeds=(0, 1, 2, 3),
+            epochs=1, batch=cs.TRAIN_B, device=dev)
+        walls.append(time.perf_counter() - t)
+    ensemble[arch] = dict(epoch_s=walls[1:],
+                          loss=hist["loss"].ravel().tolist())
 print("TURN " + json.dumps(dict(
-    k2=k2, k1_chain=k1, k1_dag=k1_dag,
+    ensemble=ensemble, k2=k2, k1_chain=k1, k1_dag=k1_dag,
     k4_s1=[r["ms"] for r in k4], k5_s1=[r["ms"] for r in k5],
     k4_s4=[r["k4_s4"] for r in seed], k5_s4=[r["k5_s4"] for r in seed],
     k2_hash=k2_hash, k1_hash=k1_hash)))
@@ -2745,7 +3369,9 @@ def turns_main(parent: str) -> int:
     of its outputs at each), of K1 on the chain and the DAG at
     TURN_BATCHES (outputs hashed too), and of K4 and K5 at every jsc-5l
     training shape, B = TRAIN_B, S = 1 and S = 4 (``phase_train_kernels``
-    and ``phase_seed_kernels`` of each checkout)."""
+    and ``phase_seed_kernels`` of each checkout); and the wall seconds
+    of a 4-seed ``train_neuralut_ensemble`` epoch on the jsc-5l chain and
+    the PolyLUT-Add graph."""
     card = phase_environment()
     parent = str(Path(parent).resolve())
     turns = []
@@ -2767,6 +3393,12 @@ def turns_main(parent: str) -> int:
             f"{k} " + " / ".join(f"{v:.4f}" if v else "nan" for v in vs)
             for k, vs in turns[-1].items() if k.startswith("k")
             and not k.endswith("hash")))
+    for arch in turns[0]["ensemble"]:
+        log(f"train_neuralut_ensemble {arch}, 4 seeds, one epoch (s), in "
+            "turns: " + "; ".join(
+                f"{t['checkout']} " + " / ".join(
+                    f"{v:.3f}" for v in t["ensemble"][arch]["epoch_s"])
+                for t in turns))
     for t in turns[1:]:
         require(t["k1_hash"] == turns[0]["k1_hash"], f"K1's outputs differ "
                 f"between the checkouts ({t['checkout']})")
@@ -2823,6 +3455,8 @@ def main() -> int:
     ens = phase_ensemble_path(cfg, dev)
     gtrain = phase_graph_train_path(get_config(GRAPH_ARCH), dev)
     kinds = phase_kinds(cfg, dev)
+    sweep_k = phase_sweep_kernels(dev)
+    sweep = phase_sweep(dev)
 
     head, dag_head = k1[HEADLINE_B], k1_dag[HEADLINE_B]
     kernels = [
@@ -2946,7 +3580,13 @@ def main() -> int:
             "train": train["launches"].get(name, 0),
             "ensemble": ens["launches"].get(name, 0),
             **{f"kind_{kind}": r["launches"][name]
-               for kind, r in kinds.items()}}
+               for kind, r in kinds.items()},
+            "sweep": (sweep["serve_launches"] if name == "lut_cascade"
+                      else sweep["launches"]).get(name, 0)}
+        k["sweep_shapes"] = {
+            "lut_cascade": sweep["k1"], "grouped_subnet": sweep_k["k2"],
+            "subnet_train_fwd": sweep_k["train"],
+            "subnet_train_bwd": sweep_k["train"]}.get(name)
         if name == "lut_cascade":
             k["launches_by_path"]["serving_stack"] = stack["k1"]["chain"]
             k["serving_stack"] = {key: stack[key] for key in (
@@ -2979,6 +3619,14 @@ def main() -> int:
         f"{kind}: {r['steps'] / r['train_s']:.2f} steps/s incl. eval, "
         f"served accuracy {r['served_acc']:.4f}"
         for kind, r in kinds.items()))
+    log("sweep: " + "; ".join(
+        f"group {r['index']} {r['kind']} U={r['units']}: cold "
+        f"{r['cold_s']:.3f} + warm {r['warm_s']:.3f} s, "
+        f"{r['seed_steps_s']:.2f} seed-steps/s" for r in sweep["groups"])
+        + "; group epochs: " + "; ".join(
+            f"{u}: busy share {r['busy_share']:.4f}, K4 {r['k4_ms_step']:.4f}"
+            f" + K5 {r['k5_ms_step']:.4f} ms per step"
+            for u, r in sweep["epoch"].items()))
     log(card)  # nvidia-smi's "name, power.limit", as it printed them
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

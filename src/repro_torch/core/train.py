@@ -21,7 +21,12 @@ optimizer's global-norm clip are per seed by construction, and the
 training kernels' vmap rules make one K4 and one K5 call per layer per
 step for all S seeds.  Seed s draws its init and its permutations as
 ``train_neuralut(seed=s)`` does, so member s follows that run's
-trajectory to float32 rounding.
+trajectory to float32 rounding.  The statics carry the leading axis
+too (the reference's ``make_step_fn_dynamic`` vmapped with its statics
+on axis 0): the ensemble passes its one connectivity expanded to S (a
+view, :func:`unit_statics`), and every unit of a sweep's geometry group
+gathers through its own padded connectivity (``repro_torch.sweep``) on
+the same path.
 
 The permutations differ from the reference's (``jax.random`` cannot be
 reproduced), so the two packages agree step by step only when they are
@@ -29,10 +34,13 @@ handed the same batches.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from torch.utils import _pytree as pytree
 
 from repro_torch.core import model as M
 from repro_torch.core.exec_plan import SubnetExec, plan_subnet_exec
@@ -112,15 +120,17 @@ def train_neuralut(
     lr: float = 2e-3,
     weight_decay: float = 1e-4,
     seed: int = 0,
+    sgdr_t0: int = 0,
     log_every: int = 0,
     device: DeviceLike = None,
 ) -> Tuple[Dict, Dict, Dict[str, List[float]]]:
     """Train from a seeded init -> (params, state, history).  The data
     may be numpy arrays or tensors (kept where they are when already on
     ``device``); ``history`` holds per-epoch ``loss``, ``test_acc`` and
-    ``test_acc_q``, fetched from the device once at the end.  SGDR runs
-    one cosine cycle over all steps; the grouped sub-network takes the
-    planner's train route for ``device``."""
+    ``test_acc_q``, fetched from the device once at the end.  SGDR's
+    first cycle lasts ``sgdr_t0`` steps (0: one cycle over all steps);
+    the grouped sub-network takes the planner's train route for
+    ``device``."""
     dev = resolve_device(device)
     xd = torch.as_tensor(x_train, device=dev)
     yd = torch.as_tensor(y_train, device=dev)
@@ -136,7 +146,8 @@ def train_neuralut(
     batch = min(batch, n)
     steps = max(1, n // batch)
     step_fn = make_step_fn(
-        cfg, lr=lr, weight_decay=weight_decay, t0=epochs * steps,
+        cfg, lr=lr, weight_decay=weight_decay,
+        t0=sgdr_t0 or epochs * steps,
         exec_plan=plan_subnet_exec(cfg, purpose="train", device=dev))
 
     traces: Dict[str, List[torch.Tensor]] = {
@@ -165,14 +176,31 @@ def train_neuralut(
 # The seed ensemble: S independent restarts trained together
 
 
+def unit_statics(statics, units: int):
+    """``statics`` with every tensor (the connectivity) expanded to a
+    leading unit axis of ``units``, as a view; host arrays (the poly
+    kind's exps) stay shared."""
+    return pytree.tree_map(
+        lambda v: v.expand(units, *v.shape) if isinstance(v, torch.Tensor)
+        else v, statics)
+
+
+def _statics_dims(statics):
+    """``torch.func.vmap`` in_dims of a unit-axis statics list: axis 0
+    on every tensor, None on host arrays."""
+    return pytree.tree_map(
+        lambda v: 0 if isinstance(v, torch.Tensor) else None, statics)
+
+
 def make_ensemble_step_fn(cfg: NeuraLUTConfig, *, lr: float,
                           weight_decay: float, t0: int,
                           exec_plan: SubnetExec):
     """One optimizer step of S seeds at once (the counterpart of
-    ``jax.vmap(make_step_fn_dynamic(...), in_axes=(0, 0, 0, None, 0,
+    ``jax.vmap(make_step_fn_dynamic(...), in_axes=(0, 0, 0, 0, 0,
     0))``): (params, state, opt, statics, xb, yb) -> (params, state,
-    opt, loss), every tree and batch with a leading seed axis S, the
-    statics shared.  Each seed's gradient norm is clipped on its own."""
+    opt, loss), every tree, batch and statics tensor with a leading
+    seed (or sweep unit) axis S (:func:`unit_statics` expands one
+    connectivity).  Each seed's gradient norm is clipped on its own."""
 
     def loss_fn(params, state, statics, xb, yb):
         logits, _, new_state = M.model_apply(cfg, params, state, statics,
@@ -190,7 +218,25 @@ def make_ensemble_step_fn(cfg: NeuraLUTConfig, *, lr: float,
                                    weight_decay=weight_decay, grad_clip=1.0)
         return params, new_state, opt, loss
 
-    return torch.func.vmap(step_fn, in_dims=(0, 0, 0, None, 0, 0))
+    def vstep(params, state, opt, statics, xb, yb):
+        dims = (0, 0, 0, _statics_dims(statics), 0, 0)
+        return torch.func.vmap(step_fn, in_dims=dims)(params, state, opt,
+                                                      statics, xb, yb)
+
+    return vstep
+
+
+def make_ensemble_eval_fn(cfg: NeuraLUTConfig):
+    """:func:`evaluate` over a leading seed (or unit) axis:
+    (params, state, statics, x, y) -> (acc (S,), acc_q (S,)), the
+    statics with that axis too."""
+
+    def veval(params, state, statics, x, y):
+        return torch.func.vmap(
+            lambda p, s, st: evaluate(cfg, p, s, st, x, y),
+            in_dims=(0, 0, _statics_dims(statics)))(params, state, statics)
+
+    return veval
 
 
 def init_ensemble(cfg: NeuraLUTConfig, seeds: Sequence[int], x_train, *,
@@ -223,6 +269,7 @@ def train_neuralut_ensemble(
     batch: int = 256,
     lr: float = 2e-3,
     weight_decay: float = 1e-4,
+    sgdr_t0: int = 0,
     log_every: int = 0,
     device: DeviceLike = None,
 ) -> Tuple[Dict, Dict, Dict[str, np.ndarray]]:
@@ -238,30 +285,54 @@ def train_neuralut_ensemble(
     yd = torch.as_tensor(y_train, device=dev)
     xe = torch.as_tensor(x_test, device=dev)
     ye = torch.as_tensor(y_test, device=dev)
-    statics = M.device_statics(M.model_static(cfg), dev)
+    statics = unit_statics(M.device_statics(M.model_static(cfg), dev),
+                           len(seeds))
     params, state, opt = init_ensemble(cfg, seeds, xd, device=dev)
 
     n = xd.shape[0]
     batch = min(batch, n)
     steps = max(1, n // batch)
     step_fn = make_ensemble_step_fn(
-        cfg, lr=lr, weight_decay=weight_decay, t0=epochs * steps,
+        cfg, lr=lr, weight_decay=weight_decay,
+        t0=sgdr_t0 or epochs * steps,
         exec_plan=plan_subnet_exec(cfg, purpose="train", device=dev))
-    eval_fn = torch.func.vmap(
-        lambda p, s: evaluate(cfg, p, s, statics, xe, ye))
+    params, state, traces, _ = ensemble_epochs(
+        step_fn, make_ensemble_eval_fn(cfg), params, state, opt, statics,
+        seeds, xd, yd, xe, ye, epochs=epochs, batch=batch,
+        log_every=log_every)
+    history = {k: v.cpu().numpy().astype(np.float64)
+               for k, v in traces.items()}
+    return params, state, history
 
+
+def ensemble_epochs(step_fn, eval_fn, params, state, opt, statics,
+                    seeds: Sequence[int], xd, yd, xe, ye, *, epochs: int,
+                    batch: int, log_every: int = 0):
+    """The ensemble's epoch loop: per epoch, member s draws its
+    permutation from ``seeds[s]`` (``epoch_batches``), one ``step_fn``
+    call per minibatch for all members, then ``eval_fn`` on the test
+    set -> (params, state, {loss, test_acc, test_acc_q: (epochs, S)
+    device tensors}, seconds until the first step returned,
+    synchronized)."""
+    n = xd.shape[0]
+    steps = max(1, n // batch)
+    t0, first_s = time.perf_counter(), None
     traces: Dict[str, List[torch.Tensor]] = {
         "loss": [], "test_acc": [], "test_acc_q": []}
     for ep in range(epochs):
         idx = torch.stack([epoch_batches(n, steps, batch, seed=int(s),
-                                         epoch=ep, device=dev)
+                                         epoch=ep, device=xd.device)
                            for s in seeds], dim=1)   # (steps, S, batch)
         losses = []
         for ib in idx:
             params, state, opt, loss = step_fn(params, state, opt, statics,
                                                xd[ib], yd[ib])
             losses.append(loss)
-        acc, acc_q = eval_fn(params, state)
+            if first_s is None:
+                if xd.device.type == "cuda":
+                    torch.cuda.synchronize(xd.device)
+                first_s = time.perf_counter() - t0
+        acc, acc_q = eval_fn(params, state, statics, xe, ye)
         traces["loss"].append(torch.stack(losses).mean(dim=0))
         traces["test_acc"].append(acc)
         traces["test_acc_q"].append(acc_q)
@@ -271,9 +342,8 @@ def train_neuralut_ensemble(
                   f"{float(traces['loss'][-1].mean()):.4f} "
                   f"acc_q[best/mean]={aq.max():.4f}/{aq.mean():.4f}",
                   flush=True)
-    history = {k: torch.stack(v).cpu().numpy().astype(np.float64)
-               for k, v in traces.items()}
-    return params, state, history
+    return (params, state, {k: torch.stack(v) for k, v in traces.items()},
+            first_s)
 
 
 def ensemble_member(params: Dict, state: Dict, s: int) -> Tuple[Dict, Dict]:

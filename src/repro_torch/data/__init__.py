@@ -1,4 +1,8 @@
-from .pipeline import device_dataset
-from .synthetic import jsc_synthetic
+from .pipeline import (clear_device_datasets, device_dataset,
+                       device_dataset_stats)
+from .synthetic import (jsc_synthetic, mnist_pooled, mnist_synthetic,
+                        two_semicircles)
 
-__all__ = ["device_dataset", "jsc_synthetic"]
+__all__ = ["clear_device_datasets", "device_dataset", "device_dataset_stats",
+           "jsc_synthetic", "mnist_pooled", "mnist_synthetic",
+           "two_semicircles"]

@@ -37,3 +37,14 @@ def device_dataset(gen: Callable, *args, device: DeviceLike = None,
         _DEVICE_DATA[key] = out
     return out
 
+
+
+def device_dataset_stats() -> Dict[str, int]:
+    """{cached entries, resident bytes}: tests and memory audits."""
+    return {"entries": len(_DEVICE_DATA),
+            "bytes": sum(int(a.numel() * a.element_size())
+                         for v in _DEVICE_DATA.values() for a in v)}
+
+
+def clear_device_datasets() -> None:
+    _DEVICE_DATA.clear()

@@ -8,15 +8,15 @@ streams equal the reference's.
 
 Fault-tolerance paths are exercised by injecting failures at named
 *sites*.  A site is a string naming one failure surface; the ones the
-port's serving stack checks are:
+port checks are:
 
+    ``sweep.group``     group training in ``run_pareto_sweep``
     ``serve.replica``   replica forward in ``_ReplicaExecutor._serve``
     ``registry.load``   bundle read in ``TableRegistry.load``
 
-(the reference also checks ``sweep.group`` and ``train.step``, whose
-modules are not ported yet, and ``serve.kernel`` in its degradable
-forward, which the port does not have: a failing kernel fails its
-batch).
+(the reference also checks ``train.step``, whose supervisor is not
+ported yet, and ``serve.kernel`` in its degradable forward, which the
+port does not have: a failing kernel fails its batch).
 
 Two injection modes, combinable per site:
 

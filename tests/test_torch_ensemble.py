@@ -197,8 +197,8 @@ def test_one_ensemble_step_matches_jax_vmap(route):
         pcfg, lr=LR, weight_decay=WD, t0=T0,
         exec_plan=plan_subnet_exec(pcfg, purpose="train", route=route))
     sd = [{"conn": torch.as_tensor(a["conn"]).long()} for a in st]
-    p1, s1, o1, loss = step(p, s, o, sd, torch.as_tensor(x),
-                            torch.as_tensor(y))
+    p1, s1, o1, loss = step(p, s, o, TR.unit_statics(sd, S),
+                            torch.as_tensor(x), torch.as_tensor(y))
 
     assert loss.shape == (S,)
     np.testing.assert_allclose(loss.numpy(), np.asarray(jl), rtol=1e-5)

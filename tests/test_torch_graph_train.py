@@ -218,7 +218,7 @@ def test_graph_step_makes_one_training_call_per_branch(mod, monkeypatch):
     params, state, opt = TR.init_ensemble(pcfg, (0, 1), xs, device="cpu")
     step = TR.make_ensemble_step_fn(pcfg, lr=LR, weight_decay=WD, t0=T0,
                                     exec_plan=plan)
-    _, _, _, loss = step(params, state, opt, st,
+    _, _, _, loss = step(params, state, opt, TR.unit_statics(st, 2),
                          torch.as_tensor(xs).view(2, 64, -1),
                          torch.as_tensor(ys).view(2, 64))
     assert loss.shape == (2,) and torch.isfinite(loss).all()

@@ -54,6 +54,11 @@ def test_imports_with_jax_and_repro_blocked():
             "repro_torch.runtime.fault", "repro_torch.serve.registry",
             "repro_torch.serve.engine", "repro_torch.serve.tenants",
             "repro_torch.launch.serve", "repro_torch.config.base"} <= names
+    # and the sweep's
+    assert {"repro_torch.sweep", "repro_torch.sweep.plan",
+            "repro_torch.sweep.runner", "repro_torch.launch.sweep",
+            "repro_torch.core.cost_model", "repro_torch.runtime.straggler",
+            "repro_torch.runtime.tracker"} <= names
 
 
 def test_no_source_imports_jax_or_repro():
