@@ -81,9 +81,10 @@ Before the paths: an empty kernel's device time (the launch floor), and
 where a warm conversion spends its time, stage by stage.  A narrower run
 for working on the kernels:
 
-    python3 chip_smoke.py --turns PARENT    K2's, K1's, K4's and K5's
-                                            device ms in turns with the
-                                            checkout at PARENT
+    python3 chip_smoke.py --turns PARENT    K2's, K1's, K3's, K4's and K5's
+                                            device ms and the per-layer
+                                            route's latency in turns with
+                                            the checkout at PARENT
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -187,12 +188,15 @@ def call_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, kernel=""):
-    """Mean device ms per call of the CUDA kernels whose name holds
+def _trace(fn, reps: int, kernel=""):
+    """One ``torch.profiler`` trace of ``reps`` calls of ``fn`` after a
+    warm-up call: the device us of the CUDA kernels whose name holds
     ``kernel`` (a name or a tuple of names; "" = every kernel the call
-    launches), from a ``torch.profiler`` trace of ``reps`` calls; None
-    when the trace shows no device time."""
+    launches), and the trace's device activities (kernels, memsets,
+    copies) of such names, {name: count}."""
+    import collections
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
@@ -203,39 +207,70 @@ def device_ms(fn, reps: int, kernel=""):
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
              if any(k in e.key for k in names))
+    return us, collections.Counter(
+        e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+        and any(k in e.name for k in names))
+
+
+def device_ms(fn, reps: int, kernel=""):
+    """Mean device ms per call of the CUDA kernels whose name holds
+    ``kernel`` (as for ``_trace``), from one trace of ``reps`` calls;
+    None when the trace shows no device time."""
+    us, _ = _trace(fn, reps, kernel)
     return us / reps / 1e3 if us > 0 else None
 
 
+def _whole(records, reps: int) -> bool:
+    """Whether a trace's {name: count} can be whole: every call launches
+    the same device activities, so each count is a multiple of reps."""
+    return bool(records) and all(v % reps == 0 for v in records.values())
+
+
+def _trace_ms(fn, reps, kernel="", traces: int = 4):
+    """Mean device ms per call of the CUDA kernels whose name holds
+    ``kernel`` (as for ``_trace``).  A trace now and then loses records
+    (once all of them), never adds one: the fullest whole trace
+    (``_whole``) of two, and of up to ``traces`` while none was whole;
+    None when none was.  Never a call time in place of a device time."""
+    best = (0, 0.0)
+    for n in range(traces):
+        us, records = _trace(fn, reps, kernel)
+        if _whole(records, reps):
+            best = max(best, (sum(records.values()), us))
+        if n >= 1 and best[0]:
+            break
+    return best[1] / reps / 1e3 if best[0] else None
+
+
+def activities_per_call(fn, reps: int = 5, traces: int = 4):
+    """Device activities (kernels, memsets, copies) per call of ``fn`` by
+    name, {name: count per call}: of two traces of ``reps`` calls, and of
+    up to ``traces`` while the fuller one is not whole (``_whole``), the
+    fuller one."""
+    best = {}
+    for n in range(traces):
+        _, records = _trace(fn, reps)
+        if sum(records.values()) > sum(best.values()):
+            best = records
+        if n >= 1 and _whole(best, reps):
+            break
+    return {k: v / reps for k, v in best.items()}
+
+
 def kernels_per_call(fn, reps: int = 5, traces: int = 4) -> float:
-    """Device activities (kernels, memsets, copies) per call of ``fn``,
-    whatever their names, from ``torch.profiler`` traces of ``reps``
-    calls.  A trace now and then misses records (once all of a trace's),
-    never adds one: the largest count of two traces, and of up to
-    ``traces`` while it stays below one activity per call, which no
-    launching call can make."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    counts = []
-    while len(counts) < 2 or (max(counts) < 1 and len(counts) < traces):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        counts.append(sum(e.device_type == DeviceType.CUDA
-                          for e in prof.events()) / reps)
-    return max(counts)
+    """Device activities per call of ``fn``, whatever their names
+    (``activities_per_call``)."""
+    return sum(activities_per_call(fn, reps, traces).values())
 
 
 def timings(kern, plain, kernel: str, reps: int, plain_reps: int):
     """Kernel and plain-version times: device time from the profiler
-    where the trace has it, CUDA-event call time always."""
+    (``_trace_ms``) where its traces have it, CUDA-event call time
+    always."""
     out = {"call_ms": call_ms(kern, reps),
            "plain_call_ms": call_ms(plain, plain_reps),
-           "ms": device_ms(kern, reps, kernel),
-           "plain_ms": device_ms(plain, plain_reps)}
+           "ms": _trace_ms(kern, reps, kernel),
+           "plain_ms": _trace_ms(plain, plain_reps)}
     out["timing"] = "profiler" if out["ms"] and out["plain_ms"] \
         else "events"
     if out["timing"] == "events":
@@ -981,11 +1016,41 @@ def _table_sectors(tables, addr) -> int:
     return sectors.numel() * SECTOR_BYTES
 
 
+def k3_timings(kern, plain, reps: int, plain_reps: int):
+    """K3's device ms (``_trace_ms``, None where every trace lost the
+    kernel's records), its plain version's device ms, and both call
+    times from CUDA events, which stay apart from the device times."""
+    return {"ms": _trace_ms(kern, reps, "lut_gather_kernel"),
+            "plain_ms": _trace_ms(plain, plain_reps),
+            "call_ms": call_ms(kern, reps),
+            "plain_call_ms": call_ms(plain, plain_reps)}
+
+
+def k3_summary(rows, what):
+    """Device ms of K3 summed over the layers at one batch, or the layers
+    whose traces all lost the kernel's records (then no sum)."""
+    lost = [i for i, r in enumerate(rows) if r["ms"] is None]
+    return {"ms": None if lost else sum(r["ms"] for r in rows),
+            "lost_layers": lost,
+            "timing": f"profiler device time, {what}" if not lost else
+            f"profiler lost the records of layers {lost}: no sum"}
+
+
+def _sum_or_none(values):
+    values = list(values)
+    return None if any(v is None for v in values) else sum(values)
+
+
+def _fmt(ms):
+    return "lost" if ms is None else f"{ms:.4f}"
+
+
 def phase_gather_kernel(cfg, dev):
-    """K3 against its plain version at the five jsc-5l layer shapes and
-    every batch size, edge addresses included; the one PyTorch call that
-    computes the same function (advanced indexing ``tables[o_idx,
-    addr]``, int32 indices, ``o_idx`` precomputed) timed beside it."""
+    """K3's address entry ``lut_lookup`` against its plain version at the
+    five jsc-5l layer shapes and every batch size, edge addresses
+    included; the one PyTorch call that computes the same function
+    (advanced indexing ``tables[o_idx, addr]``, int32 indices, ``o_idx``
+    precomputed) timed beside it."""
     import torch
     from repro_torch.kernels.lut_gather import lut_lookup
     from repro_torch.kernels.ref import lut_gather_ref
@@ -1019,52 +1084,148 @@ def phase_gather_kernel(cfg, dev):
                     f"from the plain version in {int((got != want).sum())}")
             require(torch.equal(lib, want), f"K3 layer {i} B={b}: the "
                     "library call differs from the plain version")
-            tm = timings(kern, plain, "lut_gather_kernel", 50, 10)
-            lib_ms = device_ms(library, 50) or call_ms(library, 50)
+            tm = k3_timings(kern, plain, 50, 10)
+            lib_ms = _trace_ms(library, 50)
             lookups = b * o
             nbytes = 4.0 * 2 * lookups + _table_sectors(tables, addr)
             bms, by = bound_ms(nbytes, 4.0 * lookups)
             rows[(i, b)] = dict(err=0.0, bound_ms=bms, by=by, bytes=nbytes,
                                 library_ms=lib_ms, **tm)
-            log(f"K3 layer {i} (O={o}, T={t}) B={b}: bit-identical to "
-                f"plain; kernel {tm['ms']:.4f} ms (call {tm['call_ms']:.4f})"
-                f" plain {tm['plain_ms']:.4f} ms (call "
-                f"{tm['plain_call_ms']:.4f}) [{tm['timing']}] library "
-                f"tables[o_idx, addr] {lib_ms:.4f} ms bound {bms:.6f} ms "
-                f"({by}; {nbytes / 1e6:.4f} MB)")
+            log(f"K3 lookup layer {i} (O={o}, T={t}) B={b}: bit-identical "
+                f"to plain; kernel {_fmt(tm['ms'])} ms (call "
+                f"{tm['call_ms']:.4f}) plain {_fmt(tm['plain_ms'])} ms (call "
+                f"{tm['plain_call_ms']:.4f}) library tables[o_idx, addr] "
+                f"{_fmt(lib_ms)} ms bound {bms:.6f} ms ({by}; "
+                f"{nbytes / 1e6:.4f} MB)")
+    return rows
+
+
+def layer_shapes(cfg):
+    """(name, I, O, F, in_bits, beta_out) of the five jsc-5l layers and of
+    the sweep's first NeuraLUT layer (196 pooled inputs, F 6, 2 bits)."""
+    from repro_torch.sweep.plan import paper_sweep_points
+    shapes = [(f"jsc-5l layer {i}", cfg.in_features if i == 0
+               else cfg.layer_widths[i - 1], o, cfg.layer_fan_in(i),
+               cfg.layer_in_bits(i), cfg.beta)
+              for i, o in enumerate(cfg.layer_widths)]
+    sw = next(p.cfg for p in paper_sweep_points() if p.cfg.kind == "subnet")
+    shapes.append((f"sweep {sw.name} layer 0", sw.in_features,
+                   sw.layer_widths[0], sw.layer_fan_in(0),
+                   sw.layer_in_bits(0), sw.beta))
+    return shapes
+
+
+def phase_layer_kernel(cfg, dev):
+    """K3's layer entry ``lut_layer`` (gather, pack and look up in one
+    launch) against its plain version ``lut_layer_ref``, bit for bit, at
+    the five jsc-5l layer shapes and the sweep's first NeuraLUT layer, at
+    every batch size (1000 fills no tile), with the edge codes 0 and
+    2^in_bits - 1 and out-of-range codes (-1, 2^in_bits) in the first
+    rows.  Timed beside it: the sequence the per-layer route ran before
+    (index, multiply, sum, then ``lut_lookup``) on the same inputs."""
+    import ctypes
+
+    import torch
+    from repro_torch.core.lut_infer import pack_index
+    from repro_torch.kernels import build
+    from repro_torch.kernels.lut_gather import lut_layer, lut_lookup
+    from repro_torch.kernels.ref import lut_layer_ref
+    gen = torch.Generator().manual_seed(19)
+    lib = build.load_library()
+    rows = {}
+    for s, (name, n_in, o, f, in_bits, beta) in enumerate(layer_shapes(cfg)):
+        t = 1 << (in_bits * f)
+        tables = torch.randint(0, 2 ** beta, (o, t), generator=gen,
+                               dtype=torch.int32).to(dev)
+        conn = torch.randint(0, n_in, (o, f), generator=gen,
+                             dtype=torch.int32).to(dev)
+        conn_long = conn.long()
+        for b in GATHER_BATCHES:
+            codes = torch.randint(0, 2 ** in_bits, (b, n_in), generator=gen,
+                                  dtype=torch.int32)
+            codes[0] = 0
+            if b > 1:
+                codes[1] = 2 ** in_bits - 1
+            if b > 2:
+                codes[2, 0::2] = -1
+                codes[2, 1::2] = 2 ** in_bits
+            codes = codes.to(dev)
+
+            def kern():
+                return lut_layer(tables, codes, conn, in_bits)
+
+            def plain():
+                return lut_layer_ref(tables, codes, conn, in_bits)
+
+            def sequence():
+                return lut_lookup(tables, pack_index(codes[:, conn_long],
+                                                     in_bits))
+            got, want, seq = kern(), plain(), sequence()
+            torch.cuda.synchronize()
+            require(got.shape == (b, o) and got.dtype == torch.int32,
+                    f"K3 {name} B={b}: shape {tuple(got.shape)}")
+            for what, x in (("lut_layer", got), ("the old sequence", seq)):
+                require(torch.equal(x, want), f"K3 {name} B={b}: {what} "
+                        f"differs from lut_layer_ref in "
+                        f"{int((x != want).sum())}")
+            tm = k3_timings(kern, plain, 50, 10)
+            seq_ms = _trace_ms(sequence, 50)
+            addr = pack_index(codes[:, conn_long], in_bits).clamp(0, t - 1)
+            nbytes = 4.0 * (b * n_in + o * f + b * o) + _table_sectors(
+                tables, addr)
+            bms, by = bound_ms(nbytes, float(b * o * (2 * f + 2)))
+            plan = (ctypes.c_longlong * 4)()
+            build.check(lib.repro_lut_layer_plan(b, o, f, plan),
+                        "lut_layer plan")
+            rows[(s, b)] = dict(err=0.0, bound_ms=bms, by=by, bytes=nbytes,
+                                sequence_ms=seq_ms, **tm,
+                                plan=dict(zip(("G", "ng", "grid_x",
+                                               "grid_y"), list(plan))))
+            log(f"K3 layer {name} (I={n_in}, O={o}, F={f}, in_bits="
+                f"{in_bits}, T={t}) B={b}: bit-identical to lut_layer_ref "
+                f"(and the old sequence); kernel {_fmt(tm['ms'])} ms (call "
+                f"{tm['call_ms']:.4f}), old sequence {_fmt(seq_ms)} ms, plain "
+                f"{_fmt(tm['plain_ms'])} ms; bound {bms:.6f} ms ({by}; "
+                f"{nbytes / 1e6:.4f} MB); plan {rows[(s, b)]['plan']}")
     return rows
 
 
 def phase_layer_serving(cfg, dev, served):
     """The per-layer route: the slice-1 bundle and requests through
-    ``LUTServeEngine(fused=False)`` (K3 once per layer and batch),
-    against the fused route (K1) and the plain predict.  One request at
-    a time with no admission window, so each request is its own batch
-    and its latency is the route's; the routes run in turns fused,
-    layer, layer, fused."""
+    ``LUTServeEngine(fused=False)`` (one K3 ``lut_layer`` launch per
+    layer and batch), against the fused route (K1) and the plain
+    predict.  One request at a time with no admission window, so each
+    request is its own batch and its latency is the route's; the routes
+    run in turns fused, layer, layer, fused.  Then the device activities
+    of one forward of each route at B = 256 from the profiler: the
+    per-layer route must make ``num_layers`` K3 launches and otherwise
+    exactly the fused route's activities (quantizer, argmax, copies), so
+    no separate index, multiply or sum kernel."""
     import numpy as np
     import torch
     from repro_torch.core import lut_infer as LI
     from repro_torch.kernels.lut_cascade import lut_cascade
-    from repro_torch.kernels.lut_gather import lut_lookup
+    from repro_torch.kernels.lut_gather import lut_layer, lut_lookup
     from repro_torch.serve import LUTServeEngine
-    from repro_torch.serve.engine import DEFAULT_BUCKETS
+    from repro_torch.serve.engine import DEFAULT_BUCKETS, make_forward_fn
 
     requests = served["requests"]
     forwards = sum(-(-len(x) // DEFAULT_BUCKETS[-1]) for x in requests)
     want = [LI.predict(cfg, served["params"], served["tables"],
                        served["statics"], torch.as_tensor(x, device=dev))
             .cpu().numpy() for x in requests]
+    kernels = {"lut_cascade": lut_cascade, "lut_layer": lut_layer,
+               "lut_lookup": lut_lookup}
     runs = []
     for fused in (True, False, False, True):
         with LUTServeEngine(served["bundle"], fused=fused, max_wait_ms=0.0,
                             device=dev) as eng:
             eng.warmup()
             torch.cuda.synchronize()
-            lut_cascade.launches = lut_lookup.launches = 0
+            for fn in kernels.values():
+                fn.launches = 0
             preds = [eng.predict(x) for x in requests]
-            launches = {"lut_cascade": lut_cascade.launches,
-                        "lut_lookup": lut_lookup.launches}
+            launches = {k: fn.launches for k, fn in kernels.items()}
         rep = eng.metrics.report()
         route = "fused" if fused else "layer"
         runs.append(dict(route=route, launches=launches, p50_ms=rep["p50_ms"],
@@ -1079,19 +1240,46 @@ def phase_layer_serving(cfg, dev, served):
             require(np.array_equal(got, f), f"{route} route request {k}: "
                     "differs from the fused route's slice-1 predictions")
         if fused:
-            require(launches == {"lut_cascade": forwards, "lut_lookup": 0},
+            require(launches == {"lut_cascade": forwards, "lut_layer": 0,
+                                 "lut_lookup": 0},
                     f"fused route launches {launches}, want {forwards} K1")
         else:
             require(launches == {"lut_cascade": 0,
-                                 "lut_lookup": cfg.num_layers * forwards},
+                                 "lut_layer": cfg.num_layers * forwards,
+                                 "lut_lookup": 0},
                     f"layer route launches {launches}, want "
-                    f"{cfg.num_layers} x {forwards} K3 and no K1")
+                    f"{cfg.num_layers} x {forwards} lut_layer and no K1")
     log(f"per-layer serving: predictions equal the fused route and "
         f"predict on all {sum(len(x) for x in requests)} samples; latency "
         "(ms) p50/p99 fused vs layer: " + ", ".join(
             f"{r['route']} {r['p50_ms']:.3f}/{r['p99_ms']:.3f}" for r in runs))
-    return dict(launches=runs[1]["launches"]["lut_lookup"], runs=runs,
-                forwards=forwards)
+
+    # Device activities of one forward per route, from the profiler.
+    x = np.concatenate(requests)[:HEADLINE_B]
+    acts = {}
+    for route, fused in (("fused", True), ("layer", False)):
+        fwd = make_forward_fn(served["bundle"], fused=fused, device=dev)
+        acts[route] = activities_per_call(lambda: fwd(x))
+        log(f"layer route: profiler, one {route} forward at B={len(x)}: "
+            f"{sum(acts[route].values()):g} device activities "
+            f"{json.dumps(acts[route], sort_keys=True)}")
+    k3 = sum(v for k, v in acts["layer"].items() if "lut_gather_kernel" in k)
+    k1 = sum(v for k, v in acts["fused"].items() if "lut_cascade_kernel" in k)
+    rest = {r: {k: v for k, v in a.items() if "lut_gather_kernel" not in k
+                and "lut_cascade_kernel" not in k} for r, a in acts.items()}
+    require(k1 == 1, f"the fused forward made {k1} K1 launches, want 1")
+    require(k3 == cfg.num_layers, f"the layer forward made {k3} K3 launches "
+            f"by the profiler, want {cfg.num_layers}")
+    require(rest["layer"] == rest["fused"], f"the layer forward's other "
+            f"device activities {rest['layer']} differ from the fused "
+            f"forward's {rest['fused']} (a separate gather or pack kernel?)")
+    log(f"layer route: profiler, per forward: {k3:g} lut_layer launches and "
+        f"the fused route's {sum(rest['fused'].values()):g} other activities "
+        f"({sum(acts['layer'].values()):g} against "
+        f"{sum(acts['fused'].values()):g})")
+    return dict(launches=runs[1]["launches"]["lut_layer"],
+                launches_by_name=runs[1]["launches"], runs=runs,
+                forwards=forwards, activities=acts)
 
 
 def _graph_random_net(cfg, rng):
@@ -1309,7 +1497,7 @@ def phase_graph_serving(dev):
     from repro_torch.core.nl_config import UnsupportedTopology
     from repro_torch.data import jsc_synthetic
     from repro_torch.kernels.lut_cascade import lut_cascade
-    from repro_torch.kernels.lut_gather import lut_lookup
+    from repro_torch.kernels.lut_gather import lut_layer, lut_lookup
     from repro_torch.kernels.neuralut_mlp import grouped_subnet
     from repro_torch.serve import LUTServeEngine, bundle_from_training
     from repro_torch.serve.engine import DEFAULT_BUCKETS
@@ -1321,7 +1509,7 @@ def phase_graph_serving(dev):
     sizes, starts = _requests(x_te)
     requests = [x_te[s:s + n] for s, n in zip(starts, sizes)]
     kernels = {"lut_cascade": lut_cascade, "grouped_subnet": grouped_subnet,
-               "lut_lookup": lut_lookup}
+               "lut_lookup": lut_lookup, "lut_layer": lut_layer}
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1354,7 +1542,8 @@ def phase_graph_serving(dev):
             f"conversion launched K2 {launches['grouped_subnet']} times, want "
             f"one per branch ({branches})")
     require(launches["lut_cascade"] > 0, "graph serving never launched K1")
-    require(launches["lut_lookup"] == 0, "graph serving launched K3")
+    require(launches["lut_lookup"] == launches["lut_layer"] == 0,
+            "graph serving launched K3")
 
     # Checks against the plain versions on the card (outside the count).
     plain_tables, _ = TT.convert_packed(cfg, params, state, statics,
@@ -1415,14 +1604,16 @@ def phase_graph_serving(dev):
     with LUTServeEngine(bundle, max_wait_ms=0.0, device=dev) as eng:
         eng.warmup()
         torch.cuda.synchronize()
-        lut_cascade.launches = lut_lookup.launches = 0
+        lut_cascade.launches = lut_lookup.launches = lut_layer.launches = 0
         one = [eng.predict(x) for x in requests]
         seq = {"lut_cascade": lut_cascade.launches,
-               "lut_lookup": lut_lookup.launches}
+               "lut_lookup": lut_lookup.launches,
+               "lut_layer": lut_layer.launches}
     rep = eng.metrics.report()
     require(all(np.array_equal(a, b) for a, b in zip(one, preds)),
             "one-at-a-time graph predictions differ from the batched run")
-    require(seq == {"lut_cascade": forwards, "lut_lookup": 0},
+    require(seq == {"lut_cascade": forwards, "lut_lookup": 0,
+                    "lut_layer": 0},
             f"one-at-a-time graph launches {seq}, want {forwards} K1")
     log(f"graph route: {len(requests)} requests one at a time, {forwards} "
         f"batches; p50 {rep['p50_ms']:.3f} ms p99 {rep['p99_ms']:.3f} ms; "
@@ -1996,13 +2187,6 @@ def phase_seed_kernels(cfg, dev):
     return out_rows
 
 
-def _trace_ms(fn, reps, kernel=""):
-    """Device ms per call: the larger of two traces (a trace now and then
-    misses kernels: no or too little device time)."""
-    runs = [device_ms(fn, reps, kernel) for _ in "ab"]
-    return max((r for r in runs if r), default=None)
-
-
 TRAIN_SHAPE_B = (1, 37, 256, 1000)
 TRAIN_SHAPE_O = (1, 5, 128)
 TRAIN_SHAPE_S = (1, 3)
@@ -2472,7 +2656,7 @@ def phase_graph_train_path(cfg, dev):
     from repro_torch.core.exec_plan import plan_subnet_exec
     from repro_torch.data import device_dataset, jsc_synthetic
     from repro_torch.kernels.lut_cascade import lut_cascade
-    from repro_torch.kernels.lut_gather import lut_lookup
+    from repro_torch.kernels.lut_gather import lut_layer, lut_lookup
     from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
                                                    subnet_train_fwd)
     from repro_torch.kernels.neuralut_mlp import grouped_subnet
@@ -2485,7 +2669,8 @@ def phase_graph_train_path(cfg, dev):
     spe = len(xtr) // TRAIN_B
     kernels = {"lut_cascade": lut_cascade, "grouped_subnet": grouped_subnet,
                "subnet_train_fwd": subnet_train_fwd,
-               "subnet_train_bwd": subnet_train_bwd, "lut_lookup": lut_lookup}
+               "subnet_train_bwd": subnet_train_bwd, "lut_lookup": lut_lookup,
+               "lut_layer": lut_layer}
 
     def counts():
         return {k: fn.launches for k, fn in kernels.items()}
@@ -2507,7 +2692,8 @@ def phase_graph_train_path(cfg, dev):
         require(conv["grouped_subnet"] == branches, f"{what}: conversion "
                 f"launched K2 {conv['grouped_subnet']} times, want one per "
                 f"branch ({branches})")
-        require(launches["lut_cascade"] > 0 and launches["lut_lookup"] == 0,
+        require(launches["lut_cascade"] > 0
+                and launches["lut_lookup"] == launches["lut_layer"] == 0,
                 f"{what}: serving launched {launches}, want K1 and no K3")
         plain, _ = TT.convert_packed(cfg, params, state, statics,
                                      use_subnet_kernel=False)
@@ -2678,7 +2864,7 @@ def phase_kinds(cfg, dev):
     from repro_torch.core import truth_table as TT
     from repro_torch.data import device_dataset, jsc_synthetic
     from repro_torch.kernels.lut_cascade import lut_cascade
-    from repro_torch.kernels.lut_gather import lut_lookup
+    from repro_torch.kernels.lut_gather import lut_layer, lut_lookup
     from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
                                                    subnet_train_fwd)
     from repro_torch.kernels.neuralut_mlp import grouped_subnet
@@ -2689,7 +2875,8 @@ def phase_kinds(cfg, dev):
     xte, yte = device_dataset(jsc_synthetic, 4000, seed=1, device=dev)
     kernels = {"lut_cascade": lut_cascade, "grouped_subnet": grouped_subnet,
                "subnet_train_fwd": subnet_train_fwd,
-               "subnet_train_bwd": subnet_train_bwd, "lut_lookup": lut_lookup}
+               "subnet_train_bwd": subnet_train_bwd, "lut_lookup": lut_lookup,
+               "lut_layer": lut_layer}
     out = {}
     for kind in ("linear", "poly"):
         kcfg = dataclasses.replace(cfg, kind=kind, degree=2)
@@ -2718,7 +2905,8 @@ def phase_kinds(cfg, dev):
                                                "subnet_train_fwd",
                                                "subnet_train_bwd")),
                 f"kind {kind}: launched a subnet kernel: {launches}")
-        require(launches["lut_cascade"] > 0 and launches["lut_lookup"] == 0,
+        require(launches["lut_cascade"] > 0
+                and launches["lut_lookup"] == launches["lut_layer"] == 0,
                 f"kind {kind}: serving launched {launches}, want K1 only")
         require(all(np.isfinite(v) for vs in hist.values() for v in vs),
                 f"kind {kind}: non-finite history")
@@ -2964,7 +3152,7 @@ def phase_sweep(dev):
     from repro_torch.data import device_dataset, mnist_pooled
     from repro_torch.kernels.lut_cascade import (CascadeOperands,
                                                  lut_cascade)
-    from repro_torch.kernels.lut_gather import lut_lookup
+    from repro_torch.kernels.lut_gather import lut_layer, lut_lookup
     from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
                                                    subnet_train_fwd)
     from repro_torch.kernels.neuralut_mlp import grouped_subnet
@@ -2990,7 +3178,8 @@ def phase_sweep(dev):
     steps = SWEEP_EPOCHS * steps_per_epoch
     kernels = {"lut_cascade": lut_cascade, "grouped_subnet": grouped_subnet,
                "subnet_train_fwd": subnet_train_fwd,
-               "subnet_train_bwd": subnet_train_bwd, "lut_lookup": lut_lookup}
+               "subnet_train_bwd": subnet_train_bwd, "lut_lookup": lut_lookup,
+               "lut_layer": lut_layer}
     kw = dict(seeds=SWEEP_SEEDS, epochs=SWEEP_EPOCHS, batch=TRAIN_B,
               lr=SWEEP_LR, device=dev)
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_")
@@ -3283,7 +3472,7 @@ TURN_BATCHES = (1, 8, 64, 256, 4096)   # K1 in turns
 # checkout, with that checkout's package and chip_smoke.py, so it uses
 # only what both checkouts have.
 TURN_CHILD = """
-import hashlib, json, sys, time
+import hashlib, inspect, json, sys, time
 root = sys.argv[1]
 sys.path[:0] = [root, root + "/src"]
 import numpy as np
@@ -3333,6 +3522,54 @@ for b in batches:
         k1_hash.append(digest(lut_cascade(x, o)))
         ms.append(cs.device_ms(lambda: lut_cascade(x, o), 50,
                                "lut_cascade_kernel"))
+# K3 and the per-layer route on the chain's random tables: device ms of
+# the whole per-layer cascade (every kernel it launches) and its device
+# activities per call, outputs hashed; lut_lookup per layer on the same
+# layers' addresses; then LUTServeEngine one request at a time (no
+# admission window), fused and per-layer, p50 / p99 ms
+from repro_torch.core import model as M
+from repro_torch.core.exec_plan import LayerOperands, plan_cascade_exec
+from repro_torch.core.lut_infer import pack_index
+from repro_torch.data import jsc_synthetic
+from repro_torch.kernels.lut_gather import lut_lookup
+from repro_torch.serve import LUTServeEngine, bundle_from_training
+lplan = plan_cascade_exec(cfg, fused=False)
+lops = LayerOperands(
+    [torch.as_tensor(s["conn"], device=dev) for s in statics],
+    [torch.as_tensor(t.astype(np.int32), device=dev) for t in tables],
+    lplan.schedule, *([cfg.in_features] if "in_features" in
+                      inspect.signature(LayerOperands).parameters else []))
+layer_ms, layer_kernels, layer_hash, k3_lookup = [], [], [], []
+for b in batches:
+    x = torch.as_tensor(rng.integers(0, 2 ** cfg.layer_in_bits(0), (
+        b, cfg.in_features)).astype(np.int32), device=dev)
+    fn = lambda: lplan.apply(x, lops)
+    layer_hash.append(digest(fn()))
+    layer_ms.append(cs._trace_ms(fn, 50))
+    layer_kernels.append(cs.kernels_per_call(fn))
+    c, per = x, []
+    for conn, tbl, (_s, _a, bits, *_r) in zip(lops.conns, lops.tables,
+                                              lplan.schedule):
+        addr = pack_index(c[:, conn.long()], bits)
+        per.append(cs._trace_ms(lambda: lut_lookup(tbl, addr), 50,
+                                "lut_gather_kernel"))
+        c = lut_lookup(tbl, addr)
+    k3_lookup.append(per)
+xq, _ = jsc_synthetic(4000, seed=1)
+sizes, starts = cs._requests(xq)
+params, _ = M.model_init(cfg, torch.Generator().manual_seed(0), device=dev)
+params = M.calibrate_in_quant(cfg, params, xq)
+bundle = bundle_from_training(cfg, params, tables, statics)
+serve = {}
+for fused in (True, False, False, True):
+    with LUTServeEngine(bundle, fused=fused, max_wait_ms=0.0,
+                        device=dev) as eng:
+        eng.warmup()
+        preds = [eng.predict(xq[s:s + n]) for s, n in zip(starts, sizes)]
+    rep = eng.metrics.report()
+    serve.setdefault("fused" if fused else "layer", []).append(dict(
+        p50_ms=rep["p50_ms"], p99_ms=rep["p99_ms"],
+        hash=digest(torch.as_tensor(np.concatenate(preds)))))
 k4, k5 = cs.phase_train_kernels(cfg, dev)
 seed = cs.phase_seed_kernels(cfg, dev)
 # the seed ensemble as users call it (train_neuralut_ensemble, 4 seeds,
@@ -3354,7 +3591,9 @@ for arch in ("neuralut-jsc-5l", cs.GRAPH_ARCH):
     ensemble[arch] = dict(epoch_s=walls[1:],
                           loss=hist["loss"].ravel().tolist())
 print("TURN " + json.dumps(dict(
-    ensemble=ensemble, k2=k2, k1_chain=k1, k1_dag=k1_dag,
+    ensemble=ensemble, serve=serve, layer_kernels=layer_kernels,
+    lookup_by_layer=k3_lookup, layer_hash=layer_hash,
+    k2=k2, k1_chain=k1, k1_dag=k1_dag, k3_layer_route=layer_ms,
     k4_s1=[r["ms"] for r in k4], k5_s1=[r["ms"] for r in k5],
     k4_s4=[r["k4_s4"] for r in seed], k5_s4=[r["k5_s4"] for r in seed],
     k2_hash=k2_hash, k1_hash=k1_hash)))
@@ -3369,9 +3608,13 @@ def turns_main(parent: str) -> int:
     of its outputs at each), of K1 on the chain and the DAG at
     TURN_BATCHES (outputs hashed too), and of K4 and K5 at every jsc-5l
     training shape, B = TRAIN_B, S = 1 and S = 4 (``phase_train_kernels``
-    and ``phase_seed_kernels`` of each checkout); and the wall seconds
-    of a 4-seed ``train_neuralut_ensemble`` epoch on the jsc-5l chain and
-    the PolyLUT-Add graph."""
+    and ``phase_seed_kernels`` of each checkout); the per-layer route
+    (K3) at TURN_BATCHES: device ms of the whole cascade, its device
+    activities per call and ``lut_lookup`` per layer, and p50 / p99 of
+    ``LUTServeEngine`` one request at a time, fused and per-layer, twice
+    each (outputs and predictions hashed); and the wall seconds of a
+    4-seed ``train_neuralut_ensemble`` epoch on the jsc-5l chain and the
+    PolyLUT-Add graph."""
     card = phase_environment()
     parent = str(Path(parent).resolve())
     turns = []
@@ -3393,6 +3636,25 @@ def turns_main(parent: str) -> int:
             f"{k} " + " / ".join(f"{v:.4f}" if v else "nan" for v in vs)
             for k, vs in turns[-1].items() if k.startswith("k")
             and not k.endswith("hash")))
+    for t in turns:
+        log(f"per-layer route ({t['checkout']}): device activities per call "
+            f"at B = {TURN_BATCHES}: {t['layer_kernels']}; lut_lookup per "
+            "layer (ms): " + "; ".join(
+                f"B={b} " + " / ".join(f"{v:.4f}" if v else "lost" for v in vs)
+                for b, vs in zip(TURN_BATCHES, t["lookup_by_layer"])))
+    log("serving one request at a time, p50 / p99 ms, in turns: " + "; ".join(
+        f"{t['checkout']} " + ", ".join(
+            f"{route} " + " ".join(f"{r['p50_ms']:.3f}/{r['p99_ms']:.3f}"
+                                   for r in t["serve"][route])
+            for route in ("fused", "layer")) for t in turns))
+    for t in turns[1:]:
+        require(t["layer_hash"] == turns[0]["layer_hash"], "the per-layer "
+                f"route's outputs differ between the checkouts "
+                f"({t['checkout']})")
+    hashes = {r["hash"] for t in turns for rs in t["serve"].values()
+              for r in rs}
+    require(len(hashes) == 1, "served predictions differ between the "
+            "routes or the checkouts")
     for arch in turns[0]["ensemble"]:
         log(f"train_neuralut_ensemble {arch}, 4 seeds, one epoch (s), in "
             "turns: " + "; ".join(
@@ -3437,6 +3699,7 @@ def main() -> int:
     k1, tile_sweep = phase_cascade_kernel(cfg, dev)
     k1_dag, dag_sweep, dag_cases = phase_dag_cascade_kernel(dev)
     k3 = phase_gather_kernel(cfg, dev)
+    k3l = phase_layer_kernel(cfg, dev)
     launches, served = phase_main_path(cfg, dev)
     stages = phase_convert_stages(cfg, dev)
     layer = phase_layer_serving(cfg, dev, served)
@@ -3505,25 +3768,55 @@ def main() -> int:
          "by_layer": k2, "convert_stages": stages},
     ]
     k3_head = [k3[(i, HEADLINE_B)] for i in range(cfg.num_layers)]
+    k3_sum = k3_summary(k3_head, f"summed over the {cfg.num_layers} layers")
     kernels.append({
         "name": "lut_lookup", "route": "cuda",
         "source": "src/repro_torch/csrc/lut_gather.cu",
         "replaces": "src/repro/kernels/lut_gather.py:44",
-        "launches": layer["launches"],
+        "launches": layer["launches_by_name"]["lut_lookup"],
+        "main_path": "none since the per-layer route launches lut_layer; "
+                     "held here at the jsc-5l layer shapes",
         "max_abs_err": max(r["err"] for r in k3.values()),
-        "ms": sum(r["ms"] for r in k3_head),
-        "plain_ms": sum(r["plain_ms"] for r in k3_head),
+        "ms": k3_sum["ms"],
+        "plain_ms": _sum_or_none(r["plain_ms"] for r in k3_head),
         "bound_ms": sum(r["bound_ms"] for r in k3_head),
         "bound_by": "bytes" if all(r["by"] == "bytes" for r in k3_head)
         else "operations",
-        "library_ms": sum(r["library_ms"] for r in k3_head),
+        "library_ms": _sum_or_none(r["library_ms"] for r in k3_head),
         "library_call": "tables[o_idx, addr] (advanced indexing, int32)",
         "floor_ms": floor,
         "call_ms": sum(r["call_ms"] for r in k3_head),
         "plain_call_ms": sum(r["plain_call_ms"] for r in k3_head),
-        "timing": k3_head[0]["timing"],
+        "timing": k3_sum["timing"], "lost_layers": k3_sum["lost_layers"],
         "shape": f"sum of the 5 jsc-5l layers at B={HEADLINE_B}",
         "by_layer_batch": {f"{i}/{b}": r for (i, b), r in k3.items()}})
+    kl_head = [k3l[(i, HEADLINE_B)] for i in range(cfg.num_layers)]
+    kl_sum = k3_summary(kl_head, f"summed over the {cfg.num_layers} layers")
+    kernels.append({
+        "name": "lut_layer", "route": "cuda",
+        "source": "src/repro_torch/csrc/lut_gather.cu",
+        "replaces": "src/repro/kernels/lut_gather.py:44",
+        "replaces_also": "the gather and pack_index of the reference's "
+                         "per-layer step, src/repro/serve/engine.py:192-204",
+        "launches": layer["launches"],
+        "max_abs_err": max(r["err"] for r in k3l.values()),
+        "ms": kl_sum["ms"],
+        "plain_ms": _sum_or_none(r["plain_ms"] for r in kl_head),
+        "bound_ms": sum(r["bound_ms"] for r in kl_head),
+        "bound_by": "bytes" if all(r["by"] == "bytes" for r in kl_head)
+        else "operations",
+        "library_ms": None,
+        "sequence_ms": _sum_or_none(r["sequence_ms"] for r in kl_head),
+        "sequence": "codes[:, conn], * place values, sum, lut_lookup (the "
+                    "per-layer route before lut_layer)",
+        "floor_ms": floor,
+        "call_ms": sum(r["call_ms"] for r in kl_head),
+        "plain_call_ms": sum(r["plain_call_ms"] for r in kl_head),
+        "timing": kl_sum["timing"], "lost_layers": kl_sum["lost_layers"],
+        "shape": f"sum of the 5 jsc-5l layers at B={HEADLINE_B}",
+        "by_shape_batch": {f"{s}/{b}": r for (s, b), r in k3l.items()},
+        "layer_route": {k: layer[k] for k in ("runs", "activities",
+                                              "forwards")}})
     # kernels per launch: device activities per wrapper call, counted in
     # phase_train_kernels's traces (required to be 1)
     for name, src, line, rows in (
@@ -3576,7 +3869,7 @@ def main() -> int:
             continue
         k["launches_by_path"] = {
             "serve": launches.get(name, 0),
-            "layer_serve": layer["launches"] if name == "lut_lookup" else 0,
+            "layer_serve": layer["launches_by_name"].get(name, 0),
             "train": train["launches"].get(name, 0),
             "ensemble": ens["launches"].get(name, 0),
             **{f"kind_{kind}": r["launches"][name]

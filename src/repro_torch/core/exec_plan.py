@@ -39,16 +39,17 @@ tensors, which is how the CPU tests reach them).
   * ``fused`` — the whole network, chain or DAG, in one launch of
                 ``kernels/lut_cascade.lut_cascade`` (K1) over the
                 bit-packed tables: the serving default.
-  * ``layer`` — one ``kernels/lut_gather.lut_lookup`` (K3) per layer
-                over the unpacked int32 tables, the connected codes
-                gathered and packed into addresses in plain PyTorch
-                between them (the reference's ``layer_kernel``).  It
-                walks one buffer per layer, so a DAG schedule raises
+  * ``layer`` — one ``kernels/lut_gather.lut_layer`` (K3) launch per
+                layer over the unpacked tables: it gathers the layer's
+                connected codes, packs them into addresses and looks
+                them up (the reference's ``layer_kernel``, whose gather
+                and pack XLA fuses into its jit).  It walks one buffer
+                per layer, so a DAG schedule raises
                 ``UnsupportedTopology`` when the plan is built.
 
 Each wrapper picks the kernel or its plain version from the codes'
 device: the CUDA kernel for a CUDA tensor, the plain version
-(``kernels/ref.lut_cascade_ref`` / ``lut_gather_ref``) for a CPU
+(``kernels/ref.lut_cascade_ref`` / ``lut_layer_ref``) for a CPU
 tensor.  Nothing moves work between devices: a CUDA tensor goes through
 the kernel or the call raises.
 """
@@ -63,11 +64,10 @@ import torch
 from repro_torch.core import subnet
 from repro_torch.core.nl_config import (NeuraLUTConfig, UnsupportedTopology,
                                         is_graph_config)
-from repro_torch.core.lut_infer import pack_index
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.lut_cascade import (cascade_meta,
                                              graph_cascade_meta, lut_cascade)
-from repro_torch.kernels.lut_gather import lut_lookup
+from repro_torch.kernels.lut_gather import lut_layer
 from repro_torch.kernels.ref import NodeSched, as_schedule
 
 ROUTES = ("canonical", "neuron_leading", "kernel_infer", "kernel_train")
@@ -140,14 +140,17 @@ def plan_subnet_exec(cfg: NeuraLUTConfig, *, purpose: str,
 
 class LayerOperands:
     """The per-layer route's operands of one converted chain, on one
-    device: ``conns[i]`` (O_i, F_i) int64 and ``tables[i]`` (O_i, T_i)
+    device: ``conns[i]`` (O_i, F_i) int32 and ``tables[i]`` (O_i, T_i)
     int32 (unpacked), T_i = 2^(in_bits_i * F_i) by the plan's chain
-    ``schedule``.  The serving forward builds this once and passes it
-    with every batch."""
+    ``schedule``; ``in_features`` is the width of the input codes.  The
+    serving forward builds this once and passes it with every batch.
+    Connections are checked once, here: each in [0, the width of the
+    layer's input), as the kernel assumes (it clamps them into it)."""
 
     def __init__(self, conns: Sequence[torch.Tensor],
-                 tables: Sequence[torch.Tensor], schedule):
-        self.conns = tuple(c.to(torch.long) for c in conns)
+                 tables: Sequence[torch.Tensor], schedule,
+                 in_features: int):
+        self.conns = tuple(c.to(torch.int32) for c in conns)
         self.tables = tuple(tables)
         if not len(self.conns) == len(self.tables) == len(schedule) >= 1:
             raise ValueError(f"{len(self.conns)} conns, {len(self.tables)} "
@@ -161,6 +164,10 @@ class LayerOperands:
                     f"layer {i}: conn {tuple(c.shape)} on {c.device} and "
                     f"table {tuple(t.shape)} {t.dtype} on {t.device}; want "
                     f"(O, F) and {want} int32 on one device")
+            width = self.conns[i - 1].shape[0] if i else int(in_features)
+            if c.numel() and (int(c.min()) < 0 or int(c.max()) >= width):
+                raise ValueError(f"layer {i}: connections outside [0, "
+                                 f"{width})")
 
 
 @dataclass(frozen=True)
@@ -171,7 +178,8 @@ class CascadeExec:
     arity, in_bits, word_bits, slot_bits, beta per node); a chain's
     ``cascade_meta`` is taken too and normalized to its nodes.
     ``route`` is ``fused`` (K1, over ``CascadeOperands``) or ``layer``
-    (K3 per layer, over :class:`LayerOperands`, chain schedules only).
+    (one K3 ``lut_layer`` launch per layer, over :class:`LayerOperands`,
+    chain schedules only).
     """
     schedule: Tuple[NodeSched, ...]
     route: str = "fused"
@@ -207,7 +215,7 @@ class CascadeExec:
         c = codes
         for conn, table, (_s, _a, in_bits, *_r) in zip(
                 ops.conns, ops.tables, self.schedule):
-            c = lut_lookup(table, pack_index(c[:, conn], in_bits))
+            c = lut_layer(table, c, conn, in_bits)
         return c
 
 

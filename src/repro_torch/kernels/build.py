@@ -105,6 +105,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         _I, _P, _P, _P,        # device, tables, addr, out
         _I, _I, _I, _P]        # B, O, T, stream
     lib.repro_lut_gather.restype = _I
+    lib.repro_lut_layer.argtypes = [
+        _I, _P, _P, _P, _P,    # device, tables, codes, conn, out
+        _I, _I, _I, _I, _I,    # B, I, O, F, in_bits
+        _P]                    # stream
+    lib.repro_lut_layer.restype = _I
+    lib.repro_lut_layer_plan.argtypes = [
+        _I, _I, _I, _P]        # B, O, F, out (long long[])
+    lib.repro_lut_layer_plan.restype = _I
     lib.repro_grouped_subnet.argtypes = [
         _I, _P, _P, _P,        # device, xg, packed weights, out
         _I, _I, _I,            # T, O, params per neuron

@@ -191,6 +191,15 @@ def lut_gather_ref(tables: torch.Tensor, addr: torch.Tensor) -> torch.Tensor:
     return tables[rows, addr.long().clamp(0, t - 1)].to(torch.int32)
 
 
+def lut_layer_ref(tables: torch.Tensor, codes: torch.Tensor,
+                  conn: torch.Tensor, in_bits: int) -> torch.Tensor:
+    """Plain per-layer step of a chain (the reference's ``layer_kernel``
+    body: gather, ``pack_index``, lookup): tables (O, T), codes (B, I)
+    int, conn (O, F) int -> (B, O) int32 with ``out[b, o] = tables[o,
+    clamp(sum_j codes[b, conn[o, j]] << (in_bits (F-1-j)), 0, T-1)]``."""
+    return lut_gather_ref(tables, pack_index(codes[:, conn.long()], in_bits))
+
+
 # (in_bits, word_bits, slot_bits, beta_out) of one chain layer; see
 # kernels/lut_cascade.cascade_meta.
 LayerMeta = Tuple[int, int, int, int]

@@ -134,7 +134,7 @@ def make_forward_fn(bundle: ServeBundle, *, fused: bool = True,
         ops = LayerOperands(conns, [
             torch.as_tensor(np.asarray(t[0] if isinstance(t, list) else t)
                             .astype(np.int32), device=dev)
-            for t in bundle.tables], plan.schedule)
+            for t in bundle.tables], plan.schedule, cfg.in_features)
     if dev.type == "cuda":
         # Executors launch on their own streams: the operands built on
         # this thread's stream must be complete before any reads them.

@@ -156,12 +156,12 @@ def test_per_layer_plan_and_operand_checks():
     tables, statics = _random_net(pcfg, seed=1)
     conns = [torch.as_tensor(s["conn"]) for s in statics]
     tbls = [torch.as_tensor(t.astype(np.int32)) for t in tables]
-    LayerOperands(conns, tbls, plan.schedule)
+    LayerOperands(conns, tbls, plan.schedule, pcfg.in_features)
     with pytest.raises(ValueError, match="layer 1"):
         LayerOperands(conns, tbls[:1] + [tbls[1][:, :64]] + tbls[2:],
-                      plan.schedule)
+                      plan.schedule, pcfg.in_features)
     with pytest.raises(ValueError, match="disagree"):
-        LayerOperands(conns[:2], tbls, plan.schedule)
+        LayerOperands(conns[:2], tbls, plan.schedule, pcfg.in_features)
 
 
 def test_per_layer_plan_on_a_dag_raises():
@@ -190,7 +190,8 @@ def test_ctypes_signatures_match_the_c_sources():
                 r'extern "C" [\w\s*]*?\b(repro_\w+)\(([^)]*)\)',
                 src.read_text()):
             found[name] = len([p for p in params.split(",") if p.strip()])
-    assert {"repro_lut_cascade", "repro_lut_gather", "repro_grouped_subnet",
+    assert {"repro_lut_cascade", "repro_lut_gather", "repro_lut_layer",
+            "repro_lut_layer_plan", "repro_grouped_subnet",
             "repro_grouped_subnet_launch_plan", "repro_grouped_subnet_plan",
             "repro_subnet_train_fwd", "repro_subnet_train_bwd",
             "repro_subnet_train_plan", "repro_launch_floor",
