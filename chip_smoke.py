@@ -54,7 +54,8 @@ then drives the port's paths at full width:
   registry, loaded back and served through the LUT-cascade kernel with
   0 mismatches; each NeuraLUT point of the padded group alone in a
   group equal to the per-point ensemble bit for bit, the padded group's
-  first gradients, one step and whole run against it, a rerun and a
+  one step against it split by each element's gradient at init
+  (``first_step_split``), its whole run, a rerun and a
   resume bit for bit, the launcher once; before
   it K4/K5 over the sweep's unit axes (U = 3 and 6) against single-unit
   launches, and K2 at the sweep's conversion shapes;
@@ -67,7 +68,16 @@ then drives the port's paths at full width:
   and a rolled-back hot swap) and ``launch.serve`` against the registry;
   latency at replicas 1 and 2 and the registry's seconds, in turns.
   Before and after it, a probe of the profiler: how many traces of a
-  training kernel's calls come back with records missing.
+  training kernel's calls come back with records missing;
+* RTL: the serving path's K2-converted tables emitted as Verilog
+  (``core.rtl``), sampled ROMs re-simulated against the tables, the
+  wiring against the connectivity, the LUT graph refused;
+* sharded serving (``serve.sharded``): the serving bundle over 1-4
+  logical replicas of the card, replicated through the LUT-cascade
+  kernel and o_sharded through the per-layer lookup kernel, against
+  ``predict``, with the engine, the registry and ``launch.serve
+  --sharded``;
+* the three ``examples/*_torch.py`` as processes on the card.
 
 The launch counts are set to 0 just before each path and read just
 after it.  Every phase that fails stops the run with a non-zero exit;
@@ -150,6 +160,20 @@ SWEEP_LR = 3e-3                     # run_pareto_sweep's default
 SWEEP_HIST_ATOL = 1.5e-2            # loss, test_acc, test_acc_q
 SWEEP_SIGNAL_ATOL = 1e-2            # params where |grad| > 1e-5, BN var
 SWEEP_ZERO_ATOL = 2e-1              # the other params and the BN means
+SWEEP_WD = 1e-4                     # both trainers' default weight decay
+# One step of the padded group against the ensemble's, split by the
+# ensemble's gradient at init g (first_step_split).  Adam's first update
+# is lr g / (|g| + eps) + lr wd p with eps 1e-8; a gradient error d moves
+# it by lr d eps / (|g| + eps)^2, under 9e-4 of the update for |g| >=
+# STEP_GRAD_T and d <= 8.9e-8 (the largest difference that
+# probes/sweep_step.py read on the card over 8 connectivities), so those
+# elements are held across runs; below STEP_GRAD_T the step's sign is
+# rounding, so each run is held to its own AdamW step, and the two runs'
+# gradients at init to STEP_GRAD_ATOL: ~4x the largest difference read
+# below the split (5.9e-8), and 4x below a 1e-6 error.
+STEP_GRAD_T = 1e-6
+STEP_GRAD_ATOL = 2.5e-7
+STEP_RTOL, STEP_ATOL = 1e-3, 1e-6
 # K4/K5 at the sweep's shapes (F 6, sub-network 16/16/16/16, skip 2):
 # the NeuraLUT groups' unit axes and layer widths
 SWEEP_UNIT_SHAPES = ((3, (64, 32, 10)), (6, (48, 10)))
@@ -442,12 +466,17 @@ def phase_subnet_kernel(cfg, dev):
     return rows
 
 
-def _close(got, want, rtol, atol) -> float:
-    """Max abs error; raises when any element is beyond atol + rtol*|want|."""
+def _close(got, want, rtol, atol, what: str = "") -> float:
+    """Max abs error; raises when any element is beyond atol + rtol*|want|,
+    naming ``what`` and the worst element."""
     err = (got - want).abs()
     if not bool((err <= atol + rtol * want.abs()).all()):
-        raise RuntimeError(f"FAILED: max err {float(err.max()):.3e} beyond "
-                           f"rtol {rtol} / atol {atol}")
+        i = int((err / (atol + rtol * want.abs())).flatten().argmax())
+        raise RuntimeError(
+            f"FAILED: {what + ': ' if what else ''}max err "
+            f"{float(err.max()):.3e} beyond rtol {rtol} / atol {atol}; worst "
+            f"at flat index {i}: {float(got.flatten()[i]):.9e} against "
+            f"{float(want.flatten()[i]):.9e}")
     return float(err.max()) if err.numel() else 0.0
 
 
@@ -954,10 +983,10 @@ def phase_train_path(cfg, dev):
     lc, gc, sc = TR.loss_and_grads(cfg, p0, s0, sd, xtr[ib[0]], ytr[ib[0]],
                                    exec_plan=plan_c)
     torch.cuda.synchronize()
-    gerr = max(_close(a, b, K5_RTOL, K5_ATOL)
-               for a, b in zip(_flat(gk), _flat(gc)))
-    serr = max(_close(a, b, K4_RTOL, K4_ATOL)
-               for a, b in zip(_flat(sk), _flat(sc)))
+    gerr = max(_close(a, b, K5_RTOL, K5_ATOL, f"step-1 gradient {p}")
+               for (p, a), (_, b) in zip(_paths(gk), _paths(gc)))
+    serr = max(_close(a, b, K4_RTOL, K4_ATOL, f"step-1 BN state {p}")
+               for (p, a), (_, b) in zip(_paths(sk), _paths(sc)))
     log(f"step 1: loss kernel_train {float(lk):.7f} canonical "
         f"{float(lc):.7f}; {len(_flat(gk))} gradient leaves within rtol "
         f"{K5_RTOL} / atol {K5_ATOL} (max err {gerr:.3e}), BN state max "
@@ -2748,10 +2777,10 @@ def phase_graph_train_path(cfg, dev):
     lc, gc, sc = TR.loss_and_grads(cfg, p0, s0, sd, xtr[ib[0]], ytr[ib[0]],
                                    exec_plan=plan_c)
     torch.cuda.synchronize()
-    gerr = max(_close(a, b, K5_RTOL, K5_ATOL)
-               for a, b in zip(_flat(gk), _flat(gc)))
-    serr = max(_close(a, b, K4_RTOL, K4_ATOL)
-               for a, b in zip(_flat(sk), _flat(sc)))
+    gerr = max(_close(a, b, K5_RTOL, K5_ATOL, f"step-1 gradient {p}")
+               for (p, a), (_, b) in zip(_paths(gk), _paths(gc)))
+    serr = max(_close(a, b, K4_RTOL, K4_ATOL, f"step-1 BN state {p}")
+               for (p, a), (_, b) in zip(_paths(sk), _paths(sc)))
     step = TR.make_step_fn(cfg, lr=2e-3, weight_decay=1e-4, t0=steps,
                            exec_plan=plan_k)
     c4, c5, n4, n5 = _step_kernel_count(lambda: step(
@@ -3032,16 +3061,14 @@ def _member_diffs(cfg, got, ref, x, y, dev):
     its reference, split by the reference's gradient on (x, y): params
     where |g| > 1e-5 ("signal"), the other params ("zero": the biases
     feeding BN, whose exact gradient is 0), BN means and BN variances;
-    with the worst paths.  ``signal_tol`` is the signal's largest
-    |got - ref| / (1e-6 + 1e-3 |ref|)."""
+    with the worst paths."""
     from repro_torch.core import model as M
     from repro_torch.core import train as TR
     from repro_torch.core.exec_plan import plan_subnet_exec
     _, grads, _ = TR.loss_and_grads(
         cfg, *ref, M.device_statics(M.model_static(cfg), dev), x, y,
         exec_plan=plan_subnet_exec(cfg, purpose="train", device=dev))
-    out = dict(signal=0.0, signal_tol=0.0, zero=0.0, mean=0.0, var=0.0,
-               signal_elems=0)
+    out = dict(signal=0.0, zero=0.0, mean=0.0, var=0.0, signal_elems=0)
     worst = []
     for (path, a), (_, b), (_, g) in zip(_paths(got[0]), _paths(ref[0]),
                                          _paths(grads)):
@@ -3050,9 +3077,6 @@ def _member_diffs(cfg, got, ref, x, y, dev):
         for key, sel in (("signal", m), ("zero", ~m)):
             if bool(sel.any()):
                 out[key] = max(out[key], float(d[sel].max()))
-        if bool(m.any()):   # in units of the one-step rtol 1e-3 / atol 1e-6
-            out["signal_tol"] = max(out["signal_tol"], float(
-                (d[m] / (1e-6 + 1e-3 * b[m].abs())).max()))
         worst.append((path, float(d.max())))
     for path, d in _tree_diffs(got[1], ref[1]):
         key = path.rsplit("/", 1)[-1]
@@ -3082,41 +3106,188 @@ def _first_grads(cfg, params, state, statics, xb, yb, dev):
         0, 0, dims, 0, 0))(params, state, statics, xb, yb)
 
 
-def _grad_witness(g, xtr, ytr, dev):
-    """The first step's gradients of each point of group ``g`` (U units)
-    against its own ensemble's (S = len(g.seeds)), from the same inits
-    on the same batches: per point, the leaves whose gradient differs,
-    the largest |difference| and the number of elements that differ."""
+def first_step_split(ref, got, *, lr, weight_decay, grad_t=STEP_GRAD_T,
+                     grad_atol=STEP_GRAD_ATOL, rtol=STEP_RTOL,
+                     atol=STEP_ATOL):
+    """One optimizer step of one member in two runs, held element by
+    element and split by the reference run's gradient at init.
+
+    ``ref`` and ``got`` are dicts of CPU tensors and trees of one
+    structure: "p0" the params at init, "g" the loss gradient there,
+    "p1" the params after the step, "scale" the run's clip scale
+    (min(1, 1 / the gradient's global norm)).  Elements with |g_ref| >=
+    ``grad_t``: p1 equal across the runs within ``rtol`` / ``atol``.
+    The others: the two g within ``grad_atol``, and each run's p1 equal
+    to the port's own AdamW first step (``optim.adamw_update`` from zero
+    moments) from that run's p0, g and scale, at ``lr``, within ``rtol``
+    / ``atol``.  Returns the element counts ("big", "small"), the
+    largest |g_got - g_ref| ("grad_diff" over the small elements,
+    "grad_diff_all"), the largest errors in units of their tolerance
+    ("cross_tol", "own_tol"), "ok", and up to 32 "failures": (check,
+    path, index, g_ref, g_got, p1_ref, p1_got, own step of ref, own step
+    of got).  Imports no CUDA."""
+    import torch
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.tree import tree_map
+
+    def own_step(run):
+        g = tree_map(lambda t: t * run["scale"], run["g"])
+        return adamw_update(g, adamw_init(run["p0"]), run["p0"], lr=lr,
+                            weight_decay=weight_decay)[0]
+
+    out = dict(ok=True, big=0, small=0, grad_diff=0.0, grad_diff_all=0.0,
+               cross_tol=0.0, own_tol=0.0, failures=[])
+    trees = (ref["g"], got["g"], ref["p1"], got["p1"], own_step(ref),
+             own_step(got))
+    for leaves in zip(*(_paths(t) for t in trees)):
+        path = leaves[0][0]
+        g_r, g_g, p_r, p_g, w_r, w_g = (t.flatten() for _, t in leaves)
+        big = g_r.abs() >= grad_t
+        zero = torch.zeros_like(g_r)
+        gd = (g_g - g_r).abs()
+        cross = torch.where(big, (p_g - p_r).abs()
+                            / (atol + rtol * p_r.abs()), zero)
+        own = torch.where(big, zero, torch.maximum(
+            (p_r - w_r).abs() / (atol + rtol * w_r.abs()),
+            (p_g - w_g).abs() / (atol + rtol * w_g.abs())))
+        gsmall = torch.where(big, zero, gd)
+        out["big"] += int(big.sum())
+        out["small"] += int((~big).sum())
+        for key, v in (("grad_diff", gsmall), ("grad_diff_all", gd),
+                       ("cross_tol", cross), ("own_tol", own)):
+            if v.numel():
+                out[key] = max(out[key], float(v.max()))
+        for check, bad in (("cross-run", cross > 1),
+                           ("gradient at init", gsmall > grad_atol),
+                           ("own AdamW step", own > 1)):
+            for i in torch.nonzero(bad).flatten().tolist():
+                out["ok"] = False
+                if len(out["failures"]) < 32:
+                    out["failures"].append((check, path, i) + tuple(
+                        float(t[i]) for t in (g_r, g_g, p_r, p_g, w_r,
+                                              w_g)))
+    return out
+
+
+def _old_split_fails(ref, got, g_after):
+    """The elements that the split by the gradient after the step fails
+    (|g_after| > 1e-5 and |p1_got - p1_ref| > 1e-6 + 1e-3 |p1_ref|):
+    (path, index, g_init ref, g_init got, p1 ref, p1 got, g_after)."""
+    import torch
+    rows = []
+    for leaves in zip(*(_paths(t) for t in (ref["g"], got["g"], ref["p1"],
+                                            got["p1"], g_after))):
+        path = leaves[0][0]
+        g_r, g_g, p_r, p_g, g1 = (t.flatten() for _, t in leaves)
+        bad = (g1.abs() > 1e-5) & ((p_g - p_r).abs()
+                                   > 1e-6 + 1e-3 * p_r.abs())
+        rows += [(path, i) + tuple(float(t[i]) for t in (g_r, g_g, p_r, p_g,
+                                                        g1))
+                 for i in torch.nonzero(bad).flatten().tolist()]
+    return rows
+
+
+def sweep_step_check(g, xb, yb, xte, yte, dev):
+    """One step of the padded group ``g`` on the rows (xb, yb), through
+    its training function (all U units), against
+    train_neuralut_ensemble of each point (S seeds) on the same rows,
+    every seed: each unit's gradient at init beside its ensemble
+    member's (the same init, the same permuted batch); each element
+    that the split by the gradient after the step fails, logged with
+    its gradients at init and its values after the step in both runs
+    and its gradient after the step; then :func:`first_step_split`.
+    Returns ({point: {seed: split summary}}, {(point, seed): the unit's
+    (params, state) after the step})."""
     import torch
     from repro_torch.core import model as M
     from repro_torch.core import train as TR
-    from repro_torch.sweep import member_params_state, stack_group_operands
-    from repro_torch.tree import tree_map
-    n, spe = len(xtr), len(xtr) // TRAIN_B
-    params, state, _, statics, useeds = stack_group_operands(
-        g, xtr, device=dev)
-    idx = torch.stack([TR.epoch_batches(n, spe, TRAIN_B, seed=s, epoch=0,
+    from repro_torch.core.exec_plan import plan_subnet_exec
+    from repro_torch.optim import sgdr_schedule
+    from repro_torch.sweep import (make_group_train_fn, member_params_state,
+                                   stack_group_operands)
+    from repro_torch.tree import tree_leaves, tree_map
+    cpu = torch.device("cpu")
+    n, ns = len(xb), len(g.seeds)
+    params, state, opt, statics, useeds = stack_group_operands(
+        g, xb, device=dev)
+    idx = torch.stack([TR.epoch_batches(n, 1, n, seed=s, epoch=0,
                                         device=dev)[0] for s in useeds])
-    gg = _first_grads(g.padded_cfg, params, state, statics, xtr[idx],
-                      ytr[idx], dev)
-    ns, out = len(g.seeds), {}
+    gg = _first_grads(g.padded_cfg, params, state, statics, xb[idx],
+                      yb[idx], dev)
+    fn = make_group_train_fn(g.padded_cfg, n=n, batch=n, epochs=1,
+                             lr=SWEEP_LR, weight_decay=SWEEP_WD, device=dev)
+    p1g, s1g, _, _ = fn(params, state, opt, statics, useeds, xb, yb, xte,
+                        yte)
+    lr0 = sgdr_schedule(0, lr_max=SWEEP_LR, lr_min=SWEEP_LR * 1e-2, t0=1)
+
+    def scales(grads):  # each unit's clip scale, as adamw_update takes it
+        gsq = sum(t.square().flatten(1).sum(1) for t in tree_leaves(grads))
+        return torch.clamp(1.0 / torch.clamp(gsq.sqrt(), min=1e-12),
+                           max=1.0).to(cpu)
+
+    def host(tree):
+        return tree_map(lambda t: t.detach().to(cpu), tree)
+    k_got = scales(gg)
+    report, members = {}, {}
     for pi, pt in enumerate(g.points):
-        p0, s0, _ = TR.init_ensemble(pt.cfg, g.seeds, xtr, device=dev)
-        st = TR.unit_statics(M.device_statics(M.model_static(pt.cfg), dev),
-                             ns)
+        p0, s0, _ = TR.init_ensemble(pt.cfg, g.seeds, xb, device=dev)
+        st1 = M.device_statics(M.model_static(pt.cfg), dev)
         ib = idx[pi * ns:(pi + 1) * ns]
-        ge = _first_grads(pt.cfg, p0, s0, st, xtr[ib], ytr[ib], dev)
-        rows = []
-        for si in range(ns):
-            a, _ = member_params_state(g, gg, state, pi, si)
-            b = tree_map(lambda t: t[si], ge)
-            for (path, x), (_, y) in zip(_paths(a), _paths(b)):
-                d = (x - y).abs()
-                if bool((d > 0).any()):
-                    rows.append((si, path, float(d.max()),
-                                 int((d > 0).sum()), x.numel()))
-        out[pt.name] = rows
-    return out
+        ge = _first_grads(pt.cfg, p0, s0, TR.unit_statics(st1, ns), xb[ib],
+                          yb[ib], dev)
+        k_ref = scales(ge)
+        e1 = TR.train_neuralut_ensemble(
+            pt.cfg, xb, yb, xte, yte, seeds=g.seeds, epochs=1, batch=n,
+            lr=SWEEP_LR, weight_decay=SWEEP_WD, device=dev)
+        plan = plan_subnet_exec(pt.cfg, purpose="train", device=dev)
+        rows = {}
+        for si, seed in enumerate(g.seeds):
+            u = g.unit_index(pi, si)
+            member = TR.ensemble_member(e1[0], e1[1], si)
+            ref = {"p0": host(tree_map(lambda t: t[si], p0)),
+                   "g": host(tree_map(lambda t: t[si], ge)),
+                   "p1": host(member[0]), "scale": k_ref[si]}
+            members[(pt.name, seed)] = member_params_state(g, p1g, s1g, pi,
+                                                           si)
+            got = {"p0": host(member_params_state(g, params, state, pi,
+                                                  si)[0]),
+                   "g": host(member_params_state(g, gg, state, pi, si)[0]),
+                   "p1": host(members[(pt.name, seed)][0]),
+                   "scale": k_got[u]}
+            _, g1, _ = TR.loss_and_grads(pt.cfg, *member, st1, xb, yb,
+                                         exec_plan=plan)
+            old = _old_split_fails(ref, got, host(g1))
+            for path, i, gr, gu, pr, pu, ga in old:
+                log(f"sweep step {pt.name} seed {seed}: {path}[{i}] fails "
+                    f"the split by the gradient after the step: g_init "
+                    f"ensemble {gr:.6e} group {gu:.6e}; after the step "
+                    f"ensemble {pr:.9e} group {pu:.9e}; g_after {ga:.6e}")
+            p0d = max(float((a - b).abs().max()) for (_, a), (_, b) in zip(
+                _paths(ref["p0"]), _paths(got["p0"])))
+            split = first_step_split(ref, got, lr=lr0,
+                                     weight_decay=SWEEP_WD)
+            for f in split["failures"]:
+                log(f"sweep step {pt.name} seed {seed}: FAILS {f[0]} at "
+                    f"{f[1]}[{f[2]}]: g_init ensemble {f[3]:.6e} group "
+                    f"{f[4]:.6e}; after the step ensemble {f[5]:.9e} group "
+                    f"{f[6]:.9e}; own AdamW steps {f[7]:.9e} / {f[8]:.9e}")
+            rows[seed] = dict({k: v for k, v in split.items()
+                               if k != "failures"}, old_split_fails=len(old),
+                              p0_diff=p0d, scale_ref=float(k_ref[si]),
+                              scale_got=float(k_got[u]))
+            log(f"sweep step {pt.name} seed {seed} (group {g.index}, "
+                f"U={g.num_units}, against S={ns}): split at |g_init| "
+                f"{STEP_GRAD_T:g}: {split['big']} elements held across "
+                f"runs (worst {split['cross_tol']:.3f} of the tolerance), "
+                f"{split['small']} to their own AdamW step (worst "
+                f"{split['own_tol']:.3f}) with g_init within "
+                f"{split['grad_diff']:.3e} (all elements "
+                f"{split['grad_diff_all']:.3e}; limit {STEP_GRAD_ATOL:g}); "
+                f"ok {split['ok']}; {len(old)} elements fail the split by "
+                f"the gradient after the step; p0 diff {p0d:.3e}; clip "
+                f"scales {float(k_ref[si]):.6f} / {float(k_got[u]):.6f}")
+        report[pt.name] = rows
+    return report, members
 
 
 def _tree_diffs(a, b):
@@ -3323,20 +3494,15 @@ def phase_sweep(dev):
     # the padded NeuraLUT group (U = 6) against train_neuralut_ensemble
     # (S = 3) per point.  First each point as a group of its own (U = 3):
     # one code path with the ensemble, so bit for bit.  Then one step of
-    # the U = 6 group through run_pareto_sweep (one batch of rows, one
-    # epoch): the leaves that first differ, and its signal at the
-    # one-step tolerances.  Then the whole run at the SWEEP_* limits.
+    # the U = 6 group (one batch of rows, one epoch), every seed split by
+    # its ensemble member's gradient at init (sweep_step_check), and
+    # through run_pareto_sweep its loss and BN statistics at the one-step
+    # tolerances.  Then the whole run at the SWEEP_* limits.
     g_pad = next(g for g in groups if g.padded_cfg.kind == "subnet"
                  and len(g.points) > 1)
     equiv = {}
-    gw = _grad_witness(g_pad, xtr, ytr, dev)
-    for name, rows in gw.items():
-        log(f"sweep first-step gradients of group {g_pad.index} "
-            f"(U={g_pad.num_units}) against the ensemble's "
-            f"(S={len(SWEEP_SEEDS)}), {name}: {len(rows)} (seed, leaf) "
-            "pairs differ; (seed, leaf, max |diff|, elements differing, "
-            f"elements): {sorted(rows, key=lambda r: -r[2])[:8]}")
     xb, yb = xtr[:TRAIN_B], ytr[:TRAIN_B]
+    split, step_members = sweep_step_check(g_pad, xb, yb, xte, yte, dev)
     one = dict(kw, epochs=1)
     step_group = run_pareto_sweep(g_pad.points, xb, yb, xte, yte,
                                   convert=True, **one)
@@ -3360,6 +3526,11 @@ def phase_sweep(dev):
         e1 = TR.train_neuralut_ensemble(
             pt.cfg, xb, yb, xte, yte, seeds=SWEEP_SEEDS, epochs=1,
             batch=TRAIN_B, lr=SWEEP_LR, device=dev)
+        require(all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            _paths((r1.params, r1.state)),
+            _paths(step_members[(pt.name, SWEEP_SEEDS[r1.best_seed])]))),
+            f"{pt.name}: run_pareto_sweep's step differs from the group's "
+            "training function's")
         d1 = _member_diffs(pt.cfg, (r1.params, r1.state),
                            TR.ensemble_member(e1[0], e1[1], r1.best_seed),
                            xb, yb, dev)
@@ -3374,10 +3545,11 @@ def phase_sweep(dev):
             f"over {d1['signal_elems']} elements, zero-gradient "
             f"{d1['zero']:.3e}, BN mean {d1['mean']:.3e} var "
             f"{d1['var']:.3e}; {len(first)} leaves differ: {first[:6]}")
-        require(loss1 <= 1e-5 and d1["signal_tol"] <= 1.0
-                and d1["var"] <= 1e-5 and d1["mean"] <= 1e-5,
+        require(loss1 <= 1e-5 and d1["var"] <= 1e-5 and d1["mean"] <= 1e-5
+                and all(s["ok"] for s in split[pt.name].values()),
                 f"{pt.name}: one group step disagrees with the ensemble's "
-                f"at the one-step tolerances: {d1}")
+                f"at the one-step tolerances: {d1}, split by the gradient "
+                f"at init {split[pt.name]}")
 
         # the whole run (the main sweep's results)
         r = res.points[g_pad.point_offset + pi]
@@ -3387,8 +3559,8 @@ def phase_sweep(dev):
                            TR.ensemble_member(ens[0], ens[1], r.best_seed),
                            xb, yb, dev)
         equiv[pt.name] = dict(one_point_group_bitwise=same,
-                              first_grads=gw[pt.name][:8],
                               step=dict(d1, loss_rel=loss1,
+                                        split=split[pt.name],
                                         leaves_differing=len(first),
                                         first=first[:6]),
                               history=hd, member=md)
@@ -3464,6 +3636,279 @@ def phase_sweep(dev):
     return dict(launches=train_launches, serve_launches=serve_launches,
                 groups=group_rows, frontier=frontier, flips=flips, k1=k1,
                 equivalence=equiv, epoch=epoch, seconds=t1 - t0)
+
+
+RTL_SAMPLE = 8        # neurons re-simulated per layer (all of the last)
+
+
+def _rtl_wiring(text: str, idx: int, beta_in: int):
+    """Each neuron's source columns, slot 0 first, read back from a
+    layer module's address concatenations."""
+    import re
+    import numpy as np
+    rows = {}
+    for n, sel in re.findall(rf"rom_l{idx}_n(\d+) u\d+ \(\.clk\(clk\), "
+                             r"\.addr\(\{([^}]*)\}\)", text):
+        rows[int(n)] = [int(lo) // beta_in for lo in
+                        re.findall(r"in_bus\[\d+:(\d+)\]", sel)]
+    return np.array([rows[n] for n in range(len(rows))])
+
+
+def phase_rtl(cfg, served):
+    """Verilog of the jsc-5l tables K2 converted on the card in the main
+    path, at full width (``core.rtl.generate_top``): every entry of every
+    ROM of the last layer and of RTL_SAMPLE neurons of each other layer
+    re-simulated (``simulate_verilog_rom``) equals its table; every
+    layer's address wiring equals ``conn``; the packed tables unpack to
+    the same tables; the LUT graph is refused.  All host time."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.config import get_config
+    from repro_torch.core import lut_infer as LI
+    from repro_torch.core import model as M
+    from repro_torch.core import rtl
+    from repro_torch.core.nl_config import UnsupportedTopology
+
+    tables, statics, bundle = (served[k] for k in ("tables", "statics",
+                                                   "bundle"))
+    for i, (t, p) in enumerate(zip(tables, bundle.packed_tables)):
+        require(np.array_equal(LI.unpack_tables(p, cfg.beta), t),
+                f"layer {i}: the packed tables unpack to other tables")
+    out = tempfile.mkdtemp(prefix="chip_smoke_rtl_")
+    try:
+        t0 = time.perf_counter()
+        paths = rtl.generate_top(cfg, tables, statics, out)
+        t1 = time.perf_counter()
+        mb = sum(Path(p).stat().st_size for p in paths) / 1e6
+        checked = 0
+        for i, tbl in enumerate(tables):
+            text = Path(paths[i]).read_text()
+            o, t = tbl.shape
+            sample = (range(o) if i == cfg.num_layers - 1 else sorted(
+                {int(n) for n in np.linspace(0, o - 1, RTL_SAMPLE)}))
+            for n in sample:
+                sim = rtl.simulate_verilog_rom(text, f"rom_l{i}_n{n}",
+                                               np.arange(t))
+                require(np.array_equal(sim, tbl[n]), f"RTL layer {i} ROM "
+                        f"{n} differs from its table")
+                checked += t
+            require(np.array_equal(_rtl_wiring(text, i, cfg.layer_in_bits(i)),
+                                   np.asarray(statics[i]["conn"])),
+                    f"RTL layer {i}: the address wiring differs from conn")
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    gcfg = get_config(GRAPH_ARCH)
+    gtables = [[np.zeros((nd.width, gcfg.table_size(i)), np.uint16)] *
+               nd.arity for i, nd in enumerate(gcfg.nodes)]
+    refused = tempfile.mkdtemp(prefix="chip_smoke_rtl_dag_")
+    try:
+        rtl.generate_top(gcfg, gtables, M.model_static(gcfg), refused)
+        require(False, f"{GRAPH_ARCH}: RTL of a LUT DAG was not refused")
+    except UnsupportedTopology:
+        pass
+    finally:
+        shutil.rmtree(refused, ignore_errors=True)
+    entries = sum(t.size for t in tables)
+    log(f"RTL of the K2-converted {cfg.name} tables ({entries} entries): "
+        f"{len(paths)} files, {mb:.1f} MB in {t1 - t0:.3f} s of host; "
+        f"{checked} entries of {cfg.num_layers} layers' sampled "
+        f"ROMs re-simulated equal to the tables and every layer's wiring "
+        f"equal to conn in {t2 - t1:.3f} s; {GRAPH_ARCH} refused")
+    return dict(files=len(paths), mb=mb, emit_s=t1 - t0, check_s=t2 - t1,
+                entries=entries, entries_checked=checked)
+
+
+EXAMPLE_TIMEOUT = 600
+
+
+def phase_examples(dev):
+    """The port's three examples as a user runs them, each its own
+    process on the card: quickstart_torch.py at its defaults,
+    jsc_end_to_end_torch.py --epochs 3, and serve_lut_torch.py twice
+    against one registry (train and save, then "no retraining").  Each
+    must exit 0 with its own checks passed."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    reg = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    serve = ["--device", dev.type, "--epochs", "2", "--requests", "36",
+             "--batch", "32", "--registry", reg]
+    runs = {"quickstart": ["quickstart_torch.py", "--device", dev.type],
+            "jsc_end_to_end": ["jsc_end_to_end_torch.py", "--device",
+                               dev.type, "--epochs", "3"],
+            "serve_lut (train)": ["serve_lut_torch.py"] + serve}
+    checks = {"quickstart": ["exact match: 100.0%", "wrote 3 files"],
+              "jsc_end_to_end": ["4000 of 4000 predictions bit-exact",
+                                 "cost model:"],
+              "serve_lut (train)": ["saved bundle",
+                                    "0 of 1152 served predictions differ"],
+              "serve_lut (load)": ["no retraining",
+                                   "0 of 1152 served predictions differ"]}
+    results = {}
+
+    def run(name, argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / argv[0])] + argv[1:],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, timeout=EXAMPLE_TIMEOUT)
+        return name, proc, time.perf_counter() - t0
+
+    def check(name, proc, seconds):
+        for line in proc.stdout.splitlines()[-8:]:
+            log(f"  example {name}| {line}")
+        require(proc.returncode == 0, f"example {name} exited "
+                f"{proc.returncode}")
+        for want in checks[name]:
+            require(want in proc.stdout, f"example {name}: no '{want}'")
+        results[name] = dict(seconds=seconds)
+
+    try:
+        # the first three at once, the second serving run after the first
+        with ThreadPoolExecutor(len(runs)) as pool:
+            for done in list(pool.map(lambda kv: run(*kv), runs.items())):
+                check(*done)
+        check(*run("serve_lut (load)", ["serve_lut_torch.py"] + serve))
+    finally:
+        shutil.rmtree(reg, ignore_errors=True)
+    log("examples: " + "; ".join(
+        f"{k} exit 0 in {v['seconds']:.1f} s" for k, v in results.items()))
+    return results
+
+
+SHARD_REPLICAS = (1, 2, 3, 4)
+SHARD_BATCHES = (1, 7, 256, 4000)
+
+
+def phase_sharded(cfg, dev, served, graph_served):
+    """Sharded serving (``serve.sharded``) of the main path's jsc-5l
+    bundle over R = 1-4 logical replicas of the card (more cards where
+    the machine has them): both layouts bit-identical to
+    ``lut_infer.predict`` at B = 1, 7, 256 and the 4,000 test rows, with
+    K1 launches (replicated) and K3 ``lut_layer`` launches (o_sharded)
+    counted per call against the plan; ``polylut-add-jsc-5l`` replicated
+    bit-identical and o_sharded refused; then the wiring:
+    ``LUTServeEngine(sharded=True)`` over the test set,
+    ``TableRegistry.load(shard_replicas=4)`` and ``launch.serve
+    --sharded`` at its default."""
+    import contextlib
+    import io
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import lut_infer as LI
+    from repro_torch.core.nl_config import UnsupportedTopology
+    from repro_torch.data import jsc_synthetic
+    from repro_torch.kernels.lut_cascade import lut_cascade
+    from repro_torch.kernels.lut_gather import lut_layer
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import LUTServeEngine, TableRegistry
+    from repro_torch.serve.sharded import device_budget, make_sharded_forward_fn
+
+    x_te, _ = jsc_synthetic(4000, seed=1)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+
+    def devices(r):
+        if dev.type != "cuda":
+            return [dev] * r
+        return [torch.device("cuda", i % cards) for i in range(r)]
+
+    def want(bundle, x):
+        return LI.predict(bundle.cfg, bundle.serve_params(dev), bundle.tables,
+                          bundle.statics, torch.as_tensor(x, device=dev)
+                          ).cpu().numpy()
+
+    chain, graph = served["bundle"], graph_served["bundle"]
+    wants = {b: want(chain, x_te[:b]) for b in SHARD_BATCHES}
+    lut_cascade.launches = lut_layer.launches = 0
+    t0 = time.perf_counter()
+    per_call = {}
+    for r in SHARD_REPLICAS:
+        for mode in ("replicated", "o_sharded"):
+            fwd = make_sharded_forward_fn(chain, devices=devices(r),
+                                          mode=mode)
+            plan = chain.shard_plan
+            for b in SHARD_BATCHES:
+                k1, k3 = lut_cascade.launches, lut_layer.launches
+                got = fwd(x_te[:b]).cpu().numpy()
+                require(np.array_equal(got, wants[b]), f"sharded {mode} "
+                        f"R={r} B={b}: predictions differ from predict")
+                k1, k3 = lut_cascade.launches - k1, lut_layer.launches - k3
+                if dev.type != "cuda":   # the plain versions count none
+                    expect = (0, 0)
+                elif mode == "replicated":
+                    expect = (min(r, b), 0)
+                else:
+                    expect = (0, sum(hi > lo for blocks in plan.row_blocks
+                                     for lo, hi in blocks))
+                require((k1, k3) == expect, f"sharded {mode} R={r} B={b}: "
+                        f"launches K1 {k1}, K3 {k3}, want {expect}")
+                per_call[f"{mode}/R={r}/B={b}"] = dict(k1=k1, k3=k3)
+    dag_k1 = lut_cascade.launches
+    gwant = want(graph, x_te)
+    for r in SHARD_REPLICAS:
+        got = make_sharded_forward_fn(graph, devices=devices(r),
+                                      mode="replicated")(x_te).cpu().numpy()
+        require(np.array_equal(got, gwant), f"{GRAPH_ARCH} replicated R={r}:"
+                " predictions differ from predict")
+        try:
+            make_sharded_forward_fn(graph, devices=devices(r),
+                                    mode="o_sharded")
+            require(False, f"{GRAPH_ARCH}: o_sharded was not refused")
+        except UnsupportedTopology:
+            pass
+    dag_k1 = lut_cascade.launches - dag_k1
+
+    # the wiring: engine, registry, CLI
+    with LUTServeEngine(chain, sharded=True, devices=devices(4)) as eng:
+        eng.warmup()
+        got = eng.predict(x_te)
+        futs = [eng.submit(x) for x in served["requests"]]
+        parts = [f.result(timeout=300) for f in futs]
+    require(np.array_equal(got, wants[4000]), "LUTServeEngine(sharded=True)"
+            " differs from predict")
+    require(all(np.array_equal(p, want(chain, x)) for p, x in
+                zip(parts, served["requests"])),
+            "LUTServeEngine(sharded=True) requests differ from predict")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as root:
+        reg = TableRegistry(root)
+        reg.save(cfg.name, chain)
+        loaded = reg.load(cfg.name, shard_replicas=4)
+        arch = cfg.name.removesuffix("-reduced")
+        require(loaded.shard_plan is not None
+                and loaded.shard_plan.num_replicas == 4
+                and loaded.shard_plan.budget_bytes == device_budget(dev),
+                f"TableRegistry.load(shard_replicas=4): {loaded.shard_plan}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = launch_serve.main([
+                "--arch", arch, "--registry", root, "--requests", "40",
+                "--device", dev.type, "--sharded"]
+                + (["--reduced"] if arch != cfg.name else []))
+        text = out.getvalue()
+        for line in text.splitlines():
+            log(f"  launch.serve --sharded| {line}")
+        require("no retraining" in text and res["mismatches"] == 0
+                and res["shard_plan"] is not None,
+                "launch.serve --sharded: retrained, mismatched or unplanned")
+        cli = res["shard_plan"].describe()
+    seconds = time.perf_counter() - t0
+    launches = {"lut_cascade": lut_cascade.launches - dag_k1,
+                "lut_layer": lut_layer.launches}
+    require(dev.type != "cuda" or (launches["lut_cascade"] > 0
+                                    and launches["lut_layer"] > 0
+                                    and dag_k1 > 0),
+            f"sharded serving launches {launches}, DAG K1 {dag_k1}")
+    log(f"sharded serving: R = {SHARD_REPLICAS} logical replicas over "
+        f"{cards} card(s), both layouts bit-identical to predict at B = "
+        f"{SHARD_BATCHES}, launches per call as planned; {GRAPH_ARCH} "
+        f"replicated bit-identical, o_sharded refused; engine, registry "
+        f"(budget {device_budget(dev)} B) and CLI {cli}; launches "
+        f"{launches}, DAG K1 {dag_k1}; {seconds:.2f} s")
+    return dict(launches=launches, dag_k1=dag_k1, per_call=per_call,
+                cards=cards, seconds=seconds, cli=cli)
 
 
 TURN_BATCHES = (1, 8, 64, 256, 4096)   # K1 in turns
@@ -3703,6 +4148,7 @@ def main() -> int:
     launches, served = phase_main_path(cfg, dev)
     stages = phase_convert_stages(cfg, dev)
     layer = phase_layer_serving(cfg, dev, served)
+    rtl = phase_rtl(cfg, served)
     graph_launches, graph, graph_served = phase_graph_serving(dev)
     probe = {"before": profiler_probe(dev)}
     stack = phase_serving_stack(dev, card, served, graph_served)
@@ -3711,6 +4157,7 @@ def main() -> int:
         "trace), short traces before / after the serving stack: " + "; ".join(
             f"{k} {probe['before'][k]} / {probe['after'][k]} of "
             f"{probe['before']['traces']}" for k in ("k4", "control")))
+    sharded = phase_sharded(cfg, dev, served, graph_served)
     k4, k5 = phase_train_kernels(cfg, dev)
     shapes = phase_train_shapes(dev)
     train = phase_train_path(cfg, dev)
@@ -3718,6 +4165,7 @@ def main() -> int:
     ens = phase_ensemble_path(cfg, dev)
     gtrain = phase_graph_train_path(get_config(GRAPH_ARCH), dev)
     kinds = phase_kinds(cfg, dev)
+    examples = phase_examples(dev)
     sweep_k = phase_sweep_kernels(dev)
     sweep = phase_sweep(dev)
 
@@ -3865,7 +4313,8 @@ def main() -> int:
                 "graph_serve": k["launches"],
                 "graph_train": gtrain["train"]["launches"][name],
                 "graph_ensemble": gtrain["ensemble"]["launches"][name],
-                "serving_stack": stack["k1"]["dag"]}
+                "serving_stack": stack["k1"]["dag"],
+                "sharded_serve": sharded["dag_k1"]}
             continue
         k["launches_by_path"] = {
             "serve": launches.get(name, 0),
@@ -3875,11 +4324,15 @@ def main() -> int:
             **{f"kind_{kind}": r["launches"][name]
                for kind, r in kinds.items()},
             "sweep": (sweep["serve_launches"] if name == "lut_cascade"
-                      else sweep["launches"]).get(name, 0)}
+                      else sweep["launches"]).get(name, 0),
+            "sharded_serve": sharded["launches"].get(name, 0)}
         k["sweep_shapes"] = {
             "lut_cascade": sweep["k1"], "grouped_subnet": sweep_k["k2"],
             "subnet_train_fwd": sweep_k["train"],
             "subnet_train_bwd": sweep_k["train"]}.get(name)
+        if name in ("lut_cascade", "lut_layer"):
+            k["sharded_serve"] = {key: sharded[key] for key in (
+                "per_call", "cards", "seconds", "cli")}
         if name == "lut_cascade":
             k["launches_by_path"]["serving_stack"] = stack["k1"]["chain"]
             k["serving_stack"] = {key: stack[key] for key in (
@@ -3920,6 +4373,10 @@ def main() -> int:
             f"{u}: busy share {r['busy_share']:.4f}, K4 {r['k4_ms_step']:.4f}"
             f" + K5 {r['k5_ms_step']:.4f} ms per step"
             for u, r in sweep["epoch"].items()))
+    log(f"RTL ({card}): {rtl['mb']:.1f} MB of Verilog emitted in "
+        f"{rtl['emit_s']:.3f} s of host, sampled ROMs checked in "
+        f"{rtl['check_s']:.3f} s; examples: " + ", ".join(
+            f"{k} {v['seconds']:.1f} s" for k, v in examples.items()))
     log(card)  # nvidia-smi's "name, power.limit", as it printed them
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,15 @@ Signed symmetric ``beta``-bit quantizer with a learned per-channel scale
 agree with the JAX package bit for bit on equal inputs.  BatchNorm is
 written out by hand: ``nn.BatchNorm1d`` keeps the unbiased variance in
 its running state, the reference keeps the biased one.
+
+Every reduction over the batch rows of a training step (BN's batch
+statistics, and the gradients of the per-channel scale, gain and bias,
+which autograd sums over the rows they were broadcast to) runs in
+float64 and is rounded to float32 once.  On CUDA the order of a float32
+reduction follows the tensor's shape, which under ``torch.func.vmap``
+includes the unit count; in float64 the order no longer shows in the
+float32 result, so a seed trained in an ensemble or a sweep group takes
+the same step as when trained alone.
 """
 from __future__ import annotations
 
@@ -44,6 +53,12 @@ def _clip_bounds(beta: int, device: torch.device
             torch.tensor(float(hi), device=device))
 
 
+def _rows(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``t`` (C,) broadcast to ``x``'s shape (..., C), with its gradient
+    summed over the rows in float64 (see the module docstring)."""
+    return t.double().expand(x.shape).to(t.dtype)
+
+
 def quant_apply(p: Params, x: torch.Tensor, beta: int) -> torch.Tensor:
     """Fake-quantize x (..., C) to beta bits; returns dequantized values.
 
@@ -52,7 +67,7 @@ def quant_apply(p: Params, x: torch.Tensor, beta: int) -> torch.Tensor:
     the lowest or highest code) each side takes half the gradient.
     ``torch.clamp`` would pass all of it to the input, doubling the
     gradient of every saturated activation and of its ``log_s``."""
-    s = torch.exp(p["log_s"])
+    s = _rows(torch.exp(p["log_s"]), x)
     lo, hi = _clip_bounds(beta, x.device)
     vq = torch.minimum(torch.maximum(_ste_round(x / s), lo), hi)
     return vq * s
@@ -75,16 +90,21 @@ def bn_apply(p: Params, state: Params, x: torch.Tensor, *, train: bool,
              momentum: float = 0.1, eps: float = 1e-5
              ) -> Tuple[torch.Tensor, Params]:
     """x: (B, C).  Returns (normalized, new_state); the running variance
-    takes the biased batch variance, as the reference does."""
-    if train:
-        mu = x.mean(dim=0)
-        var = x.var(dim=0, unbiased=False)
-        new_state = {
-            "mean": (1 - momentum) * state["mean"] + momentum * mu,
-            "var": (1 - momentum) * state["var"] + momentum * var,
-        }
-    else:
-        mu, var = state["mean"], state["var"]
-        new_state = state
-    y = (x - mu) * torch.rsqrt(var + eps) * p["g"] + p["b"]
+    takes the biased batch variance, as the reference does.  In training
+    the batch statistics and the row sums of the gradients are float64
+    (see the module docstring)."""
+    if not train:
+        y = (x - state["mean"]) * torch.rsqrt(state["var"] + eps) \
+            * p["g"] + p["b"]
+        return y, state
+    x64 = x.double()
+    mu64 = x64.mean(dim=0)
+    mu = mu64.to(x.dtype)
+    var = torch.square(x64 - mu64).mean(dim=0).to(x.dtype)
+    new_state = {
+        "mean": (1 - momentum) * state["mean"] + momentum * mu,
+        "var": (1 - momentum) * state["var"] + momentum * var,
+    }
+    y = (x - _rows(mu, x)) * _rows(torch.rsqrt(var + eps), x) \
+        * _rows(p["g"], x) + _rows(p["b"], x)
     return y, new_state

@@ -7,6 +7,7 @@
         --tenants 3 --swap
     python -m repro_torch.launch.serve --arch neuralut-jsc-2l --reduced \\
         --epochs 1 --device cpu --retrain
+    python -m repro_torch.launch.serve --arch neuralut-jsc-5l --sharded
 
 Converted truth tables are a deployable artifact: if ``--registry``
 already holds a bundle for the arch, it is loaded (checksums verified)
@@ -19,6 +20,11 @@ every served prediction is checked against ``lut_infer.predict``.
 Reports p50/p95/p99 request latency, throughput, queue depth and batch
 occupancy from the engine's metrics.
 
+With ``--sharded`` one executor serves every batch through the cascade
+laid out over the device pool (``serve/sharded.py``): one shard per CUDA
+device (the CPU with ``--device cpu``), replicated when the packed
+tables fit a device's L2, else each layer's neurons split across them.
+
 With ``--tenants N`` N tenants are served through one admission-
 controlled ``MultiTenantEngine`` (tenant 0 is the registry bundle; the
 others are same-geometry variants with random tables, rate-limited by
@@ -27,7 +33,7 @@ copy of its bundle under live traffic and prints the ``SwapReport``.
 
 Takes the JSC chains (``neuralut-jsc-*``) and the PolyLUT-Add graphs
 (``polylut-add-jsc-*``).  Runs on CUDA unless ``--device cpu``.  Not
-ported: ``--mode lm`` (the LM decoder), ``--sharded`` (sharded serving).
+ported: ``--mode lm`` (the LM decoder).
 """
 from __future__ import annotations
 
@@ -123,8 +129,11 @@ def serve_lut(args) -> Dict[str, Any]:
     bundle = build_lut_bundle(args)
     xte, yte = jsc_synthetic(4000, seed=1)
     with LUTServeEngine(bundle, max_wait_ms=args.max_wait_ms,
-                        replicas=args.replicas, device=args.device) as eng:
+                        replicas=args.replicas, device=args.device,
+                        sharded=args.sharded) as eng:
         eng.warmup()
+        if args.sharded:
+            print(f"sharded: {bundle.shard_plan.describe()}", flush=True)
         rng = np.random.default_rng(0)
         # Bounded in-flight window: enough concurrency to exercise the
         # batcher, without an unbounded burst whose latency percentiles
@@ -156,7 +165,8 @@ def serve_lut(args) -> Dict[str, Any]:
     return {"bundle": bundle, "metrics": eng.metrics.report(),
             "replica_batches": [m.report()["batches"]
                                 for m in eng.replica_metrics],
-            "forwards": eng.forwards, "acc": acc, "mismatches": mismatches}
+            "forwards": eng.forwards, "acc": acc, "mismatches": mismatches,
+            "shard_plan": bundle.shard_plan if args.sharded else None}
 
 
 def _copy_statics(statics):
@@ -287,7 +297,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                     help="replica executors to route batches across "
                          "(over the CUDA devices, round-robin)")
     ap.add_argument("--sharded", action="store_true",
-                    help="sharded serving (not ported)")
+                    help="serve through the cascade laid out over the "
+                         "devices (repro_torch.serve.sharded) instead of "
+                         "replica routing")
     ap.add_argument("--tenants", type=int, default=0,
                     help="serve N tenants through one MultiTenantEngine")
     ap.add_argument("--rate-limit", type=float, default=0.0,
@@ -307,10 +319,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         raise NotImplementedError(
             "--mode lm: the LM decoder " + NOT_PORTED.format(
                 "Queue A item 7"))
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded: sharded serving " + NOT_PORTED.format(
-                "Queue A item 3"))
     if args.kernel:
         raise SystemExit("--kernel: the port has no route to force; it "
                          "serves through the LUT-cascade kernel (K1) on "

@@ -46,9 +46,11 @@ def adamw_update(grads, state: OptState, params, *, lr,
     bc1 = 1.0 - beta1 ** cf
     bc2 = 1.0 - beta2 ** cf
     if grad_clip > 0:
-        gsq = sum(torch.sum(torch.square(g.to(torch.float32)))
+        # float64, so that the sum's order (on CUDA it follows the
+        # leaf's shape, the seed count included) does not show
+        gsq = sum(torch.sum(torch.square(g.to(torch.float64)))
                   for g in tree_leaves(grads))
-        gnorm = torch.sqrt(gsq)
+        gnorm = torch.sqrt(gsq).to(torch.float32)
         scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
     else:

@@ -40,8 +40,10 @@ fails its batch like any replica failure (health report, redispatch to
 another replica, then ``DispatchFailed`` chaining the error), so a
 broken K1 on the card can never hide behind its plain version.
 
-``sharded=True`` (the reference's ``shard_map``'d cascade) is not
-ported.
+``sharded=True`` serves every batch through one executor whose forward
+lays the cascade out over ``devices`` (or the device pool), replicated
+or o_sharded (``serve/sharded.py``): the counterpart of the
+reference's ``shard_map``'d cascade over its replica mesh.
 """
 from __future__ import annotations
 
@@ -55,7 +57,6 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import NOT_PORTED
 from repro_torch.core import lut_infer as LI
 from repro_torch.core.exec_plan import (CascadeExec, LayerOperands,
                                         plan_cascade_exec)
@@ -425,25 +426,28 @@ def _device_pool(device: DeviceLike, devices: Optional[Sequence]
                  ) -> List[torch.device]:
     """The devices replicas cycle over: ``devices``, else ``[device]``,
     else every CUDA device (``device=None`` means CUDA, and raises
-    without it)."""
+    without it).  A CUDA device without an index gets the current one,
+    so that equal devices compare equal."""
     if devices is not None:
         pool = [resolve_device(d) for d in devices]
         if not pool:
             raise ValueError("devices= must name at least one device")
-        return pool
-    dev = resolve_device(device)
-    if device is None:
+    elif device is None:
+        resolve_device(None)
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return [dev]
+    else:
+        pool = [resolve_device(device)]
+    return [torch.device("cuda", torch.cuda.current_device())
+            if d.type == "cuda" and d.index is None else d for d in pool]
 
 
 class LUTServeEngine:
     """Serve a ServeBundle behind a dynamic batcher with replica routing
     (see module docstring).  ``device`` (``None`` = every CUDA device)
-    or ``devices`` names the pool the ``replicas`` cycle over."""
+    or ``devices`` names the pool the ``replicas`` cycle over; with
+    ``sharded=True`` (one replica) the shards of ``shard_mode``'s layout,
+    one per entry of that pool (``["cpu"] * 4``: four logical shards)."""
 
     def __init__(self, bundle: ServeBundle, *,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
@@ -455,6 +459,7 @@ class LUTServeEngine:
                  devices: Optional[Sequence] = None,
                  health: Optional[ReplicaHealthTracker] = None,
                  sharded: bool = False,
+                 shard_mode: str = "auto",
                  plan: Optional[CascadeExec] = None,
                  max_dispatch_retries: int = 2,
                  revive_probe: Optional[Callable[[int], bool]] = None,
@@ -464,10 +469,14 @@ class LUTServeEngine:
                 or buckets[0] < 1:
             raise ValueError(f"buckets must be strictly increasing "
                              f"positive sizes: {buckets}")
-        if sharded:
-            raise NotImplementedError(
-                "LUTServeEngine(sharded=True): sharded serving "
-                + NOT_PORTED.format("Queue A item 3"))
+        if sharded and replicas != 1:
+            raise ValueError(
+                "sharded=True serves through ONE executor whose forward "
+                "spans the shard devices; combine it with replicas=1 (use "
+                "plain replicas=N for independent-executor routing)")
+        if sharded and plan is not None:
+            raise ValueError("sharded=True plans its own sharded dispatch; "
+                             "plan= applies to replica engines")
         if replicas < 1:
             raise ValueError(f"replicas={replicas} must be >= 1")
         if max_dispatch_retries < 0:
@@ -478,6 +487,7 @@ class LUTServeEngine:
         self.max_wait_s = max_wait_ms / 1e3
         self.plan = plan or plan_cascade_exec(bundle.cfg, fused=fused)
         self.fused = self.plan.fused
+        self.sharded = sharded
         self.max_dispatch_retries = max_dispatch_retries
         self.revive_probe = revive_probe
         self.chaos = chaos
@@ -488,16 +498,22 @@ class LUTServeEngine:
                 f"health tracker covers {self.health.num_replicas} "
                 f"replicas, engine has {replicas}")
         pool = _device_pool(device, devices)
-        devs = [pool[i % len(pool)] for i in range(replicas)]
+        if sharded:
+            from repro_torch.serve.sharded import make_sharded_forward_fn
+            devs = pool[:1]
+            forwards = [make_sharded_forward_fn(bundle, devices=pool,
+                                                mode=shard_mode)]
+        else:
+            devs = [pool[i % len(pool)] for i in range(replicas)]
+            forwards = [make_forward_fn(bundle, plan=self.plan, device=d)
+                        for d in devs]
         self.device = devs[0]
         self._executors = [
-            _ReplicaExecutor(i, make_forward_fn(bundle, plan=self.plan,
-                                             device=d),
-                             buckets=self.buckets, device=d,
+            _ReplicaExecutor(i, f, buckets=self.buckets, device=d,
                              engine_metrics=self.metrics,
                              health=self.health,
                              redispatch=self._redispatch, chaos=chaos)
-            for i, d in enumerate(devs)]
+            for i, (f, d) in enumerate(zip(forwards, devs))]
         self._rr = 0  # round-robin cursor for routing tie-breaks
         self._queue: "queue.Queue" = queue.Queue()
         self._thread: Optional[threading.Thread] = None

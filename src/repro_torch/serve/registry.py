@@ -34,7 +34,8 @@ Bundles without an integrity record load unchanged.
 
 The port's bundle carries no shift matrices: its cascade kernel takes
 the connectivity itself (``kernels.lut_cascade.CascadeOperands``).
-Sharded loading (``load(shard_replicas=)``) is not ported.
+``load(shard_replicas=R)`` plans the bundle's layout over R devices at
+load (``serve/sharded.py``).
 """
 from __future__ import annotations
 
@@ -50,7 +51,6 @@ from typing import Any, Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch import NOT_PORTED
 from repro_torch.checkpoint import CheckpointStore
 from repro_torch.checkpoint.store import _flatten
 from repro_torch.config import config_fingerprint
@@ -134,6 +134,25 @@ class ServeBundle:
     # (kernels/lut_cascade.cascade_meta / graph_cascade_meta).
     packed_tables: Optional[List[np.ndarray]] = None  # [(O, T/P) int32]
     cascade_geom: Optional[tuple] = None
+    # Multi-device layout (serve/sharded.py), cached by plan_shards().
+    shard_plan: Optional[Any] = None
+
+    def plan_shards(self, num_replicas: int, *, mode: str = "auto",
+                    budget_bytes: Optional[int] = None):
+        """Compute (and cache) the multi-device layout of this bundle,
+        replicated or o_sharded, with its per-device operands built
+        once, so sharded serving never converts on the hot path.
+        Re-plans only when the requested layout changes, as the
+        reference's."""
+        from repro_torch.serve.sharded import plan_shards
+        plan = self.shard_plan
+        if (plan is None or plan.num_replicas != num_replicas
+                or (mode != "auto" and plan.mode != mode)
+                or (budget_bytes is not None
+                    and plan.budget_bytes != budget_bytes)):
+            self.shard_plan = plan_shards(self, num_replicas, mode=mode,
+                                          budget_bytes=budget_bytes)
+        return self.shard_plan
 
     def prepack(self) -> "ServeBundle":
         """Bit-pack every table and derive the cascade geometry;
@@ -373,14 +392,12 @@ class TableRegistry:
 
     def load(self, name: str, *, version: Optional[int] = None,
              verify: bool = True,
-             shard_replicas: Optional[int] = None) -> ServeBundle:
+             shard_replicas: Optional[int] = None,
+             shard_mode: str = "auto") -> ServeBundle:
         """The newest committed version (or ``version``), verified
         against its checksums unless ``verify=False``, packed and ready
-        to serve."""
-        if shard_replicas is not None:
-            raise NotImplementedError(
-                "TableRegistry.load(shard_replicas=): sharded serving "
-                + NOT_PORTED.format("Queue A item 3"))
+        to serve; with ``shard_replicas`` its layout over that many
+        devices is planned here too (``ServeBundle.plan_shards``)."""
         store = self._store(name)
         step = store.latest_step() if version is None else version
         if step is None:
@@ -431,12 +448,16 @@ class TableRegistry:
         extra = {k: v for k, v in meta.items()
                  if k not in ("format", "config", "fingerprint",
                               "topology")}
-        return ServeBundle(
+        bundle = ServeBundle(
             cfg=cfg, tables=tables, statics=statics,
             in_log_s=np.asarray(tree["in_log_s"], np.float32),
             layer_log_s=[np.asarray(s, np.float32)
                          for s in tree["layer_log_s"]],
             meta=extra).prepack()
+        if shard_replicas is not None:
+            # Multi-device deployments plan once, at load.
+            bundle.plan_shards(shard_replicas, mode=shard_mode)
+        return bundle
 
     # -- integrity --------------------------------------------------------
 

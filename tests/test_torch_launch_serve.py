@@ -79,7 +79,7 @@ def test_cli_without_registry_does_not_persist(tmp_path, capsys,
 
 @pytest.mark.parametrize("argv,exc,match", [
     (["--mode", "lm"], NotImplementedError, "Queue A item 7"),
-    (["--sharded"], NotImplementedError, "Queue A item 3"),
+    (["--sharded", "--replicas", "2"], ValueError, "replicas=1"),
     (["--kernel"], SystemExit, "no route to force"),
     (["--arch", "llama3-8b"], SystemExit, "unknown"),
 ])

@@ -64,3 +64,27 @@ def test_quant_apply_grads_match_jax(beta):
                                **SUM_TOL)
     # the ties are really there: a half gradient on some inputs
     assert np.isclose(np.abs(np.asarray(jg_x) / w), 0.5).any()
+
+
+def test_batch_row_sums_are_float64():
+    """BN's batch statistics and the row sums of the scale, gain and bias
+    gradients are float64 sums rounded once to float32, so their value
+    does not depend on the order a float32 reduction would take (on
+    CUDA, the tensor's shape, the unit count of a vmapped ensemble
+    included).  The column [1e8, 1, -1e8, 1] sums to 2 exactly; in
+    float32 the ones are lost to the 1e8 in any order."""
+    col = torch.tensor([1e8, 1.0, -1e8, 1.0])
+    x = torch.stack([col, torch.ones(4)], dim=1)
+    p = {"g": torch.ones(2, requires_grad=True),
+         "b": torch.zeros(2, requires_grad=True)}
+    state = {"mean": torch.zeros(2), "var": torch.zeros(2)}
+    y, new = Q.bn_apply(p, state, x, train=True, momentum=1.0)
+    assert new["mean"].tolist() == [0.5, 1.0]
+    (y * x).sum().backward()
+    assert p["b"].grad[0].item() == 2.0      # sum of the column, float64
+    log_s = torch.zeros(2, requires_grad=True)
+    Q.quant_apply({"log_s": log_s}, torch.full((4, 2), 0.25), 4).mul(
+        x).sum().backward()
+    # at s = 1 each row's d(round(v / s) * s)/dlog_s is round(v) - v
+    # (straight-through) = -0.25, weighted by the column
+    assert log_s.grad[0].item() == -0.25 * 2.0

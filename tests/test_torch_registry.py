@@ -407,7 +407,7 @@ def test_missing_versions_and_sharded_load(tmp_path):
     with pytest.raises(FileNotFoundError):
         reg.load("nope")
     assert reg.verify("nope")["bad"] == ["no committed version"]
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
+    with pytest.raises(FileNotFoundError):
         reg.load("nope", shard_replicas=2)
 
 

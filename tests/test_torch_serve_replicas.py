@@ -197,8 +197,8 @@ def test_replicas_cycle_over_the_device_pool(chain):
         engine(pb, replicas=0)
     with pytest.raises(ValueError):
         engine(pb, max_dispatch_retries=-1)
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        engine(pb, sharded=True)
+    with pytest.raises(ValueError, match="replicas=1"):
+        engine(pb, sharded=True, replicas=2)
 
 
 def test_evicted_replica_stops_receiving_batches(chain):
