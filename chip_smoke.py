@@ -102,6 +102,8 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
+import random
 import subprocess
 import sys
 import time
@@ -190,9 +192,29 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def hash_seed() -> str:
+    return os.environ.get("PYTHONHASHSEED", "unset")
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
-        raise RuntimeError(f"FAILED: {msg}")
+        raise RuntimeError(f"FAILED (PYTHONHASHSEED={hash_seed()}): {msg}")
+
+
+def ensure_hash_seed() -> str:
+    """The connectivity of every NeuraLUT layer comes from Python's
+    salted ``hash`` (``core/layers.py``), so a run is replayable only
+    under a fixed ``PYTHONHASHSEED``.  When none is set, choose one,
+    set it and re-execute this script once under it (the child sees it
+    set and goes on).  Returns the seed."""
+    seed = os.environ.get("PYTHONHASHSEED")
+    if seed is None or seed == "random":
+        seed = str(random.SystemRandom().randint(1, 2 ** 32 - 1))
+        os.environ["PYTHONHASHSEED"] = seed
+        sys.stdout.flush()
+        os.execv(sys.executable, [sys.executable, str(Path(__file__).resolve())]
+                 + sys.argv[1:])
+    return seed
 
 
 def call_ms(fn, reps: int) -> float:
@@ -473,7 +495,8 @@ def _close(got, want, rtol, atol, what: str = "") -> float:
     if not bool((err <= atol + rtol * want.abs()).all()):
         i = int((err / (atol + rtol * want.abs())).flatten().argmax())
         raise RuntimeError(
-            f"FAILED: {what + ': ' if what else ''}max err "
+            f"FAILED (PYTHONHASHSEED={hash_seed()}): "
+            f"{what + ': ' if what else ''}max err "
             f"{float(err.max()):.3e} beyond rtol {rtol} / atol {atol}; worst "
             f"at flat index {i}: {float(got.flatten()[i]):.9e} against "
             f"{float(want.flatten()[i]):.9e}")
@@ -884,6 +907,98 @@ def _flat(tree):
     return tree_leaves(tree)
 
 
+def train_step_check(cfg, params, state, sd, xb, yb, plan_k, plan_c):
+    """One training step's gradients of a NeuraLUT chain or LUT graph
+    through the training kernels (``plan_k``) against plain autograd
+    (``plan_c``).
+
+    The two routes compute each hidden function in another float32
+    order, so a pre-quantization value within rounding of a ``round()``
+    boundary may take neighbouring codes in the two routes, and all that
+    lies downstream of that code then differs by far more than rounding
+    (the card, over 160 connectivities of jsc-5l: 3 such runs, up to
+    2,790x the tolerance).  So the plain route is walked node by node
+    (a chain layer is a node of one branch) on the kernel route's
+    forward: each node reads the kernel route's codes, each branch's
+    pre-quantization values (hidden function, then BN) must agree with
+    the kernel route's within rtol K5_RTOL / atol K5_ATOL, and those
+    values are then replaced by the kernel route's in the forward only
+    (``pre_c + (pre_k - pre_c).detach()``), so that the quantizer rounds
+    the same values while the gradient flows through the plain route's
+    own graph.  The last node's pre-quantization values are the logits,
+    as in ``model_apply``.  Then the gradients (rtol K5_RTOL / atol
+    K5_ATOL) and the BN state (K4's) are held as before.  Returns the
+    readings, among them the codes that differ between the routes per
+    node; raises on a disagreement."""
+    import torch
+    from repro_torch.core import model as M
+    from repro_torch.core import quant
+    from repro_torch.core import train as TR
+    from repro_torch.core.nl_config import is_graph_config
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    graph = is_graph_config(cfg)
+    nodes = len(cfg.nodes) if graph else cfg.num_layers
+    lk, gk, sk = TR.loss_and_grads(cfg, params, state, sd, xb, yb,
+                                   exec_plan=plan_k)
+
+    def walk(p, plan, forced=None):
+        """-> (logits, per node the branches' pre-quant values, the new
+        BN state); ``forced``: the values to round in place of each
+        branch's own (but at the logits)."""
+        bufs = [quant.quant_apply(p["in_quant"], xb, cfg.beta_in or cfg.beta)]
+        pres, states = [], []
+        for i in range(nodes):
+            lp, ls = p["layers"][i], state["layers"][i]
+            pool = M.graph_pool(cfg, bufs, i) if graph else bufs[-1]
+            br = (M.node_branch_params(cfg.nodes[i], lp, ls) if graph
+                  else [(lp["fn"], lp["bn"], ls["bn"])])
+            y, pres_i, bns = None, [], []
+            for a, ((fnp, bnp, bns_a), conn) in enumerate(zip(
+                    br, M.node_static_conns(sd[i]))):
+                xg = pool[:, conn.to(device=pool.device, dtype=torch.long)]
+                f = plan.apply(fnp, xg, exps=sd[i].get("exps"))
+                pre, nbn = quant.bn_apply(bnp, bns_a, f, train=True,
+                                          momentum=cfg.bn_momentum)
+                pres_i.append(pre)
+                bns.append(tree_map(torch.Tensor.detach, nbn))
+                if forced is not None and i < nodes - 1:
+                    pre = pre + (forced[i][a] - pre).detach()
+                qa = quant.quant_apply(lp["quant"], pre, cfg.beta)
+                y = qa if y is None else y + qa
+            bufs.append(y)
+            pres.append(pres_i)
+            states.append({"bn": bns[0] if len(bns) == 1 else bns})
+        return pre, pres, {"layers": states}
+
+    with torch.no_grad():  # the kernel route's forward (K4 reruns exactly)
+        _, pre_k, _ = walk(params, plan_k)
+    p = tree_map(lambda a: a.detach().requires_grad_(True), params)
+    logits, pre_c, sc = walk(p, plan_c, forced=pre_k)
+    flips, pre_err = [], 0.0
+    for i in range(nodes):
+        lq = p["layers"][i]["quant"]
+        flips.append(0)
+        for a, (c, k) in enumerate(zip(pre_c[i], pre_k[i])):
+            pre_err = max(pre_err, _close(
+                c.detach(), k, K5_RTOL, K5_ATOL,
+                f"step-1 pre-quant node {i} branch {a}"))
+            flips[-1] += int((quant.quant_codes(lq, c.detach(), cfg.beta)
+                              != quant.quant_codes(lq, k, cfg.beta)).sum())
+    lc = M.ce_loss(logits, yb)
+    leaves = tree_leaves(p)
+    gc = [torch.zeros_like(a) if g is None else g for a, g in zip(
+        leaves, torch.autograd.grad(lc, leaves, allow_unused=True))]
+    gc = tree_unflatten(params, gc)
+    gerr = max(_close(a, b, K5_RTOL, K5_ATOL, f"step-1 gradient {q}")
+               for (q, a), (_, b) in zip(_paths(gk), _paths(gc)))
+    bn_err = max(_close(a, b, K4_RTOL, K4_ATOL, f"step-1 BN state {q}")
+                 for (q, a), (_, b) in zip(_paths(sk), _paths(sc)))
+    return dict(loss_k=float(lk), loss_c=float(lc.detach()), grad_err=gerr,
+                pre_err=pre_err, bn_err=bn_err, flips=flips,
+                leaves=len(_paths(gk)))
+
+
 def phase_train_path(cfg, dev):
     """The port's training path at full neuralut-jsc-5l: device-resident
     data, seeded init and calibration, train_neuralut on kernel_train
@@ -978,19 +1093,16 @@ def phase_train_path(cfg, dev):
     plan_c = plan_subnet_exec(cfg, purpose="train", device=dev,
                               route="canonical")
     require(plan_k.route == "kernel_train", f"train plan {plan_k.route}")
-    lk, gk, sk = TR.loss_and_grads(cfg, p0, s0, sd, xtr[ib[0]], ytr[ib[0]],
-                                   exec_plan=plan_k)
-    lc, gc, sc = TR.loss_and_grads(cfg, p0, s0, sd, xtr[ib[0]], ytr[ib[0]],
-                                   exec_plan=plan_c)
-    torch.cuda.synchronize()
-    gerr = max(_close(a, b, K5_RTOL, K5_ATOL, f"step-1 gradient {p}")
-               for (p, a), (_, b) in zip(_paths(gk), _paths(gc)))
-    serr = max(_close(a, b, K4_RTOL, K4_ATOL, f"step-1 BN state {p}")
-               for (p, a), (_, b) in zip(_paths(sk), _paths(sc)))
-    log(f"step 1: loss kernel_train {float(lk):.7f} canonical "
-        f"{float(lc):.7f}; {len(_flat(gk))} gradient leaves within rtol "
+    chk = train_step_check(cfg, p0, s0, sd, xtr[ib[0]], ytr[ib[0]],
+                           plan_k, plan_c)
+    gerr = chk["grad_err"]
+    log(f"step 1: loss kernel_train {chk['loss_k']:.7f} canonical "
+        f"{chk['loss_c']:.7f}; each layer's pre-quant values of both routes "
+        f"fed the same input within rtol {K5_RTOL} / atol {K5_ATOL} (max "
+        f"err {chk['pre_err']:.3e}), codes that differ by layer "
+        f"{chk['flips']}; {chk['leaves']} gradient leaves within rtol "
         f"{K5_RTOL} / atol {K5_ATOL} (max err {gerr:.3e}), BN state max "
-        f"err {serr:.3e}")
+        f"err {chk['bn_err']:.3e}")
 
     # Rerun: the same steps from the same init, bit for bit.
     step = TR.make_step_fn(cfg, lr=2e-3, weight_decay=1e-4, t0=steps,
@@ -2772,15 +2884,9 @@ def phase_graph_train_path(cfg, dev):
     plan_c = plan_subnet_exec(cfg, purpose="train", device=dev,
                               route="canonical")
     require(plan_k.route == "kernel_train", f"train plan {plan_k.route}")
-    lk, gk, sk = TR.loss_and_grads(cfg, p0, s0, sd, xtr[ib[0]], ytr[ib[0]],
-                                   exec_plan=plan_k)
-    lc, gc, sc = TR.loss_and_grads(cfg, p0, s0, sd, xtr[ib[0]], ytr[ib[0]],
-                                   exec_plan=plan_c)
-    torch.cuda.synchronize()
-    gerr = max(_close(a, b, K5_RTOL, K5_ATOL, f"step-1 gradient {p}")
-               for (p, a), (_, b) in zip(_paths(gk), _paths(gc)))
-    serr = max(_close(a, b, K4_RTOL, K4_ATOL, f"step-1 BN state {p}")
-               for (p, a), (_, b) in zip(_paths(sk), _paths(sc)))
+    chk = train_step_check(cfg, p0, s0, sd, xtr[ib[0]], ytr[ib[0]],
+                           plan_k, plan_c)
+    gerr = chk["grad_err"]
     step = TR.make_step_fn(cfg, lr=2e-3, weight_decay=1e-4, t0=steps,
                            exec_plan=plan_k)
     c4, c5, n4, n5 = _step_kernel_count(lambda: step(
@@ -2788,11 +2894,14 @@ def phase_graph_train_path(cfg, dev):
     require((n4, n5) == (branches, branches) and (c4, c5) == (n4, n5),
             f"one graph step: {n4} K4 and {n5} K5 wrapper calls, {c4} K4 and "
             f"{c5} K5 kernels in its trace; want {branches} of each")
-    log(f"graph step 1: loss kernel_train {float(lk):.7f} canonical "
-        f"{float(lc):.7f}; {len(_flat(gk))} gradient leaves within rtol "
+    log(f"graph step 1: loss kernel_train {chk['loss_k']:.7f} canonical "
+        f"{chk['loss_c']:.7f}; every branch's pre-quant values of both "
+        f"routes fed the same input within rtol {K5_RTOL} / atol {K5_ATOL} "
+        f"(max err {chk['pre_err']:.3e}), codes that differ by node "
+        f"{chk['flips']}; {chk['leaves']} gradient leaves within rtol "
         f"{K5_RTOL} / atol {K5_ATOL} (max err {gerr:.3e}), BN state max err "
-        f"{serr:.3e}; a profiled step holds {c4} K4 and {c5} K5 kernels for "
-        f"{n4} / {n5} wrapper calls: 1 kernel per call")
+        f"{chk['bn_err']:.3e}; a profiled step holds {c4} K4 and {c5} K5 "
+        f"kernels for {n4} / {n5} wrapper calls: 1 kernel per call")
 
     def epoch():
         p, s, o = p0, s0, adamw_init(p0)
@@ -3638,6 +3747,372 @@ def phase_sweep(dev):
                 equivalence=equiv, epoch=epoch, seconds=t1 - t0)
 
 
+LM_ARCH = "lm-100m"
+LM_REDUCED = False         # True: the reduced config (CPU rehearsals)
+LM_CUT_LAYERS = 2          # (a) and (c): full width, depth cut to 2
+LM_B, LM_S = 8, 128        # the launcher's default global batch and seq
+LM_TRAIN_STEPS, LM_CKPT_EVERY = 40, 20
+LM_SUP_STEPS, LM_SUP_EVERY, LM_FAIL_AT = 20, 5, 13
+LM_DECODE_B, LM_DECODE_CTX, LM_DECODE_TOKENS = 64, 128, 64
+LM_PREFILL = 16            # decoded tokens held against prefill logits
+LM_PROFILE_STEPS = 3       # full-depth steps timed, then profiled
+LM_CLI_TIMEOUT = 300
+# (a) the card's float32 step against the CPU's, TF32 off: the loss to
+# rtol 1e-5; each gradient leaf to rtol 1e-4 / atol 1e-5 x its largest
+# element; a new param to 1e-6 where the CPU gradient, clipped, is at
+# least 1e-5 and 10x the two gradients' difference (its sign, so Adam's
+# first step lr g / (|g| + 1e-8), is then the same on both), else
+# within the step's reach (2 lr + 1e-6).
+LM_LOSS_RTOL = 1e-5
+LM_GRAD_RTOL, LM_GRAD_ATOL_REL = 1e-4, 1e-5
+LM_STEP_GRAD_T, LM_PARAM_ATOL = 1e-5, 1e-6
+# (d) bf16 decode against bf16 prefill: |logit diff| <= 0.03 x the
+# largest |prefill logit| (about 8 bf16 ulps there; the CPU reads 0.0087
+# at full lm-100m, batch 4).
+LM_DECODE_TOL = 0.03
+
+
+def _lm_step_check(cfg, dev, tcfg, batch_np):
+    """(a): one make_train_step step of cfg (float32) on the card and on
+    the CPU from the same bridged params and batch; the gradients are
+    caught before the clip by the step's compress_grads hook."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.step import make_train_step
+
+    host = torch.device("cpu")
+    p_np = bridge.params_to_numpy(api.init_params(
+        cfg, torch.Generator().manual_seed(0), device=host))
+    out = {}
+    for d in (dev, host):
+        params = bridge.lm_params_from_numpy(cfg, p_np, device=d)
+        caught = []
+        step = make_train_step(cfg, tcfg, compress_grads=lambda g: (
+            caught.append(g), g)[1])
+        batch = {k: torch.as_tensor(v, device=d) for k, v in batch_np.items()}
+        t0 = time.perf_counter()
+        newp, _, m = step(params, adamw_init(params), batch)
+        loss = float(m["loss"])
+        out[d.type] = dict(loss=loss, grads=caught[0], params=newp,
+                           s=time.perf_counter() - t0)
+    card, cpu = out[dev.type], out["cpu"]
+    require(abs(card["loss"] - cpu["loss"]) <= LM_LOSS_RTOL * abs(cpu["loss"]),
+            f"lm step loss: card {card['loss']!r} cpu {cpu['loss']!r}")
+    gerr, strict_n, loose_n, perr = 0.0, 0, 0, 0.0
+    reach = 2 * tcfg.lr + LM_PARAM_ATOL
+    # Adam steps the clipped gradient: the split reads it at that scale
+    gnorm = sum(float(torch.sum(torch.square(g.double())))
+                for _, g in _paths(cpu["grads"])) ** 0.5
+    clip = min(1.0, tcfg.grad_clip / max(gnorm, 1e-12))
+    for (path, g), (_, gc), (_, pn), (_, pc) in zip(
+            _paths(card["grads"]), _paths(cpu["grads"]),
+            _paths(card["params"]), _paths(cpu["params"])):
+        g, pn = g.cpu(), pn.cpu()
+        atol = LM_GRAD_ATOL_REL * float(gc.abs().max())
+        gerr = max(gerr, _close(g, gc, LM_GRAD_RTOL, atol,
+                                f"lm step-1 gradient {path}"))
+        certain = (clip * gc.abs() >= LM_STEP_GRAD_T) & (
+            gc.abs() >= 10 * (g - gc).abs())
+        d = (pn - pc).abs()
+        bad = torch.where(certain, d > LM_PARAM_ATOL, d > reach)
+        require(not bool(bad.any()), f"lm step new param {path}: "
+                f"{int(bad.sum())} elements beyond {LM_PARAM_ATOL} (sign "
+                f"certain) or {reach} (not); max diff {float(d.max()):.3e}")
+        strict_n += int(certain.sum())
+        loose_n += int((~certain).sum())
+        perr = max(perr, float(d[certain].max()) if bool(certain.any())
+                   else 0.0)
+    log(f"lm (a) {cfg.name} x{cfg.num_layers} layers float32, batch "
+        f"{LM_B} x seq {LM_S}: one step card {card['s']:.3f} s / cpu "
+        f"{cpu['s']:.3f} s; loss card {card['loss']:.7f} cpu "
+        f"{cpu['loss']:.7f}; {len(_paths(cpu['grads']))} gradient leaves "
+        f"within rtol {LM_GRAD_RTOL} / atol {LM_GRAD_ATOL_REL} x max|leaf| "
+        f"(max err {gerr:.3e}, clip scale {clip:.4f}); new params: "
+        f"{strict_n} elements with a "
+        f"certain sign within {LM_PARAM_ATOL} (max {perr:.3e}), {loose_n} "
+        f"within the step's reach {reach:.1e}")
+    return dict(loss_card=card["loss"], loss_cpu=cpu["loss"], grad_err=gerr,
+                param_err=perr, loose=loose_n, card_s=card["s"])
+
+
+def _gib(x) -> str:
+    return "n/a" if x is None else f"{x:.3f} GiB"
+
+
+def _lm_cli(argv, timeout=LM_CLI_TIMEOUT):
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable] + argv, cwd=ROOT, env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=timeout)
+    return proc, time.perf_counter() - t0
+
+
+def _lm_supervised(cfg, dev, tcfg, ckpt_dir):
+    """(c): LM_SUP_STEPS steps under TrainSupervisor (a checkpoint every
+    LM_SUP_EVERY, a failure injected at LM_FAIL_AT) against the same
+    steps uninterrupted; the carries must be equal bit for bit."""
+    import torch
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.fault import FailureInjector, TrainSupervisor
+    from repro_torch.train.step import make_train_step
+
+    params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                             device=dev)
+    raw = make_train_step(cfg, tcfg)
+    make_np = lm_batch_fn(cfg.vocab_size, LM_B, LM_S, seed=0)
+
+    def make_batch(step):
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in make_np(step).items()}
+
+    def make_step():
+        def step(carry, batch):
+            p, o, m = raw(carry[0], carry[1], batch)
+            return (p, o), m
+        return step
+
+    t0 = time.perf_counter()
+    ref, step = (params, adamw_init(params)), make_step()
+    for s in range(LM_SUP_STEPS):
+        ref, _ = step(ref, make_batch(s))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    restarts = []
+    sup = TrainSupervisor(store=CheckpointStore(ckpt_dir, keep=2),
+                          make_step=make_step, make_batch=make_batch,
+                          ckpt_every=LM_SUP_EVERY)
+    out = sup.run((params, adamw_init(params)), num_steps=LM_SUP_STEPS,
+                  injector=FailureInjector(fail_at=(LM_FAIL_AT,)),
+                  on_restart=restarts.append)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    want = LM_FAIL_AT - LM_FAIL_AT % LM_SUP_EVERY
+    require(out["restarts"] == 1 and restarts == [want]
+            and out["step"] == LM_SUP_STEPS,
+            f"lm supervisor: restarts {out['restarts']} from {restarts}, "
+            f"step {out['step']}; want one restart from step {want}")
+    got, exp = _paths(out["carry"]), _paths(ref)
+    require([p for p, _ in got] == [p for p, _ in exp],
+            "lm supervisor: carry trees differ")
+    differ = [p for (p, a), (_, b) in zip(got, exp)
+              if (a is None) != (b is None)
+              or (a is not None and not torch.equal(a, b))]
+    require(not differ, f"lm supervisor: the resumed run differs from the "
+            f"uninterrupted one in {len(differ)} leaves, first {differ[:3]}")
+    n = sum(1 for _, a in got if a is not None)
+    log(f"lm (c) {cfg.name} x{cfg.num_layers} layers {cfg.dtype}: "
+        f"{LM_SUP_STEPS} steps uninterrupted {t1 - t0:.3f} s; under "
+        f"TrainSupervisor (checkpoint every {LM_SUP_EVERY}, failure at step "
+        f"{LM_FAIL_AT}, restored from step {want}) {t2 - t1:.3f} s; params "
+        f"and optimizer state equal bit for bit ({n} tensors)")
+    return dict(plain_s=t1 - t0, supervised_s=t2 - t1, tensors=n)
+
+
+def _lm_decode(cfg, dev):
+    """(d): greedy decode at full lm-100m (bf16), LM_DECODE_B sequences
+    of context LM_DECODE_CTX: the first LM_PREFILL tokens teacher-forced
+    from a prompt and held against the prefill logits, then generated;
+    the whole LM_DECODE_TOKENS run timed on its second pass."""
+    import torch
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.models import api, lm
+    from repro_torch.models.layers.common import zeros_from_spec
+    from repro_torch.train.step import make_serve_step
+
+    params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                             device=dev)
+    prompt = torch.as_tensor(lm_batch_fn(
+        cfg.vocab_size, LM_DECODE_B, LM_PREFILL, seed=1)(0)["tokens"],
+        device=dev)
+    with torch.no_grad():
+        pre = lm.prefill_logits(cfg, params, prompt)
+    step = make_serve_step(cfg)
+    spec = api.decode_state_spec(cfg, LM_DECODE_B, LM_DECODE_CTX)
+
+    def decode(check):
+        state = zeros_from_spec(spec, device=dev)
+        tok, err = prompt[:, :1], 0.0
+        for i in range(LM_DECODE_TOKENS):
+            logits, state = step(params, state, tok)
+            if check and i < LM_PREFILL:
+                err = max(err, float((logits - pre[:, i]).abs().max()))
+            tok = (prompt[:, i + 1:i + 2] if i + 1 < LM_PREFILL else
+                   torch.argmax(logits, -1).to(torch.int32)[:, None])
+        torch.cuda.synchronize()
+        return err, int(state["pos"])
+
+    err, pos = decode(True)
+    scale = float(pre.abs().max())
+    require(err <= LM_DECODE_TOL * scale, f"lm decode logits differ from "
+            f"prefill by {err:.4e} > {LM_DECODE_TOL} x {scale:.4f}")
+    require(pos == LM_DECODE_TOKENS, f"decode state pos {pos}")
+    t0 = time.perf_counter()
+    decode(False)
+    dt = time.perf_counter() - t0
+    ms = dt / LM_DECODE_TOKENS * 1e3
+    tok_s = LM_DECODE_TOKENS * LM_DECODE_B / dt
+    log(f"lm (d) {cfg.name} {cfg.dtype} decode, batch {LM_DECODE_B}, "
+        f"context {LM_DECODE_CTX}: first {LM_PREFILL} tokens' logits within "
+        f"{err:.4e} of prefill (max |logit| {scale:.4f}, tolerance "
+        f"{LM_DECODE_TOL} x it); {LM_DECODE_TOKENS} tokens {ms:.3f} ms/token, "
+        f"{tok_s:.0f} tok/s")
+    return dict(err=err, scale=scale, ms_per_token=ms, tok_s=tok_s)
+
+
+def _lm_profile(cfg, dev, tcfg):
+    """Where a full-depth training step's time goes: wall ms of a warm
+    step (synchronized), the device's busy ms in it (``torch.profiler``,
+    every kernel) and the kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.step import make_train_step
+
+    params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                             device=dev)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, tcfg)
+    make = lm_batch_fn(cfg.vocab_size, LM_B, LM_S, seed=0)
+    batches = [{k: torch.as_tensor(v, device=dev)
+                for k, v in make(s).items()} for s in range(LM_PROFILE_STEPS)]
+
+    def run():
+        nonlocal params, opt
+        for b in batches:
+            params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+
+    run()   # warm: the allocator's pools, cuBLAS's handles and plans
+    t0 = time.perf_counter()
+    run()
+    wall = (time.perf_counter() - t0) / LM_PROFILE_STEPS * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    by_kernel = sorted(((e.self_device_time_total, e.key)
+                        for e in prof.key_averages()
+                        if e.self_device_time_total > 0), reverse=True)
+    busy = sum(u for u, _ in by_kernel) / 1e3 / LM_PROFILE_STEPS
+    log(f"lm (b') {cfg.name} ({cfg.num_layers} layers, {cfg.dtype}) train "
+        f"step in process, batch {LM_B} x seq {LM_S}: {wall:.3f} ms/step "
+        f"wall, device busy {busy:.3f} ms/step = {busy / wall:.4f} of it; "
+        "device ms per step by kernel: " + ", ".join(
+            f"{k[:40]} {u / 1e3 / LM_PROFILE_STEPS:.3f}"
+            for u, k in by_kernel[:8]))
+    return dict(wall_ms=wall, busy_ms=busy, busy_share=busy / wall,
+                top=[(k, u / 1e3 / LM_PROFILE_STEPS) for u, k in by_kernel[:8]])
+
+
+def phase_lm(dev, card):
+    """The dense-LM path at lm-100m's full width: (a) one float32 step of
+    the 2-layer cut on the card against the CPU, (b) launch.train at
+    full depth for LM_TRAIN_STEPS steps with two checkpoints, then a
+    profiled step in process, (c) the supervisor's restart equal to an
+    uninterrupted run bit for bit, (d) decode against prefill, (e) the
+    example and launch.serve --mode lm as processes, run while (a) and
+    (c), which time nothing, run.  None of K1-K5 is on this path: their
+    counts are read and must stay 0."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.config import TrainConfig, get_config
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.kernels.lut_cascade import lut_cascade
+    from repro_torch.kernels.lut_gather import lut_layer, lut_lookup
+    from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
+                                                   subnet_train_fwd)
+    from repro_torch.kernels.neuralut_mlp import grouped_subnet
+
+    t_start = time.perf_counter()
+    wrappers = (lut_cascade, lut_layer, lut_lookup, subnet_train_fwd,
+                subnet_train_bwd, grouped_subnet)
+    for fn in wrappers:
+        fn.launches = 0
+    full = get_config(LM_ARCH, reduced=LM_REDUCED)
+    red = ["--reduced"] if LM_REDUCED else []
+    cut = dataclasses.replace(full, num_layers=LM_CUT_LAYERS)
+    tcfg = TrainConfig(lr=3e-4, sgdr_t0=50)   # the launcher's defaults
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    clis = {"lm_train_torch": [str(ROOT / "examples" / "lm_train_torch.py"),
+                               "--steps", "30", "--ckpt", f"{tmp}/ex",
+                               "--device", dev.type],
+            "serve --mode lm": ["-m", "repro_torch.launch.serve", "--mode",
+                                "lm", "--device", dev.type]}
+    wants = {"lm_train_torch": "trained to step 30",
+             "serve --mode lm": "ms/token"}
+    res = {}
+    pool = ThreadPoolExecutor(len(clis))
+    try:
+        running = {k: pool.submit(_lm_cli, v) for k, v in clis.items()}
+        res["step"] = _lm_step_check(
+            dataclasses.replace(cut, dtype="float32"), dev, tcfg,
+            lm_batch_fn(full.vocab_size, LM_B, LM_S, seed=0)(0))
+        res["supervisor"] = _lm_supervised(cut, dev, tcfg, f"{tmp}/sup")
+        res["cli"] = {}
+        for name, fut in running.items():
+            proc, secs = fut.result()
+            for line in proc.stdout.splitlines()[-3:]:
+                log(f"  {name}| {line}")
+            require(proc.returncode == 0 and wants[name] in proc.stdout,
+                    f"{name} exited {proc.returncode}")
+            res["cli"][name] = secs
+        log(f"lm (e) examples/lm_train_torch.py --steps 30 and launch.serve "
+            "--mode lm exit 0 (" + ", ".join(
+                f"{k} {v:.1f} s" for k, v in res["cli"].items())
+            + ", beside (a) and (c))")
+        proc, secs = _lm_cli(
+            ["-m", "repro_torch.launch.train", "--arch", LM_ARCH, "--steps",
+             str(LM_TRAIN_STEPS), "--ckpt-dir", f"{tmp}/launcher",
+             "--ckpt-every", str(LM_CKPT_EVERY), "--log-every", "10",
+             "--device", dev.type] + red)
+        for line in proc.stdout.splitlines()[-8:]:
+            log(f"  launch.train| {line}")
+        require(proc.returncode == 0, f"launch.train --arch {LM_ARCH} "
+                f"exited {proc.returncode}")
+        summ = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("lm train summary ")]
+        require(len(summ) == 1, "launch.train printed no summary")
+        train = json.loads(summ[0][len("lm train summary "):])
+        require(train["steps"] == LM_TRAIN_STEPS
+                and train["last_loss"] < train["first_loss"],
+                f"launch.train: loss did not fall over {train['steps']} "
+                f"steps ({train['first_loss']} -> {train['last_loss']})")
+        saved = sorted(os.listdir(f"{tmp}/launcher"))
+        require(saved == [f"step_{s:010d}" for s in range(
+            LM_CKPT_EVERY, LM_TRAIN_STEPS + 1, LM_CKPT_EVERY)],
+            f"launch.train checkpoints {saved}")
+        shutil.rmtree(f"{tmp}/launcher")
+        train["process_s"] = secs
+        res["train"] = train
+        log(f"lm (b) launch.train {LM_ARCH} full ({full.num_layers} layers, "
+            f"{full.dtype}), batch {LM_B} x seq {LM_S}, {LM_TRAIN_STEPS} "
+            f"steps, checkpoints at {LM_CKPT_EVERY}-step intervals ({card}): "
+            f"{train['ms_per_step']:.3f} ms/step, {train['tokens_per_s']:.0f} "
+            f"tokens/s, peak memory {_gib(train['peak_mem_gib'])}; loss "
+            f"{train['first_loss']:.4f} -> {train['last_loss']:.4f}; "
+            f"process {secs:.1f} s")
+        res["profile"] = _lm_profile(full, dev, tcfg)
+        res["decode"] = _lm_decode(full, dev)
+    finally:
+        pool.shutdown(wait=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    require(not any(launches.values()), f"the LM path launched a LUT "
+            f"kernel: {launches}")
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"lm: K1-K5 launches on the LM path {launches}; phase "
+        f"{res['seconds']:.1f} s")
+    return res
+
+
 RTL_SAMPLE = 8        # neurons re-simulated per layer (all of the last)
 
 
@@ -4121,6 +4596,10 @@ def turns_main(parent: str) -> int:
 
 
 def main() -> int:
+    seed = ensure_hash_seed()
+    cmd = " ".join(["python3 chip_smoke.py"] + sys.argv[1:])
+    log(f"PYTHONHASHSEED={seed} (replay this run: PYTHONHASHSEED={seed} "
+        f"{cmd})")
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
               "checkout of the repository", file=sys.stderr)
@@ -4168,6 +4647,7 @@ def main() -> int:
     examples = phase_examples(dev)
     sweep_k = phase_sweep_kernels(dev)
     sweep = phase_sweep(dev)
+    lm = phase_lm(dev, card)
 
     head, dag_head = k1[HEADLINE_B], k1_dag[HEADLINE_B]
     kernels = [
@@ -4377,6 +4857,13 @@ def main() -> int:
         f"{rtl['emit_s']:.3f} s of host, sampled ROMs checked in "
         f"{rtl['check_s']:.3f} s; examples: " + ", ".join(
             f"{k} {v['seconds']:.1f} s" for k, v in examples.items()))
+    log(f"lm ({card}): launch.train {lm['train']['ms_per_step']:.3f} ms/step, "
+        f"{lm['train']['tokens_per_s']:.0f} tokens/s, peak "
+        f"{_gib(lm['train']['peak_mem_gib'])}; in process "
+        f"{lm['profile']['wall_ms']:.3f} ms/step, busy share "
+        f"{lm['profile']['busy_share']:.4f}; decode "
+        f"{lm['decode']['ms_per_token']:.3f} ms/token, "
+        f"{lm['decode']['tok_s']:.0f} tok/s; phase {lm['seconds']:.1f} s")
     log(card)  # nvidia-smi's "name, power.limit", as it printed them
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

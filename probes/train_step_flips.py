@@ -2,7 +2,7 @@
 with the quantizer flips between its two routes counted.
 
     python3 probes/train_step_flips.py [--procs 16] [--device cuda]
-        [--hash-seed K] [--repeat N]
+        [--hash-seed K | --hash-seeds A-B] [--jobs J] [--repeat N]
 
 ``chip_smoke.py``'s training path holds one step's gradients of full
 ``neuralut-jsc-5l`` through the training kernels (``kernel_train``)
@@ -12,18 +12,26 @@ a pre-quantization value within rounding of a ``round()`` boundary can
 quantize to neighbouring codes in the two routes (as conversion's +-1
 flips do), and everything downstream of that row then differs by more
 than rounding.  Each process runs with another ``PYTHONHASHSEED`` (1 to
-N), so it draws another connectivity, and prints one JSON line: the
+N, or each seed of ``--hash-seeds A-B``, the same seeds that
+``chip_smoke.py`` prints and replays), so it draws another connectivity,
+and prints one JSON line: the
 gradients' largest share of the tolerance and largest absolute error,
 and per layer the quantized activations that differ between the routes,
-each route fed its own previous layer.  ``--hash-seed K`` gives every
+each route fed its own previous layer, the message of the direct
+comparison of the two routes' gradients (the check as it was, naming
+the worst leaf and element) when it fails, and the readings of
+``chip_smoke.train_step_check`` (the check as it is: the plain route
+walked on the kernel route's codes).  ``--hash-seed K`` gives every
 process the same ``PYTHONHASHSEED`` K instead, and ``--repeat N`` has
 each process compute both routes' gradients N times more on the same
 inputs, each time after filling the caching allocator's free blocks with
 NaN, and report per route the repeats that are not bit-identical to the
 first, their largest difference and the first leaf that differs: a
 kernel that races, or that reads memory it never wrote, reads as
-nonzero there.  The parent prints the card and the readings of all
-processes last.
+nonzero there.  ``--jobs J`` runs J processes at once (the kernels are
+built once, by the parent, before any starts).  The parent prints the
+card, each reading as it comes, and the summary of all processes last:
+the seeds beyond the tolerance are listed there by number.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import json
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -104,6 +113,20 @@ def child(device: str, repeat: int) -> None:
         abs_err = max(abs_err, float(d.max()))
         share = max(share, float((d / (C.K5_ATOL + C.K5_RTOL * b.abs()))
                                  .max()))
+    direct = None  # the check as it was: each route fed its own codes
+    try:
+        for (k, a), (_, b) in zip(C._paths(grads["kernel_train"]),
+                                  C._paths(grads["canonical"])):
+            C._close(a, b, C.K5_RTOL, C.K5_ATOL, f"step-1 gradient {k}")
+    except RuntimeError as e:
+        direct = str(e)
+    try:  # the check as chip_smoke.py makes it
+        chk = C.train_step_check(cfg, p0, s0, sd, xb, yb,
+                                 plans["kernel_train"], plans["canonical"])
+        walk = {k: chk[k] for k in ("grad_err", "pre_err", "bn_err",
+                                    "flips")}
+    except RuntimeError as e:
+        walk = {"failed": str(e)}
     flips = []
     with torch.no_grad():
         v = {r: quant.quant_apply(p0["in_quant"], xb, cfg.beta_in or cfg.beta)
@@ -117,7 +140,8 @@ def child(device: str, repeat: int) -> None:
     print("READING " + json.dumps({
         "hash_seed": os.environ.get("PYTHONHASHSEED"), "tol_share": share,
         "max_abs_err": abs_err, "flips_by_layer": flips,
-        "reruns": reruns}), flush=True)
+        "direct_check": direct, "walk": walk, "reruns": reruns}),
+        flush=True)
 
 
 def main() -> int:
@@ -125,6 +149,11 @@ def main() -> int:
     ap.add_argument("--procs", type=int, default=16)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--hash-seed", type=int, default=None)
+    ap.add_argument("--hash-seeds", default=None,
+                    help="A-B: one process per PYTHONHASHSEED in A..B "
+                         "(replaces --procs and --hash-seed)")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="processes run at once")
     ap.add_argument("--repeat", type=int, default=0)
     ap.add_argument("--child", action="store_true")
     args = ap.parse_args()
@@ -136,31 +165,52 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True,
             text=True).stdout.strip(), flush=True)
-    readings = []
-    for k in range(1, args.procs + 1):
-        seed = k if args.hash_seed is None else args.hash_seed
+    if args.hash_seeds:
+        lo, hi = (int(x) for x in args.hash_seeds.split("-"))
+        seeds = list(range(lo, hi + 1))
+    else:
+        seeds = [k if args.hash_seed is None else args.hash_seed
+                 for k in range(1, args.procs + 1)]
+    if args.device == "cuda":
+        sys.path.insert(0, str(ROOT / "src"))
+        from repro_torch.kernels import build
+        build.load_library()
+
+    def run(seed):
         env = dict(os.environ, PYTHONHASHSEED=str(seed))
-        p = subprocess.run([sys.executable, __file__, "--child", "--device",
-                            args.device, "--repeat", str(args.repeat)],
-                           env=env, capture_output=True, text=True,
-                           timeout=600)
-        line = [x for x in p.stdout.splitlines() if x.startswith("READING ")]
-        if p.returncode or not line:
-            print(f"[hash seed {k}] rc {p.returncode}: {p.stderr[-2000:]}",
-                  flush=True)
-            continue
-        readings.append(json.loads(line[0][8:]))
-        print(line[0][8:], flush=True)
-    print(json.dumps({"procs": args.procs, "readings": len(readings),
+        return seed, subprocess.run(
+            [sys.executable, __file__, "--child", "--device", args.device,
+             "--repeat", str(args.repeat)], env=env, capture_output=True,
+            text=True, timeout=600)
+
+    readings = []
+    with ThreadPoolExecutor(max(1, args.jobs)) as pool:
+        for seed, p in pool.map(run, seeds):
+            line = [x for x in p.stdout.splitlines()
+                    if x.startswith("READING ")]
+            if p.returncode or not line:
+                print(f"[hash seed {seed}] rc {p.returncode}: "
+                      f"{p.stderr[-2000:]}", flush=True)
+                continue
+            readings.append(json.loads(line[0][8:]))
+            print(line[0][8:], flush=True)
+    print(json.dumps({"procs": len(seeds), "readings": len(readings),
+                      "hash_seeds": (f"{seeds[0]}-{seeds[-1]}" if
+                                     args.hash_seeds else None),
                       "beyond_tolerance": sum(r["tol_share"] > 1
                                               for r in readings),
+                      "seeds_beyond_tolerance": [
+                          r["hash_seed"] for r in readings
+                          if r["tol_share"] > 1],
                       "with_flips": sum(sum(r["flips_by_layer"]) > 0
                                         for r in readings),
+                      "walk_failed": [r["hash_seed"] for r in readings
+                                      if "failed" in r["walk"]],
                       "rerun_differ": sum(v["differ"] for r in readings
                                           for v in r["reruns"].values()),
                       "max_tol_share": max((r["tol_share"] for r in readings),
                                            default=None)}), flush=True)
-    return 0 if len(readings) == args.procs else 1
+    return 0 if len(readings) == len(seeds) else 1
 
 
 if __name__ == "__main__":

@@ -24,6 +24,14 @@ With ``seeds=S`` every leaf carries a leading seed axis S (the seed
 ensemble's stacked trees; the optimizer's ``count`` is then (S,)).
 ``params_to_numpy`` goes the other way, so a test can start both
 packages from one state and compare the trees leaf by leaf.
+
+The LMs (``ModelConfig``): ``lm_params_from_numpy`` takes the
+reference's LM parameter tree (``models.api.param_spec``'s layout:
+``embed``, ``lm_head`` when untied, ``final_norm``, ``prefix_blocks``,
+``blocks[j]`` stacked over the pattern's repeats) and
+``lm_opt_from_numpy`` its AdamW state, whose ``master`` holds a float32
+copy of each bfloat16 parameter.  Leaves are cast to the config's
+dtype; a bfloat16 reference array converts exactly.
 """
 from __future__ import annotations
 
@@ -161,11 +169,79 @@ def opt_from_numpy(cfg: NeuraLUTConfig, opt: Dict[str, Any], *,
             "count": torch.as_tensor(count.astype(np.int32), device=dev)}
 
 
+def _convert_lm(spec, tree, path: str, device: torch.device):
+    """A reference LM tree (numpy) -> tensors of the spec's dtypes,
+    checked key by key and shape by shape; ``None`` where the spec
+    leaf is ``None``."""
+    if spec is None:
+        if tree is not None:
+            raise ValueError(f"{path}: expected None")
+        return None
+    if isinstance(spec, dict):
+        if not isinstance(tree, dict) or set(tree) != set(spec):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"{path or 'tree'}: keys {got} != "
+                             f"{sorted(spec)}")
+        return {k: _convert_lm(spec[k], tree[k], f"{path}.{k}".lstrip("."),
+                               device) for k in spec}
+    if isinstance(spec, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(spec):
+            raise ValueError(f"{path}: expected a list of {len(spec)}")
+        return [_convert_lm(sp, t, f"{path}[{i}]", device)
+                for i, (sp, t) in enumerate(zip(spec, tree))]
+    if tree is None:
+        raise ValueError(f"{path}: missing leaf")
+    a = np.asarray(tree, np.float32)
+    if a.shape != tuple(spec.shape):
+        raise ValueError(f"{path}: shape {a.shape} != {tuple(spec.shape)}")
+    return torch.as_tensor(a.copy()).to(spec.dtype).to(device)
+
+
+def lm_params_from_numpy(cfg, tree: Dict[str, Any], *,
+                         device: DeviceLike = None) -> Dict[str, Any]:
+    """The reference's LM parameters as nested numpy arrays -> the
+    port's tensor tree on ``device`` (``None`` = CUDA), in the
+    config's dtype."""
+    from repro_torch.models import api
+    return _convert_lm(api.param_spec(cfg), tree, "", resolve_device(device))
+
+
+def lm_opt_from_numpy(cfg, opt: Dict[str, Any], *,
+                      device: DeviceLike = None) -> Dict[str, Any]:
+    """The reference's AdamW state of an LM (``m``, ``v``, ``count``,
+    ``master``) as numpy -> the port's: float32 moments, an int32
+    count and, for a bfloat16 config, the float32 ``master`` tree
+    (``None`` at float32 leaves); a float32 config's ``master`` must be
+    all None and is dropped, as ``adamw_init`` drops it."""
+    from repro_torch.models import api
+    from repro_torch.models.layers.common import TensorSpec
+    from repro_torch.tree import tree_leaves, tree_map
+    dev = resolve_device(device)
+    spec = api.param_spec(cfg)
+    f32 = tree_map(lambda s: TensorSpec(s.shape, torch.float32), spec)
+    out = {"m": _convert_lm(f32, opt["m"], "m", dev),
+           "v": _convert_lm(f32, opt["v"], "v", dev),
+           "count": torch.as_tensor(
+               np.asarray(opt["count"]).astype(np.int32), device=dev)}
+    masters = tree_map(lambda s: TensorSpec(s.shape, torch.float32)
+                       if s.dtype == torch.bfloat16 else None, spec)
+    got = opt.get("master")
+    if any(m is not None for m in tree_leaves(masters)):
+        out["master"] = _convert_lm(masters, got, "master", dev)
+    elif got is not None:
+        _convert_lm(masters, got, "master", dev)  # must be all None
+    return out
+
+
 def params_to_numpy(tree) -> Any:
     """A port tree (params, state, grads or opt state) -> the same nested
-    dicts and lists of numpy arrays, in the reference's layout."""
+    dicts and lists of numpy arrays, in the reference's layout
+    (bfloat16 leaves as float32, ``None`` kept)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_to_numpy(v) for v in tree]
-    return tree.detach().cpu().numpy()
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -260,7 +260,8 @@ def _restore_leaf(arr: np.ndarray, dtype: Optional[str], device):
             arr = arr.view(np.dtype(dtype))
         return arr
     import torch
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+    # ascontiguousarray makes a 0-d array 1-d: keep the stored shape
+    t = torch.from_numpy(np.ascontiguousarray(arr)).reshape(arr.shape)
     if dtype is not None:
         t = t.view(getattr(torch, dtype))
     return t.to(device)

@@ -1,19 +1,24 @@
-"""Architecture registry: ``get_config(<id>)`` resolution for the
-NeuraLUT chain geometries and the PolyLUT-Add LUT graphs the port
-serves.
+"""Architecture registry: ``get_config(<id>)`` resolution.
 
 Each module in ``repro_torch.configs`` registers a full-size config (the
 published architecture) and a reduced config (same family, tiny dims)
 used by the CPU tests — the same ids and values as ``repro.configs``.
+Two families are registered: the NeuraLUT chain geometries and
+PolyLUT-Add LUT graphs (``list_archs``), and the dense LMs whose layers
+are all attention + dense FFN (``list_lm_archs``).  The reference's
+other LM archs (MoE, MLA, SSM, xLSTM, enc-dec, VLM) are known by name
+and raise ``NotImplementedError`` from ``get_config``.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Callable, Dict, Tuple, Union
 
+from repro_torch import NOT_PORTED
+from repro_torch.config.base import ModelConfig
 from repro_torch.core.nl_config import LUTGraphConfig, NeuraLUTConfig
 
-Config = Union[NeuraLUTConfig, LUTGraphConfig]
+Config = Union[NeuraLUTConfig, LUTGraphConfig, ModelConfig]
 
 _FULL: Dict[str, Callable[[], Config]] = {}
 _REDUCED: Dict[str, Callable[[], Config]] = {}
@@ -24,7 +29,17 @@ _CONFIG_MODULES = (
     "neuralut_jsc_5l",
     "polylut_add_jsc_2l",
     "polylut_add_jsc_5l",
+    "lm_100m",
+    "llama3_8b",
+    "yi_9b",
+    "granite_34b",
+    "gemma3_12b",
 )
+
+# The reference's LM archs whose mixers or FFNs the port lacks.
+NOT_PORTED_ARCHS = ("deepseek-v2-lite-16b", "jamba-v0.1-52b",
+                    "qwen2-moe-a2.7b", "qwen2-vl-72b", "whisper-small",
+                    "xlstm-350m")
 
 _loaded = False
 
@@ -45,12 +60,25 @@ def _ensure_loaded() -> None:
 
 
 def list_archs() -> Tuple[str, ...]:
+    """The NeuraLUT and LUT-graph archs."""
     _ensure_loaded()
-    return tuple(sorted(_FULL))
+    return tuple(sorted(n for n, f in _FULL.items()
+                        if not isinstance(f(), ModelConfig)))
+
+
+def list_lm_archs() -> Tuple[str, ...]:
+    """The ported LM archs (dense: attention + dense FFN layers)."""
+    _ensure_loaded()
+    return tuple(sorted(n for n, f in _FULL.items()
+                        if isinstance(f(), ModelConfig)))
 
 
 def get_config(name: str, reduced: bool = False) -> Config:
     _ensure_loaded()
+    if name in NOT_PORTED_ARCHS:
+        raise NotImplementedError(
+            f"arch {name!r}: its layers (MoE, MLA, SSM, xLSTM, enc-dec or "
+            "vision) " + NOT_PORTED.format("Queue A item 7"))
     table = _REDUCED if reduced else _FULL
     if name not in table:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(table)}")

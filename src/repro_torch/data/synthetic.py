@@ -1,7 +1,7 @@
 """Synthetic datasets: numpy copies of ``repro.data.synthetic``'s
 ``two_semicircles``, ``jsc_synthetic``, ``mnist_synthetic`` and
-``mnist_pooled``, so the port and the JAX package see the same arrays
-for the same seed (``token_stream``, the LM data, is not ported).
+``mnist_pooled`` and the LM data ``token_stream``, so the port and the
+JAX package see the same arrays for the same seed.
 
 The paper's datasets (MNIST, CERN jet substructure tagging) are
 replaced by statistically similar stand-ins with the same shapes and
@@ -91,3 +91,20 @@ def mnist_pooled(n: int, *, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     out = img.reshape(-1, 14, 2, 14, 2).mean((2, 4)).reshape(-1, 196)
     out = (out - out.mean(0)) / (out.std(0) + 1e-6)
     return out.astype(np.float32), y
+
+
+def token_stream(n_tokens: int, vocab: int, *, seed: int = 0,
+                 order: int = 2) -> np.ndarray:
+    """Zipf-distributed token stream with short-range structure (a cheap
+    markov flavor): t_i depends on t_{i-order} via a fixed permutation mix."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1)
+    p = 1.0 / ranks ** 1.1
+    p /= p.sum()
+    base = rng.choice(vocab, size=n_tokens, p=p).astype(np.int32)
+    perm = np.random.default_rng(99).permutation(vocab)
+    out = base.copy()
+    for i in range(order, n_tokens):
+        if out[i] % 3 == 0:  # a third of positions are "predictable"
+            out[i] = perm[out[i - order]]
+    return out

@@ -1,4 +1,4 @@
-"""Serving launcher (port of ``repro.launch.serve``, its ``--mode lut``).
+"""Serving launcher (port of ``repro.launch.serve``).
 
     python -m repro_torch.launch.serve --arch neuralut-jsc-5l
     python -m repro_torch.launch.serve --arch polylut-add-jsc-5l \\
@@ -32,8 +32,14 @@ others are same-geometry variants with random tables, rate-limited by
 copy of its bundle under live traffic and prints the ``SwapReport``.
 
 Takes the JSC chains (``neuralut-jsc-*``) and the PolyLUT-Add graphs
-(``polylut-add-jsc-*``).  Runs on CUDA unless ``--device cpu``.  Not
-ported: ``--mode lm`` (the LM decoder).
+(``polylut-add-jsc-*``).  Runs on CUDA unless ``--device cpu``.
+
+``--mode lm`` decodes with a dense LM (``--arch``, default lm-100m, in
+its reduced form as the reference's): seeded init, a zero KV cache of
+context 128 for ``--batch`` sequences, and ``--requests`` greedy
+decode steps through ``make_serve_step``; prints ms/token and tok/s.
+
+    python -m repro_torch.launch.serve --mode lm --device cpu
 """
 from __future__ import annotations
 
@@ -44,7 +50,6 @@ from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 
-from repro_torch import NOT_PORTED
 
 
 def build_lut_bundle(args):
@@ -274,10 +279,52 @@ def serve_tenants(args) -> Dict[str, Any]:
             "forwards": eng.forwards}
 
 
+def serve_lm(args) -> Dict[str, Any]:
+    """Greedy decode of the reduced LM: ``args.requests`` steps of a
+    batch of ``args.batch`` from token 1, context 128."""
+    import time
+
+    import torch
+    from repro_torch.config import get_config, list_lm_archs
+    from repro_torch.config.registry import NOT_PORTED_ARCHS
+    from repro_torch.device import resolve_device
+    from repro_torch.models import api
+    from repro_torch.models.layers.common import zeros_from_spec
+    from repro_torch.train.step import make_serve_step
+
+    if args.arch not in list_lm_archs():
+        if args.arch in NOT_PORTED_ARCHS:
+            get_config(args.arch)  # raises, naming its ROADMAP item
+        raise SystemExit(f"--arch {args.arch}: unknown to --mode lm; the "
+                         f"LM archs are {', '.join(list_lm_archs())}")
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch, reduced=True)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                             device=dev)
+    bsz, ctx = args.batch, 128
+    state = zeros_from_spec(api.decode_state_spec(cfg, bsz, ctx),
+                            device=dev)
+    step = make_serve_step(cfg)
+    tok = torch.ones((bsz, 1), dtype=torch.int32, device=dev)
+    n = args.requests
+    t0 = time.perf_counter()
+    for _ in range(n):
+        logits, state = step(params, state, tok)
+        tok = (torch.argmax(logits, -1).to(torch.int32)[:, None]
+               % cfg.vocab_size)
+    tok = tok.cpu()  # waits for the last step
+    dt = time.perf_counter() - t0
+    print(f"decoded {n} steps x batch {bsz}: {dt / n * 1e3:.2f} ms/token, "
+          f"{n * bsz / dt:.0f} tok/s", flush=True)
+    return {"steps": n, "batch": bsz, "ms_per_token": dt / n * 1e3,
+            "tok_s": n * bsz / dt, "last_tokens": tok}
+
+
 def parse_args(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", default="lut", choices=["lut", "lm"])
-    ap.add_argument("--arch", default="neuralut-jsc-2l")
+    ap.add_argument("--arch", default=None,
+                    help="default neuralut-jsc-2l (lut) or lm-100m (lm)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--requests", type=int, default=200)
@@ -316,9 +363,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = parse_args(argv)
     if args.mode == "lm":
-        raise NotImplementedError(
-            "--mode lm: the LM decoder " + NOT_PORTED.format(
-                "Queue A item 7"))
+        args.arch = args.arch or "lm-100m"
+        return serve_lm(args)
+    args.arch = args.arch or "neuralut-jsc-2l"
     if args.kernel:
         raise SystemExit("--kernel: the port has no route to force; it "
                          "serves through the LUT-cascade kernel (K1) on "

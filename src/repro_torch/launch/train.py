@@ -1,6 +1,11 @@
-"""Training launcher for the NeuraLUT archs (port of the NeuraLUT branch
-of ``repro.launch.train``): train -> convert -> serving bundle -> serve.
+"""Training launcher (port of ``repro.launch.train``): the NeuraLUT
+archs train -> convert -> serving bundle -> serve; the dense LMs train
+through the LM step under the training supervisor.
 
+    python -m repro_torch.launch.train --arch lm-100m --steps 100 \\
+        --ckpt-dir /ckpt/lm100m
+    python -m repro_torch.launch.train --arch lm-100m --reduced --steps 3 \\
+        --device cpu
     python -m repro_torch.launch.train --arch neuralut-jsc-5l --epochs 20
     python -m repro_torch.launch.train --arch polylut-add-jsc-5l \\
         --epochs 20 --seeds 4
@@ -21,10 +26,24 @@ given, where ``launch.serve`` loads it), serves the test set through
 ``LUTServeEngine`` (the LUT-cascade kernel on the card, a graph on its
 DAG schedule) and checks that every served prediction equals
 ``lut_infer.predict``.  Runs on CUDA unless ``--device cpu``.
+
+LM archs (``list_lm_archs``: lm-100m, llama3-8b, yi-9b, granite-34b,
+gemma3-12b; ``--reduced`` for the CPU): seeded init, AdamW (a float32
+master for bfloat16 parameters) with SGDR, batches of ``lm_batch_fn``
+prefetched by a ``ShardedLoader``, ``--grad-accum`` microbatches and
+``--compress-grads`` (error-feedback int8).  With ``--ckpt-dir`` the
+run goes through ``TrainSupervisor`` (an async checkpoint every
+``--ckpt-every`` steps, restart from the latest on failure) and resumes
+from the directory's latest checkpoint.  One device: ``--mesh host``
+or ``single`` (the reference's 16x16 pod layout has no counterpart);
+``--mesh multi`` or a ``--mesh-shape`` over more than one device is
+refused.  Prints the loss every ``--log-every`` steps, then ms/step,
+tokens/s and the peak device memory.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from typing import Any, Dict, Optional, Sequence
 
@@ -112,20 +131,178 @@ def train_neuralut_arch(args, cfg) -> Dict[str, Any]:
             "steps": n_steps, "train_seconds": dt}
 
 
+class _LoaderBatches:
+    """``make_batch(step)`` served by a prefetching ``ShardedLoader``,
+    restarted at ``step`` whenever the caller jumps (a supervisor's
+    restart): the batch of a step is the same either way."""
+
+    def __init__(self, make, device):
+        self.make, self.device, self.loader = make, device, None
+
+    def __call__(self, step: int):
+        import torch
+        from repro_torch.data import ShardedLoader
+        if self.loader is None or self.loader.step != step:
+            self.close()
+            self.loader = ShardedLoader(self.make, start_step=step)
+        return {k: torch.as_tensor(v).to(self.device)
+                for k, v in next(self.loader).items()}
+
+    def close(self) -> None:
+        if self.loader is not None:
+            self.loader.close()
+            self.loader = None
+
+
+def _mesh_shape(args) -> tuple:
+    """The one-device mesh the port runs; refuses more devices."""
+    if args.mesh == "multi":
+        raise NotImplementedError(
+            "--mesh multi: multi-device training " + NOT_PORTED.format(
+                "Queue A item 7"))
+    if args.mesh_shape:
+        shape = tuple(int(x) for x in args.mesh_shape.split("x"))
+        if any(n != 1 for n in shape):
+            raise NotImplementedError(
+                f"--mesh-shape {args.mesh_shape}: a mesh over more than one "
+                "device " + NOT_PORTED.format("Queue A item 7"))
+        return shape
+    return (1, 1)
+
+
+def train_lm_arch(args, cfg) -> Dict[str, Any]:
+    """The LM branch for one parsed command line; returns the losses,
+    the timings and the final carry."""
+    import torch
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.config import TrainConfig
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.device import resolve_device
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init, make_ef_int8_compressor
+    from repro_torch.runtime.fault import TrainSupervisor
+    from repro_torch.train.step import make_train_step
+
+    shape = _mesh_shape(args)
+    dev = resolve_device(args.device)
+    print(f"mesh {shape} devices=1 ({dev})", flush=True)
+    tcfg = TrainConfig(lr=args.lr if args.lr is not None else 3e-4,
+                       grad_accum=args.grad_accum,
+                       sgdr_t0=max(50, args.steps // 4))
+    params = api.init_params(cfg, torch.Generator().manual_seed(tcfg.seed),
+                             device=dev)
+    opt = adamw_init(params)
+    compress = None
+    if args.compress_grads:
+        ef_init, ef_compress = make_ef_int8_compressor()
+        # the error-feedback residual rides in a closure cell
+        cell = {"ef": ef_init(params)}
+
+        def compress(grads):
+            g2, cell["ef"] = ef_compress(grads, cell["ef"])
+            return g2
+
+    raw_step = make_train_step(cfg, tcfg, compress_grads=compress)
+    losses, seconds = [], []
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def make_step():
+        def step(carry, batch):
+            t0 = time.perf_counter()
+            p, o, metrics = raw_step(carry[0], carry[1], batch)
+            losses.append(float(metrics["loss"]))  # waits for the step
+            seconds.append(time.perf_counter() - t0)
+            if args.log_every and len(losses) % args.log_every == 0:
+                print(f"step {len(losses)} loss={losses[-1]:.4f} "
+                      f"lr={float(metrics['lr']):.2e} "
+                      f"{seconds[-1] * 1e3:.0f}ms/step", flush=True)
+            return (p, o), metrics
+        return step
+
+    batches = _LoaderBatches(lm_batch_fn(cfg.vocab_size, args.global_batch,
+                                         args.seq_len, seed=tcfg.seed), dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    carry, start, restarts = (params, opt), 0, 0
+    t0 = time.perf_counter()
+    try:
+        if args.ckpt_dir:
+            store = CheckpointStore(args.ckpt_dir, keep=3)
+            sup = TrainSupervisor(store=store, make_step=make_step,
+                                  make_batch=batches,
+                                  ckpt_every=args.ckpt_every)
+            start = store.latest_step() or 0
+            if start:
+                start, carry = store.restore(carry, device=dev)
+                print(f"resumed from step {start}", flush=True)
+            out = sup.run(carry, start_step=start, num_steps=args.steps)
+            carry, restarts = out["carry"], out["restarts"]
+            print(f"done at step {out['step']} restarts={restarts} "
+                  f"loss={losses[-1] if losses else float('nan'):.4f}",
+                  flush=True)
+        else:
+            step = make_step()
+            for s in range(args.steps):
+                carry, _ = step(carry, batches(s))
+    finally:
+        batches.close()
+    sync()
+    wall = time.perf_counter() - t0
+    # steady state: the first step (allocation, kernel selection) aside
+    steady = seconds[1:] or seconds
+    ms = 1e3 * sum(steady) / max(len(steady), 1)
+    tokens = args.global_batch * args.seq_len
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else None)
+    summary = {"arch": cfg.name, "steps": len(losses), "wall_s": wall,
+               "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+               "peak_mem_gib": peak, "first_loss": losses[0] if losses
+               else None, "last_loss": losses[-1] if losses else None,
+               "restarts": restarts}
+    print(f"trained {len(losses)} steps in {wall:.2f} s: {ms:.2f} ms/step, "
+          f"{summary['tokens_per_s']:.0f} tokens/s (batch "
+          f"{args.global_batch} x seq {args.seq_len}), peak device memory "
+          + (f"{peak:.3f} GiB" if peak is not None else "n/a (cpu)"),
+          flush=True)
+    print("lm train summary " + json.dumps(summary), flush=True)
+    return dict(summary, losses=losses, carry=carry)
+
+
 def parse_args(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100,
+                    help="LM archs: training steps")
     ap.add_argument("--epochs", type=int, default=20,
-                    help="training epochs")
+                    help="NeuraLUT archs: training epochs")
     ap.add_argument("--seeds", type=int, default=1,
-                    help="restarts trained together; the best is kept")
+                    help="NeuraLUT archs: restarts trained together; the "
+                         "best is kept")
     ap.add_argument("--registry", default=None,
-                    help="save the bundle to this TableRegistry")
+                    help="NeuraLUT archs: save the bundle to this "
+                         "TableRegistry")
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--mesh", default="host",
+                    choices=["host", "single", "multi"],
+                    help="LM archs: host and single run on one device; "
+                         "multi is not ported")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="e.g. 1x1; a shape over more devices is not "
+                         "ported")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--lr", type=float, default=None,
-                    help="default 2e-3")
+                    help="default: 3e-4 for LM archs, 2e-3 for NeuraLUT")
     ap.add_argument("--log-every", type=int, default=10,
-                    help="print metrics every N epochs (0: never)")
+                    help="print metrics every N epochs (NeuraLUT) or "
+                         "steps (LM); 0: never")
+    ap.add_argument("--tpu-flags", action="store_true",
+                    help="accepted for the reference's command lines; "
+                         "does nothing here (XLA flags)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     return ap.parse_args(argv)
@@ -133,14 +310,16 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = parse_args(argv)
-    from repro_torch.config import get_config, list_archs
+    from repro_torch.config import get_config, list_archs, list_lm_archs
+    from repro_torch.config.registry import NOT_PORTED_ARCHS
+    if args.arch in list_lm_archs():
+        return train_lm_arch(args, get_config(args.arch,
+                                              reduced=args.reduced))
     if args.arch not in list_archs():
-        if args.arch.startswith(("neuralut", "polylut")):
-            raise SystemExit(f"--arch {args.arch}: unknown; the NeuraLUT "
-                             f"archs are {', '.join(list_archs())}")
-        raise NotImplementedError(
-            f"--arch {args.arch}: LM archs and their trainer "
-            + NOT_PORTED.format("Queue A item 7"))
+        if args.arch in NOT_PORTED_ARCHS:
+            get_config(args.arch)  # raises, naming its ROADMAP item
+        raise SystemExit(f"--arch {args.arch}: unknown; the archs are "
+                         f"{', '.join(list_archs() + list_lm_archs())}")
     return train_neuralut_arch(args, get_config(args.arch,
                                                 reduced=args.reduced))
 

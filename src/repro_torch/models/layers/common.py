@@ -1,0 +1,146 @@
+"""Shared building blocks: norms, activations, dense MLPs, initializers
+(port of ``repro.models.layers.common``).
+
+Functional style: every block is (spec, init, apply) over plain nested
+dicts and lists of tensors (``repro_torch.tree``).  A spec's leaves are
+:class:`TensorSpec` (shape and dtype, no storage); ``init_from_spec``
+and ``zeros_from_spec`` materialize them.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.tree import tree_map
+
+Params = Dict[str, Any]
+
+
+@dataclass(frozen=True)
+class TensorSpec:
+    """The shape and dtype of one leaf (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+# ---------------------------------------------------------------------------
+# Spec/init helpers
+
+
+def _dense_spec(d_in: int, d_out: int, dtype) -> TensorSpec:
+    return TensorSpec((d_in, d_out), dtype)
+
+
+def _init_leaf(name: str, leaf: TensorSpec,
+               generator: torch.Generator) -> torch.Tensor:
+    if leaf.ndim >= 2:
+        fan_in = leaf.shape[-2]
+        w = torch.empty(leaf.shape, dtype=torch.float32)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        w = w * (1.0 / math.sqrt(max(fan_in, 1)))
+        return w.to(leaf.dtype)
+    if "scale" in name or "norm" in name or name == "g":
+        return torch.ones(leaf.shape, dtype=leaf.dtype)
+    return torch.zeros(leaf.shape, dtype=leaf.dtype)
+
+
+def init_from_spec(spec, generator: torch.Generator, *,
+                   device: Optional[torch.device] = None):
+    """Materialize a spec tree: truncated-normal (+-2 sigma) fan-in init
+    for every leaf of two or more dims (fan-in = the second-to-last
+    dim, as the reference's, so a stacked norm scale is drawn too),
+    ones for vectors named like scales, zeros otherwise.  Drawn on the
+    host from ``generator`` leaf by leaf in tree order, then moved to
+    ``device`` (default the host)."""
+    def walk(t, name):
+        if isinstance(t, dict):
+            return {k: walk(t[k], k) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return [walk(x, name) for x in t]
+        return _init_leaf(name, t, generator).to(device)
+    return walk(spec, "")
+
+
+def zeros_from_spec(spec, *, device: Optional[torch.device] = None):
+    """A spec tree of zero tensors (a fresh decode state)."""
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                          device=device), spec)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+
+
+def norm_spec(d: int, kind: str, dtype) -> Params:
+    if kind == "rmsnorm":
+        return {"g": TensorSpec((d,), dtype)}
+    return {"g": TensorSpec((d,), dtype), "b": TensorSpec((d,), dtype)}
+
+
+def apply_norm(p: Params, x: torch.Tensor, kind: str,
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm or LayerNorm, float32 inside, the input's dtype out."""
+    xf = x.float()
+    if kind == "rmsnorm":
+        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps)
+        return (y * p["g"].float()).to(x.dtype)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["g"].float() + p["b"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def activation(name: str):
+    return {"silu": F.silu, "gelu": _gelu, "relu": F.relu}[name]
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP (llama-style). For act="gelu" this is GeGLU.
+
+
+def mlp_spec(d_model: int, d_ff: int, dtype) -> Params:
+    return {
+        "w_gate": _dense_spec(d_model, d_ff, dtype),
+        "w_up": _dense_spec(d_model, d_ff, dtype),
+        "w_down": _dense_spec(d_ff, d_model, dtype),
+    }
+
+
+def apply_mlp(p: Params, x: torch.Tensor, act: str,
+              fused: bool = False) -> torch.Tensor:
+    a = activation(act)
+    if fused:
+        # one matmul for gate and up
+        w = torch.cat([p["w_gate"], p["w_up"]], dim=1)
+        gu = x @ w
+        ff = p["w_gate"].shape[1]
+        h = a(gu[..., :ff]) * gu[..., ff:]
+    else:
+        h = a(x @ p["w_gate"]) * (x @ p["w_up"])
+    return h @ p["w_down"]

@@ -1,0 +1,423 @@
+"""Decoder-only LM assembly: embeds -> repeated block pattern -> head
+(port of ``repro.models.lm`` for the dense family: every layer is
+attention (GQA) + a dense gated MLP).
+
+Layer stacking: per-pattern-position parameter *stacks* with leading
+dim ``pattern_repeat``, as in the reference, so a tree bridges leaf for
+leaf.  The reference's ``layer_mode`` "scan" and "unroll" are one loop
+here over the stacked leaves (each stack is unbound once, so the
+backward stacks its gradients once).  ``remat``: "full" recomputes each
+block in the backward (``torch.utils.checkpoint``, non-reentrant),
+"dots" saves the outputs of the matmuls without batch dims (the
+projections and the MLP) and recomputes the rest, "none" saves all.
+
+Embeddings: a tied table goes in through a chunked one-hot matmul, as
+the reference's; an untied one through a gather whose backward is the
+same one-hot matmul.  Both backward passes are therefore matmuls, with
+no atomics, so a step is bitwise reproducible on the card.  The loss is
+computed in chunks over the tokens, each chunk's (tokens, vocab) logits
+recomputed in the backward, so the full logits never materialize.
+
+MLA, mamba, mLSTM, sLSTM, MoE and the vision stub raise
+``NotImplementedError`` naming their ROADMAP item.  The reference's
+sharding constraints are dropped: one device has no sharding.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+from repro_torch import NOT_PORTED
+from repro_torch.config.base import LayerSpec, ModelConfig
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from .layers import attention as attn_lib
+from .layers.common import (TensorSpec, apply_mlp, apply_norm, dtype_of,
+                            mlp_spec, norm_spec)
+
+Params = Dict[str, Any]
+
+LOSS_CHUNK = 512
+EMBED_CHUNK = 2048
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(what + " " + NOT_PORTED.format(
+        "Queue A item 7"))
+
+
+# ---------------------------------------------------------------------------
+# Param specs
+
+
+def _check_mixer(spec: LayerSpec, cfg: ModelConfig) -> None:
+    if spec.mixer != "attn":
+        raise _not_ported(f"the {spec.mixer} mixer")
+    if cfg.attention.kind == "mla":
+        raise _not_ported("MLA attention")
+
+
+def _check_ffn(spec: LayerSpec) -> None:
+    if spec.ffn not in ("dense", "none"):
+        raise _not_ported(f"the {spec.ffn} FFN")
+
+
+def _mixer_spec(spec: LayerSpec, cfg: ModelConfig, dtype) -> Params:
+    _check_mixer(spec, cfg)
+    return attn_lib.attention_spec(cfg.attention, cfg.d_model, dtype)
+
+
+def _ffn_spec(spec: LayerSpec, cfg: ModelConfig, dtype) -> Optional[Params]:
+    _check_ffn(spec)
+    if spec.ffn == "none":
+        return None
+    return mlp_spec(cfg.d_model, cfg.d_ff, dtype)
+
+
+def block_spec(spec: LayerSpec, cfg: ModelConfig, dtype) -> Params:
+    p: Params = {
+        "ln1": norm_spec(cfg.d_model, cfg.norm, dtype),
+        "mixer": _mixer_spec(spec, cfg, dtype),
+    }
+    ffn = _ffn_spec(spec, cfg, dtype)
+    if ffn is not None:
+        p["ln2"] = norm_spec(cfg.d_model, cfg.norm, dtype)
+        p["ffn"] = ffn
+    return p
+
+
+def _stack(tree: Params, n: int) -> Params:
+    return tree_map(lambda s: TensorSpec((n,) + s.shape, s.dtype), tree)
+
+
+def param_spec(cfg: ModelConfig) -> Params:
+    """Full parameter tree of :class:`TensorSpec`.  ``blocks`` is a list
+    over pattern positions, each the block tree stacked over
+    ``pattern_repeat``; dense-prefix overrides are separate unstacked
+    entries in ``prefix_blocks``."""
+    if cfg.vision is not None:
+        raise _not_ported("the vision stub")
+    if cfg.encoder is not None:
+        raise _not_ported("enc-dec")
+    dtype = dtype_of(cfg.dtype)
+    rep = cfg.pattern_repeat
+    v, d = cfg.vocab_size, cfg.d_model
+    p: Params = {"embed": TensorSpec((v, d), dtype)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = TensorSpec((d, v), dtype)
+    p["final_norm"] = norm_spec(d, cfg.norm, dtype)
+    p["prefix_blocks"] = [
+        block_spec(LayerSpec(mixer=s.mixer, ffn="dense", window=s.window),
+                   cfg, dtype)
+        for s in cfg.layer_specs()[:cfg.num_dense_prefix]]
+    p["blocks"] = [_stack(block_spec(spec, cfg, dtype), rep)
+                   for spec in cfg.pattern]
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head / loss
+
+
+def _onehot_rows(tk: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    return F.one_hot(tk.long(), emb.shape[0]).to(emb.dtype) @ emb
+
+
+class _GatherRows(torch.autograd.Function):
+    """``emb[tokens]`` with the one-hot matmul as its backward (chunks
+    of ``EMBED_CHUNK`` tokens): no scatter atomics."""
+
+    @staticmethod
+    def forward(ctx, emb, flat):
+        ctx.save_for_backward(flat)
+        ctx.vocab = emb.shape[0]
+        return emb[flat.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        (flat,) = ctx.saved_tensors
+        out = None
+        for c in range(0, flat.shape[0], EMBED_CHUNK):
+            oh = F.one_hot(flat[c:c + EMBED_CHUNK].long(),
+                           ctx.vocab).to(g.dtype)
+            part = oh.t() @ g[c:c + EMBED_CHUNK]
+            out = part if out is None else out + part
+        return out, None
+
+
+def _maybe_checkpoint(fn, *args):
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def embed_tokens(cfg: ModelConfig, params: Params,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    emb = params["embed"]
+    b, s = tokens.shape
+    flat = tokens.reshape(-1)
+    if not cfg.tie_embeddings:
+        return _GatherRows.apply(emb, flat).reshape(b, s, cfg.d_model)
+    # Tied: chunked one-hot matmul, each chunk recomputed in backward.
+    n = flat.shape[0]
+    chunk = min(EMBED_CHUNK, n)
+    xs = [_maybe_checkpoint(_onehot_rows, flat[c:c + chunk], emb)
+          for c in range(0, n, chunk)]
+    return torch.cat(xs, dim=0).reshape(b, s, cfg.d_model)
+
+
+def _head_logits(cfg: ModelConfig, params: Params,
+                 x: torch.Tensor) -> torch.Tensor:
+    """x: (..., D) -> logits (..., V)."""
+    if cfg.tie_embeddings:
+        return x @ params["embed"].t()
+    return x @ params["lm_head"]
+
+
+def _ce_chunk(cfg, params, xc, lc):
+    logits = _head_logits(cfg, params, xc).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    iota = torch.arange(cfg.vocab_size, device=lc.device)[None, :]
+    ll = torch.sum(torch.where(iota == lc[:, None], logits, 0.0), dim=-1)
+    return torch.sum(torch.where(lc >= 0, lse - ll, 0.0))
+
+
+def chunked_ce_loss(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                    labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy without materializing (tokens, vocab) logits:
+    chunks of ``LOSS_CHUNK * batch`` tokens, each recomputed in the
+    backward, summed in order in float32."""
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    lf = labels.reshape(b * s)
+    n = xf.shape[0]
+    chunk = min(LOSS_CHUNK * max(1, b), n)
+    pad = (-n) % chunk
+    if pad:
+        xf = F.pad(xf, (0, 0, 0, pad))
+        lf = F.pad(lf, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, xf.shape[0], chunk):
+        tot = tot + _maybe_checkpoint(
+            functools.partial(_ce_chunk, cfg), params, xf[c:c + chunk],
+            lf[c:c + chunk])
+    return tot / n
+
+
+# ---------------------------------------------------------------------------
+# Block application
+
+
+def _resolve_window(spec: LayerSpec, cfg: ModelConfig) -> int:
+    if spec.window is not None:
+        return spec.window
+    return cfg.attention.window
+
+
+def apply_block(spec: LayerSpec, cfg: ModelConfig, p: Params,
+                x: torch.Tensor, *, positions=None, q_chunk: int = 512
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, moe_aux_loss) — the aux loss is 0 for a dense FFN."""
+    a = cfg.attention
+    if cfg.attn_chunk:
+        q_chunk = cfg.attn_chunk
+    _check_mixer(spec, cfg)
+    _check_ffn(spec)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = apply_norm(p["ln1"], x, cfg.norm)
+    h = attn_lib.apply_attention(
+        p["mixer"], a, h, causal=True, window=_resolve_window(spec, cfg),
+        positions=positions, q_chunk=q_chunk, impl=cfg.attn_impl,
+        fused_qkv=cfg.fused_qkv)
+    x = x + h
+    if spec.ffn != "none":
+        h = apply_norm(p["ln2"], x, cfg.norm)
+        x = x + apply_mlp(p["ffn"], h, cfg.act, fused=cfg.fused_qkv)
+    return x, aux
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The reference's ``checkpoint_dots_with_no_batch_dims``: keep the
+    2-D matmuls (a (B, S, D) @ (D, F) product folds to one), recompute
+    everything else, the batched attention products included."""
+    if op in _MATMULS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    if policy not in ("none", "full", "dots"):
+        raise ValueError(f"remat {policy!r}: 'none', 'full' or 'dots'")
+
+    def run(p, x):
+        if policy == "none" or not torch.is_grad_enabled():
+            return fn(p, x)
+        if policy == "dots":
+            return checkpoint(fn, p, x, use_reentrant=False,
+                              context_fn=functools.partial(
+                                  create_selective_checkpoint_contexts,
+                                  _save_dots))
+        return checkpoint(fn, p, x, use_reentrant=False)
+    return run
+
+
+def _unstack(tree, n: int) -> List[Any]:
+    """A stacked tree -> n trees, one per repeat (each leaf unbound
+    once)."""
+    cols = [leaf.unbind(0) for leaf in tree_leaves(tree)]
+    return [tree_unflatten(tree, [c[r] for c in cols]) for r in range(n)]
+
+
+def _check_layer_mode(layer_mode: str) -> None:
+    if layer_mode not in ("scan", "unroll"):
+        raise ValueError(f"layer_mode {layer_mode!r}: 'scan' or 'unroll'")
+
+
+def apply_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
+                positions=None, layer_mode: str = "scan",
+                remat: str = "full", q_chunk: int = 512
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run all layers. Returns (x, total_moe_aux)."""
+    _check_layer_mode(layer_mode)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_prefix = cfg.num_dense_prefix
+    specs = cfg.layer_specs()
+
+    def block(spec):
+        return _remat(functools.partial(apply_block, spec, cfg,
+                                        positions=positions,
+                                        q_chunk=q_chunk), remat)
+
+    for i, bp in enumerate(params["prefix_blocks"]):
+        s = LayerSpec(mixer=specs[i].mixer, ffn="dense",
+                      window=specs[i].window)
+        x, aux = block(s)(bp, x)
+        aux_total = aux_total + aux
+    if n_prefix:
+        # the prefix layers replace the first repeats of the pattern
+        assert len(cfg.pattern) == 1, (
+            "num_dense_prefix requires pattern length 1")
+    rep = cfg.pattern_repeat
+    stacks = [_unstack(params["blocks"][j], rep)
+              for j in range(len(cfg.pattern))]
+    fns = [block(spec) for spec in cfg.pattern]
+    for r in range(n_prefix, rep):
+        for j, fn in enumerate(fns):
+            x, aux = fn(stacks[j][r], x)
+            aux_total = aux_total + aux
+    return x, aux_total
+
+
+# ---------------------------------------------------------------------------
+# Train-mode forward + loss
+
+
+def _check_batch(cfg: ModelConfig, batch) -> None:
+    if cfg.vision is not None or "patch_embeds" in batch:
+        raise _not_ported("the vision stub")
+
+
+def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
+            layer_mode: str = "scan", remat: str = "full",
+            q_chunk: int = 512
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    _check_batch(cfg, batch)
+    x = embed_tokens(cfg, params, batch["tokens"])
+    x, aux = apply_stack(cfg, params, x, layer_mode=layer_mode,
+                         remat=remat, q_chunk=q_chunk)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    ce = chunked_ce_loss(cfg, params, x, batch["labels"])
+    return ce + aux, {"ce": ce, "moe_aux": aux}
+
+
+def prefill_logits(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                   *, q_chunk: int = 512) -> torch.Tensor:
+    """The forward of ``lm_loss`` up to the head: float32 logits
+    (B, S, V) at every position (to hold decode against; it
+    materializes the full logits)."""
+    x = embed_tokens(cfg, params, tokens)
+    x, _ = apply_stack(cfg, params, x, remat="none", q_chunk=q_chunk)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return _head_logits(cfg, params, x).float()
+
+
+# ---------------------------------------------------------------------------
+# Decode: state spec + one step
+
+
+def _mixer_cache_spec(spec: LayerSpec, cfg: ModelConfig, batch: int,
+                      seq: int, dtype) -> Params:
+    _check_mixer(spec, cfg)
+    return attn_lib.cache_spec(cfg.attention, batch, seq,
+                               _resolve_window(spec, cfg), dtype)
+
+
+def decode_state_spec(cfg: ModelConfig, batch: int, seq: int) -> Params:
+    """Tree of :class:`TensorSpec` for the decode cache."""
+    dtype = dtype_of(cfg.dtype)
+    rep = cfg.pattern_repeat
+    st: Params = {"pos": TensorSpec((), torch.int32)}
+    st["prefix_blocks"] = [
+        _mixer_cache_spec(s, cfg, batch, seq, dtype)
+        for s in cfg.layer_specs()[:cfg.num_dense_prefix]]
+    st["blocks"] = [_stack(_mixer_cache_spec(spec, cfg, batch, seq, dtype),
+                           rep) for spec in cfg.pattern]
+    return st
+
+
+def _decode_block(spec: LayerSpec, cfg: ModelConfig, p, x, cache, pos):
+    _check_mixer(spec, cfg)
+    _check_ffn(spec)
+    h = apply_norm(p["ln1"], x, cfg.norm)
+    h, new_cache = attn_lib.decode_attention(
+        p["mixer"], cfg.attention, h, cache, pos,
+        window=_resolve_window(spec, cfg))
+    x = x + h
+    if spec.ffn != "none":
+        h = apply_norm(p["ln2"], x, cfg.norm)
+        x = x + apply_mlp(p["ffn"], h, cfg.act, fused=cfg.fused_qkv)
+    return x, new_cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, state: Params,
+                token: torch.Tensor, *, layer_mode: str = "scan"
+                ) -> Tuple[torch.Tensor, Params]:
+    """One token for the whole batch.  token: (B, 1) int.  Returns
+    (logits (B, vocab) float32, new state); ``state`` is left as it
+    was."""
+    _check_layer_mode(layer_mode)
+    pos = state["pos"]
+    x = embed_tokens(cfg, params, token)
+    new_state: Params = {"pos": pos + 1}
+    specs = cfg.layer_specs()
+    new_state["prefix_blocks"] = []
+    for i, bp in enumerate(params["prefix_blocks"]):
+        s = LayerSpec(mixer=specs[i].mixer, ffn="dense",
+                      window=specs[i].window)
+        x, c = _decode_block(s, cfg, bp, x, state["prefix_blocks"][i], pos)
+        new_state["prefix_blocks"].append(c)
+
+    n_prefix = cfg.num_dense_prefix
+    rep = cfg.pattern_repeat
+    new_state["blocks"] = []
+    for j, spec in enumerate(cfg.pattern):
+        ps = _unstack(params["blocks"][j], rep)
+        cs = _unstack(state["blocks"][j], rep)
+        if n_prefix and j == 0:
+            assert len(cfg.pattern) == 1
+        new_cs = cs[:n_prefix] if j == 0 else []
+        for r in range(n_prefix if j == 0 else 0, rep):
+            x, c = _decode_block(spec, cfg, ps[r], x, cs[r], pos)
+            new_cs.append(c)
+        new_state["blocks"].append(tree_map(lambda *xs: torch.stack(xs),
+                                            *new_cs))
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    logits = _head_logits(cfg, params, x[:, 0]).float()
+    return logits, new_state

@@ -5,12 +5,14 @@ decays by multiplying the parameter before the step, and
 neither.
 
 State: {"m": tree, "v": tree, "count": int32 scalar}, trees of float32
-tensors shaped like the parameters.  The reference also keeps a
-``master`` tree of float32 copies for bf16 parameters; NeuraLUT's
-parameters are all float32, so its ``master`` is all ``None`` and the
-port drops it.  The update builds new tensors (as the reference's pure
-function does) rather than writing in place, so a caller may keep the
-old state.
+tensors shaped like the parameters, and, when any parameter is
+bfloat16, {"master": tree} as in the reference: a float32 copy of each
+bfloat16 parameter (``None`` for the others) that the update steps, so
+that repeated tiny updates do not underflow; the parameter is the
+master rounded to bfloat16.  NeuraLUT's parameters are all float32, so
+its state has no ``master`` (the reference's is all ``None``).  The
+update builds new tensors (as the reference's pure function does)
+rather than writing in place, so a caller may keep the old state.
 """
 from __future__ import annotations
 
@@ -26,9 +28,15 @@ OptState = Dict[str, Any]
 def adamw_init(params) -> OptState:
     def zeros32(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    dev = tree_leaves(params)[0].device
-    return {"m": tree_map(zeros32, params), "v": tree_map(zeros32, params),
-            "count": torch.zeros((), dtype=torch.int32, device=dev)}
+    leaves = tree_leaves(params)
+    state = {"m": tree_map(zeros32, params), "v": tree_map(zeros32, params),
+             "count": torch.zeros((), dtype=torch.int32,
+                                  device=leaves[0].device)}
+    if any(p.dtype == torch.bfloat16 for p in leaves):
+        state["master"] = tree_map(
+            lambda p: p.to(torch.float32) if p.dtype == torch.bfloat16
+            else None, params)
+    return state
 
 
 def adamw_update(grads, state: OptState, params, *, lr,
@@ -38,9 +46,10 @@ def adamw_update(grads, state: OptState, params, *, lr,
     """One AdamW step -> (new params, new state).  ``lr`` may be a
     float32 tensor (the SGDR schedule's).  The clip scale is
     ``min(1, clip / max(gnorm, 1e-12))`` with the norm over all leaves;
-    the step is ``lr * (mh / (sqrt(vh) + eps) + wd * p)``.  Under
-    ``torch.func.vmap`` over a leading seed axis (the ensemble step)
-    the norm, and so the clip, is each seed's own."""
+    the step is ``lr * (mh / (sqrt(vh) + eps) + wd * base)`` where
+    ``base`` is the float32 master of a bfloat16 parameter, else the
+    parameter.  Under ``torch.func.vmap`` over a leading seed axis (the
+    ensemble step) the norm, and so the clip, is each seed's own."""
     count = state["count"] + 1
     cf = count.to(torch.float32)
     bc1 = 1.0 - beta1 ** cf
@@ -55,8 +64,11 @@ def adamw_update(grads, state: OptState, params, *, lr,
                             max=1.0)
     else:
         scale = None
+    has_master = "master" in state
+    masters = (tree_leaves(state["master"]) if has_master
+               else [None] * len(tree_leaves(params)))
 
-    def upd(g, m, v, p):
+    def upd(g, m, v, p, master):
         g32 = g.to(torch.float32)
         if scale is not None:
             g32 = g32 * scale
@@ -64,15 +76,18 @@ def adamw_update(grads, state: OptState, params, *, lr,
         v2 = beta2 * v + (1 - beta2) * g32 * g32
         mh = m2 / bc1
         vh = v2 / bc2
-        base = p.to(torch.float32)
-        step = lr * (mh / (torch.sqrt(vh) + eps) + weight_decay * base)
-        return ((base - step).to(p.dtype), m2, v2)
+        base = master if master is not None else p.to(torch.float32)
+        new_master = base - lr * (mh / (torch.sqrt(vh) + eps)
+                                  + weight_decay * base)
+        return (new_master.to(p.dtype), m2, v2,
+                new_master if master is not None else None)
 
     outs = [upd(*z) for z in zip(tree_leaves(grads), tree_leaves(state["m"]),
                                  tree_leaves(state["v"]),
-                                 tree_leaves(params))]
-    return (tree_unflatten(params, [o[0] for o in outs]),
-            {"m": tree_unflatten(params, [o[1] for o in outs]),
-             "v": tree_unflatten(params, [o[2] for o in outs]),
-             "count": count})
-
+                                 tree_leaves(params), masters)]
+    new_state = {"m": tree_unflatten(params, [o[1] for o in outs]),
+                 "v": tree_unflatten(params, [o[2] for o in outs]),
+                 "count": count}
+    if has_master:
+        new_state["master"] = tree_unflatten(params, [o[3] for o in outs])
+    return tree_unflatten(params, [o[0] for o in outs]), new_state

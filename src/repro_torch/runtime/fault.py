@@ -1,6 +1,13 @@
-"""Serving-side fault tolerance (port of ``repro.runtime.fault``:
-``ReplicaHealthTracker`` only; ``TrainSupervisor`` waits for the
-training supervisor's slice, ROADMAP.md Queue A).
+"""Fault tolerance: supervised training with checkpoint/restart, and
+serving-side replica health (port of ``repro.runtime.fault``).
+
+``TrainSupervisor`` runs a step function from a deterministic batch
+source, saves the carry asynchronously every ``ckpt_every`` steps and,
+on any failure, restores the latest committed checkpoint and continues
+from its step (up to ``max_restarts`` times).  The batch source is a
+function of the step index, so the sample order survives a restart and
+a resumed run equals an uninterrupted one.  The reference's mesh
+shrink on restart has no counterpart: the port runs one device.
 
 The tracker is a copy of the reference's (it uses no JAX); the chaos
 harness's ``FailureInjector`` and ``NodeFailure`` are re-exported from
@@ -9,9 +16,13 @@ harness's ``FailureInjector`` and ``NodeFailure`` are re-exported from
 from __future__ import annotations
 
 import threading
+import time
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
+from repro_torch.checkpoint import CheckpointStore
 from .chaos import FailureInjector, NodeFailure  # noqa: F401
+from .straggler import StepWatchdog
 
 
 class ReplicaHealthTracker:
@@ -127,4 +138,80 @@ class ReplicaHealthTracker:
                     for i in range(self.num_replicas)]
 
 
-__all__ = ["FailureInjector", "NodeFailure", "ReplicaHealthTracker"]
+def _carry_device(carry):
+    """The device of the carry's first tensor (None: numpy leaves)."""
+    stack = [carry]
+    while stack:
+        t = stack.pop(0)
+        if isinstance(t, dict):
+            stack[:0] = [t[k] for k in sorted(t)]
+        elif isinstance(t, (list, tuple)):
+            stack[:0] = list(t)
+        elif hasattr(t, "device"):
+            return t.device
+    return None
+
+
+@dataclass
+class TrainSupervisor:
+    """Checkpoint/restart + straggler-aware training loop.
+
+    ``make_step()`` -> ``step_fn(carry, batch) -> (carry, metrics)``;
+    the carry is the (params, opt_state, ...) tree the checkpoint
+    covers, and ``step_fn`` must not write into the carry it is given
+    (a save of it may still be in flight).  A restored carry comes back
+    on the device of the carry it replaces.
+    """
+
+    store: CheckpointStore
+    make_step: Callable[..., Callable]
+    make_batch: Callable[[int], Any]
+    ckpt_every: int = 50
+    max_restarts: int = 8
+    watchdog: StepWatchdog = field(default_factory=StepWatchdog)
+
+    def run(self, carry, *, start_step: int = 0, num_steps: int = 100,
+            injector: Optional[FailureInjector] = None,
+            on_restart: Optional[Callable[[int], None]] = None
+            ) -> Dict[str, Any]:
+        step_fn = self.make_step()
+        step = start_step
+        restarts = 0
+        metrics = None
+        pending = None
+        while step < num_steps:
+            try:
+                t0 = time.time()
+                if injector is not None:
+                    injector.check(step)
+                batch = self.make_batch(step)
+                carry, metrics = step_fn(carry, batch)
+                self.watchdog.record(time.time() - t0)
+                step += 1
+                if step % self.ckpt_every == 0 or step == num_steps:
+                    pending = self.store.save_async(
+                        step, carry, meta={"step": step})
+            except Exception:  # noqa: BLE001 — any failure: restart
+                restarts += 1
+                if restarts > self.max_restarts:
+                    raise
+                if pending is not None:
+                    pending.result()  # drain the in-flight checkpoint
+                last = self.store.latest_step()
+                if last is not None:
+                    last, carry = self.store.restore(
+                        carry, device=_carry_device(carry))
+                    step = last
+                else:
+                    step = start_step
+                if on_restart is not None:
+                    on_restart(step)
+                step_fn = self.make_step()
+        if pending is not None:
+            pending.result()
+        return {"carry": carry, "step": step, "restarts": restarts,
+                "metrics": metrics}
+
+
+__all__ = ["FailureInjector", "NodeFailure", "ReplicaHealthTracker",
+           "TrainSupervisor"]

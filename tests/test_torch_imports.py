@@ -59,10 +59,20 @@ def test_imports_with_jax_and_repro_blocked():
             "repro_torch.sweep.runner", "repro_torch.launch.sweep",
             "repro_torch.core.cost_model", "repro_torch.runtime.straggler",
             "repro_torch.runtime.tracker"} <= names
+    # and the dense LM's
+    assert {"repro_torch.models", "repro_torch.models.api",
+            "repro_torch.models.lm", "repro_torch.models.layers.common",
+            "repro_torch.models.layers.rope",
+            "repro_torch.models.layers.attention",
+            "repro_torch.optim.grad_compress", "repro_torch.train.step",
+            "repro_torch.configs.lm_100m", "repro_torch.configs.llama3_8b",
+            "repro_torch.configs.yi_9b", "repro_torch.configs.granite_34b",
+            "repro_torch.configs.gemma3_12b"} <= names
 
 
 def test_no_source_imports_jax_or_repro():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "examples" / "lm_train_torch.py"]
     assert len(files) > 20
     for f in files:
         assert not FORBIDDEN.search(f.read_text()), f

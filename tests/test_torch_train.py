@@ -187,13 +187,14 @@ def test_launch_train_cpu():
 @pytest.mark.parametrize("argv,err", [
     (["--seeds", "2", "--registry", "reg"], None),
     (["--registry", "reg"], None),
-    (["--arch", "llama3-8b"], NotImplementedError),
+    (["--arch", "qwen2-moe-a2.7b"], NotImplementedError),
     (["--arch", "polylut-add-jsc-2l", "--registry", "reg"], None),
     (["--arch", "neuralut-hdr-5l"], SystemExit),
 ])
 def test_launch_train_refuses_what_is_not_ported(argv, err, tmp_path,
                                                  capsys):
-    """LM archs and archs without a dataset are refused; ``--registry``
+    """LM archs not ported yet and archs without a dataset are refused;
+    ``--registry``
     (refused until the serving stack was ported) saves the served bundle
     to a TableRegistry, bit-identical on load."""
     from repro_torch.serve import TableRegistry
