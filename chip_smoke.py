@@ -56,9 +56,23 @@ then drives the port's paths at full width:
   group equal to the per-point ensemble bit for bit, the padded group's
   one step against it split by each element's gradient at init
   (``first_step_split``), its whole run, a rerun and a
-  resume bit for bit, the launcher once; before
+  resume bit for bit, the launcher once; then the sweep's unit axis
+  over logical replicas of the card (the grid at R = 2, the padded
+  group at R = 2 and 4, every real member bit for bit against R = 1,
+  K4/K5 launches R times R = 1's); before
   it K4/K5 over the sweep's unit axes (U = 3 and 6) against single-unit
   launches, and K2 at the sweep's conversion shapes;
+* the dense LM (``lm-100m``): a float32 step of the 2-layer cut on the
+  card against the CPU, ``launch.train`` at full depth with
+  checkpoints, the supervisor's restart bit for bit, a profiled step,
+  decode against prefill, the LM example and ``launch.serve --mode lm``
+  as processes;
+* the MoE LM (``qwen2-moe-a2.7b``) and the MLA + MoE LM
+  (``deepseek-v2-lite-16b``) at their published widths, cut to 2
+  layers: a float32 step on the card against the CPU, bf16 training
+  steps (ms/step, tokens/s, peak memory, busy share, CE and aux loss),
+  decode against prefill, ``launch.train`` and ``launch.serve --mode
+  lm`` as processes; no LUT kernel on the LM paths (counts 0);
 * the serving stack, right after graph serving, over the bundles of
   the two serving paths: a ``TableRegistry`` round trip (verified,
   bit-identical), a corrupted version refused and quarantined by the
@@ -3407,6 +3421,127 @@ def _tree_diffs(a, b):
     return sorted(out, key=lambda kv: -kv[1])
 
 
+SWEEP_REPLICAS = (2, 4)     # logical replicas of the card: grid, group
+
+
+def _first_diff(a, b):
+    """'path[index] a vs b' of the first element where two trees (of
+    one structure) differ, or None when they are equal bit for bit."""
+    for (path, x), (_, y) in zip(_paths(a), _paths(b)):
+        if x.shape != y.shape:
+            return f"{path}: shape {tuple(x.shape)} vs {tuple(y.shape)}"
+        ne = (x != y) & ~(x.isnan() & y.isnan())
+        if bool(ne.any()):
+            i = int(ne.flatten().nonzero()[0])
+            return (f"{path}[{i}] {float(x.flatten()[i])!r} vs "
+                    f"{float(y.flatten()[i])!r}")
+    return None
+
+
+def _sweep_over_replicas(dev, points, res, g_pad, kw, data, counts, jdir):
+    """The sweep's unit axis over R logical replicas of the card (R
+    blocks of W / R units, each in a thread on its own stream, joined in
+    unit order), journaled, against the R = 1 run ``res`` through its
+    journal ``jdir``, which holds every group's stacked params, BN state
+    and histories: (1) the whole paper grid at R = SWEEP_REPLICAS[0],
+    K4/K5 launches per group R times R = 1's; (2) the padded NeuraLUT
+    group at R = SWEEP_REPLICAS[1] (its 6 units padded to 8).  Every
+    real unit of a NeuraLUT group must equal R = 1 bit for bit; a
+    LogicNets group's first differing element is logged (ROADMAP Queue
+    C: the linear kind's plain product reduces over the batch in
+    float32, in an order that follows the unit count) and its
+    histories held to SWEEP_HIST_ATOL."""
+    import tempfile
+    import torch
+    from repro_torch.runtime.tracker import CallbackTracker
+    from repro_torch.sweep import (SweepJournal, run_pareto_sweep,
+                                   stack_group_operands)
+    from repro_torch.sweep.runner import HIST_KEYS
+    steps = kw["epochs"] * (data[0].shape[0] // kw["batch"])
+    ref = SweepJournal(jdir)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_replicas_")
+
+    def stacked(journal, g, index):
+        """A group's journaled (params, state, hist), real units only."""
+        p, st = stack_group_operands(g, data[0], device=dev)[:2]
+        tree = journal.load(index, {"params": p, "state": st,
+                                    "hist": dict.fromkeys(HIST_KEYS, 0)})
+        return _tree_slice(tree, g.num_units)
+
+    def run(r, pts):
+        records = []
+        tracker = CallbackTracker(lambda m, step, summary: records.append(
+            (step, counts())))
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_pareto_sweep(pts, *data, tracker=tracker,
+                               resume=f"{tmp.name}/r{r}",
+                               devices=[dev] * r, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        require(out.devices == r, f"sweep at R={r}: devices {out.devices}")
+        rows, prev = [], before
+        for run_r in out.groups:
+            g = run_r.group
+            c = records[g.point_offset][1]
+            got = {k: c[k] - prev[k] for k in ("subnet_train_fwd",
+                                              "subnet_train_bwd")}
+            prev = c
+            g1 = next(x for x in res.groups
+                      if x.group.points[0].name == g.points[0].name)
+            want = (r * g.padded_cfg.num_layers * steps
+                    if g.padded_cfg.kind == "subnet" else 0)
+            require(got["subnet_train_fwd"] == got["subnet_train_bwd"]
+                    == want, f"sweep at R={r}, group {g.index}: K4/K5 "
+                    f"launches {got}, want {want} each ({r} x R = 1's)")
+            mine, theirs = (stacked(SweepJournal(f"{tmp.name}/r{r}"), g,
+                                    g.index),
+                            stacked(ref, g1.group, g1.group.index))
+            diff = _first_diff(*((t["params"], t["state"], t["hist"])
+                                 for t in (mine, theirs)))
+            hd = max(float((torch.as_tensor(mine["hist"][k])
+                            - torch.as_tensor(theirs["hist"][k])).abs().max())
+                     for k in HIST_KEYS)
+            subnet = g.padded_cfg.kind == "subnet"
+            rows.append(dict(index=g1.group.index, kind=g.padded_cfg.kind,
+                             units=g.num_units, stacked=g.stacked_units,
+                             k4=got["subnet_train_fwd"],
+                             k5=got["subnet_train_bwd"],
+                             seconds=run_r.cold_s + run_r.warm_s,
+                             seconds_r1=g1.cold_s + g1.warm_s,
+                             first_diff=diff, hist_diff=hd))
+            log(f"sweep R={r} group {g1.group.index} ({g.padded_cfg.kind}): "
+                f"{g.num_units} units padded to {g.stacked_units}, "
+                f"{g.stacked_units // r} per replica; K4/K5 launches "
+                f"{got['subnet_train_fwd']}/{got['subnet_train_bwd']} (R = "
+                f"1: {want // r} each); {run_r.cold_s + run_r.warm_s:.3f} s "
+                f"(R = 1: {g1.cold_s + g1.warm_s:.3f} s); every real unit's "
+                f"params, BN state and history against R = 1: "
+                + ("bit-identical" if diff is None else
+                   f"first difference at {diff}, histories within {hd:.3e}"))
+            require(diff is None if subnet else hd <= SWEEP_HIST_ATOL,
+                    f"sweep at R={r}, group {g1.group.index} "
+                    f"({g.padded_cfg.kind}) differs from R = 1: {diff}; "
+                    f"histories {hd:.3e}")
+        return dict(replicas=r, seconds=secs, groups=rows)
+
+    out = {"grid": run(SWEEP_REPLICAS[0], points),
+           "group": run(SWEEP_REPLICAS[1], g_pad.points)}
+    tmp.cleanup()
+    return out
+
+
+def _tree_slice(tree, units):
+    """The first ``units`` entries of every leaf's leading axis."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: _tree_slice(v, units) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_slice(v, units) for v in tree]
+    return torch.as_tensor(tree)[:units]
+
+
 def phase_sweep(dev):
     """The Pareto sweep at the paper grid's full widths
     (``paper_sweep_points``: LogicNets 128x64x32x10, 64x32x32x10,
@@ -3420,7 +3555,9 @@ def phase_sweep(dev):
     one-point group bit for bit; the group's first gradients, one step
     at float32 tolerance, the whole run at the SWEEP_* limits); a
     rerun of that group and a resume of the whole sweep bit for bit;
-    the busy share of one group epoch; launch.sweep through main()."""
+    the unit axis over logical replicas of the card
+    (:func:`_sweep_over_replicas`); the busy share of one group epoch;
+    launch.sweep through main()."""
     import tempfile
     import numpy as np
     import torch
@@ -3706,6 +3843,8 @@ def phase_sweep(dev):
     log(f"sweep rerun of group {g_pad.index} bit-identical; resume "
         f"replayed {len(resumed.groups)} groups bit-identically with 0 K4 "
         "launches")
+    replicas = _sweep_over_replicas(dev, points, res, g_pad, kw,
+                                    (xtr, ytr, xte, yte), counts, jdir)
 
     # one group epoch of each NeuraLUT group (U = 3 and 6): wall, busy
     # share and K4/K5 device ms per step, from a profiled epoch
@@ -3744,7 +3883,8 @@ def phase_sweep(dev):
     tmp.cleanup()
     return dict(launches=train_launches, serve_launches=serve_launches,
                 groups=group_rows, frontier=frontier, flips=flips, k1=k1,
-                equivalence=equiv, epoch=epoch, seconds=t1 - t0)
+                equivalence=equiv, epoch=epoch, replicas=replicas,
+                seconds=t1 - t0)
 
 
 LM_ARCH = "lm-100m"
@@ -3772,44 +3912,48 @@ LM_STEP_GRAD_T, LM_PARAM_ATOL = 1e-5, 1e-6
 LM_DECODE_TOL = 0.03
 
 
-def _lm_step_check(cfg, dev, tcfg, batch_np):
-    """(a): one make_train_step step of cfg (float32) on the card and on
-    the CPU from the same bridged params and batch; the gradients are
-    caught before the clip by the step's compress_grads hook."""
+def _lm_step(cfg, tcfg, params, batch_np):
+    """One make_train_step step of cfg from ``params`` (on their
+    device): loss, the gradients caught before the clip by the step's
+    compress_grads hook, the new params, the step's seconds and the
+    seconds until the gradients were caught (the rest is AdamW)."""
     import torch
-    from repro_torch import bridge
-    from repro_torch.models import api
     from repro_torch.optim import adamw_init
     from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_leaves
 
-    host = torch.device("cpu")
-    p_np = bridge.params_to_numpy(api.init_params(
-        cfg, torch.Generator().manual_seed(0), device=host))
-    out = {}
-    for d in (dev, host):
-        params = bridge.lm_params_from_numpy(cfg, p_np, device=d)
-        caught = []
-        step = make_train_step(cfg, tcfg, compress_grads=lambda g: (
-            caught.append(g), g)[1])
-        batch = {k: torch.as_tensor(v, device=d) for k, v in batch_np.items()}
-        t0 = time.perf_counter()
-        newp, _, m = step(params, adamw_init(params), batch)
-        loss = float(m["loss"])
-        out[d.type] = dict(loss=loss, grads=caught[0], params=newp,
-                           s=time.perf_counter() - t0)
-    card, cpu = out[dev.type], out["cpu"]
+    d = tree_leaves(params)[0].device
+    caught = []
+    step = make_train_step(cfg, tcfg, compress_grads=lambda g: (
+        caught.append((g, time.perf_counter())), g)[1])
+    batch = {k: torch.as_tensor(v, device=d) for k, v in batch_np.items()}
+    t0 = time.perf_counter()
+    newp, _, m = step(params, adamw_init(params), batch)
+    loss = float(m["loss"])
+    if d.type == "cuda":
+        torch.cuda.synchronize(d)
+    return dict(loss=loss, grads=caught[0][0], params=newp,
+                s=time.perf_counter() - t0, grad_s=caught[0][1] - t0)
+
+
+def _lm_step_compare(cfg, tcfg, card, cpu, batch_np, where):
+    """(a)'s verdict on a card step against a CPU step (``_lm_step``),
+    compared on ``where``: the loss to rtol LM_LOSS_RTOL, each gradient
+    leaf to rtol LM_GRAD_RTOL / atol LM_GRAD_ATOL_REL x its largest
+    element, each new param by its sign-certain split."""
+    import torch
     require(abs(card["loss"] - cpu["loss"]) <= LM_LOSS_RTOL * abs(cpu["loss"]),
             f"lm step loss: card {card['loss']!r} cpu {cpu['loss']!r}")
     gerr, strict_n, loose_n, perr = 0.0, 0, 0, 0.0
     reach = 2 * tcfg.lr + LM_PARAM_ATOL
     # Adam steps the clipped gradient: the split reads it at that scale
-    gnorm = sum(float(torch.sum(torch.square(g.double())))
+    gnorm = sum(float(torch.sum(torch.square(g.to(where).double())))
                 for _, g in _paths(cpu["grads"])) ** 0.5
     clip = min(1.0, tcfg.grad_clip / max(gnorm, 1e-12))
     for (path, g), (_, gc), (_, pn), (_, pc) in zip(
             _paths(card["grads"]), _paths(cpu["grads"]),
             _paths(card["params"]), _paths(cpu["params"])):
-        g, pn = g.cpu(), pn.cpu()
+        g, gc, pn, pc = (t.to(where) for t in (g, gc, pn, pc))
         atol = LM_GRAD_ATOL_REL * float(gc.abs().max())
         gerr = max(gerr, _close(g, gc, LM_GRAD_RTOL, atol,
                                 f"lm step-1 gradient {path}"))
@@ -3822,11 +3966,12 @@ def _lm_step_check(cfg, dev, tcfg, batch_np):
                 f"certain) or {reach} (not); max diff {float(d.max()):.3e}")
         strict_n += int(certain.sum())
         loose_n += int((~certain).sum())
-        perr = max(perr, float(d[certain].max()) if bool(certain.any())
-                   else 0.0)
+        perr = max(perr, float(torch.where(certain, d, 0.0).max()))
+    bsz, seq = batch_np["tokens"].shape
     log(f"lm (a) {cfg.name} x{cfg.num_layers} layers float32, batch "
-        f"{LM_B} x seq {LM_S}: one step card {card['s']:.3f} s / cpu "
-        f"{cpu['s']:.3f} s; loss card {card['loss']:.7f} cpu "
+        f"{bsz} x seq {seq}: one step card {card['s']:.3f} s / cpu "
+        f"{cpu['s']:.3f} s (gradients {cpu['grad_s']:.3f} s, AdamW the "
+        f"rest); loss card {card['loss']:.7f} cpu "
         f"{cpu['loss']:.7f}; {len(_paths(cpu['grads']))} gradient leaves "
         f"within rtol {LM_GRAD_RTOL} / atol {LM_GRAD_ATOL_REL} x max|leaf| "
         f"(max err {gerr:.3e}, clip scale {clip:.4f}); new params: "
@@ -3834,7 +3979,24 @@ def _lm_step_check(cfg, dev, tcfg, batch_np):
         f"certain sign within {LM_PARAM_ATOL} (max {perr:.3e}), {loose_n} "
         f"within the step's reach {reach:.1e}")
     return dict(loss_card=card["loss"], loss_cpu=cpu["loss"], grad_err=gerr,
-                param_err=perr, loose=loose_n, card_s=card["s"])
+                param_err=perr, loose=loose_n, card_s=card["s"],
+                cpu_s=cpu["s"], cpu_grad_s=cpu["grad_s"])
+
+
+def _lm_step_check(cfg, dev, tcfg, batch_np):
+    """(a): one make_train_step step of cfg (float32) on the card and on
+    the CPU from the same params (drawn from seed 0 on the host and
+    bridged through numpy) and batch."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.models import api
+
+    host = torch.device("cpu")
+    p_np = bridge.params_to_numpy(api.init_params(
+        cfg, torch.Generator().manual_seed(0), device=host))
+    card, cpu = (_lm_step(cfg, tcfg, bridge.lm_params_from_numpy(
+        cfg, p_np, device=d), batch_np) for d in (dev, host))
+    return _lm_step_compare(cfg, tcfg, card, cpu, batch_np, host)
 
 
 def _gib(x) -> str:
@@ -4110,6 +4272,260 @@ def phase_lm(dev, card):
     res["seconds"] = time.perf_counter() - t_start
     log(f"lm: K1-K5 launches on the LM path {launches}; phase "
         f"{res['seconds']:.1f} s")
+    return res
+
+
+MOE_ARCHS = ("qwen2-moe-a2.7b", "deepseek-v2-lite-16b")
+MOE_CUT_LAYERS = 2         # qwen: 2 MoE layers; deepseek: the dense prefix + 1
+MOE_STEP_B, MOE_STEP_S = 2, 32   # (a): the dense dispatch on the CPU
+MOE_WARM_STEPS, MOE_TIMED_STEPS = 2, 6     # (b), then one profiled step
+MOE_CLI_STEPS = 6
+# (c) float32 decode against float32 prefill: |logit diff| <= 3e-3 x the
+# largest |prefill logit| (tests/test_mla.py's decode-vs-prefill 3e-3,
+# taken relative to the logits' scale)
+MOE_DECODE_TOL = 3e-3
+
+
+def _moe_train(cfg, dev, tcfg, params):
+    """(b): MOE_WARM_STEPS + MOE_TIMED_STEPS bf16 steps through
+    make_train_step at batch LM_B x LM_S from ``params`` (on the card),
+    then one step under the profiler: ms/step and tokens/s of the timed
+    steps (synchronized), peak memory, the busy share of the profiled
+    step, and the loss, CE and aux loss of every step."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.step import make_train_step
+
+    step = make_train_step(cfg, tcfg)
+    make = lm_batch_fn(cfg.vocab_size, LM_B, LM_S, seed=0)
+    n = MOE_WARM_STEPS + MOE_TIMED_STEPS + 1
+    batches = [{k: torch.as_tensor(v, device=dev)
+                for k, v in make(s).items()} for s in range(n)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    opt = adamw_init(params)
+    mets, t0 = [], None
+    for i, b in enumerate(batches[:-1]):
+        if i == MOE_WARM_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        mets.append(m)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / MOE_TIMED_STEPS * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tp = time.perf_counter()
+        params, opt, m = step(params, opt, batches[-1])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - tp) * 1e3
+    mets.append(m)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    by_kernel = sorted(((e.self_device_time_total, e.key)
+                        for e in prof.key_averages()
+                        if e.self_device_time_total > 0), reverse=True)
+    busy = sum(u for u, _ in by_kernel) / 1e3
+    hist = [{k: float(m[k]) for k in ("loss", "ce", "moe_aux")}
+            for m in mets]
+    require(all(np.isfinite(h["loss"]) for h in hist)
+            and hist[-1]["loss"] < hist[0]["loss"]
+            and all(h["moe_aux"] > 0 for h in hist),
+            f"lm {cfg.name} (b): the loss did not fall or is not finite, "
+            f"or the aux loss is 0: {hist}")
+    tok_s = LM_B * LM_S / ms * 1e3
+    log(f"lm (b) {cfg.name} x{cfg.num_layers} layers {cfg.dtype}, batch "
+        f"{LM_B} x seq {LM_S}: {ms:.3f} ms/step over {MOE_TIMED_STEPS} "
+        f"steps, {tok_s:.0f} tokens/s, peak memory {peak:.3f} GiB; "
+        f"profiled step {wall:.3f} ms wall, device busy {busy:.3f} ms = "
+        f"{busy / wall:.4f} of it; loss {hist[0]['loss']:.4f} -> "
+        f"{hist[-1]['loss']:.4f} (CE {hist[0]['ce']:.4f} -> "
+        f"{hist[-1]['ce']:.4f}, aux {hist[0]['moe_aux']:.5f} -> "
+        f"{hist[-1]['moe_aux']:.5f}); device ms by kernel: " + ", ".join(
+            f"{k[:40]} {u / 1e3:.3f}" for u, k in by_kernel[:6]))
+    return dict(ms_per_step=ms, tokens_per_s=tok_s, peak_mem_gib=peak,
+                busy_ms=busy, wall_ms=wall, busy_share=busy / wall,
+                history=hist)
+
+
+def _moe_decode(cfg32, cfg, dev, p32, params):
+    """(c): teacher-forced float32 decode of LM_PREFILL tokens at batch
+    LM_DECODE_B, context LM_DECODE_CTX, against the float32 prefill
+    logits (every token routed by the dense dispatch, as the
+    reference's decode is); then LM_DECODE_TOKENS greedy bf16 tokens,
+    timed on a second pass; the decode cache's bytes per token per
+    layer."""
+    import math
+    import torch
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.models import api, lm
+    from repro_torch.models.layers.common import dtype_of, zeros_from_spec
+    from repro_torch.train.step import make_serve_step
+    from repro_torch.tree import tree_leaves
+
+    prompt = torch.as_tensor(lm_batch_fn(
+        cfg.vocab_size, LM_DECODE_B, LM_PREFILL, seed=1)(0)["tokens"],
+        device=dev)
+
+    def decode(c, p, n, pre=None):
+        step = make_serve_step(c)
+        state = zeros_from_spec(api.decode_state_spec(
+            c, LM_DECODE_B, LM_DECODE_CTX), device=dev)
+        tok, err = prompt[:, :1], 0.0
+        for i in range(n):
+            logits, state = step(p, state, tok)
+            if pre is not None and i < LM_PREFILL:
+                err = max(err, float((logits - pre[:, i]).abs().max()))
+            tok = (prompt[:, i + 1:i + 2] if i + 1 < LM_PREFILL else
+                   torch.argmax(logits, -1).to(torch.int32)[:, None])
+        torch.cuda.synchronize()
+        return err, int(state["pos"])
+
+    with torch.no_grad():
+        pre = lm.prefill_logits(cfg32, p32, prompt)
+    err, pos = decode(cfg32, p32, LM_PREFILL, pre)
+    scale = float(pre.abs().max())
+    require(err <= MOE_DECODE_TOL * scale and pos == LM_PREFILL,
+            f"lm {cfg.name} decode logits differ from prefill by {err:.4e} "
+            f"> {MOE_DECODE_TOL} x {scale:.4f} (pos {pos})")
+    decode(cfg, params, LM_DECODE_TOKENS)
+    t0 = time.perf_counter()
+    _, pos = decode(cfg, params, LM_DECODE_TOKENS)
+    dt = time.perf_counter() - t0
+    require(pos == LM_DECODE_TOKENS, f"decode state pos {pos}")
+    layer = lm._mixer_cache_spec(cfg.pattern[0], cfg, 1, 1,
+                                 dtype_of(cfg.dtype))
+    cache_b = sum(math.prod(s.shape) * s.dtype.itemsize
+                  for s in tree_leaves(layer))
+    a = cfg.attention
+    expanded = 2 * a.num_heads * (a.nope_head_dim or a.head_dim) * 2
+    ms = dt / LM_DECODE_TOKENS * 1e3
+    tok_s = LM_DECODE_TOKENS * LM_DECODE_B / dt
+    log(f"lm (c) {cfg.name} decode, batch {LM_DECODE_B}, context "
+        f"{LM_DECODE_CTX}: float32, the first {LM_PREFILL} tokens' logits "
+        f"within {err:.4e} of prefill (max |logit| {scale:.4f}, tolerance "
+        f"{MOE_DECODE_TOL} x it); bf16 {LM_DECODE_TOKENS} tokens {ms:.3f} "
+        f"ms/token, {tok_s:.0f} tok/s; cache {cache_b:.0f} B per token per "
+        f"layer ({a.kind}; the expanded K/V would be {expanded} B)")
+    return dict(err=err, scale=scale, ms_per_token=ms, tok_s=tok_s,
+                cache_bytes_per_token_layer=cache_b,
+                expanded_bytes_per_token_layer=expanded)
+
+
+def phase_moe_lm(dev, card):
+    """The MoE (qwen2-moe-a2.7b) and MLA + MoE (deepseek-v2-lite-16b)
+    LMs at their published widths, depth cut to MOE_CUT_LAYERS, params
+    drawn once per config from seed 0 (float32, on the card, where 2B
+    draws take a fraction of a second against ~18 s on the host) and
+    reused: (a) one float32 step on the card against the CPU at batch
+    MOE_STEP_B x MOE_STEP_S, the CPU's step (~1 min of host AdamW over
+    2B params) run beside the card's step and (c), compared on the
+    card; (b) bf16 training steps at LM_B x LM_S with a profiled step;
+    (c) decode against prefill; (d) launch.train --reduced and
+    launch.serve --mode lm as processes, run beside the rest.  None of
+    K1-K5 is on this path: their counts must stay 0."""
+    import dataclasses
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.config import TrainConfig, get_config
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.kernels.lut_cascade import lut_cascade
+    from repro_torch.kernels.lut_gather import lut_layer, lut_lookup
+    from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
+                                                   subnet_train_fwd)
+    from repro_torch.kernels.neuralut_mlp import grouped_subnet
+    from repro_torch.models import api
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_start = time.perf_counter()
+    wrappers = (lut_cascade, lut_layer, lut_lookup, subnet_train_fwd,
+                subnet_train_bwd, grouped_subnet)
+    for fn in wrappers:
+        fn.launches = 0
+    tcfg = TrainConfig(lr=3e-4, sgdr_t0=50)   # the launcher's defaults
+    host = torch.device("cpu")
+    res = {}
+    pool, cpu_pool = ThreadPoolExecutor(2), ThreadPoolExecutor(1)
+    try:
+        for arch in MOE_ARCHS:
+            full = get_config(arch, reduced=LM_REDUCED)
+            cut = dataclasses.replace(full, num_layers=MOE_CUT_LAYERS)
+            cut32 = dataclasses.replace(cut, dtype="float32")
+            red = ["--reduced"] if LM_REDUCED else []
+            running = {
+                "launch.train": pool.submit(_lm_cli, [
+                    "-m", "repro_torch.launch.train", "--arch", arch,
+                    "--reduced", "--steps", str(MOE_CLI_STEPS),
+                    "--log-every", "0", "--device", dev.type]),
+                "launch.serve --mode lm": pool.submit(_lm_cli, [
+                    "-m", "repro_torch.launch.serve", "--mode", "lm",
+                    "--arch", arch, "--device", dev.type] + red)}
+            td = time.perf_counter()
+            p32 = api.init_params(cut32, torch.Generator(
+                device=dev).manual_seed(0), device=dev)
+            host_p = tree_map(lambda a: a.to(host), p32)
+            n_params = sum(a.numel() for a in tree_leaves(p32))
+            e_pad = p32["blocks"][0]["ffn"]["w_gate"].shape[1]
+            r = {"params": n_params, "padded_experts": e_pad,
+                 "draw_s": time.perf_counter() - td}
+            log(f"lm {arch}: {cut.num_layers} of {full.num_layers} layers "
+                f"at full width (d {cut.d_model}, {cut.moe.num_experts} "
+                f"experts of {cut.moe.d_ff_expert} padded to {e_pad}, top-"
+                f"{cut.moe.top_k}, {cut.moe.num_shared} shared, vocab "
+                f"{cut.vocab_size}), {n_params / 1e9:.3f}B params drawn "
+                f"from seed 0 on the card and copied to the host in "
+                f"{r['draw_s']:.1f} s")
+            # (a)'s CPU step runs beside the card's step and (c)
+            batch_np = lm_batch_fn(cut.vocab_size, MOE_STEP_B, MOE_STEP_S,
+                                   seed=0)(0)
+            cpu_fut = cpu_pool.submit(_lm_step, cut32, tcfg, host_p,
+                                      batch_np)
+            on_card = _lm_step(cut32, tcfg, p32, batch_np)
+            spec = api.param_spec(cut)
+            pb = tree_map(lambda a, sp: a.to(sp.dtype), p32, spec)
+            r["decode"] = _moe_decode(cut32, cut, dev, p32, pb)
+            r["step"] = _lm_step_compare(cut32, tcfg, on_card,
+                                         cpu_fut.result(), batch_np, dev)
+            del on_card, cpu_fut, host_p, p32
+            torch.cuda.empty_cache()
+            r["train"] = _moe_train(cut, dev, tcfg, pb)
+            del pb
+            torch.cuda.empty_cache()
+            r["cli"] = {}
+            for name, fut in running.items():
+                proc, secs = fut.result()
+                for line in proc.stdout.splitlines()[-2:]:
+                    log(f"  {name} {arch}| {line}")
+                require(proc.returncode == 0, f"{name} --arch {arch} "
+                        f"exited {proc.returncode}")
+                if name == "launch.train":
+                    summ = [ln for ln in proc.stdout.splitlines()
+                            if ln.startswith("lm train summary ")]
+                    require(len(summ) == 1, f"launch.train {arch}: no "
+                            "summary")
+                    tr = json.loads(summ[0][len("lm train summary "):])
+                    require(tr["steps"] == MOE_CLI_STEPS
+                            and tr["last_loss"] < tr["first_loss"],
+                            f"launch.train {arch}: {tr}")
+                else:
+                    require("ms/token" in proc.stdout,
+                            f"launch.serve --mode lm {arch}: no decode line")
+                r["cli"][name] = secs
+            log(f"lm (d) {arch}: launch.train --reduced --steps "
+                f"{MOE_CLI_STEPS} and launch.serve --mode lm exit 0 ("
+                + ", ".join(f"{k} {v:.1f} s" for k, v in r["cli"].items())
+                + ", beside (a))")
+            res[arch] = r
+    finally:
+        pool.shutdown(wait=True)
+        cpu_pool.shutdown(wait=True)
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    require(not any(launches.values()), f"the MoE LM path launched a LUT "
+            f"kernel: {launches}")
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"lm MoE ({card}): K1-K5 launches on the MoE and MLA paths "
+        f"{launches}; phase {res['seconds']:.1f} s")
     return res
 
 
@@ -4648,6 +5064,7 @@ def main() -> int:
     sweep_k = phase_sweep_kernels(dev)
     sweep = phase_sweep(dev)
     lm = phase_lm(dev, card)
+    moe = phase_moe_lm(dev, card)
 
     head, dag_head = k1[HEADLINE_B], k1_dag[HEADLINE_B]
     kernels = [
@@ -4864,6 +5281,18 @@ def main() -> int:
         f"{lm['profile']['busy_share']:.4f}; decode "
         f"{lm['decode']['ms_per_token']:.3f} ms/token, "
         f"{lm['decode']['tok_s']:.0f} tok/s; phase {lm['seconds']:.1f} s")
+    log("lm MoE: " + "; ".join(
+        f"{arch}: train {r['train']['ms_per_step']:.3f} ms/step, "
+        f"{r['train']['tokens_per_s']:.0f} tokens/s, peak "
+        f"{r['train']['peak_mem_gib']:.3f} GiB, busy share "
+        f"{r['train']['busy_share']:.4f}; decode "
+        f"{r['decode']['ms_per_token']:.3f} ms/token"
+        for arch, r in moe.items() if arch != "seconds")
+        + f"; phase {moe['seconds']:.1f} s")
+    log("sweep over logical replicas of the card: " + "; ".join(
+        f"{k} at R = {v['replicas']} {v['seconds']:.3f} s (R = 1: "
+        f"{sum(g['seconds_r1'] for g in v['groups']):.3f} s)"
+        for k, v in sweep["replicas"].items()))
     log(card)  # nvidia-smi's "name, power.limit", as it printed them
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

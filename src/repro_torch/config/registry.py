@@ -4,10 +4,11 @@ Each module in ``repro_torch.configs`` registers a full-size config (the
 published architecture) and a reduced config (same family, tiny dims)
 used by the CPU tests — the same ids and values as ``repro.configs``.
 Two families are registered: the NeuraLUT chain geometries and
-PolyLUT-Add LUT graphs (``list_archs``), and the dense LMs whose layers
-are all attention + dense FFN (``list_lm_archs``).  The reference's
-other LM archs (MoE, MLA, SSM, xLSTM, enc-dec, VLM) are known by name
-and raise ``NotImplementedError`` from ``get_config``.
+PolyLUT-Add LUT graphs (``list_archs``), and the LMs whose layers are
+all attention (GQA or MLA) + a dense FFN or a mixture of experts
+(``list_lm_archs``).  The reference's other LM archs (SSM, xLSTM,
+enc-dec, VLM) are known by name and raise ``NotImplementedError`` from
+``get_config``.
 """
 from __future__ import annotations
 
@@ -34,11 +35,12 @@ _CONFIG_MODULES = (
     "yi_9b",
     "granite_34b",
     "gemma3_12b",
+    "qwen2_moe_a2p7b",
+    "deepseek_v2_lite_16b",
 )
 
 # The reference's LM archs whose mixers or FFNs the port lacks.
-NOT_PORTED_ARCHS = ("deepseek-v2-lite-16b", "jamba-v0.1-52b",
-                    "qwen2-moe-a2.7b", "qwen2-vl-72b", "whisper-small",
+NOT_PORTED_ARCHS = ("jamba-v0.1-52b", "qwen2-vl-72b", "whisper-small",
                     "xlstm-350m")
 
 _loaded = False
@@ -67,7 +69,7 @@ def list_archs() -> Tuple[str, ...]:
 
 
 def list_lm_archs() -> Tuple[str, ...]:
-    """The ported LM archs (dense: attention + dense FFN layers)."""
+    """The ported LM archs (attention + dense FFN or MoE layers)."""
     _ensure_loaded()
     return tuple(sorted(n for n, f in _FULL.items()
                         if isinstance(f(), ModelConfig)))
@@ -77,8 +79,7 @@ def get_config(name: str, reduced: bool = False) -> Config:
     _ensure_loaded()
     if name in NOT_PORTED_ARCHS:
         raise NotImplementedError(
-            f"arch {name!r}: its layers (MoE, MLA, SSM, xLSTM, enc-dec or "
-            "vision) " + NOT_PORTED.format("Queue A item 7"))
+            f"arch {name!r}: its layers (SSM, xLSTM, enc-dec or vision) " + NOT_PORTED.format("Queue A item 7"))
     table = _REDUCED if reduced else _FULL
     if name not in table:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(table)}")

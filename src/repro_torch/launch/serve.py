@@ -34,7 +34,7 @@ copy of its bundle under live traffic and prints the ``SwapReport``.
 Takes the JSC chains (``neuralut-jsc-*``) and the PolyLUT-Add graphs
 (``polylut-add-jsc-*``).  Runs on CUDA unless ``--device cpu``.
 
-``--mode lm`` decodes with a dense LM (``--arch``, default lm-100m, in
+``--mode lm`` decodes with an LM (``--arch``, default lm-100m, in
 its reduced form as the reference's): seeded init, a zero KV cache of
 context 128 for ``--batch`` sequences, and ``--requests`` greedy
 decode steps through ``make_serve_step``; prints ms/token and tok/s.

@@ -1,10 +1,12 @@
 """Pareto sweep launcher (port of ``repro.launch.sweep``): the paper's
-Figs. 6-7 grid on one card.
+Figs. 6-7 grid over every visible card.
 
     python -m repro_torch.launch.sweep --seeds 3 --epochs 10 \\
         --track results/sweep.jsonl --registry results/registry
     python -m repro_torch.launch.sweep --seeds 1 --epochs 1 \\
         --n-train 512 --n-test 256 --device cpu --registry results/registry
+    python -m repro_torch.launch.sweep --seeds 1 --epochs 1 --devices 2 \\
+        --n-train 512 --n-test 256 --device cpu
 
 Plans the paper grid (``repro_torch.sweep.paper_sweep_points``: three
 LogicNets and three NeuraLUT geometries over 196 pooled synthetic-MNIST
@@ -16,8 +18,10 @@ streams frontier points to a tracker as each group finishes.  With
 tables (K2 on the card for NeuraLUT), saved as a serving-ready bundle,
 loaded back verified, and served on the test rows through
 ``LUTServeEngine`` (K1 on the card); every served prediction must equal
-``lut_infer.predict``.  Runs on CUDA unless ``--device cpu``; a sweep
-across several cards (``--devices`` above 1) is not ported.
+``lut_infer.predict``.  Runs on CUDA unless ``--device cpu``.
+``--devices R`` spreads each group's unit axis over the first R cards
+(default: every visible card; with ``--device cpu``, R logical devices
+of the host), each card training its contiguous block of units.
 """
 from __future__ import annotations
 
@@ -33,9 +37,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--n-test", type=int, default=2000)
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--lr", type=float, default=3e-3)
-    ap.add_argument("--devices", type=int, default=1,
-                    help="cards to spread the unit axis over (only 1 is "
-                         "ported)")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="devices to spread the unit axis over (default: "
+                         "every visible card; with --device cpu, logical "
+                         "devices of the host, default 1)")
     ap.add_argument("--track", default=None,
                     help="stream per-point records to this JSONL file")
     ap.add_argument("--registry", default=None,

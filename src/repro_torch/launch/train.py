@@ -28,17 +28,18 @@ DAG schedule) and checks that every served prediction equals
 ``lut_infer.predict``.  Runs on CUDA unless ``--device cpu``.
 
 LM archs (``list_lm_archs``: lm-100m, llama3-8b, yi-9b, granite-34b,
-gemma3-12b; ``--reduced`` for the CPU): seeded init, AdamW (a float32
-master for bfloat16 parameters) with SGDR, batches of ``lm_batch_fn``
-prefetched by a ``ShardedLoader``, ``--grad-accum`` microbatches and
-``--compress-grads`` (error-feedback int8).  With ``--ckpt-dir`` the
-run goes through ``TrainSupervisor`` (an async checkpoint every
-``--ckpt-every`` steps, restart from the latest on failure) and resumes
-from the directory's latest checkpoint.  One device: ``--mesh host``
-or ``single`` (the reference's 16x16 pod layout has no counterpart);
-``--mesh multi`` or a ``--mesh-shape`` over more than one device is
-refused.  Prints the loss every ``--log-every`` steps, then ms/step,
-tokens/s and the peak device memory.
+gemma3-12b, the MoE qwen2-moe-a2.7b and the MLA + MoE
+deepseek-v2-lite-16b; ``--reduced`` for the CPU): seeded init, AdamW
+(a float32 master for bfloat16 parameters) with SGDR, batches of
+``lm_batch_fn`` prefetched by a ``ShardedLoader``, ``--grad-accum``
+microbatches and ``--compress-grads`` (error-feedback int8).  With
+``--ckpt-dir`` the run goes through ``TrainSupervisor`` (an async
+checkpoint every ``--ckpt-every`` steps, restart from the latest on
+failure) and resumes from the directory's latest checkpoint.  One
+device: ``--mesh host`` or ``single`` (the reference's 16x16 pod layout
+has no counterpart); ``--mesh multi`` or a ``--mesh-shape`` over more
+than one device is refused.  Prints the loss every ``--log-every``
+steps, then ms/step, tokens/s and the peak device memory.
 """
 from __future__ import annotations
 

@@ -26,15 +26,19 @@ def _no_encdec(cfg: ModelConfig) -> None:
             f"{cfg.name}: enc-dec " + NOT_PORTED.format("Queue A item 7"))
 
 
-def param_spec(cfg: ModelConfig) -> Params:
+def param_spec(cfg: ModelConfig, *, model_axis: int = 16) -> Params:
     _no_encdec(cfg)
-    return lm.param_spec(cfg)
+    return lm.param_spec(cfg, model_axis=model_axis)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device: Optional[torch.device] = None) -> Params:
-    """Seeded init (``init_from_spec``), drawn on the host and moved to
-    ``device``."""
+    """Seeded init (``init_from_spec``) of ``param_spec``'s tree, drawn
+    from ``generator`` on its device and moved to ``device``.  The
+    reference's ``init_params`` takes ``model_axis=1`` (no padded
+    experts); the port draws the padded tree that ``param_spec`` and the
+    bridge hold, so an MoE layer's inert experts are drawn too (they are
+    never routed to)."""
     return init_from_spec(param_spec(cfg), generator, device=device)
 
 

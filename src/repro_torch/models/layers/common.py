@@ -49,7 +49,8 @@ def _init_leaf(name: str, leaf: TensorSpec,
                generator: torch.Generator) -> torch.Tensor:
     if leaf.ndim >= 2:
         fan_in = leaf.shape[-2]
-        w = torch.empty(leaf.shape, dtype=torch.float32)
+        w = torch.empty(leaf.shape, dtype=torch.float32,
+                        device=generator.device)
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
                                     generator=generator)
         w = w * (1.0 / math.sqrt(max(fan_in, 1)))
@@ -64,9 +65,10 @@ def init_from_spec(spec, generator: torch.Generator, *,
     """Materialize a spec tree: truncated-normal (+-2 sigma) fan-in init
     for every leaf of two or more dims (fan-in = the second-to-last
     dim, as the reference's, so a stacked norm scale is drawn too),
-    ones for vectors named like scales, zeros otherwise.  Drawn on the
-    host from ``generator`` leaf by leaf in tree order, then moved to
-    ``device`` (default the host)."""
+    ones for vectors named like scales, zeros otherwise.  Drawn from
+    ``generator`` leaf by leaf in tree order on the generator's device
+    (the host's draws for a CPU generator), then moved to ``device``
+    (default the host)."""
     def walk(t, name):
         if isinstance(t, dict):
             return {k: walk(t[k], k) for k in sorted(t)}

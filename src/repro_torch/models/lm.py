@@ -1,6 +1,7 @@
 """Decoder-only LM assembly: embeds -> repeated block pattern -> head
-(port of ``repro.models.lm`` for the dense family: every layer is
-attention (GQA) + a dense gated MLP).
+(port of ``repro.models.lm`` for the dense and MoE families: every
+layer is attention (GQA or MLA) + a dense gated MLP or a mixture of
+experts).
 
 Layer stacking: per-pattern-position parameter *stacks* with leading
 dim ``pattern_repeat``, as in the reference, so a tree bridges leaf for
@@ -9,7 +10,8 @@ here over the stacked leaves (each stack is unbound once, so the
 backward stacks its gradients once).  ``remat``: "full" recomputes each
 block in the backward (``torch.utils.checkpoint``, non-reentrant),
 "dots" saves the outputs of the matmuls without batch dims (the
-projections and the MLP) and recomputes the rest, "none" saves all.
+projections, the MLP and the experts' gate and up products) and
+recomputes the rest, "none" saves all.
 
 Embeddings: a tied table goes in through a chunked one-hot matmul, as
 the reference's; an untied one through a gather whose backward is the
@@ -18,9 +20,12 @@ no atomics, so a step is bitwise reproducible on the card.  The loss is
 computed in chunks over the tokens, each chunk's (tokens, vocab) logits
 recomputed in the backward, so the full logits never materialize.
 
-MLA, mamba, mLSTM, sLSTM, MoE and the vision stub raise
-``NotImplementedError`` naming their ROADMAP item.  The reference's
-sharding constraints are dropped: one device has no sharding.
+The parameter tree pads an MoE layer's experts to a multiple of the
+reference's model axis (``model_axis=16``: qwen2's 60 to 64 inert
+experts), so a reference tree bridges leaf for leaf.  Mamba, mLSTM,
+sLSTM and the vision stub raise ``NotImplementedError`` naming their
+ROADMAP item.  The reference's sharding constraints are dropped: one
+device has no sharding.
 """
 from __future__ import annotations
 
@@ -36,8 +41,10 @@ from repro_torch import NOT_PORTED
 from repro_torch.config.base import LayerSpec, ModelConfig
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 from .layers import attention as attn_lib
-from .layers.common import (TensorSpec, apply_mlp, apply_norm, dtype_of,
-                            mlp_spec, norm_spec)
+from .layers import mla as mla_lib
+from .layers import moe as moe_lib
+from .layers.common import (TensorSpec, activation, apply_mlp, apply_norm,
+                            dtype_of, mlp_spec, norm_spec)
 
 Params = Dict[str, Any]
 
@@ -57,33 +64,31 @@ def _not_ported(what: str) -> NotImplementedError:
 def _check_mixer(spec: LayerSpec, cfg: ModelConfig) -> None:
     if spec.mixer != "attn":
         raise _not_ported(f"the {spec.mixer} mixer")
-    if cfg.attention.kind == "mla":
-        raise _not_ported("MLA attention")
-
-
-def _check_ffn(spec: LayerSpec) -> None:
-    if spec.ffn not in ("dense", "none"):
-        raise _not_ported(f"the {spec.ffn} FFN")
 
 
 def _mixer_spec(spec: LayerSpec, cfg: ModelConfig, dtype) -> Params:
     _check_mixer(spec, cfg)
+    if cfg.attention.kind == "mla":
+        return mla_lib.mla_spec(cfg.attention, cfg.d_model, dtype)
     return attn_lib.attention_spec(cfg.attention, cfg.d_model, dtype)
 
 
-def _ffn_spec(spec: LayerSpec, cfg: ModelConfig, dtype) -> Optional[Params]:
-    _check_ffn(spec)
+def _ffn_spec(spec: LayerSpec, cfg: ModelConfig, dtype,
+              model_axis: int) -> Optional[Params]:
     if spec.ffn == "none":
         return None
-    return mlp_spec(cfg.d_model, cfg.d_ff, dtype)
+    if spec.ffn == "dense":
+        return mlp_spec(cfg.d_model, cfg.d_ff, dtype)
+    return moe_lib.moe_spec(cfg.moe, cfg.d_model, dtype, model_axis)
 
 
-def block_spec(spec: LayerSpec, cfg: ModelConfig, dtype) -> Params:
+def block_spec(spec: LayerSpec, cfg: ModelConfig, dtype,
+               model_axis: int) -> Params:
     p: Params = {
         "ln1": norm_spec(cfg.d_model, cfg.norm, dtype),
         "mixer": _mixer_spec(spec, cfg, dtype),
     }
-    ffn = _ffn_spec(spec, cfg, dtype)
+    ffn = _ffn_spec(spec, cfg, dtype, model_axis)
     if ffn is not None:
         p["ln2"] = norm_spec(cfg.d_model, cfg.norm, dtype)
         p["ffn"] = ffn
@@ -94,11 +99,12 @@ def _stack(tree: Params, n: int) -> Params:
     return tree_map(lambda s: TensorSpec((n,) + s.shape, s.dtype), tree)
 
 
-def param_spec(cfg: ModelConfig) -> Params:
+def param_spec(cfg: ModelConfig, *, model_axis: int = 16) -> Params:
     """Full parameter tree of :class:`TensorSpec`.  ``blocks`` is a list
     over pattern positions, each the block tree stacked over
     ``pattern_repeat``; dense-prefix overrides are separate unstacked
-    entries in ``prefix_blocks``."""
+    entries in ``prefix_blocks``.  MoE experts are padded to a multiple
+    of ``model_axis`` (``moe.padded_num_experts``)."""
     if cfg.vision is not None:
         raise _not_ported("the vision stub")
     if cfg.encoder is not None:
@@ -112,9 +118,9 @@ def param_spec(cfg: ModelConfig) -> Params:
     p["final_norm"] = norm_spec(d, cfg.norm, dtype)
     p["prefix_blocks"] = [
         block_spec(LayerSpec(mixer=s.mixer, ffn="dense", window=s.window),
-                   cfg, dtype)
+                   cfg, dtype, model_axis)
         for s in cfg.layer_specs()[:cfg.num_dense_prefix]]
-    p["blocks"] = [_stack(block_spec(spec, cfg, dtype), rep)
+    p["blocks"] = [_stack(block_spec(spec, cfg, dtype, model_axis), rep)
                    for spec in cfg.pattern]
     return p
 
@@ -226,17 +232,26 @@ def apply_block(spec: LayerSpec, cfg: ModelConfig, p: Params,
     if cfg.attn_chunk:
         q_chunk = cfg.attn_chunk
     _check_mixer(spec, cfg)
-    _check_ffn(spec)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(p["ln1"], x, cfg.norm)
-    h = attn_lib.apply_attention(
-        p["mixer"], a, h, causal=True, window=_resolve_window(spec, cfg),
-        positions=positions, q_chunk=q_chunk, impl=cfg.attn_impl,
-        fused_qkv=cfg.fused_qkv)
+    if a.kind == "mla":
+        h = mla_lib.apply_mla(p["mixer"], a, h, q_chunk=q_chunk,
+                              impl=cfg.attn_impl)
+    else:
+        h = attn_lib.apply_attention(
+            p["mixer"], a, h, causal=True,
+            window=_resolve_window(spec, cfg), positions=positions,
+            q_chunk=q_chunk, impl=cfg.attn_impl, fused_qkv=cfg.fused_qkv)
     x = x + h
     if spec.ffn != "none":
         h = apply_norm(p["ln2"], x, cfg.norm)
-        x = x + apply_mlp(p["ffn"], h, cfg.act, fused=cfg.fused_qkv)
+        if spec.ffn == "dense":
+            h = apply_mlp(p["ffn"], h, cfg.act, fused=cfg.fused_qkv)
+        else:
+            h, aux = moe_lib.apply_moe(p["ffn"], cfg.moe, h,
+                                       activation(cfg.act),
+                                       dispatch=cfg.moe_dispatch)
+        x = x + h
     return x, aux
 
 
@@ -355,6 +370,8 @@ def prefill_logits(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 def _mixer_cache_spec(spec: LayerSpec, cfg: ModelConfig, batch: int,
                       seq: int, dtype) -> Params:
     _check_mixer(spec, cfg)
+    if cfg.attention.kind == "mla":
+        return mla_lib.mla_cache_spec(cfg.attention, batch, seq, dtype)
     return attn_lib.cache_spec(cfg.attention, batch, seq,
                                _resolve_window(spec, cfg), dtype)
 
@@ -372,17 +389,27 @@ def decode_state_spec(cfg: ModelConfig, batch: int, seq: int) -> Params:
     return st
 
 
-def _decode_block(spec: LayerSpec, cfg: ModelConfig, p, x, cache, pos):
+def _decode_mixer(spec: LayerSpec, cfg: ModelConfig, p, h, cache, pos):
     _check_mixer(spec, cfg)
-    _check_ffn(spec)
+    if cfg.attention.kind == "mla":
+        return mla_lib.decode_mla(p["mixer"], cfg.attention, h, cache, pos)
+    return attn_lib.decode_attention(p["mixer"], cfg.attention, h, cache,
+                                     pos, window=_resolve_window(spec, cfg))
+
+
+def _decode_block(spec: LayerSpec, cfg: ModelConfig, p, x, cache, pos):
     h = apply_norm(p["ln1"], x, cfg.norm)
-    h, new_cache = attn_lib.decode_attention(
-        p["mixer"], cfg.attention, h, cache, pos,
-        window=_resolve_window(spec, cfg))
+    h, new_cache = _decode_mixer(spec, cfg, p, h, cache, pos)
     x = x + h
     if spec.ffn != "none":
         h = apply_norm(p["ln2"], x, cfg.norm)
-        x = x + apply_mlp(p["ffn"], h, cfg.act, fused=cfg.fused_qkv)
+        if spec.ffn == "dense":
+            h = apply_mlp(p["ffn"], h, cfg.act, fused=cfg.fused_qkv)
+        else:
+            # decode always takes the dense dispatch, as the reference's
+            h, _ = moe_lib.apply_moe(p["ffn"], cfg.moe, h,
+                                     activation(cfg.act))
+        x = x + h
     return x, new_cache
 
 

@@ -6,7 +6,7 @@ from .plan import (GeometryGroup, SweepPoint, PAPER_SWEEP,
 from .runner import (GroupRun, PointResult, SweepGroupFailed, SweepJournal,
                      SweepResult, group_fingerprint, make_group_train_fn,
                      member_params_state, run_pareto_sweep,
-                     stack_group_operands)
+                     stack_group_operands, sweep_devices)
 
 __all__ = ["GeometryGroup", "SweepPoint", "PAPER_SWEEP",
            "geometry_group_key", "padded_widths", "paper_point_cfg",
@@ -14,4 +14,4 @@ __all__ = ["GeometryGroup", "SweepPoint", "PAPER_SWEEP",
            "SweepGroupFailed", "SweepJournal", "SweepResult",
            "group_fingerprint", "make_group_train_fn",
            "member_params_state", "run_pareto_sweep",
-           "stack_group_operands"]
+           "stack_group_operands", "sweep_devices"]

@@ -17,9 +17,8 @@ planner turns the grid into *geometry groups*:
     unit axis of ``len(points) * len(seeds)`` entries;
 
   * the unit axis is padded (by repeating unit 0) to a multiple of
-    ``num_devices``; padded units' results are dropped.  The port trains
-    on one card, so its runner plans with ``num_devices=1`` (no padded
-    units); the argument stays for parity with the reference's plans.
+    ``num_devices``; padded units' results are dropped.  The runner
+    plans with the number of devices it spreads the unit axis over.
 
 Padding is inert for the real lanes: a padded neuron's connectivity row
 is all-zero (it reads real lane 0), its output feeds no real neuron

@@ -1,6 +1,6 @@
 """Pareto sweep engine (port of ``repro.sweep.runner``): the whole
-seeds x geometries grid as one stacked training run per geometry group
-on one card, with results streamed per group.
+seeds x geometries grid as one stacked training run per geometry group,
+its unit axis spread over R devices, with results streamed per group.
 
 For every :class:`~repro_torch.sweep.plan.GeometryGroup` the runner
 
@@ -17,8 +17,8 @@ For every :class:`~repro_torch.sweep.plan.GeometryGroup` the runner
      every unit gathering through its own padded connectivity — and
      every epoch the vmapped canonical evaluation.  On the card the
      subnet kind's step makes one K4 and one K5 launch per layer for
-     all units (the training kernels' vmap rules); the linear and poly
-     kinds take the plain product and launch neither;
+     all units of a device (the training kernels' vmap rules); the
+     linear and poly kinds take the plain product and launch neither;
 
   3. streams each finished group's frontier points to the
      :class:`~repro_torch.runtime.tracker.Tracker` at once, and with
@@ -32,9 +32,22 @@ cold/warm split is redefined: a group's ``cold_s`` is the seconds from
 the start of its training until its first step returns, synchronized
 (the kernel library's first load, autograd and vmap set-up, the first
 launches); its ``warm_s`` is the rest of its training and evaluation,
-up to its history's fetch.  A sweep across several cards (the
-reference's ``shard_map`` over ``make_sweep_mesh``) is not ported:
-``devices > 1`` raises.
+up to its history's fetch.
+
+Several devices (the reference's ``shard_map`` of the unit axis over
+``make_sweep_mesh``): one process over a list of R devices, as
+``serve/sharded.py`` is, with no ``torch.distributed`` ranks.
+``plan_sweep(num_devices=R)`` pads each group's unit axis to a multiple
+of R; the stacked operands (the per-unit seeds included, sliced, never
+redrawn) are cut into R contiguous blocks of W / R units, each block
+trains through the same vmapped step on its device, and params, state
+and histories join on the first device in unit order.  Each distinct
+device runs its blocks in a thread of its own, on its own CUDA stream
+on the card; a list may repeat a device (R logical replicas of one
+card, or of the host), and the blocks of one device then run one after
+another in its thread: threads that share a device have no device time
+to overlap and only contend for the interpreter lock.  A step has no
+collective, as in the reference.
 
 Equivalence contract: a group's units train on the code path of
 ``train_neuralut_ensemble`` (one vmapped step with the statics on the
@@ -56,8 +69,10 @@ group at its ``SWEEP_*_ATOL`` limits.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
+import threading
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -65,7 +80,6 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch import NOT_PORTED
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.config import config_fingerprint
 from repro_torch.core import cost_model as CM
@@ -85,6 +99,7 @@ from repro_torch.tree import tree_map
 
 Params = Dict
 HIST_KEYS = ("loss", "test_acc", "test_acc_q")
+Devices = Union[int, Sequence, None]
 
 
 class SweepGroupFailed(RuntimeError):
@@ -170,12 +185,57 @@ def stack_group_operands(group: GeometryGroup, x_train, *,
 
 
 # ---------------------------------------------------------------------------
+# the devices of a sweep
+
+
+def sweep_devices(device: DeviceLike = None,
+                  devices: Devices = None) -> List[torch.device]:
+    """The devices a sweep spreads its unit axis over (the reference's
+    ``make_sweep_mesh``).
+
+    * ``None``: every visible device of ``device``'s type (CUDA unless
+      ``device`` says otherwise): ``torch.cuda.device_count()`` cards,
+      or the host alone;
+    * an int R: the first R visible CUDA devices (more raises), or R
+      logical devices of the host for ``device="cpu"``;
+    * a sequence of devices, which may repeat one: ``["cuda:0"] * 4``
+      runs four logical replicas of one card, ``["cpu"] * 4`` four of
+      the host.  All of one type.
+    """
+    if devices is None or isinstance(devices, int):
+        dev = resolve_device(device)
+        if dev.type != "cuda":
+            return [dev] * (1 if devices is None else _positive(devices))
+        n = torch.cuda.device_count()
+        r = n if devices is None else _positive(devices)
+        if r > n:
+            raise ValueError(
+                f"devices={r}: only {n} CUDA device(s) visible (name "
+                f"logical replicas of one card as ['cuda:0'] * {r})")
+        return [torch.device("cuda", i) for i in range(r)]
+    pool = [resolve_device(d) for d in devices]
+    if not pool:
+        raise ValueError("devices= must name at least one device")
+    if len({d.type for d in pool}) > 1:
+        raise ValueError(f"devices={devices}: mixes device types")
+    return [torch.device("cuda", torch.cuda.current_device())
+            if d.type == "cuda" and d.index is None else d for d in pool]
+
+
+def _positive(r: int) -> int:
+    if r < 1:
+        raise ValueError(f"devices={r} must be >= 1")
+    return int(r)
+
+
+# ---------------------------------------------------------------------------
 # one training run per group
 
 
 def make_group_train_fn(padded_cfg: NeuraLUTConfig, *, n: int, batch: int,
                         epochs: int, lr: float, weight_decay: float,
                         sgdr_t0: int = 0, device: DeviceLike = None,
+                        devices: Optional[Sequence[torch.device]] = None,
                         subnet_route: Optional[str] = None):
     """(params, state, opt, statics, unit_seeds, xd, yd, xe, ye) ->
     (params, state, history, cold_s) over a stacked unit axis.
@@ -186,22 +246,105 @@ def make_group_train_fn(padded_cfg: NeuraLUTConfig, *, n: int, batch: int,
     step per minibatch with the statics on the unit axis, then the
     vmapped canonical evaluation.  ``history`` maps loss / test_acc /
     test_acc_q to (U, epochs) float32 tensors; ``cold_s`` is the
-    seconds until the first step returned, synchronized."""
-    dev = resolve_device(device)
-    step = make_ensemble_step_fn(
-        padded_cfg, lr=lr, weight_decay=weight_decay,
-        t0=sgdr_t0 or epochs * max(1, n // batch),
-        exec_plan=plan_subnet_exec(padded_cfg, purpose="train", device=dev,
-                                   route=subnet_route))
-    evalf = make_ensemble_eval_fn(padded_cfg)
+    seconds until the first step returned, synchronized (the slowest
+    block's).
 
-    def train(params, state, opt, statics, unit_seeds, xd, yd, xe, ye):
+    With ``devices`` (R of them, from :func:`sweep_devices`) the unit
+    axis, whose length must be a multiple of R, is cut into R
+    contiguous blocks, one per entry, trained by one thread per distinct
+    device (on its own CUDA stream on the card; a repeated device's
+    blocks one after another) and joined on ``devices[0]`` in unit
+    order; a block that raises fails the call."""
+    pool = list(devices) if devices else [resolve_device(device)]
+    t0 = sgdr_t0 or epochs * max(1, n // batch)
+    evalf = make_ensemble_eval_fn(padded_cfg)
+    steps = {d: make_ensemble_step_fn(
+        padded_cfg, lr=lr, weight_decay=weight_decay, t0=t0,
+        exec_plan=plan_subnet_exec(padded_cfg, purpose="train", device=d,
+                                   route=subnet_route))
+        for d in dict.fromkeys(pool)}
+
+    def train_block(dev, params, state, opt, statics, unit_seeds, data):
         params, state, traces, cold_s = ensemble_epochs(
-            step, evalf, params, state, opt, statics, unit_seeds, xd, yd,
-            xe, ye, epochs=epochs, batch=batch)
+            steps[dev], evalf, params, state, opt, statics, unit_seeds,
+            *data, epochs=epochs, batch=batch)
         return params, state, {k: v.T for k, v in traces.items()}, cold_s
 
+    def train(params, state, opt, statics, unit_seeds, xd, yd, xe, ye):
+        if len(pool) == 1:
+            return train_block(pool[0], params, state, opt, statics,
+                               unit_seeds, (xd, yd, xe, ye))
+        return _train_blocks(train_block, pool, params, state, opt,
+                             statics, unit_seeds, (xd, yd, xe, ye))
+
     return train
+
+
+def _unit_block(tree, lo: int, hi: int, dev: torch.device):
+    """Units [lo, hi) of every tensor leaf on ``dev`` (host arrays, the
+    poly kind's exps, pass through)."""
+    if isinstance(tree, dict):
+        return {k: _unit_block(v, lo, hi, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_unit_block(v, lo, hi, dev) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree[lo:hi].to(dev)
+    return tree
+
+
+def _train_blocks(train_block, pool, params, state, opt, statics,
+                  unit_seeds, data):
+    """R contiguous unit blocks, block i on ``pool[i]``, trained by one
+    thread per distinct device (a repeated device's blocks in order);
+    the results joined on ``pool[0]`` in unit order."""
+    units = len(unit_seeds)
+    r = len(pool)
+    if units % r:
+        raise ValueError(f"{units} units do not split over {r} devices")
+    w = units // r
+    home = pool[0]
+    blocks: Dict[torch.device, List[int]] = {}
+    for i, d in enumerate(pool):
+        blocks.setdefault(d, []).append(i)
+    copies = {d: tuple(a.to(d) for a in data) for d in blocks}
+    results: List = [None] * r
+    errors: List = []
+
+    def run(dev: torch.device) -> None:
+        stream = None
+        try:
+            if dev.type == "cuda":
+                stream = torch.cuda.Stream(dev)
+                # the blocks' inputs were made on the default stream
+                stream.wait_stream(torch.cuda.current_stream(dev))
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                for i in blocks[dev]:
+                    lo, hi = i * w, (i + 1) * w
+                    results[i] = train_block(
+                        dev, *(_unit_block(t, lo, hi, dev)
+                               for t in (params, state, opt, statics)),
+                        list(unit_seeds[lo:hi]), copies[dev])
+            if stream is not None:
+                stream.synchronize()
+        except BaseException as e:     # re-raised in the caller's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(d,), daemon=True,
+                                name=f"sweep-{d}") for d in blocks]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+    def join(*leaves):
+        return torch.cat([x.to(home) for x in leaves])
+
+    params, state, hist = (tree_map(join, *(res[k] for res in results))
+                           for k in range(3))
+    return params, state, hist, max(res[3] for res in results)
 
 
 # ---------------------------------------------------------------------------
@@ -397,7 +540,7 @@ def run_pareto_sweep(
     weight_decay: float = 1e-4,
     sgdr_t0: int = 0,
     device: DeviceLike = None,
-    devices: int = 1,
+    devices: Devices = None,
     tracker: Optional[Tracker] = None,
     convert: bool = False,
     subnet_route: Optional[str] = None,
@@ -407,16 +550,17 @@ def run_pareto_sweep(
     chaos: Optional[ChaosHarness] = None,
     watchdog: Optional[StepWatchdog] = None,
 ) -> SweepResult:
-    """Train the whole Pareto grid, one stacked run per geometry group on
-    ``device`` (``None`` = CUDA).
+    """Train the whole Pareto grid, one stacked run per geometry group,
+    its unit axis over ``devices`` (:func:`sweep_devices`: ``None`` =
+    every visible device of ``device``'s type, CUDA unless ``device``
+    says otherwise; an int R; or a list, which may repeat a device).
+    The data and the results live on the first of them.
 
     Streams one tracker record per point (group by group, at step
     ``point_offset + i``) with the error and cost-model coordinates of
     the frontier, plus the group's cold and warm seconds (module
     docstring).  ``convert=True`` also runs each point's best seed
     through the packed truth-table conversion as its group completes.
-    ``devices`` above 1 raises ``NotImplementedError``: a sweep across
-    several cards is not ported.
 
     Fault tolerance:
       * ``resume=dir`` journals every finished group through
@@ -439,12 +583,9 @@ def run_pareto_sweep(
     tracker = tracker or NoopTracker()
     if max_group_retries < 0:
         raise ValueError("max_group_retries must be >= 0")
-    if devices != 1:
-        raise NotImplementedError(
-            f"devices={devices}: a sweep across several cards "
-            + NOT_PORTED.format("Queue A item 3"))
-    dev = resolve_device(device)
-    groups = plan_sweep(points, seeds=seeds, num_devices=devices)
+    pool = sweep_devices(device, devices)
+    dev = pool[0]
+    groups = plan_sweep(points, seeds=seeds, num_devices=len(pool))
 
     xd, yd = (torch.as_tensor(a, device=dev) for a in (x_train, y_train))
     xe, ye = (torch.as_tensor(a, device=dev) for a in (x_test, y_test))
@@ -483,7 +624,7 @@ def run_pareto_sweep(
         else:
             fn = make_group_train_fn(
                 g.padded_cfg, n=n, batch=batch, epochs=epochs, lr=lr,
-                weight_decay=weight_decay, sgdr_t0=sgdr_t0, device=dev,
+                weight_decay=weight_decay, sgdr_t0=sgdr_t0, devices=pool,
                 subnet_route=subnet_route)
             while True:
                 try:
@@ -539,5 +680,5 @@ def run_pareto_sweep(
                                           else False)},
                 step=g.point_offset + i)
     wall = time.perf_counter() - t_sweep
-    return SweepResult(points=results, groups=runs, devices=devices,
+    return SweepResult(points=results, groups=runs, devices=len(pool),
                        warm_s=wall - sum(r.cold_s for r in runs))

@@ -1,9 +1,10 @@
 """The LM entry points of the port on the CPU at their smallest size:
 ``launch.train`` for an LM arch (with and without ``--ckpt-dir``, with
 ``--compress-grads`` and ``--grad-accum``, resuming from the directory),
-``launch.serve --mode lm`` and ``examples/lm_train_torch.py``; the
-messages of what is not ported (an MoE arch, ``--mesh multi``, a mesh
-shape over several devices); and CUDA as the default device."""
+``launch.serve --mode lm`` and ``examples/lm_train_torch.py``; the MoE
+and MLA + MoE archs through both launchers; the messages of what is not
+ported (an SSM arch, ``--mesh multi``, a mesh shape over several
+devices); and CUDA as the default device."""
 import os
 import runpy
 import subprocess
@@ -58,13 +59,29 @@ def test_launch_train_lm_with_checkpoints_resumes(tmp_path, capsys, extra):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "qwen2-moe-a2.7b"], "Queue A item 7"),
+    (["--arch", "jamba-v0.1-52b"], "Queue A item 7"),
     (["--mesh", "multi"], "Queue A item 7"),
     (["--mesh-shape", "2x4"], "Queue A item 7"),
 ])
 def test_launch_train_refuses_what_is_not_ported(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         launch_train.main(LM + argv)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b"])
+def test_launch_train_and_serve_moe_archs(arch, capsys):
+    """The MoE (qwen2) and MLA + MoE (deepseek) archs train through
+    launch.train (loss falling, the aux loss in the step's metrics) and
+    decode through launch.serve --mode lm."""
+    out = launch_train.main(["--arch", arch] + LM[2:]
+                            + ["--steps", "6", "--lr", "3e-3"])
+    assert out["steps"] == 6 and out["last_loss"] < out["first_loss"]
+    assert out["carry"][0]["blocks"][0]["ffn"]["w_gate"].shape[1] == 16
+    text = capsys.readouterr().out
+    assert f"{arch}-reduced" in text and "lm train summary" in text
+    served = launch_serve.main(["--mode", "lm", "--arch", arch, "--device",
+                                "cpu", "--requests", "4", "--batch", "2"])
+    assert served["steps"] == 4 and served["last_tokens"].shape == (2, 1)
 
 
 def test_launch_train_unknown_arch():

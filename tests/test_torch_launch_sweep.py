@@ -57,6 +57,17 @@ def test_cli_resumes_from_its_journal(tmp_path, capsys):
         assert a.err == b.err
 
 
-def test_cli_refuses_several_cards():
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        launch_sweep.main(ARGS + ["--devices", "2", "--quiet"])
+def test_cli_refuses_several_cards(capsys):
+    """The sweep across devices is ported: ``--devices 2 --device cpu``
+    runs end to end over two logical devices of the host (groups padded
+    to an even unit count) and agrees with one device at frontier
+    level; a count below 1 is refused."""
+    one = launch_sweep.main(ARGS + ["--quiet"])["result"]
+    two = launch_sweep.main(ARGS + ["--devices", "2", "--quiet"])["result"]
+    assert "6 points / 4 group runs on 2 device(s)" in capsys.readouterr().out
+    assert two.devices == 2
+    assert [g.group.stacked_units for g in two.groups] == [2, 2, 2, 2]
+    for a, b in zip(one.points, two.points):
+        assert a.name == b.name and abs(a.err - b.err) <= 0.15
+    with pytest.raises(ValueError, match="devices=0"):
+        launch_sweep.main(ARGS + ["--devices", "0", "--quiet"])

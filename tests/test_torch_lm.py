@@ -1,7 +1,9 @@
-"""Port parity of the dense LMs (``repro_torch.models``) against the
-reference's (``repro.models``) on the CPU, for every registered dense
-arch's reduced form: ``lm_loss`` and its gradients, ``decode_step``'s
-logits and ``config_fingerprint``.
+"""Port parity of the LMs (``repro_torch.models``) against the
+reference's (``repro.models``) on the CPU, for every registered LM
+arch's reduced form (the dense ones and, since the MoE and MLA layers,
+qwen2-moe-a2.7b and deepseek-v2-lite-16b): ``lm_loss`` and its
+gradients, ``decode_step``'s logits and ``config_fingerprint``
+(``tests/test_torch_lm_moe.py`` holds the MoE models closer).
 
 Both packages start from one set of params (drawn by the port, bridged
 to the reference as numpy) and one batch.  Tolerances, stated before
@@ -71,8 +73,8 @@ def _tbatch(b):
 
 @pytest.fixture(scope="module")
 def reference():
-    """(arch, dtype) -> (np params, batch, loss, np grads) of the
-    reference, computed once."""
+    """(arch, dtype) -> (np params, batch, loss, moe aux, np grads) of
+    the reference, computed once."""
     cache = {}
 
     def get(arch, dtype):
@@ -81,10 +83,11 @@ def reference():
             p_np = bridge.params_to_numpy(_params(cfg))
             batch = _batch(cfg.vocab_size)
             f = jax.jit(jax.value_and_grad(lambda p, b: JA.loss_fn(
-                jcfg, p, b, q_chunk=Q_CHUNK)[0]))
-            loss, g = f(_jax_tree(p_np, dtype), batch)
-            cache[arch, dtype] = (p_np, batch, float(loss), jax.tree.map(
-                lambda a: np.asarray(a, np.float32), g))
+                jcfg, p, b, q_chunk=Q_CHUNK), has_aux=True))
+            (loss, m), g = f(_jax_tree(p_np, dtype), batch)
+            cache[arch, dtype] = (p_np, batch, float(loss),
+                                  float(m["moe_aux"]), jax.tree.map(
+                                      lambda a: np.asarray(a, np.float32), g))
         return cache[arch, dtype]
     return get
 
@@ -93,19 +96,25 @@ def reference():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_lm_loss_and_grads_match_reference(arch, dtype, reference):
     cfg, _ = _cfgs(arch, dtype)
-    p_np, batch, jloss, jgrads = reference(arch, dtype)
+    p_np, batch, jloss, jaux, jgrads = reference(arch, dtype)
     params = bridge.lm_params_from_numpy(cfg, p_np, device="cpu")
     (loss, metrics), grads = value_and_grad(
         lambda p, b: api.loss_fn(cfg, p, b, q_chunk=Q_CHUNK), params,
         _tbatch(batch))
-    assert float(metrics["moe_aux"]) == 0.0
-    assert float(metrics["ce"]) == float(loss)
     tight = dtype == "float32"
+    if cfg.family == "moe":
+        assert float(metrics["moe_aux"]) > 0.0
+        assert float(metrics["moe_aux"]) == pytest.approx(
+            jaux, rel=1e-5 if tight else 1e-2)
+        assert float(metrics["ce"] + metrics["moe_aux"]) == float(loss)
+    else:
+        assert float(metrics["moe_aux"]) == 0.0
+        assert float(metrics["ce"]) == float(loss)
     assert float(loss) == pytest.approx(jloss, rel=1e-5 if tight else 1e-3)
     got, want = tree_leaves(grads), jax.tree.leaves(jgrads)
     assert len(got) == len(want)
-    for g, w in zip(got, want):
-        assert g.dtype == params["embed"].dtype
+    for g, w, p in zip(got, want, tree_leaves(params)):
+        assert g.dtype == p.dtype    # an MoE router stays float32
         scale = float(np.abs(w).max())
         if tight:
             np.testing.assert_allclose(g.numpy(), w, rtol=1e-4,
@@ -268,8 +277,7 @@ def test_make_batch_shapes():
         api.input_specs(cfg, ShapeConfig("t", "train", 32, 4))
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b",
-                                  "jamba-v0.1-52b", "xlstm-350m",
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-350m",
                                   "whisper-small", "qwen2-vl-72b"])
 def test_other_lm_archs_are_refused(arch):
     with pytest.raises(NotImplementedError, match="Queue A item 7"):

@@ -476,7 +476,102 @@ def test_sweep_reruns_bit_identically_and_sgdr_t0_changes_it():
 
 
 def test_devices_above_one_raise_naming_the_roadmap_item():
+    """``devices`` above 1 no longer raises (the sweep across devices
+    is ported): a lone point at R = 2 pads its one unit to two and
+    trains its real unit as at R = 1; what ``sweep_devices`` resolves
+    and refuses."""
     xtr, ytr = _data(64)
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        run_pareto_sweep([SweepPoint(_cfg("d", (8, 4)))], xtr, ytr, xtr,
-                         ytr, seeds=(0,), epochs=1, devices=2, device="cpu")
+    kw = dict(seeds=(0,), epochs=1, batch=32, device="cpu")
+    pts = [SweepPoint(_cfg("d", (8, 4)))]
+    one = run_pareto_sweep(pts, xtr, ytr, xtr, ytr, devices=1, **kw)
+    two = run_pareto_sweep(pts, xtr, ytr, xtr, ytr, devices=2, **kw)
+    assert two.devices == 2 and two.groups[0].group.stacked_units == 2
+    np.testing.assert_allclose(two.points[0].history["loss"],
+                               one.points[0].history["loss"], atol=2e-3)
+    cpu = torch.device("cpu")
+    assert R.sweep_devices("cpu") == [cpu]
+    assert R.sweep_devices("cpu", 3) == [cpu] * 3
+    assert R.sweep_devices(None, ["cpu", "cpu"]) == [cpu, cpu]
+    for bad in (0, -1, []):
+        with pytest.raises(ValueError, match="devices"):
+            R.sweep_devices("cpu", bad)
+
+
+# tests/test_sweep.py's 8-device grid, at R devices of the host
+MESH_GRID = (("m8-a", (8, 4), "subnet", "t"), ("m8-b", (6, 4), "subnet", "t"),
+             ("m8-c", (6, 4), "linear", "u"))
+
+
+@pytest.fixture(scope="module")
+def mesh_grid_one_device():
+    rng = np.random.default_rng(0)
+    data = (rng.normal(0, 1, (192, 16)).astype(np.float32),
+            rng.integers(0, 4, 192).astype(np.int32),
+            rng.normal(0, 1, (96, 16)).astype(np.float32),
+            rng.integers(0, 4, 96).astype(np.int32))
+    pts = [SweepPoint(_cfg(n, w, kind=k), t) for n, w, k, t in MESH_GRID]
+    kw = dict(seeds=(0, 1), epochs=2, batch=64, lr=2e-3, device="cpu")
+    return pts, data, kw, run_pareto_sweep(pts, *data, devices=1, **kw)
+
+
+@pytest.mark.parametrize("devices,units", [(2, [4, 2]),
+                                           (["cpu"] * 4, [4, 4]),
+                                           (8, [8, 8]),
+                                           (["cpu", "cpu:0"], [4, 2])])
+def test_sweep_over_devices_matches_one_device(devices, units,
+                                               mesh_grid_one_device):
+    """The sweep over R devices of the host (R blocks of W / R units in
+    threads, joined in unit order) against the same sweep on one
+    device at frontier level, as tests/test_sweep.py holds the
+    reference's 8-device run: final quantized accuracy within 0.15 and
+    the first epoch's loss within rtol 0.15, every member and seed.
+    Whether each point's members came out bit-identical is printed (a
+    block's step does not depend on the unit count, so they are where
+    the host's reductions are).  ``["cpu", "cpu:0"]`` are two distinct
+    devices, so their blocks train in two threads at once (a repeated
+    device's blocks share one thread)."""
+    pts, data, kw, one = mesh_grid_one_device
+    res = run_pareto_sweep(pts, *data, devices=devices, **kw)
+    r = len(devices) if isinstance(devices, list) else devices
+    assert res.devices == r
+    assert [g.group.stacked_units for g in res.groups] == units
+    for a, b in zip(one.points, res.points):
+        assert a.name == b.name and a.status == b.status == "ok"
+        assert np.abs(b.history["test_acc_q"][-1]
+                      - a.history["test_acc_q"][-1]).max() <= 0.15
+        np.testing.assert_allclose(b.history["loss"][0],
+                                   a.history["loss"][0], rtol=0.15)
+        same = all(np.array_equal(a.history[k], b.history[k])
+                   for k in a.history)
+        print(f"R={r} {a.name}: members bit-identical to R=1: {same}")
+
+
+def test_a_failing_block_fails_its_group_attempt(monkeypatch):
+    """At R = 2 a block that raises (in its device's thread) fails the
+    group's attempt, which is retried as a whole; the retry matches a
+    clean run at R = 2 bit for bit."""
+    xtr, ytr = _data(64)
+    kw = dict(seeds=(0, 1), epochs=1, batch=32, device="cpu", devices=2,
+              retry_backoff_s=0.0)
+    pts = [SweepPoint(_cfg("fb", (8, 4)))]
+    clean = run_pareto_sweep(pts, xtr, ytr, xtr, ytr, **kw)
+    calls = []
+    real = R.ensemble_epochs
+
+    def flaky(*a, **k):
+        calls.append(len(a[6]))     # the block's unit seeds
+        if len(calls) == 2:
+            raise RuntimeError("block failed")
+        return real(*a, **k)
+
+    monkeypatch.setattr(R, "ensemble_epochs", flaky)
+    res = run_pareto_sweep(pts, xtr, ytr, xtr, ytr, **kw)
+    assert res.groups[0].retries == 1 and calls == [1, 1, 1, 1]
+    for k in res.points[0].history:
+        np.testing.assert_array_equal(res.points[0].history[k],
+                                      clean.points[0].history[k])
+    with pytest.raises(R.SweepGroupFailed, match="block failed"):
+        monkeypatch.setattr(R, "ensemble_epochs", lambda *a, **k: (
+            _ for _ in ()).throw(RuntimeError("block failed")))
+        run_pareto_sweep(pts, xtr, ytr, xtr, ytr, max_group_retries=0,
+                         **kw)
