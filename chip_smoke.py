@@ -73,6 +73,14 @@ then drives the port's paths at full width:
   steps (ms/step, tokens/s, peak memory, busy share, CE and aux loss),
   decode against prefill, ``launch.train`` and ``launch.serve --mode
   lm`` as processes; no LUT kernel on the LM paths (counts 0);
+* the hybrid LM (``jamba-v0.1-52b``: Mamba, attention, MoE) and the
+  xLSTM LM (``xlstm-350m``) at their published widths: a float32 step
+  on the card against the CPU (jamba cut to one Mamba and one attention
+  layer, xLSTM at full depth), bf16 training steps, float32 decode
+  against prefill (jamba's whole 8-layer superblock), bf16 decode
+  timed, the decode state's bytes per sequence, ``launch.train`` (xLSTM
+  at full size with a checkpoint) and ``launch.serve --mode lm`` as
+  processes;
 * the serving stack, right after graph serving, over the bundles of
   the two serving paths: a ``TableRegistry`` round trip (verified,
   bit-identical), a corrupted version refused and quarantined by the
@@ -3446,11 +3454,10 @@ def _sweep_over_replicas(dev, points, res, g_pad, kw, data, counts, jdir):
     and histories: (1) the whole paper grid at R = SWEEP_REPLICAS[0],
     K4/K5 launches per group R times R = 1's; (2) the padded NeuraLUT
     group at R = SWEEP_REPLICAS[1] (its 6 units padded to 8).  Every
-    real unit of a NeuraLUT group must equal R = 1 bit for bit; a
-    LogicNets group's first differing element is logged (ROADMAP Queue
-    C: the linear kind's plain product reduces over the batch in
-    float32, in an order that follows the unit count) and its
-    histories held to SWEEP_HIST_ATOL."""
+    real unit of every group, NeuraLUT and LogicNets, must equal R = 1
+    bit for bit (the linear kind's weight and bias gradients sum the
+    batch rows in float64, ``core.subnet._NeuronDot``); the first
+    differing element is logged."""
     import tempfile
     import torch
     from repro_torch.runtime.tracker import CallbackTracker
@@ -3503,7 +3510,6 @@ def _sweep_over_replicas(dev, points, res, g_pad, kw, data, counts, jdir):
             hd = max(float((torch.as_tensor(mine["hist"][k])
                             - torch.as_tensor(theirs["hist"][k])).abs().max())
                      for k in HIST_KEYS)
-            subnet = g.padded_cfg.kind == "subnet"
             rows.append(dict(index=g1.group.index, kind=g.padded_cfg.kind,
                              units=g.num_units, stacked=g.stacked_units,
                              k4=got["subnet_train_fwd"],
@@ -3520,7 +3526,7 @@ def _sweep_over_replicas(dev, points, res, g_pad, kw, data, counts, jdir):
                 f"params, BN state and history against R = 1: "
                 + ("bit-identical" if diff is None else
                    f"first difference at {diff}, histories within {hd:.3e}"))
-            require(diff is None if subnet else hd <= SWEEP_HIST_ATOL,
+            require(diff is None,
                     f"sweep at R={r}, group {g1.group.index} "
                     f"({g.padded_cfg.kind}) differs from R = 1: {diff}; "
                     f"histories {hd:.3e}")
@@ -3936,10 +3942,11 @@ def _lm_step(cfg, tcfg, params, batch_np):
                 s=time.perf_counter() - t0, grad_s=caught[0][1] - t0)
 
 
-def _lm_step_compare(cfg, tcfg, card, cpu, batch_np, where):
+def _lm_step_compare(cfg, tcfg, card, cpu, batch_np, where,
+                     grad_atol_rel=LM_GRAD_ATOL_REL):
     """(a)'s verdict on a card step against a CPU step (``_lm_step``),
     compared on ``where``: the loss to rtol LM_LOSS_RTOL, each gradient
-    leaf to rtol LM_GRAD_RTOL / atol LM_GRAD_ATOL_REL x its largest
+    leaf to rtol LM_GRAD_RTOL / atol ``grad_atol_rel`` x its largest
     element, each new param by its sign-certain split."""
     import torch
     require(abs(card["loss"] - cpu["loss"]) <= LM_LOSS_RTOL * abs(cpu["loss"]),
@@ -3954,7 +3961,7 @@ def _lm_step_compare(cfg, tcfg, card, cpu, batch_np, where):
             _paths(card["grads"]), _paths(cpu["grads"]),
             _paths(card["params"]), _paths(cpu["params"])):
         g, gc, pn, pc = (t.to(where) for t in (g, gc, pn, pc))
-        atol = LM_GRAD_ATOL_REL * float(gc.abs().max())
+        atol = grad_atol_rel * float(gc.abs().max())
         gerr = max(gerr, _close(g, gc, LM_GRAD_RTOL, atol,
                                 f"lm step-1 gradient {path}"))
         certain = (clip * gc.abs() >= LM_STEP_GRAD_T) & (
@@ -3973,7 +3980,7 @@ def _lm_step_compare(cfg, tcfg, card, cpu, batch_np, where):
         f"{cpu['s']:.3f} s (gradients {cpu['grad_s']:.3f} s, AdamW the "
         f"rest); loss card {card['loss']:.7f} cpu "
         f"{cpu['loss']:.7f}; {len(_paths(cpu['grads']))} gradient leaves "
-        f"within rtol {LM_GRAD_RTOL} / atol {LM_GRAD_ATOL_REL} x max|leaf| "
+        f"within rtol {LM_GRAD_RTOL} / atol {grad_atol_rel} x max|leaf| "
         f"(max err {gerr:.3e}, clip scale {clip:.4f}); new params: "
         f"{strict_n} elements with a "
         f"certain sign within {LM_PARAM_ATOL} (max {perr:.3e}), {loose_n} "
@@ -4010,6 +4017,33 @@ def _lm_cli(argv, timeout=LM_CLI_TIMEOUT):
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True, timeout=timeout)
     return proc, time.perf_counter() - t0
+
+
+def _cli_results(arch, running, r, steps):
+    """Wait for the CLI processes ``running`` ({name: future of
+    ``_lm_cli``}) of ``arch``: each exits 0, a launch.train prints its
+    summary with ``steps`` steps and a falling loss, a launch.serve its
+    decode line.  Their seconds go to r["cli"], the summaries to
+    r["cli_summary"]."""
+    for name, fut in running.items():
+        proc, secs = fut.result()
+        for line in proc.stdout.splitlines()[-2:]:
+            log(f"  {name} {arch}| {line}")
+        require(proc.returncode == 0, f"{name} --arch {arch} exited "
+                f"{proc.returncode}")
+        if name.startswith("launch.train"):
+            summ = [ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("lm train summary ")]
+            require(len(summ) == 1, f"{name} {arch}: no summary")
+            tr = json.loads(summ[0][len("lm train summary "):])
+            require(tr["steps"] == steps
+                    and tr["last_loss"] < tr["first_loss"],
+                    f"{name} {arch}: {tr}")
+            r.setdefault("cli_summary", {})[name] = tr
+        else:
+            require("ms/token" in proc.stdout,
+                    f"{name} {arch}: no decode line")
+        r.setdefault("cli", {})[name] = secs
 
 
 def _lm_supervised(cfg, dev, tcfg, ckpt_dir):
@@ -4286,12 +4320,13 @@ MOE_CLI_STEPS = 6
 MOE_DECODE_TOL = 3e-3
 
 
-def _moe_train(cfg, dev, tcfg, params):
+def _lm_train_steps(cfg, dev, tcfg, params):
     """(b): MOE_WARM_STEPS + MOE_TIMED_STEPS bf16 steps through
     make_train_step at batch LM_B x LM_S from ``params`` (on the card),
     then one step under the profiler: ms/step and tokens/s of the timed
     steps (synchronized), peak memory, the busy share of the profiled
-    step, and the loss, CE and aux loss of every step."""
+    step, and the loss, CE and aux loss of every step (the aux loss
+    above 0 where the config has MoE layers)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4329,11 +4364,13 @@ def _moe_train(cfg, dev, tcfg, params):
     busy = sum(u for u, _ in by_kernel) / 1e3
     hist = [{k: float(m[k]) for k in ("loss", "ce", "moe_aux")}
             for m in mets]
+    moe = any(spec.ffn == "moe" for spec in cfg.pattern)
     require(all(np.isfinite(h["loss"]) for h in hist)
             and hist[-1]["loss"] < hist[0]["loss"]
-            and all(h["moe_aux"] > 0 for h in hist),
+            and all((h["moe_aux"] > 0) == moe for h in hist),
             f"lm {cfg.name} (b): the loss did not fall or is not finite, "
-            f"or the aux loss is 0: {hist}")
+            f"or the aux loss is 0 with MoE layers (or not without): "
+            f"{hist}")
     tok_s = LM_B * LM_S / ms * 1e3
     log(f"lm (b) {cfg.name} x{cfg.num_layers} layers {cfg.dtype}, batch "
         f"{LM_B} x seq {LM_S}: {ms:.3f} ms/step over {MOE_TIMED_STEPS} "
@@ -4489,29 +4526,10 @@ def phase_moe_lm(dev, card):
                                          cpu_fut.result(), batch_np, dev)
             del on_card, cpu_fut, host_p, p32
             torch.cuda.empty_cache()
-            r["train"] = _moe_train(cut, dev, tcfg, pb)
+            r["train"] = _lm_train_steps(cut, dev, tcfg, pb)
             del pb
             torch.cuda.empty_cache()
-            r["cli"] = {}
-            for name, fut in running.items():
-                proc, secs = fut.result()
-                for line in proc.stdout.splitlines()[-2:]:
-                    log(f"  {name} {arch}| {line}")
-                require(proc.returncode == 0, f"{name} --arch {arch} "
-                        f"exited {proc.returncode}")
-                if name == "launch.train":
-                    summ = [ln for ln in proc.stdout.splitlines()
-                            if ln.startswith("lm train summary ")]
-                    require(len(summ) == 1, f"launch.train {arch}: no "
-                            "summary")
-                    tr = json.loads(summ[0][len("lm train summary "):])
-                    require(tr["steps"] == MOE_CLI_STEPS
-                            and tr["last_loss"] < tr["first_loss"],
-                            f"launch.train {arch}: {tr}")
-                else:
-                    require("ms/token" in proc.stdout,
-                            f"launch.serve --mode lm {arch}: no decode line")
-                r["cli"][name] = secs
+            _cli_results(arch, running, r, MOE_CLI_STEPS)
             log(f"lm (d) {arch}: launch.train --reduced --steps "
                 f"{MOE_CLI_STEPS} and launch.serve --mode lm exit 0 ("
                 + ", ".join(f"{k} {v:.1f} s" for k, v in r["cli"].items())
@@ -4526,6 +4544,377 @@ def phase_moe_lm(dev, card):
     res["seconds"] = time.perf_counter() - t_start
     log(f"lm MoE ({card}): K1-K5 launches on the MoE and MLA paths "
         f"{launches}; phase {res['seconds']:.1f} s")
+    return res
+
+
+SSM_ARCHS = ("jamba-v0.1-52b", "xlstm-350m")
+SSM_DECODE_B32, SSM_PREFILL32 = 4, 32   # (c) float32 decode against prefill
+# (c) float32 decode from stabilizers at -inf against float32 prefill:
+# |logit diff| <= 3e-3 x the largest |prefill logit| (the reference's
+# mLSTM decode-vs-prefill bound, tests/test_mixers.py, taken relative)
+SSM_DECODE_TOL = 3e-3
+# (a) xLSTM at full depth: each gradient leaf to atol 1e-2 x its largest
+# element (the rest of LM_GRAD_*).  Its float32 gradient at init is that
+# sensitive to the order of float32 sums: the same step on one CPU with
+# 1 and with 6 threads differs by up to 3.6e-3 of a leaf's largest
+# element (wq of the second layer), with ~1.2M elements of that leaf
+# beyond rtol 1e-4 / atol 1e-5 x max; the loss by 1e-7 relative
+XLSTM_GRAD_ATOL_REL = 1e-2
+XLSTM_TRAIN_STEPS = 4      # (b) launch.train at full size, one checkpoint
+SSM_CLI_STEPS = 6
+
+
+def _jamba_cut(full):
+    """(a), (b): jamba cut to one Mamba and one attention layer, each
+    with the dense MLP (the pattern cut with the depth, since the
+    pattern's length must divide it)."""
+    import dataclasses
+    from repro_torch.config import LayerSpec
+    return dataclasses.replace(full, num_layers=2, pattern=(
+        LayerSpec(mixer="mamba", ffn="dense"),
+        LayerSpec(mixer="attn", ffn="dense")))
+
+
+def _draw(cfg, dev):
+    """Params of cfg from seed 0, drawn on the card's generator."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    p = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    torch.cuda.synchronize()
+    return p, sum(a.numel() for a in tree_leaves(p)), time.perf_counter() - t0
+
+
+def _ssm_decode_check(cfg32, dev, p32):
+    """(c) float32: SSM_PREFILL32 tokens teacher-forced through
+    decode_step at batch SSM_DECODE_B32, from a zero state with every
+    xLSTM stabilizer at -inf (the prefill's start), against the float32
+    prefill logits at every position."""
+    import torch
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.models import api, lm
+    from repro_torch.models.layers.common import zeros_from_spec
+    from repro_torch.train.step import make_serve_step
+
+    prompt = torch.as_tensor(lm_batch_fn(
+        cfg32.vocab_size, SSM_DECODE_B32, SSM_PREFILL32, seed=1)(0)["tokens"],
+        device=dev)
+    step = make_serve_step(cfg32)
+    with torch.no_grad():
+        pre = lm.prefill_logits(cfg32, p32, prompt)
+    state = lm.with_minus_inf_stabilizers(zeros_from_spec(
+        api.decode_state_spec(cfg32, SSM_DECODE_B32, SSM_PREFILL32),
+        device=dev))
+    err = 0.0
+    for i in range(SSM_PREFILL32):
+        logits, state = step(p32, state, prompt[:, i:i + 1])
+        err = max(err, float((logits - pre[:, i]).abs().max()))
+    torch.cuda.synchronize()
+    scale = float(pre.abs().max())
+    finite = bool(torch.isfinite(pre).all())
+    require(finite and err <= SSM_DECODE_TOL * scale
+            and int(state["pos"]) == SSM_PREFILL32,
+            f"lm {cfg32.name} float32 decode differs from prefill by "
+            f"{err:.4e} > {SSM_DECODE_TOL} x {scale:.4f} (finite {finite})")
+    return err, scale
+
+
+def _ssm_decode_time(cfg, dev, params):
+    """(c) bf16: LM_DECODE_TOKENS greedy tokens at batch LM_DECODE_B,
+    context LM_DECODE_CTX, from the zero state (launch.serve's), timed on
+    a second pass; the decode state's bytes per sequence by mixer."""
+    import math
+    import torch
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.models import api, lm
+    from repro_torch.models.layers.common import dtype_of, zeros_from_spec
+    from repro_torch.train.step import make_serve_step
+    from repro_torch.tree import tree_leaves
+
+    prompt = torch.as_tensor(lm_batch_fn(
+        cfg.vocab_size, LM_DECODE_B, 1, seed=1)(0)["tokens"], device=dev)
+    step = make_serve_step(cfg)
+    spec = api.decode_state_spec(cfg, LM_DECODE_B, LM_DECODE_CTX)
+
+    def decode():
+        state = zeros_from_spec(spec, device=dev)
+        tok = prompt
+        for _ in range(LM_DECODE_TOKENS):
+            logits, state = step(params, state, tok)
+            tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        return logits, int(state["pos"])
+
+    decode()
+    t0 = time.perf_counter()
+    logits, pos = decode()
+    dt = time.perf_counter() - t0
+    require(pos == LM_DECODE_TOKENS and bool(torch.isfinite(logits).all()),
+            f"lm {cfg.name} bf16 decode: pos {pos}, finite "
+            f"{bool(torch.isfinite(logits).all())}")
+    state_b = {}
+    for s in cfg.pattern:
+        one = lm._mixer_cache_spec(s, cfg, 1, LM_DECODE_CTX,
+                                   dtype_of(cfg.dtype))
+        state_b[s.mixer] = sum(math.prod(t.shape) * t.dtype.itemsize
+                               for t in tree_leaves(one))
+    return dict(ms_per_token=dt / LM_DECODE_TOKENS * 1e3,
+                tok_s=LM_DECODE_TOKENS * LM_DECODE_B / dt,
+                state_bytes_per_seq=state_b)
+
+
+def _jamba(dev, card, tcfg, pool, cpu_pool):
+    """jamba-v0.1-52b: (a) a float32 step of the 2-layer cut (Mamba +
+    attention, dense MLPs) on the card against the CPU at MOE_STEP_B x
+    MOE_STEP_S; (b) bf16 steps of the cut at
+    LM_B x LM_S with a profiled one; (c) the whole published superblock
+    (8 layers: 7 Mamba, 1 attention, 4 MoE): float32 decode against
+    prefill, then bf16 prefill logits at LM_B x LM_S and bf16 decode
+    timed; (d) the CLIs, run beside (a) and (c)'s float32 check.  The
+    CPU's step and the CLIs end before anything is timed."""
+    import dataclasses
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.models import api, lm
+    from repro_torch.tree import tree_map
+
+    arch = SSM_ARCHS[0]
+    full = get_config(arch, reduced=LM_REDUCED)
+    red = ["--reduced"] if LM_REDUCED else []
+    running = {
+        "launch.train --reduced": pool.submit(_lm_cli, [
+            "-m", "repro_torch.launch.train", "--arch", arch, "--reduced",
+            "--steps", str(SSM_CLI_STEPS), "--log-every", "0", "--device",
+            dev.type]),
+        "launch.serve --mode lm": pool.submit(_lm_cli, [
+            "-m", "repro_torch.launch.serve", "--mode", "lm", "--arch", arch,
+            "--device", dev.type] + red)}
+    cut = _jamba_cut(full)
+    cut32 = dataclasses.replace(cut, dtype="float32")
+    p32, n_cut, draw_s = _draw(cut32, dev)
+    r = {"cut_params": n_cut}
+    log(f"lm {arch}: the 2-layer cut (mamba + attn, dense MLPs) at full "
+        f"width (d {cut.d_model}, d_inner {cut.ssm.expand * cut.d_model}, "
+        f"d_state {cut.ssm.d_state}, vocab {cut.vocab_size}), "
+        f"{n_cut / 1e9:.3f}B params drawn on the card in {draw_s:.1f} s")
+    host_p = tree_map(lambda a: a.to("cpu"), p32)
+    batch_np = lm_batch_fn(cut.vocab_size, MOE_STEP_B, MOE_STEP_S, seed=0)(0)
+    # (a)'s CPU step runs beside the card's step and the untimed float32
+    # superblock check, and is done before anything is timed
+    cpu_fut = cpu_pool.submit(_lm_step, cut32, tcfg, host_p, batch_np)
+    on_card = _lm_step(cut32, tcfg, p32, batch_np)
+    pb = tree_map(lambda a, sp: a.to(sp.dtype), p32, api.param_spec(cut))
+    del p32
+    torch.cuda.empty_cache()
+    sb = dataclasses.replace(full, num_layers=len(full.pattern))
+    sb32 = dataclasses.replace(sb, dtype="float32")
+    p32, n_sb, draw_s = _draw(sb32, dev)
+    r["superblock_params"] = n_sb
+    r["decode32"] = _ssm_decode_check(sb32, dev, p32)
+    del p32
+    torch.cuda.empty_cache()
+    r["step"] = _lm_step_compare(cut32, tcfg, on_card, cpu_fut.result(),
+                                 batch_np, dev)
+    del on_card, cpu_fut, host_p
+    torch.cuda.empty_cache()
+    _cli_results(arch, running, r, SSM_CLI_STEPS)
+    r["train"] = _lm_train_steps(cut, dev, tcfg, pb)
+    del pb
+    torch.cuda.empty_cache()
+    pb, _, _ = _draw(sb, dev)
+    prompt = torch.as_tensor(lm_batch_fn(sb.vocab_size, LM_B, LM_S, seed=2)(
+        0)["tokens"], device=dev)
+    with torch.no_grad():
+        lm.prefill_logits(sb, pb, prompt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre = lm.prefill_logits(sb, pb, prompt)
+        torch.cuda.synchronize()
+    r["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    require(tuple(pre.shape) == (LM_B, LM_S, sb.vocab_size)
+            and bool(torch.isfinite(pre).all()),
+            f"lm {arch} bf16 prefill logits {tuple(pre.shape)}, finite "
+            f"{bool(torch.isfinite(pre).all())}")
+    del pre
+    r["decode"] = _ssm_decode_time(sb, dev, pb)
+    del pb
+    torch.cuda.empty_cache()
+    sbytes = r["decode"]["state_bytes_per_seq"]
+    log(f"lm (c) {arch} superblock ({sb.num_layers} layers: "
+        f"{sum(s.mixer == 'mamba' for s in sb.pattern)} mamba, "
+        f"{sum(s.mixer == 'attn' for s in sb.pattern)} attn, "
+        f"{sum(s.ffn == 'moe' for s in sb.pattern)} MoE of "
+        f"{sb.moe.num_experts} experts top-{sb.moe.top_k}; {n_sb / 1e9:.3f}B "
+        f"params, drawn in {draw_s:.1f} s): float32 decode of "
+        f"{SSM_PREFILL32} tokens at batch {SSM_DECODE_B32} within "
+        f"{r['decode32'][0]:.4e} of prefill (max |logit| "
+        f"{r['decode32'][1]:.4f}, tolerance {SSM_DECODE_TOL} x it); bf16 "
+        f"prefill of {LM_B} x {LM_S} {r['prefill_ms']:.3f} ms, logits "
+        f"finite; bf16 decode at batch {LM_DECODE_B}, context "
+        f"{LM_DECODE_CTX}: {r['decode']['ms_per_token']:.3f} ms/token, "
+        f"{r['decode']['tok_s']:.0f} tok/s; decode state per sequence "
+        f"at context {LM_DECODE_CTX}: mamba {sbytes.get('mamba', 0)} B a "
+        f"layer against attn (KV) {sbytes.get('attn', 0)} B")
+    log(f"lm (d) {arch}: launch.train --reduced --steps {SSM_CLI_STEPS} and "
+        "launch.serve --mode lm exit 0 (" + ", ".join(
+            f"{k} {v:.1f} s" for k, v in r["cli"].items())
+        + ", beside (a) and (c)'s float32 check)")
+    return r
+
+
+def _xlstm(dev, card, tcfg, pool, cpu_pool, tmp):
+    """xlstm-350m at full depth (24 layers: 21 mLSTM, 3 sLSTM): (a) a
+    float32 step on the card against the CPU at MOE_STEP_B x MOE_STEP_S,
+    the CPU's step beside (c)'s float32 check; (c) float32 decode of one
+    superblock (8 layers) from stabilizers at -inf against prefill, then
+    (the CPU step and the CLIs done) bf16 decode of all 24 layers timed;
+    (b)
+    launch.train at the launcher's LM_B x LM_S for XLSTM_TRAIN_STEPS
+    steps with a checkpoint, alone on the card, then bf16 steps in
+    process with a profiled one; (d) launch.train --reduced and
+    launch.serve --mode lm, run beside (a) and (c)."""
+    import dataclasses
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.models import api
+    from repro_torch.tree import tree_map
+
+    arch = SSM_ARCHS[1]
+    full = get_config(arch, reduced=LM_REDUCED)
+    red = ["--reduced"] if LM_REDUCED else []
+    running = {
+        "launch.train --reduced": pool.submit(_lm_cli, [
+            "-m", "repro_torch.launch.train", "--arch", arch, "--reduced",
+            "--steps", str(SSM_CLI_STEPS), "--log-every", "0", "--device",
+            dev.type]),
+        "launch.serve --mode lm": pool.submit(_lm_cli, [
+            "-m", "repro_torch.launch.serve", "--mode", "lm", "--arch", arch,
+            "--device", dev.type] + red)}
+    f32 = dataclasses.replace(full, dtype="float32")
+    p32, n, draw_s = _draw(f32, dev)
+    r = {"params": n}
+    log(f"lm {arch}: {full.num_layers} layers ("
+        f"{sum(s.mixer == 'mlstm' for s in full.layer_specs())} mLSTM, "
+        f"{sum(s.mixer == 'slstm' for s in full.layer_specs())} sLSTM), d "
+        f"{full.d_model}, {full.ssm.num_heads} heads, proj "
+        f"{full.ssm.proj_factor}, vocab {full.vocab_size}, tied; "
+        f"{n / 1e6:.1f}M params drawn on the card in {draw_s:.1f} s")
+    host_p = tree_map(lambda a: a.to("cpu"), p32)
+    batch_np = lm_batch_fn(full.vocab_size, MOE_STEP_B, MOE_STEP_S,
+                           seed=0)(0)
+    cpu_fut = cpu_pool.submit(_lm_step, f32, tcfg, host_p, batch_np)
+    on_card = _lm_step(f32, tcfg, p32, batch_np)
+    # decode walks the stacked blocks position-major, as the reference's
+    # does, and prefill repeat-major: they agree over one superblock
+    # (ROADMAP, caveats about the reference)
+    sb32 = dataclasses.replace(f32, num_layers=len(f32.pattern))
+    r["decode32"] = _ssm_decode_check(sb32, dev, _draw(sb32, dev)[0])
+    pb = tree_map(lambda a, sp: a.to(sp.dtype), p32, api.param_spec(full))
+    r["step"] = _lm_step_compare(f32, tcfg, on_card, cpu_fut.result(),
+                                 batch_np, dev, XLSTM_GRAD_ATOL_REL)
+    del on_card, cpu_fut, host_p, p32
+    torch.cuda.empty_cache()
+    _cli_results(arch, running, r, SSM_CLI_STEPS)
+    r["decode"] = _ssm_decode_time(full, dev, pb)
+    sbytes = r["decode"]["state_bytes_per_seq"]
+    log(f"lm (c) {arch}: float32 decode of one superblock ("
+        f"{len(full.pattern)} layers) for {SSM_PREFILL32} tokens at batch "
+        f"{SSM_DECODE_B32} from stabilizers at -inf within "
+        f"{r['decode32'][0]:.4e} of prefill (max |logit| "
+        f"{r['decode32'][1]:.4f}, tolerance {SSM_DECODE_TOL} x it); bf16 "
+        f"decode of all {full.num_layers} layers at batch {LM_DECODE_B}: "
+        f"{r['decode']['ms_per_token']:.3f} "
+        f"ms/token, {r['decode']['tok_s']:.0f} tok/s; decode state per "
+        f"sequence: mLSTM {sbytes.get('mlstm', 0)} B, sLSTM "
+        f"{sbytes.get('slstm', 0)} B a layer")
+    log(f"lm (d) {arch}: launch.train --reduced --steps {SSM_CLI_STEPS} and "
+        "launch.serve --mode lm exit 0 (" + ", ".join(
+            f"{k} {v:.1f} s" for k, v in r["cli"].items())
+        + ", beside (a) and (c)'s float32 check)")
+    # (b): the launcher alone on the card, then steps in process
+    del pb
+    torch.cuda.empty_cache()
+    proc, secs = _lm_cli(
+        ["-m", "repro_torch.launch.train", "--arch", arch, "--steps",
+         str(XLSTM_TRAIN_STEPS), "--ckpt-dir", f"{tmp}/xlstm",
+         "--ckpt-every", str(XLSTM_TRAIN_STEPS), "--log-every", "1",
+         "--device", dev.type] + red)
+    for line in proc.stdout.splitlines()[-4:]:
+        log(f"  launch.train {arch}| {line}")
+    require(proc.returncode == 0, f"launch.train --arch {arch} exited "
+            f"{proc.returncode}")
+    summ = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("lm train summary ")]
+    require(len(summ) == 1, f"launch.train {arch} printed no summary")
+    tr = json.loads(summ[0][len("lm train summary "):])
+    saved = sorted(os.listdir(f"{tmp}/xlstm"))
+    require(tr["steps"] == XLSTM_TRAIN_STEPS
+            and saved == [f"step_{XLSTM_TRAIN_STEPS:010d}"],
+            f"launch.train {arch}: {tr['steps']} steps, checkpoints {saved}")
+    tr["process_s"] = secs
+    r["launcher"] = tr
+    log(f"lm (b) launch.train {arch} full ({full.num_layers} layers, "
+        f"{full.dtype}), batch {LM_B} x seq {LM_S}, {XLSTM_TRAIN_STEPS} "
+        f"steps, a checkpoint at step {XLSTM_TRAIN_STEPS} ({card}): "
+        f"{tr['ms_per_step']:.3f} ms/step, {tr['tokens_per_s']:.0f} "
+        f"tokens/s, peak memory {_gib(tr['peak_mem_gib'])}; loss "
+        f"{tr['first_loss']:.4f} -> {tr['last_loss']:.4f}; process "
+        f"{secs:.1f} s")
+    pb, _, _ = _draw(full, dev)
+    r["train"] = _lm_train_steps(full, dev, tcfg, pb)
+    del pb
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_ssm_lm(dev, card):
+    """The hybrid LM (jamba-v0.1-52b: Mamba, attention, MoE) and the
+    xLSTM LM (xlstm-350m: mLSTM and sLSTM) at their published widths,
+    params drawn on the card from seed 0.  None of K1-K5 is on these
+    paths: their counts must stay 0."""
+    import shutil
+    import tempfile
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.config import TrainConfig
+    from repro_torch.kernels.lut_cascade import lut_cascade
+    from repro_torch.kernels.lut_gather import lut_layer, lut_lookup
+    from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
+                                                   subnet_train_fwd)
+    from repro_torch.kernels.neuralut_mlp import grouped_subnet
+
+    t_start = time.perf_counter()
+    wrappers = (lut_cascade, lut_layer, lut_lookup, subnet_train_fwd,
+                subnet_train_bwd, grouped_subnet)
+    for fn in wrappers:
+        fn.launches = 0
+    tcfg = TrainConfig(lr=3e-4, sgdr_t0=50)   # the launcher's defaults
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ssm_")
+    res = {}
+    pool, cpu_pool = ThreadPoolExecutor(2), ThreadPoolExecutor(1)
+    try:
+        t0 = time.perf_counter()
+        res[SSM_ARCHS[0]] = _jamba(dev, card, tcfg, pool, cpu_pool)
+        res[SSM_ARCHS[0]]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res[SSM_ARCHS[1]] = _xlstm(dev, card, tcfg, pool, cpu_pool, tmp)
+        res[SSM_ARCHS[1]]["seconds"] = time.perf_counter() - t0
+    finally:
+        pool.shutdown(wait=True)
+        cpu_pool.shutdown(wait=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    require(not any(launches.values()), f"the SSM LM paths launched a LUT "
+            f"kernel: {launches}")
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"lm SSM ({card}): K1-K5 launches on the jamba and xLSTM paths "
+        f"{launches}; phase {res['seconds']:.1f} s (jamba "
+        f"{res[SSM_ARCHS[0]]['seconds']:.1f}, xLSTM "
+        f"{res[SSM_ARCHS[1]]['seconds']:.1f})")
     return res
 
 
@@ -5065,6 +5454,7 @@ def main() -> int:
     sweep = phase_sweep(dev)
     lm = phase_lm(dev, card)
     moe = phase_moe_lm(dev, card)
+    ssm = phase_ssm_lm(dev, card)
 
     head, dag_head = k1[HEADLINE_B], k1_dag[HEADLINE_B]
     kernels = [
@@ -5289,6 +5679,19 @@ def main() -> int:
         f"{r['decode']['ms_per_token']:.3f} ms/token"
         for arch, r in moe.items() if arch != "seconds")
         + f"; phase {moe['seconds']:.1f} s")
+    jam, xl = ssm[SSM_ARCHS[0]], ssm[SSM_ARCHS[1]]
+    log(f"lm SSM: {SSM_ARCHS[0]} 2-layer cut train "
+        f"{jam['train']['ms_per_step']:.3f} ms/step, "
+        f"{jam['train']['tokens_per_s']:.0f} tokens/s, peak "
+        f"{jam['train']['peak_mem_gib']:.3f} GiB, busy share "
+        f"{jam['train']['busy_share']:.4f}; superblock decode "
+        f"{jam['decode']['ms_per_token']:.3f} ms/token; {SSM_ARCHS[1]} "
+        f"launch.train {xl['launcher']['ms_per_step']:.3f} ms/step, "
+        f"{xl['launcher']['tokens_per_s']:.0f} tokens/s; in process "
+        f"{xl['train']['ms_per_step']:.3f} ms/step, busy share "
+        f"{xl['train']['busy_share']:.4f}; decode "
+        f"{xl['decode']['ms_per_token']:.3f} ms/token; phase "
+        f"{ssm['seconds']:.1f} s")
     log("sweep over logical replicas of the card: " + "; ".join(
         f"{k} at R = {v['replicas']} {v['seconds']:.3f} s (R = 1: "
         f"{sum(g['seconds_r1'] for g in v['groups']):.3f} s)"

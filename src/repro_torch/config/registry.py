@@ -4,11 +4,11 @@ Each module in ``repro_torch.configs`` registers a full-size config (the
 published architecture) and a reduced config (same family, tiny dims)
 used by the CPU tests — the same ids and values as ``repro.configs``.
 Two families are registered: the NeuraLUT chain geometries and
-PolyLUT-Add LUT graphs (``list_archs``), and the LMs whose layers are
-all attention (GQA or MLA) + a dense FFN or a mixture of experts
-(``list_lm_archs``).  The reference's other LM archs (SSM, xLSTM,
-enc-dec, VLM) are known by name and raise ``NotImplementedError`` from
-``get_config``.
+PolyLUT-Add LUT graphs (``list_archs``), and the decoder-only LMs
+(``list_lm_archs``): attention (GQA or MLA), Mamba, mLSTM or sLSTM
+mixers with a dense FFN, a mixture of experts or none.  The reference's
+other LM archs (enc-dec, VLM) are known by name and raise
+``NotImplementedError`` from ``get_config``.
 """
 from __future__ import annotations
 
@@ -37,11 +37,12 @@ _CONFIG_MODULES = (
     "gemma3_12b",
     "qwen2_moe_a2p7b",
     "deepseek_v2_lite_16b",
+    "jamba_v0_1_52b",
+    "xlstm_350m",
 )
 
-# The reference's LM archs whose mixers or FFNs the port lacks.
-NOT_PORTED_ARCHS = ("jamba-v0.1-52b", "qwen2-vl-72b", "whisper-small",
-                    "xlstm-350m")
+# The reference's LM archs whose layers the port lacks.
+NOT_PORTED_ARCHS = ("qwen2-vl-72b", "whisper-small")
 
 _loaded = False
 
@@ -69,7 +70,7 @@ def list_archs() -> Tuple[str, ...]:
 
 
 def list_lm_archs() -> Tuple[str, ...]:
-    """The ported LM archs (attention + dense FFN or MoE layers)."""
+    """The ported LM archs (dense, MoE, MLA + MoE, hybrid, xLSTM)."""
     _ensure_loaded()
     return tuple(sorted(n for n, f in _FULL.items()
                         if isinstance(f(), ModelConfig)))
@@ -79,7 +80,8 @@ def get_config(name: str, reduced: bool = False) -> Config:
     _ensure_loaded()
     if name in NOT_PORTED_ARCHS:
         raise NotImplementedError(
-            f"arch {name!r}: its layers (SSM, xLSTM, enc-dec or vision) " + NOT_PORTED.format("Queue A item 7"))
+            f"arch {name!r}: its layers (enc-dec or vision) "
+            + NOT_PORTED.format("Queue A item 7"))
     table = _REDUCED if reduced else _FULL
     if name not in table:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(table)}")

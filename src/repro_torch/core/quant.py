@@ -53,7 +53,7 @@ def _clip_bounds(beta: int, device: torch.device
             torch.tensor(float(hi), device=device))
 
 
-def _rows(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def rows_f64(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``t`` (C,) broadcast to ``x``'s shape (..., C), with its gradient
     summed over the rows in float64 (see the module docstring)."""
     return t.double().expand(x.shape).to(t.dtype)
@@ -67,7 +67,7 @@ def quant_apply(p: Params, x: torch.Tensor, beta: int) -> torch.Tensor:
     the lowest or highest code) each side takes half the gradient.
     ``torch.clamp`` would pass all of it to the input, doubling the
     gradient of every saturated activation and of its ``log_s``."""
-    s = _rows(torch.exp(p["log_s"]), x)
+    s = rows_f64(torch.exp(p["log_s"]), x)
     lo, hi = _clip_bounds(beta, x.device)
     vq = torch.minimum(torch.maximum(_ste_round(x / s), lo), hi)
     return vq * s
@@ -105,6 +105,6 @@ def bn_apply(p: Params, state: Params, x: torch.Tensor, *, train: bool,
         "mean": (1 - momentum) * state["mean"] + momentum * mu,
         "var": (1 - momentum) * state["var"] + momentum * var,
     }
-    y = (x - _rows(mu, x)) * _rows(torch.rsqrt(var + eps), x) \
-        * _rows(p["g"], x) + _rows(p["b"], x)
+    y = (x - rows_f64(mu, x)) * rows_f64(torch.rsqrt(var + eps), x) \
+        * rows_f64(p["g"], x) + rows_f64(p["b"], x)
     return y, new_state

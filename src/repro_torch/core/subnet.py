@@ -30,6 +30,7 @@ import numpy as np
 
 import torch
 
+from repro_torch.core.quant import rows_f64
 from repro_torch.kernels.ref import grouped_subnet_ref
 
 Params = Dict[str, Any]
@@ -117,9 +118,45 @@ def linear_spec(out_width: int, F: int) -> Params:
     return {"w": (out_width, F), "b": (out_width,)}
 
 
+class _NeuronDot(torch.autograd.Function):
+    """``einsum("bok,ok->bo", x, w)``: each neuron's features dotted
+    with its own weights, in an order that no shape changes.  On CUDA
+    the order of a batched product's or a reduction's float32 sums
+    follows the tensor's shape, which under ``torch.func.vmap`` includes
+    the unit count, so a sweep group's member would step otherwise than
+    the same seed trained alone (``core.quant``'s docstring).  So the
+    forward adds the K products one by one, elementwise, in order
+    k = 0..K-1, and the weight gradient, a sum over the batch rows, runs
+    in float64 and is rounded once to float32."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, w):
+        y = x[..., 0] * w[:, 0]
+        for k in range(1, x.shape[-1]):
+            y = y + x[..., k] * w[:, k]
+        return y
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = g[..., None] * w if ctx.needs_input_grad[0] else None
+        gw = (torch.einsum("bo,bok->ok", g.double(), x.double()).to(w.dtype)
+              if ctx.needs_input_grad[1] else None)
+        return gx, gw
+
+
 def linear_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, O, F) -> (B, O)."""
-    return torch.einsum("bof,of->bo", x, p["w"]) + p["b"]
+    """x: (B, O, F) -> (B, O): the F products added in order, the
+    weight and bias gradients summed over the rows in float64
+    (:class:`_NeuronDot`, ``quant.rows_f64``)."""
+    y = _NeuronDot.apply(x, p["w"])
+    return y + rows_f64(p["b"], y)
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +187,9 @@ def poly_apply(p: Params, x: torch.Tensor, exps: np.ndarray) -> torch.Tensor:
 
     A monomial is built by masked repeated multiplication, not
     ``torch.pow``: the gradient of x^0 is 0 * x^-1, NaN at the exact
-    zeros that quantized activations produce."""
+    zeros that quantized activations produce.  The linear map adds the
+    M products in order and sums its weight gradient's rows in float64
+    (:class:`_NeuronDot`)."""
     exps = np.asarray(exps)
     m, f = exps.shape
     feats = torch.ones(x.shape[:-1] + (m,), dtype=x.dtype, device=x.device)
@@ -162,7 +201,7 @@ def poly_apply(p: Params, x: torch.Tensor, exps: np.ndarray) -> torch.Tensor:
         ej = torch.as_tensor(exps[:, j], device=x.device)  # (M,)
         for k in range(1, col_max + 1):
             feats = feats * torch.where(ej >= k, xj, torch.ones_like(xj))
-    return torch.einsum("bom,om->bo", feats, p["w"])
+    return _NeuronDot.apply(feats, p["w"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Decoder-only LM assembly: embeds -> repeated block pattern -> head
-(port of ``repro.models.lm`` for the dense and MoE families: every
-layer is attention (GQA or MLA) + a dense gated MLP or a mixture of
-experts).
+(port of ``repro.models.lm`` for the dense, MoE, SSM and hybrid
+families: every layer is a mixer (attention, GQA or MLA; Mamba; mLSTM
+or sLSTM) + a dense gated MLP, a mixture of experts or no FFN).
 
 Layer stacking: per-pattern-position parameter *stacks* with leading
 dim ``pattern_repeat``, as in the reference, so a tree bridges leaf for
@@ -22,10 +22,10 @@ recomputed in the backward, so the full logits never materialize.
 
 The parameter tree pads an MoE layer's experts to a multiple of the
 reference's model axis (``model_axis=16``: qwen2's 60 to 64 inert
-experts), so a reference tree bridges leaf for leaf.  Mamba, mLSTM,
-sLSTM and the vision stub raise ``NotImplementedError`` naming their
-ROADMAP item.  The reference's sharding constraints are dropped: one
-device has no sharding.
+experts), so a reference tree bridges leaf for leaf.  The vision stub
+and enc-dec raise ``NotImplementedError`` naming their ROADMAP item.
+The reference's sharding constraints are dropped: one device has no
+sharding.
 """
 from __future__ import annotations
 
@@ -41,8 +41,10 @@ from repro_torch import NOT_PORTED
 from repro_torch.config.base import LayerSpec, ModelConfig
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 from .layers import attention as attn_lib
+from .layers import mamba as mamba_lib
 from .layers import mla as mla_lib
 from .layers import moe as moe_lib
+from .layers import xlstm as xlstm_lib
 from .layers.common import (TensorSpec, activation, apply_mlp, apply_norm,
                             dtype_of, mlp_spec, norm_spec)
 
@@ -61,16 +63,19 @@ def _not_ported(what: str) -> NotImplementedError:
 # Param specs
 
 
-def _check_mixer(spec: LayerSpec, cfg: ModelConfig) -> None:
-    if spec.mixer != "attn":
-        raise _not_ported(f"the {spec.mixer} mixer")
-
-
 def _mixer_spec(spec: LayerSpec, cfg: ModelConfig, dtype) -> Params:
-    _check_mixer(spec, cfg)
-    if cfg.attention.kind == "mla":
-        return mla_lib.mla_spec(cfg.attention, cfg.d_model, dtype)
-    return attn_lib.attention_spec(cfg.attention, cfg.d_model, dtype)
+    a = cfg.attention
+    if spec.mixer == "attn":
+        if a.kind == "mla":
+            return mla_lib.mla_spec(a, cfg.d_model, dtype)
+        return attn_lib.attention_spec(a, cfg.d_model, dtype)
+    if spec.mixer == "mamba":
+        return mamba_lib.mamba_spec(cfg.ssm, cfg.d_model, dtype)
+    if spec.mixer == "mlstm":
+        return xlstm_lib.mlstm_spec(cfg.ssm, cfg.d_model, dtype)
+    if spec.mixer == "slstm":
+        return xlstm_lib.slstm_spec(cfg.ssm, cfg.d_model, dtype)
+    raise ValueError(spec.mixer)
 
 
 def _ffn_spec(spec: LayerSpec, cfg: ModelConfig, dtype,
@@ -231,17 +236,26 @@ def apply_block(spec: LayerSpec, cfg: ModelConfig, p: Params,
     a = cfg.attention
     if cfg.attn_chunk:
         q_chunk = cfg.attn_chunk
-    _check_mixer(spec, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(p["ln1"], x, cfg.norm)
-    if a.kind == "mla":
-        h = mla_lib.apply_mla(p["mixer"], a, h, q_chunk=q_chunk,
-                              impl=cfg.attn_impl)
+    if spec.mixer == "attn":
+        if a.kind == "mla":
+            h = mla_lib.apply_mla(p["mixer"], a, h, q_chunk=q_chunk,
+                                  impl=cfg.attn_impl)
+        else:
+            h = attn_lib.apply_attention(
+                p["mixer"], a, h, causal=True,
+                window=_resolve_window(spec, cfg), positions=positions,
+                q_chunk=q_chunk, impl=cfg.attn_impl,
+                fused_qkv=cfg.fused_qkv)
+    elif spec.mixer == "mamba":
+        h = mamba_lib.apply_mamba(p["mixer"], cfg.ssm, h)
+    elif spec.mixer == "mlstm":
+        h = xlstm_lib.apply_mlstm(p["mixer"], cfg.ssm, h)
+    elif spec.mixer == "slstm":
+        h = xlstm_lib.apply_slstm(p["mixer"], cfg.ssm, h)
     else:
-        h = attn_lib.apply_attention(
-            p["mixer"], a, h, causal=True,
-            window=_resolve_window(spec, cfg), positions=positions,
-            q_chunk=q_chunk, impl=cfg.attn_impl, fused_qkv=cfg.fused_qkv)
+        raise ValueError(spec.mixer)
     x = x + h
     if spec.ffn != "none":
         h = apply_norm(p["ln2"], x, cfg.norm)
@@ -369,11 +383,19 @@ def prefill_logits(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 def _mixer_cache_spec(spec: LayerSpec, cfg: ModelConfig, batch: int,
                       seq: int, dtype) -> Params:
-    _check_mixer(spec, cfg)
-    if cfg.attention.kind == "mla":
-        return mla_lib.mla_cache_spec(cfg.attention, batch, seq, dtype)
-    return attn_lib.cache_spec(cfg.attention, batch, seq,
-                               _resolve_window(spec, cfg), dtype)
+    a = cfg.attention
+    if spec.mixer == "attn":
+        if a.kind == "mla":
+            return mla_lib.mla_cache_spec(a, batch, seq, dtype)
+        return attn_lib.cache_spec(a, batch, seq, _resolve_window(spec, cfg),
+                                   dtype)
+    if spec.mixer == "mamba":
+        return mamba_lib.mamba_state_spec(cfg.ssm, cfg.d_model, batch, dtype)
+    if spec.mixer == "mlstm":
+        return xlstm_lib.mlstm_state_spec(cfg.ssm, cfg.d_model, batch, dtype)
+    if spec.mixer == "slstm":
+        return xlstm_lib.slstm_state_spec(cfg.ssm, cfg.d_model, batch, dtype)
+    raise ValueError(spec.mixer)
 
 
 def decode_state_spec(cfg: ModelConfig, batch: int, seq: int) -> Params:
@@ -389,12 +411,34 @@ def decode_state_spec(cfg: ModelConfig, batch: int, seq: int) -> Params:
     return st
 
 
+def with_minus_inf_stabilizers(state: Params) -> Params:
+    """``state`` with every xLSTM stabilizer ``m`` (the mLSTM's and the
+    sLSTM's) at -inf, the start the prefill forward takes, so that
+    decode from it follows prefill.  A zero state (``launch.serve``'s,
+    as the reference's) starts them at 0, where the sLSTM's output
+    differs."""
+    def fix(cache):
+        if "m" not in cache:
+            return cache
+        return dict(cache, m=torch.full_like(cache["m"], float("-inf")))
+    return dict(state, prefix_blocks=[fix(c) for c in state["prefix_blocks"]],
+                blocks=[fix(c) for c in state["blocks"]])
+
+
 def _decode_mixer(spec: LayerSpec, cfg: ModelConfig, p, h, cache, pos):
-    _check_mixer(spec, cfg)
-    if cfg.attention.kind == "mla":
-        return mla_lib.decode_mla(p["mixer"], cfg.attention, h, cache, pos)
-    return attn_lib.decode_attention(p["mixer"], cfg.attention, h, cache,
-                                     pos, window=_resolve_window(spec, cfg))
+    a = cfg.attention
+    if spec.mixer == "attn":
+        if a.kind == "mla":
+            return mla_lib.decode_mla(p["mixer"], a, h, cache, pos)
+        return attn_lib.decode_attention(p["mixer"], a, h, cache, pos,
+                                         window=_resolve_window(spec, cfg))
+    if spec.mixer == "mamba":
+        return mamba_lib.decode_mamba(p["mixer"], cfg.ssm, h, cache)
+    if spec.mixer == "mlstm":
+        return xlstm_lib.decode_mlstm(p["mixer"], cfg.ssm, h, cache)
+    if spec.mixer == "slstm":
+        return xlstm_lib.decode_slstm(p["mixer"], cfg.ssm, h, cache)
+    raise ValueError(spec.mixer)
 
 
 def _decode_block(spec: LayerSpec, cfg: ModelConfig, p, x, cache, pos):

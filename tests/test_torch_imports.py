@@ -68,11 +68,17 @@ def test_imports_with_jax_and_repro_blocked():
             "repro_torch.configs.lm_100m", "repro_torch.configs.llama3_8b",
             "repro_torch.configs.yi_9b", "repro_torch.configs.granite_34b",
             "repro_torch.configs.gemma3_12b"} <= names
+    # and the SSM and hybrid LMs'
+    assert {"repro_torch.models.layers.mamba",
+            "repro_torch.models.layers.xlstm",
+            "repro_torch.configs.jamba_v0_1_52b",
+            "repro_torch.configs.xlstm_350m"} <= names
 
 
 def test_no_source_imports_jax_or_repro():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "examples" / "lm_train_torch.py"]
+    files = sorted(PKG.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "examples" / "lm_train_torch.py",
+        ROOT / "probes" / "linear_grads.py"]
     assert len(files) > 20
     for f in files:
         assert not FORBIDDEN.search(f.read_text()), f

@@ -59,7 +59,7 @@ def test_launch_train_lm_with_checkpoints_resumes(tmp_path, capsys, extra):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "jamba-v0.1-52b"], "Queue A item 7"),
+    (["--arch", "whisper-small"], "Queue A item 7"),
     (["--mesh", "multi"], "Queue A item 7"),
     (["--mesh-shape", "2x4"], "Queue A item 7"),
 ])
@@ -96,7 +96,7 @@ def test_serve_lm(capsys):
     assert "decoded 6 steps x batch 4:" in text and "tok/s" in text
     assert out["steps"] == 6 and out["last_tokens"].shape == (4, 1)
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        launch_serve.main(["--mode", "lm", "--arch", "xlstm-350m",
+        launch_serve.main(["--mode", "lm", "--arch", "qwen2-vl-72b",
                            "--device", "cpu"])
     with pytest.raises(SystemExit, match="unknown"):
         launch_serve.main(["--mode", "lm", "--arch", "neuralut-jsc-2l",

@@ -78,7 +78,7 @@ def test_cli_without_registry_does_not_persist(tmp_path, capsys,
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--mode", "lm", "--arch", "jamba-v0.1-52b"], NotImplementedError,
+    (["--mode", "lm", "--arch", "whisper-small"], NotImplementedError,
      "Queue A item 7"),
     (["--sharded", "--replicas", "2"], ValueError, "replicas=1"),
     (["--kernel"], SystemExit, "no route to force"),

@@ -1,9 +1,11 @@
 """Port parity of the LMs (``repro_torch.models``) against the
 reference's (``repro.models``) on the CPU, for every registered LM
-arch's reduced form (the dense ones and, since the MoE and MLA layers,
-qwen2-moe-a2.7b and deepseek-v2-lite-16b): ``lm_loss`` and its
-gradients, ``decode_step``'s logits and ``config_fingerprint``
-(``tests/test_torch_lm_moe.py`` holds the MoE models closer).
+arch's reduced form whose layers are all attention (the dense ones and,
+since the MoE and MLA layers, qwen2-moe-a2.7b and deepseek-v2-lite-16b):
+``lm_loss`` and its gradients, ``decode_step``'s logits; the parameter
+layout and ``config_fingerprint`` of every LM arch
+(``tests/test_torch_lm_moe.py`` holds the MoE models closer,
+``tests/test_torch_lm_ssm.py`` the jamba and xLSTM models).
 
 Both packages start from one set of params (drawn by the port, bridged
 to the reference as numpy) and one batch.  Tolerances, stated before
@@ -42,6 +44,11 @@ from repro_torch.tree import tree_leaves
 torch.set_num_threads(1)
 
 ARCHS = list_lm_archs()
+# the archs whose layers are all attention; the SSM and hybrid ones
+# (jamba, xLSTM) are held in tests/test_torch_lm_ssm.py, to tolerances
+# stated there from their own float32 and bfloat16 readings
+ATTN_ARCHS = [a for a in ARCHS if all(
+    s.mixer == "attn" for s in get_config(a, reduced=True).pattern)]
 Q_CHUNK = 16
 B, S = 2, 64
 
@@ -93,7 +100,7 @@ def reference():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_lm_loss_and_grads_match_reference(arch, dtype, reference):
     cfg, _ = _cfgs(arch, dtype)
     p_np, batch, jloss, jaux, jgrads = reference(arch, dtype)
@@ -277,14 +284,15 @@ def test_make_batch_shapes():
         api.input_specs(cfg, ShapeConfig("t", "train", 32, 4))
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-350m",
-                                  "whisper-small", "qwen2-vl-72b"])
-def test_other_lm_archs_are_refused(arch):
+@pytest.mark.parametrize("arch,reduced", [
+    ("whisper-small", True), ("whisper-small", False),
+    ("qwen2-vl-72b", True), ("qwen2-vl-72b", False)])
+def test_other_lm_archs_are_refused(arch, reduced):
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        get_config(arch, reduced=True)
+        get_config(arch, reduced=reduced)
     # the reference's config of the same arch, built through the port's
     # classes, is refused by the model too
-    jcfg = j_get_config(arch, reduced=True)
+    jcfg = j_get_config(arch, reduced=reduced)
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
         api.param_spec(jcfg)
 

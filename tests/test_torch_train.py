@@ -187,7 +187,7 @@ def test_launch_train_cpu():
 @pytest.mark.parametrize("argv,err", [
     (["--seeds", "2", "--registry", "reg"], None),
     (["--registry", "reg"], None),
-    (["--arch", "jamba-v0.1-52b"], NotImplementedError),
+    (["--arch", "qwen2-vl-72b"], NotImplementedError),
     (["--arch", "polylut-add-jsc-2l", "--registry", "reg"], None),
     (["--arch", "neuralut-hdr-5l"], SystemExit),
 ])
