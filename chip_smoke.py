@@ -81,6 +81,17 @@ then drives the port's paths at full width:
   timed, the decode state's bytes per sequence, ``launch.train`` (xLSTM
   at full size with a checkpoint) and ``launch.serve --mode lm`` as
   processes;
+* the encoder-decoder LM (``whisper-small``, whole: 12 + 12 layers,
+  1,500 frames) and the VLM backbone (``qwen2-vl-72b`` at full width,
+  cut to 2 layers): float32 gradients on the card against the CPU
+  (whisper through a whole step, the VLM with 16 patch embeddings on a
+  grid and 3-D M-RoPE positions), whisper's float32 decode from
+  ``prefill_cross(encode(frames))`` (its first token against the
+  forward, every token card against CPU), the VLM's text-only decode
+  against prefill, whisper's bf16 steps at 8 x 448, the VLM's bf16
+  prefill at 8 x 512 with 256 patches and its value_and_grad at 4 x
+  512, bf16 decode against its bytes bound, ``launch.serve --mode lm``
+  as processes; no LUT kernel on these paths (counts 0);
 * the serving stack, right after graph serving, over the bundles of
   the two serving paths: a ``TableRegistry`` round trip (verified,
   bit-identical), a corrupted version refused and quarantined by the
@@ -4320,9 +4331,10 @@ MOE_CLI_STEPS = 6
 MOE_DECODE_TOL = 3e-3
 
 
-def _lm_train_steps(cfg, dev, tcfg, params):
+def _lm_train_steps(cfg, dev, tcfg, params, make=None):
     """(b): MOE_WARM_STEPS + MOE_TIMED_STEPS bf16 steps through
-    make_train_step at batch LM_B x LM_S from ``params`` (on the card),
+    make_train_step at batch LM_B x LM_S (or ``make(step)``'s numpy
+    batches) from ``params`` (on the card),
     then one step under the profiler: ms/step and tokens/s of the timed
     steps (synchronized), peak memory, the busy share of the profiled
     step, and the loss, CE and aux loss of every step (the aux loss
@@ -4335,7 +4347,8 @@ def _lm_train_steps(cfg, dev, tcfg, params):
     from repro_torch.train.step import make_train_step
 
     step = make_train_step(cfg, tcfg)
-    make = lm_batch_fn(cfg.vocab_size, LM_B, LM_S, seed=0)
+    if make is None:
+        make = lm_batch_fn(cfg.vocab_size, LM_B, LM_S, seed=0)
     n = MOE_WARM_STEPS + MOE_TIMED_STEPS + 1
     batches = [{k: torch.as_tensor(v, device=dev)
                 for k, v in make(s).items()} for s in range(n)]
@@ -4371,9 +4384,10 @@ def _lm_train_steps(cfg, dev, tcfg, params):
             f"lm {cfg.name} (b): the loss did not fall or is not finite, "
             f"or the aux loss is 0 with MoE layers (or not without): "
             f"{hist}")
-    tok_s = LM_B * LM_S / ms * 1e3
+    bsz, seq = batches[0]["tokens"].shape
+    tok_s = bsz * seq / ms * 1e3
     log(f"lm (b) {cfg.name} x{cfg.num_layers} layers {cfg.dtype}, batch "
-        f"{LM_B} x seq {LM_S}: {ms:.3f} ms/step over {MOE_TIMED_STEPS} "
+        f"{bsz} x seq {seq}: {ms:.3f} ms/step over {MOE_TIMED_STEPS} "
         f"steps, {tok_s:.0f} tokens/s, peak memory {peak:.3f} GiB; "
         f"profiled step {wall:.3f} ms wall, device busy {busy:.3f} ms = "
         f"{busy / wall:.4f} of it; loss {hist[0]['loss']:.4f} -> "
@@ -4621,10 +4635,11 @@ def _ssm_decode_check(cfg32, dev, p32):
     return err, scale
 
 
-def _ssm_decode_time(cfg, dev, params):
+def _ssm_decode_time(cfg, dev, params, ctx=LM_DECODE_CTX, cross=None):
     """(c) bf16: LM_DECODE_TOKENS greedy tokens at batch LM_DECODE_B,
-    context LM_DECODE_CTX, from the zero state (launch.serve's), timed on
-    a second pass; the decode state's bytes per sequence by mixer."""
+    context ``ctx``, from the zero state (launch.serve's; an enc-dec's
+    cross K/V ``cross`` when given), timed on a second pass; the decode
+    state's bytes per sequence by mixer."""
     import math
     import torch
     from repro_torch.data import lm_batch_fn
@@ -4636,10 +4651,12 @@ def _ssm_decode_time(cfg, dev, params):
     prompt = torch.as_tensor(lm_batch_fn(
         cfg.vocab_size, LM_DECODE_B, 1, seed=1)(0)["tokens"], device=dev)
     step = make_serve_step(cfg)
-    spec = api.decode_state_spec(cfg, LM_DECODE_B, LM_DECODE_CTX)
+    spec = api.decode_state_spec(cfg, LM_DECODE_B, ctx)
 
     def decode():
         state = zeros_from_spec(spec, device=dev)
+        if cross is not None:
+            state["cross"] = cross
         tok = prompt
         for _ in range(LM_DECODE_TOKENS):
             logits, state = step(params, state, tok)
@@ -4656,8 +4673,7 @@ def _ssm_decode_time(cfg, dev, params):
             f"{bool(torch.isfinite(logits).all())}")
     state_b = {}
     for s in cfg.pattern:
-        one = lm._mixer_cache_spec(s, cfg, 1, LM_DECODE_CTX,
-                                   dtype_of(cfg.dtype))
+        one = lm._mixer_cache_spec(s, cfg, 1, ctx, dtype_of(cfg.dtype))
         state_b[s.mixer] = sum(math.prod(t.shape) * t.dtype.itemsize
                                for t in tree_leaves(one))
     return dict(ms_per_token=dt / LM_DECODE_TOKENS * 1e3,
@@ -4915,6 +4931,442 @@ def phase_ssm_lm(dev, card):
         f"{launches}; phase {res['seconds']:.1f} s (jamba "
         f"{res[SSM_ARCHS[0]]['seconds']:.1f}, xLSTM "
         f"{res[SSM_ARCHS[1]]['seconds']:.1f})")
+    return res
+
+
+ENCDEC_ARCH, VLM_ARCH = "whisper-small", "qwen2-vl-72b"
+ED_STEP_B, ED_STEP_S = 1, 64      # (a) whisper: 1 x 64 tokens, 1 x 1,500 frames
+ED_TRAIN_B = 8                    # (b) whisper: 8 x max_seq_len tokens
+ED_DECODE_B32, ED_DECODE_N32 = 2, 9   # (c) the first token, then 8 more
+# (c) float32: decode's first token against the prefill's position-0
+# logits, and every decoded token card against CPU, within 1e-5 x the
+# largest |logit|; the VLM's text-only decode against prefill too
+F32_DECODE_TOL = 1e-5
+VLM_CUT_LAYERS = 2
+VLM_STEP_B, VLM_STEP_S, VLM_STEP_PATCHES = 2, 32, 16   # (a): a 4 x 4 grid
+VLM_PREFILL_B, VLM_GRAD_B, VLM_S = 8, 4, 512   # (b) prefill; value_and_grad
+VLM_DECODE_CTX = 512              # (d)
+VLM_PREFILL32 = 32                # (c) text-only prompt, batch SSM_DECODE_B32
+VLM_TIMED = 3                     # (b) timed calls after one warm call
+
+
+def _grid_positions(b, s, npatch, dev):
+    """M-RoPE ids (b, s, 3): patch i at (0, i // side, i % side) of a
+    side x side grid (side = ceil(sqrt(npatch))), then the text at
+    (p, p, p) from p = side, as Qwen2-VL numbers one image then text."""
+    import math
+    import torch
+    side = math.isqrt(max(npatch - 1, 0)) + 1
+    pos = torch.zeros((s, 3), dtype=torch.int32)
+    i = torch.arange(npatch)
+    pos[:npatch, 1], pos[:npatch, 2] = i // side, i % side
+    pos[npatch:] = (side + torch.arange(s - npatch))[:, None].to(torch.int32)
+    return pos.expand(b, s, 3).contiguous().to(dev)
+
+
+def _grads(cfg, params, batch):
+    """Float32 loss and gradients of cfg at ``batch`` (tensors on the
+    params' device) and the seconds they took."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    d = tree_leaves(params)[0].device
+    t0 = time.perf_counter()
+    (loss, _), grads = value_and_grad(
+        lambda p, b: api.loss_fn(cfg, p, b), params,
+        {k: v.to(d) for k, v in batch.items()})
+    loss = float(loss)
+    if d.type == "cuda":
+        torch.cuda.synchronize(d)
+    return dict(loss=loss, grads=grads, s=time.perf_counter() - t0)
+
+
+def _grads_compare(cfg, card, cpu, where):
+    """(a)'s verdict on float32 gradients alone: the loss to rtol
+    LM_LOSS_RTOL, each leaf to rtol LM_GRAD_RTOL / atol LM_GRAD_ATOL_REL
+    x its largest element, compared on ``where``."""
+    require(abs(card["loss"] - cpu["loss"]) <= LM_LOSS_RTOL * abs(cpu["loss"]),
+            f"lm {cfg.name} loss: card {card['loss']!r} cpu {cpu['loss']!r}")
+    gerr, n = 0.0, 0
+    for (path, g), (_, gc) in zip(_paths(card["grads"]), _paths(cpu["grads"])):
+        g, gc = g.to(where), gc.to(where)
+        scale = float(gc.abs().max())
+        gerr = max(gerr, _close(g, gc, LM_GRAD_RTOL, LM_GRAD_ATOL_REL * scale,
+                                f"lm {cfg.name} gradient {path}")
+                   / max(scale, 1e-30))
+        n += 1
+    return gerr, n
+
+
+def _encdec_decode_check(cfg32, p32, host_p, dev, frames, toks):
+    """(c) float32 on the card and on the CPU: encode ``frames``, project
+    the cross K/V once (prefill_cross), decode ``toks`` teacher-forced
+    from there; the first token against the decoder forward's position-0
+    logits on each device, every token card against CPU.  Returns the
+    errors and the largest |logit|; the later positions' distance from
+    the forward is reported (decode adds position 0's sinusoid at every
+    step, as the reference's does)."""
+    import torch
+    from repro_torch.models import api, encdec
+    from repro_torch.models.layers.common import zeros_from_spec
+
+    out = {}
+    for where, p in ((dev, p32), (torch.device("cpu"), host_p)):
+        f, t = frames.to(where), toks.to(where)
+        with torch.no_grad():
+            enc = encdec.encode(cfg32, p, f)
+            pre = encdec.prefill_logits(cfg32, p, t, enc)
+            state = zeros_from_spec(api.decode_state_spec(
+                cfg32, t.shape[0], ED_STEP_S), device=where)
+            state["cross"] = encdec.prefill_cross(cfg32, p, enc)
+            logits = []
+            for i in range(t.shape[1]):
+                lg, state = api.decode_step(cfg32, p, state, t[:, i:i + 1])
+                logits.append(lg)
+        out[where.type] = (pre.to(dev), torch.stack(logits, 1).to(dev))
+    (pre, dec), (pre_c, dec_c) = out["cuda" if dev.type == "cuda" else
+                                     "cpu"], out["cpu"]
+    scale = float(pre.abs().max())
+    first = max(float((dec[:, 0] - pre[:, 0]).abs().max()),
+                float((dec_c[:, 0] - pre_c[:, 0]).abs().max()))
+    cross_dev = float((dec - dec_c).abs().max())
+    later = float((dec[:, 1:] - pre[:, 1:]).abs().max())
+    require(bool(torch.isfinite(dec).all())
+            and first <= F32_DECODE_TOL * scale
+            and cross_dev <= F32_DECODE_TOL * scale,
+            f"lm {cfg32.name} float32 decode: first token {first:.4e} from "
+            f"prefill, card against CPU {cross_dev:.4e}, beyond "
+            f"{F32_DECODE_TOL} x {scale:.4f}")
+    return dict(first_err=first, card_cpu_err=cross_dev, later_err=later,
+                scale=scale)
+
+
+def _whisper(dev, card, tcfg, pool, cpu_pool):
+    """whisper-small whole (12 + 12 layers at full width): (a) a float32
+    make_train_step step on the card against the CPU at ED_STEP_B x
+    ED_STEP_S tokens and the encoder's frames, the CPU's step beside
+    (c); (c) float32 decode from prefill_cross(encode(frames)); (b) bf16
+    steps at ED_TRAIN_B x max_seq_len with a profiled one; (d) bf16
+    decode at batch LM_DECODE_B, context max_seq_len, against the
+    encoded frames' cross K/V; launch.serve --mode lm beside (a)."""
+    import dataclasses
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.models import api, encdec
+    from repro_torch.models.layers.common import dtype_of
+    from repro_torch.tree import tree_leaves, tree_map
+
+    full = get_config(ENCDEC_ARCH, reduced=LM_REDUCED)
+    red = ["--reduced"] if LM_REDUCED else []
+    running = {"launch.serve --mode lm": pool.submit(_lm_cli, [
+        "-m", "repro_torch.launch.serve", "--mode", "lm", "--arch",
+        ENCDEC_ARCH, "--device", dev.type] + red)}
+    e = full.encoder
+    f32 = dataclasses.replace(full, dtype="float32")
+    p32, n, draw_s = _draw(f32, dev)
+    r = {"params": n}
+    log(f"lm {ENCDEC_ARCH}: encoder {e.num_layers} + decoder "
+        f"{full.num_layers} layers, d {full.d_model}, "
+        f"{full.attention.num_heads} x {full.attention.head_dim} heads, ff "
+        f"{full.d_ff}, vocab {full.vocab_size}, {e.seq_len} frames x "
+        f"{e.feature_dim}; {n / 1e6:.1f}M params drawn on the card in "
+        f"{draw_s:.1f} s (no cut)")
+    host_p = tree_map(lambda a: a.to("cpu"), p32)
+    rng = np.random.default_rng(0)
+    batch_np = lm_batch_fn(full.vocab_size, ED_STEP_B, ED_STEP_S, seed=0)(0)
+    batch_np["frames"] = rng.standard_normal(
+        (ED_STEP_B, e.seq_len, e.feature_dim), dtype=np.float32)
+    cpu_fut = cpu_pool.submit(_lm_step, f32, tcfg, host_p, batch_np)
+    on_card = _lm_step(f32, tcfg, p32, batch_np)
+    frames = torch.as_tensor(rng.standard_normal(
+        (ED_DECODE_B32, e.seq_len, e.feature_dim), dtype=np.float32))
+    toks = torch.as_tensor(lm_batch_fn(full.vocab_size, ED_DECODE_B32,
+                                       ED_DECODE_N32, seed=1)(0)["tokens"])
+    r["decode32"] = _encdec_decode_check(f32, p32, host_p, dev, frames, toks)
+    r["step"] = _lm_step_compare(f32, tcfg, on_card, cpu_fut.result(),
+                                 batch_np, dev)
+    d32 = r["decode32"]
+    log(f"lm (c) {ENCDEC_ARCH} float32 decode from prefill_cross(encode("
+        f"frames)), batch {ED_DECODE_B32}, {ED_DECODE_N32} tokens: the first "
+        f"token within {d32['first_err']:.4e} of the decoder forward's "
+        f"position-0 logits, every token card against CPU within "
+        f"{d32['card_cpu_err']:.4e} (max |logit| {d32['scale']:.4f}, "
+        f"tolerance {F32_DECODE_TOL} x it); positions 1-"
+        f"{ED_DECODE_N32 - 1} {d32['later_err']:.4e} from the forward "
+        "(decode adds position 0's sinusoid at every step, as the "
+        "reference's)")
+    pb = tree_map(lambda a, sp: a.to(sp.dtype), p32, api.param_spec(full))
+    del on_card, cpu_fut, host_p, p32
+    torch.cuda.empty_cache()
+    _cli_results(ENCDEC_ARCH, running, r, 0)
+    tok_make = lm_batch_fn(full.vocab_size, ED_TRAIN_B, full.max_seq_len,
+                           seed=0)
+
+    def make(step):
+        b = tok_make(step)
+        b["frames"] = np.random.default_rng(100 + step).standard_normal(
+            (ED_TRAIN_B, e.seq_len, e.feature_dim), dtype=np.float32)
+        return b
+
+    r["train"] = _lm_train_steps(full, dev, tcfg, pb, make=make)
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        enc = encdec.encode(full, pb, torch.as_tensor(
+            rng.standard_normal((LM_DECODE_B, e.seq_len, e.feature_dim),
+                                dtype=np.float32), device=dev))
+        cross = encdec.prefill_cross(full, pb, enc)
+    del enc
+    r["decode"] = _ssm_decode_time(full, dev, pb, ctx=full.max_seq_len,
+                                   cross=cross)
+    spec = api.decode_state_spec(full, 1, 1)
+    a = full.attention
+    self_b = 2 * a.num_kv_heads * a.head_dim * dtype_of(full.dtype).itemsize
+    cross_b = sum(math.prod(s.shape) * s.dtype.itemsize
+                  for s in tree_leaves(spec["cross"]))
+    # the decoder's weights but its cross wk / wv (the cross K/V are
+    # projected once), the head, then each sequence's caches
+    dec = dict(pb["dec_blocks"], cross={
+        k: w for k, w in pb["dec_blocks"]["cross"].items()
+        if k in ("wq", "wo")})
+    nbytes = (sum(t.numel() * t.element_size() for t in tree_leaves(
+        [dec, pb["lm_head"], pb["final_norm"]]))
+              + LM_DECODE_B * (cross_b + full.max_seq_len * full.num_layers
+                               * self_b))
+    bound = nbytes / PEAK_BYTES_S * 1e3
+    r["decode"].update(self_bytes_token_layer=self_b,
+                       cross_bytes_seq=cross_b, bound_ms=bound)
+    del pb, cross
+    torch.cuda.empty_cache()
+    log(f"lm (d) {ENCDEC_ARCH} bf16 decode at batch {LM_DECODE_B}, context "
+        f"{full.max_seq_len}, against the encoded frames' cross K/V: "
+        f"{r['decode']['ms_per_token']:.3f} ms/token, "
+        f"{r['decode']['tok_s']:.0f} tok/s; bytes read per token (decoder "
+        f"and head weights, cross and self caches) {nbytes / 1e9:.3f} GB, "
+        f">= {bound:.3f} ms at {PEAK_BYTES_S / 1e12:.2f} TB/s; cache: self "
+        f"K/V {self_b} B per token and layer, cross K/V {cross_b} B per "
+        f"sequence ({full.num_layers} layers); launch.serve --mode lm exit "
+        f"0 ({r['cli']['launch.serve --mode lm']:.1f} s, beside (a))")
+    return r
+
+
+def _vlm(dev, card, tcfg, pool, cpu_pool):
+    """qwen2-vl-72b at full width, cut to VLM_CUT_LAYERS: (a) float32
+    loss and gradients on the card against the CPU at VLM_STEP_B x
+    VLM_STEP_S tokens, the first VLM_STEP_PATCHES patch embeddings on a
+    grid, the CPU's gradients beside (c); (c) float32 decode against
+    prefill on a text-only prompt; (b) bf16 prefill at VLM_PREFILL_B x
+    VLM_S with the published patches, and bf16 value_and_grad at
+    VLM_GRAD_B x VLM_S, profiled; (d) bf16 decode at batch LM_DECODE_B,
+    context VLM_DECODE_CTX; launch.serve --mode lm beside (a)."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.config import VisionStubConfig, get_config
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.models import api, lm
+    from repro_torch.models.layers.common import zeros_from_spec
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+
+    full = get_config(VLM_ARCH, reduced=LM_REDUCED)
+    red = ["--reduced"] if LM_REDUCED else []
+    running = {"launch.serve --mode lm": pool.submit(_lm_cli, [
+        "-m", "repro_torch.launch.serve", "--mode", "lm", "--arch",
+        VLM_ARCH, "--device", dev.type] + red)}
+    cut = dataclasses.replace(full, num_layers=VLM_CUT_LAYERS)
+    v = cut.vision
+    npatch_a = min(VLM_STEP_PATCHES, VLM_STEP_S // 2)
+    cut32 = dataclasses.replace(cut, dtype="float32", vision=(
+        VisionStubConfig(num_patches=npatch_a, patch_dim=v.patch_dim)))
+    p32, n, draw_s = _draw(cut32, dev)
+    r = {"params": n}
+    log(f"lm {VLM_ARCH}: {cut.num_layers} of {full.num_layers} layers at "
+        f"full width (d {cut.d_model}, {cut.attention.num_heads} heads / "
+        f"{cut.attention.num_kv_heads} KV x {cut.attention.head_dim}, "
+        f"M-RoPE sections {cut.attention.mrope_sections}, ff {cut.d_ff}, "
+        f"vocab {cut.vocab_size}, patches {v.num_patches} x {v.patch_dim}); "
+        f"{n / 1e9:.3f}B params drawn on the card in {draw_s:.1f} s")
+    host_p = tree_map(lambda a: a.to("cpu"), p32)
+    g = torch.Generator().manual_seed(0)
+    b_np = lm_batch_fn(cut.vocab_size, VLM_STEP_B, VLM_STEP_S, seed=0)(0)
+    batch = {k: torch.as_tensor(x) for k, x in b_np.items()}
+    batch["patch_embeds"] = torch.randn(
+        (VLM_STEP_B, npatch_a, v.patch_dim), generator=g) * 0.1
+    batch["positions"] = _grid_positions(VLM_STEP_B, VLM_STEP_S, npatch_a,
+                                         "cpu")
+    cpu_fut = cpu_pool.submit(_grads, cut32, host_p, batch)
+    on_card = _grads(cut32, p32, batch)
+    # (c) float32: a text-only prompt, decode against prefill
+    prompt = torch.as_tensor(lm_batch_fn(
+        cut.vocab_size, SSM_DECODE_B32, VLM_PREFILL32, seed=1)(0)["tokens"],
+        device=dev)
+    with torch.no_grad():
+        pre = lm.prefill_logits(cut32, p32, prompt)
+        state = zeros_from_spec(api.decode_state_spec(
+            cut32, SSM_DECODE_B32, VLM_PREFILL32), device=dev)
+        err = 0.0
+        for i in range(VLM_PREFILL32):
+            logits, state = api.decode_step(cut32, p32, state,
+                                            prompt[:, i:i + 1])
+            err = max(err, float((logits - pre[:, i]).abs().max()))
+    scale = float(pre.abs().max())
+    require(bool(torch.isfinite(pre).all())
+            and err <= F32_DECODE_TOL * scale,
+            f"lm {VLM_ARCH} float32 text-only decode differs from prefill "
+            f"by {err:.4e} > {F32_DECODE_TOL} x {scale:.4f}")
+    r["decode32"] = (err, scale)
+    del pre
+    cpu = cpu_fut.result()
+    r["grad_err"], leaves = _grads_compare(cut32, on_card, cpu, dev)
+    log(f"lm (a) {VLM_ARCH} x{cut.num_layers} layers float32, batch "
+        f"{VLM_STEP_B} x seq {VLM_STEP_S} of which {npatch_a} patch "
+        f"embeddings at (0, r, c) of a grid, the text after at (p, p, p): "
+        f"loss card {on_card['loss']:.7f} cpu {cpu['loss']:.7f} "
+        f"(value_and_grad card {on_card['s']:.3f} s, cpu {cpu['s']:.3f} s); "
+        f"{leaves} gradient leaves within rtol {LM_GRAD_RTOL} / atol "
+        f"{LM_GRAD_ATOL_REL} x max|leaf| (max err {r['grad_err']:.3e} x "
+        f"max|leaf|)")
+    log(f"lm (c) {VLM_ARCH} float32 decode of a text-only prompt (M-RoPE t "
+        f"= h = w), {VLM_PREFILL32} tokens at batch {SSM_DECODE_B32}: within "
+        f"{err:.4e} of prefill (max |logit| {scale:.4f}, tolerance "
+        f"{F32_DECODE_TOL} x it)")
+    r["loss_card"], r["loss_cpu"] = on_card["loss"], cpu["loss"]
+    pb = tree_map(lambda a, sp: a.to(sp.dtype), p32, api.param_spec(cut))
+    del on_card, cpu, cpu_fut, host_p, p32
+    torch.cuda.empty_cache()
+    _cli_results(VLM_ARCH, running, r, 0)
+
+    def inputs(bsz, seed):
+        b = {k: torch.as_tensor(x, device=dev) for k, x in lm_batch_fn(
+            cut.vocab_size, bsz, VLM_S, seed=seed)(0).items()}
+        b["patch_embeds"] = (torch.randn(
+            (bsz, v.num_patches, v.patch_dim),
+            generator=torch.Generator().manual_seed(seed)) * 0.1).to(
+            device=dev, dtype=torch.bfloat16)
+        b["positions"] = _grid_positions(bsz, VLM_S, v.num_patches, dev)
+        return b
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(VLM_TIMED):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / VLM_TIMED * 1e3, out
+
+    pf = inputs(VLM_PREFILL_B, 2)
+    with torch.no_grad():
+        r["prefill_ms"], logits = timed(lambda: lm.prefill_logits(
+            cut, pb, pf["tokens"], patch_embeds=pf["patch_embeds"],
+            positions=pf["positions"]))
+    require(tuple(logits.shape) == (VLM_PREFILL_B, VLM_S, cut.vocab_size)
+            and bool(torch.isfinite(logits).all()),
+            f"lm {VLM_ARCH} bf16 prefill logits {tuple(logits.shape)}")
+    del logits, pf
+    torch.cuda.empty_cache()
+    gb = inputs(VLM_GRAD_B, 3)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def grad_call():
+        (loss, _), gr = value_and_grad(lambda p, b: api.loss_fn(cut, p, b),
+                                       pb, gb)
+        return loss, gr
+
+    r["grad_ms"], (loss, gr) = timed(grad_call)
+    del gr
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tp = time.perf_counter()
+        loss, gr = grad_call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - tp) * 1e3
+    del gr
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    by_kernel = sorted(((ev.self_device_time_total, ev.key)
+                        for ev in prof.key_averages()
+                        if ev.self_device_time_total > 0), reverse=True)
+    busy = sum(u for u, _ in by_kernel) / 1e3
+    require(bool(torch.isfinite(loss)), f"lm {VLM_ARCH} bf16 loss {loss}")
+    r.update(prefill_tok_s=VLM_PREFILL_B * VLM_S / r["prefill_ms"] * 1e3,
+             grad_tok_s=VLM_GRAD_B * VLM_S / r["grad_ms"] * 1e3,
+             grad_busy_share=busy / wall, grad_peak_gib=peak,
+             grad_wall_ms=wall, grad_busy_ms=busy, bf16_loss=float(loss))
+    del gb
+    torch.cuda.empty_cache()
+    log(f"lm (b) {VLM_ARCH} x{cut.num_layers} layers bf16 with "
+        f"{v.num_patches} patches (a {round(v.num_patches ** 0.5)}-wide "
+        f"grid at t = 0, then text): prefill at {VLM_PREFILL_B} x {VLM_S} "
+        f"{r['prefill_ms']:.3f} ms ({r['prefill_tok_s']:.0f} tokens/s); "
+        f"value_and_grad at {VLM_GRAD_B} x {VLM_S} {r['grad_ms']:.3f} ms "
+        f"({r['grad_tok_s']:.0f} tokens/s), loss {float(loss):.4f}, peak "
+        f"{peak:.3f} GiB; profiled call {wall:.3f} ms wall, device busy "
+        f"{busy:.3f} ms = {busy / wall:.4f} of it; device ms by kernel: "
+        + ", ".join(f"{k[:40]} {u / 1e3:.3f}" for u, k in by_kernel[:6]))
+    r["decode"] = _ssm_decode_time(cut, dev, pb, ctx=VLM_DECODE_CTX)
+    wbytes = sum(t.numel() * t.element_size() for t in tree_leaves(
+        [sub for k, sub in pb.items() if k not in ("embed", "vision_proj")]))
+    kv = LM_DECODE_B * r["decode"]["state_bytes_per_seq"]["attn"] \
+        * cut.num_layers
+    r["decode"].update(weight_bytes=wbytes, cache_bytes=kv,
+                       bound_ms=(wbytes + kv) / PEAK_BYTES_S * 1e3)
+    del pb
+    torch.cuda.empty_cache()
+    log(f"lm (d) {VLM_ARCH} x{cut.num_layers} layers bf16 decode at batch "
+        f"{LM_DECODE_B}, context {VLM_DECODE_CTX}: "
+        f"{r['decode']['ms_per_token']:.3f} ms/token, "
+        f"{r['decode']['tok_s']:.0f} tok/s; reads {wbytes / 1e9:.3f} GB of "
+        f"weights (layers and head; the embedding is a gather) and "
+        f"{kv / 1e9:.3f} GB of K/V a token, >= "
+        f"{r['decode']['bound_ms']:.3f} ms at {PEAK_BYTES_S / 1e12:.2f} "
+        f"TB/s; launch.serve --mode lm exit 0 "
+        f"({r['cli']['launch.serve --mode lm']:.1f} s, beside (a))")
+    return r
+
+
+def phase_encdec_vlm_lm(dev, card):
+    """The encoder-decoder LM (whisper-small, whole) and the VLM
+    backbone (qwen2-vl-72b at full width, cut in depth), params drawn on
+    the card from seed 0.  None of K1-K5 is on these paths: their counts
+    must stay 0."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.config import TrainConfig
+    from repro_torch.kernels.lut_cascade import lut_cascade
+    from repro_torch.kernels.lut_gather import lut_layer, lut_lookup
+    from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
+                                                   subnet_train_fwd)
+    from repro_torch.kernels.neuralut_mlp import grouped_subnet
+
+    t_start = time.perf_counter()
+    wrappers = (lut_cascade, lut_layer, lut_lookup, subnet_train_fwd,
+                subnet_train_bwd, grouped_subnet)
+    for fn in wrappers:
+        fn.launches = 0
+    tcfg = TrainConfig(lr=3e-4, sgdr_t0=50)   # the launcher's defaults
+    res = {}
+    pool, cpu_pool = ThreadPoolExecutor(2), ThreadPoolExecutor(1)
+    try:
+        for arch, run in ((ENCDEC_ARCH, _whisper), (VLM_ARCH, _vlm)):
+            t0 = time.perf_counter()
+            res[arch] = run(dev, card, tcfg, pool, cpu_pool)
+            res[arch]["seconds"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    finally:
+        pool.shutdown(wait=True)
+        cpu_pool.shutdown(wait=True)
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    require(not any(launches.values()), f"the enc-dec and VLM paths "
+            f"launched a LUT kernel: {launches}")
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"lm enc-dec/VLM ({card}): K1-K5 launches on the whisper and VLM "
+        f"paths {launches}; phase {res['seconds']:.1f} s (whisper "
+        f"{res[ENCDEC_ARCH]['seconds']:.1f}, VLM "
+        f"{res[VLM_ARCH]['seconds']:.1f})")
     return res
 
 
@@ -5455,6 +5907,7 @@ def main() -> int:
     lm = phase_lm(dev, card)
     moe = phase_moe_lm(dev, card)
     ssm = phase_ssm_lm(dev, card)
+    edv = phase_encdec_vlm_lm(dev, card)
 
     head, dag_head = k1[HEADLINE_B], k1_dag[HEADLINE_B]
     kernels = [
@@ -5692,6 +6145,19 @@ def main() -> int:
         f"{xl['train']['busy_share']:.4f}; decode "
         f"{xl['decode']['ms_per_token']:.3f} ms/token; phase "
         f"{ssm['seconds']:.1f} s")
+    wh, vl = edv[ENCDEC_ARCH], edv[VLM_ARCH]
+    log(f"lm enc-dec/VLM: {ENCDEC_ARCH} train "
+        f"{wh['train']['ms_per_step']:.3f} ms/step, "
+        f"{wh['train']['tokens_per_s']:.0f} tokens/s, peak "
+        f"{wh['train']['peak_mem_gib']:.3f} GiB, busy share "
+        f"{wh['train']['busy_share']:.4f}; decode "
+        f"{wh['decode']['ms_per_token']:.3f} ms/token (bound "
+        f"{wh['decode']['bound_ms']:.3f}); {VLM_ARCH} 2-layer cut prefill "
+        f"{vl['prefill_ms']:.3f} ms, {vl['prefill_tok_s']:.0f} tokens/s; "
+        f"value_and_grad {vl['grad_ms']:.3f} ms, busy share "
+        f"{vl['grad_busy_share']:.4f}, peak {vl['grad_peak_gib']:.3f} GiB; "
+        f"decode {vl['decode']['ms_per_token']:.3f} ms/token (bound "
+        f"{vl['decode']['bound_ms']:.3f}); phase {edv['seconds']:.1f} s")
     log("sweep over logical replicas of the card: " + "; ".join(
         f"{k} at R = {v['replicas']} {v['seconds']:.3f} s (R = 1: "
         f"{sum(g['seconds_r1'] for g in v['groups']):.3f} s)"

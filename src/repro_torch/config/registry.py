@@ -6,16 +6,14 @@ used by the CPU tests — the same ids and values as ``repro.configs``.
 Two families are registered: the NeuraLUT chain geometries and
 PolyLUT-Add LUT graphs (``list_archs``), and the decoder-only LMs
 (``list_lm_archs``): attention (GQA or MLA), Mamba, mLSTM or sLSTM
-mixers with a dense FFN, a mixture of experts or none.  The reference's
-other LM archs (enc-dec, VLM) are known by name and raise
-``NotImplementedError`` from ``get_config``.
+mixers with a dense FFN, a mixture of experts or none, the
+encoder-decoder (whisper-small) and the VLM backbone (qwen2-vl-72b).
 """
 from __future__ import annotations
 
 import importlib
 from typing import Callable, Dict, Tuple, Union
 
-from repro_torch import NOT_PORTED
 from repro_torch.config.base import ModelConfig
 from repro_torch.core.nl_config import LUTGraphConfig, NeuraLUTConfig
 
@@ -39,10 +37,9 @@ _CONFIG_MODULES = (
     "deepseek_v2_lite_16b",
     "jamba_v0_1_52b",
     "xlstm_350m",
+    "whisper_small",
+    "qwen2_vl_72b",
 )
-
-# The reference's LM archs whose layers the port lacks.
-NOT_PORTED_ARCHS = ("qwen2-vl-72b", "whisper-small")
 
 _loaded = False
 
@@ -70,7 +67,8 @@ def list_archs() -> Tuple[str, ...]:
 
 
 def list_lm_archs() -> Tuple[str, ...]:
-    """The ported LM archs (dense, MoE, MLA + MoE, hybrid, xLSTM)."""
+    """The LM archs (dense, MoE, MLA + MoE, hybrid, xLSTM, enc-dec,
+    VLM)."""
     _ensure_loaded()
     return tuple(sorted(n for n, f in _FULL.items()
                         if isinstance(f(), ModelConfig)))
@@ -78,10 +76,6 @@ def list_lm_archs() -> Tuple[str, ...]:
 
 def get_config(name: str, reduced: bool = False) -> Config:
     _ensure_loaded()
-    if name in NOT_PORTED_ARCHS:
-        raise NotImplementedError(
-            f"arch {name!r}: its layers (enc-dec or vision) "
-            + NOT_PORTED.format("Queue A item 7"))
     table = _REDUCED if reduced else _FULL
     if name not in table:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(table)}")

@@ -35,8 +35,9 @@ Takes the JSC chains (``neuralut-jsc-*``) and the PolyLUT-Add graphs
 (``polylut-add-jsc-*``).  Runs on CUDA unless ``--device cpu``.
 
 ``--mode lm`` decodes with an LM (``--arch``, default lm-100m, in
-its reduced form as the reference's): seeded init, a zero KV cache of
-context 128 for ``--batch`` sequences, and ``--requests`` greedy
+its reduced form as the reference's): seeded init, a zero decode state
+of context 128 for ``--batch`` sequences (whisper-small's cross K/V
+zeros too, as the reference's), and ``--requests`` greedy
 decode steps through ``make_serve_step``; prints ms/token and tok/s.
 
     python -m repro_torch.launch.serve --mode lm --device cpu
@@ -281,20 +282,18 @@ def serve_tenants(args) -> Dict[str, Any]:
 
 def serve_lm(args) -> Dict[str, Any]:
     """Greedy decode of the reduced LM: ``args.requests`` steps of a
-    batch of ``args.batch`` from token 1, context 128."""
+    batch of ``args.batch`` from token 1, context 128, from a zero state
+    (the reference's: whisper's decoder attends to zero cross K/V)."""
     import time
 
     import torch
     from repro_torch.config import get_config, list_lm_archs
-    from repro_torch.config.registry import NOT_PORTED_ARCHS
     from repro_torch.device import resolve_device
     from repro_torch.models import api
     from repro_torch.models.layers.common import zeros_from_spec
     from repro_torch.train.step import make_serve_step
 
     if args.arch not in list_lm_archs():
-        if args.arch in NOT_PORTED_ARCHS:
-            get_config(args.arch)  # raises, naming its ROADMAP item
         raise SystemExit(f"--arch {args.arch}: unknown to --mode lm; the "
                          f"LM archs are {', '.join(list_lm_archs())}")
     dev = resolve_device(args.device)

@@ -28,8 +28,11 @@ DAG schedule) and checks that every served prediction equals
 ``lut_infer.predict``.  Runs on CUDA unless ``--device cpu``.
 
 LM archs (``list_lm_archs``: lm-100m, llama3-8b, yi-9b, granite-34b,
-gemma3-12b, the MoE qwen2-moe-a2.7b and the MLA + MoE
-deepseek-v2-lite-16b; ``--reduced`` for the CPU): seeded init, AdamW
+gemma3-12b, the MoE qwen2-moe-a2.7b, the MLA + MoE
+deepseek-v2-lite-16b, jamba-v0.1-52b and xlstm-350m; ``--reduced`` for
+the CPU; whisper-small and qwen2-vl-72b are refused with a
+``ValueError``, since their loss needs frames or patch embeddings that
+``lm_batch_fn`` does not make, as in the reference): seeded init, AdamW
 (a float32 master for bfloat16 parameters) with SGDR, batches of
 ``lm_batch_fn`` prefetched by a ``ShardedLoader``, ``--grad-accum``
 microbatches and ``--compress-grads`` (error-feedback int8).  With
@@ -171,6 +174,21 @@ def _mesh_shape(args) -> tuple:
     return (1, 1)
 
 
+def _check_lm_inputs(cfg) -> None:
+    """The launcher's batches (``lm_batch_fn``) hold tokens and labels
+    only: refuse an arch whose loss needs more, before any step."""
+    missing = (["frames"] if cfg.encoder is not None else []) + (
+        ["patch_embeds", "positions"] if cfg.vision is not None else [])
+    if missing:
+        raise ValueError(
+            f"--arch {cfg.name}: its loss needs {' and '.join(missing)}, "
+            "which the launcher's lm_batch_fn does not make (it makes "
+            "tokens and labels); the reference's launcher cannot build "
+            "them either (its data.pipeline.lm_batch_fn).  Train it "
+            "through train.step.make_train_step on models.api.make_batch "
+            "data instead")
+
+
 def train_lm_arch(args, cfg) -> Dict[str, Any]:
     """The LM branch for one parsed command line; returns the losses,
     the timings and the final carry."""
@@ -184,6 +202,7 @@ def train_lm_arch(args, cfg) -> Dict[str, Any]:
     from repro_torch.runtime.fault import TrainSupervisor
     from repro_torch.train.step import make_train_step
 
+    _check_lm_inputs(cfg)
     shape = _mesh_shape(args)
     dev = resolve_device(args.device)
     print(f"mesh {shape} devices=1 ({dev})", flush=True)
@@ -312,13 +331,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = parse_args(argv)
     from repro_torch.config import get_config, list_archs, list_lm_archs
-    from repro_torch.config.registry import NOT_PORTED_ARCHS
     if args.arch in list_lm_archs():
         return train_lm_arch(args, get_config(args.arch,
                                               reduced=args.reduced))
     if args.arch not in list_archs():
-        if args.arch in NOT_PORTED_ARCHS:
-            get_config(args.arch)  # raises, naming its ROADMAP item
         raise SystemExit(f"--arch {args.arch}: unknown; the archs are "
                          f"{', '.join(list_archs() + list_lm_archs())}")
     return train_neuralut_arch(args, get_config(args.arch,

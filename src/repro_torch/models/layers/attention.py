@@ -1,6 +1,6 @@
 """Grouped-query attention with query chunking, sliding windows, a
-two-level flash attention and ring-buffer KV caches (port of
-``repro.models.layers.attention``; cross-attention waits for enc-dec).
+two-level flash attention, ring-buffer KV caches and cross-attention
+(whisper) (port of ``repro.models.layers.attention``).
 
 Every path is the reference's algorithm in plain PyTorch, tile for
 tile: the scores and the softmax in float32, masked entries at
@@ -14,6 +14,8 @@ parity tests hold the port to the reference's own arithmetic.
     tile-recomputing backward (``torch.autograd.Function``, the
     reference's custom VJP): only (out, lse) are saved.
   * Decode keeps a ring buffer of size ``window`` for local layers.
+  * Cross-attention attends, without a mask, from the decoder's
+    queries to the encoder's states, chunked over the queries.
 """
 from __future__ import annotations
 
@@ -22,7 +24,6 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch import NOT_PORTED
 from repro_torch.config.base import AttentionConfig
 from .common import TensorSpec
 from .rope import apply_mrope, apply_rope
@@ -58,6 +59,11 @@ def attention_spec(cfg: AttentionConfig, d_model: int, dtype) -> Params:
         "wv": TensorSpec((d_model, cfg.kv_dim), dtype),
         "wo": TensorSpec((cfg.q_dim, d_model), dtype),
     }
+
+
+def cross_attention_spec(cfg: AttentionConfig, d_model: int,
+                         dtype) -> Params:
+    return attention_spec(cfg, d_model, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -311,11 +317,16 @@ def _tile_kv_weight(w: torch.Tensor, kv: int, rep: int) -> torch.Tensor:
 def _rope_qk(cfg, q, k, positions, b, s):
     if cfg.rope_kind == "none":
         return q, k
-    if cfg.rope_kind == "mrope":
-        apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=q.device).expand(b, s)
+        if cfg.rope_kind == "mrope":
+            positions = positions[..., None].expand(b, s, 3)
+    if cfg.rope_kind == "mrope":
+        return (apply_mrope(q, positions, cfg.rope_theta,
+                            cfg.mrope_sections),
+                apply_mrope(k, positions, cfg.rope_theta,
+                            cfg.mrope_sections))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta))
 
@@ -353,9 +364,27 @@ def apply_attention(p: Params, cfg: AttentionConfig, x: torch.Tensor, *,
     return o.reshape(b, s, cfg.q_dim) @ p["wo"]
 
 
-def apply_cross_attention(*args, **kwargs):
-    raise NotImplementedError(
-        "cross attention (enc-dec) " + NOT_PORTED.format("Queue A item 7"))
+def apply_cross_attention(p: Params, cfg: AttentionConfig,
+                          x: torch.Tensor, enc: torch.Tensor, *,
+                          q_chunk: int = 512,
+                          impl: str = "chunked") -> torch.Tensor:
+    """Non-causal attention from the decoder's states x (B, S, D) to the
+    encoder's enc (B, T, D), KV heads repeated to the query heads, no
+    position embedding; -> (B, S, D)."""
+    b, s, _ = x.shape
+    t = enc.shape[1]
+    hd = cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
+    k = (enc @ p["wk"]).reshape(b, t, cfg.num_kv_heads, hd)
+    v = (enc @ p["wv"]).reshape(b, t, cfg.num_kv_heads, hd)
+    rep = cfg.num_heads // cfg.num_kv_heads
+    k, v = repeat_kv(k, rep), repeat_kv(v, rep)
+    if impl == "flash":
+        o = flash_attention(q, k, v, causal=False, q_chunk=q_chunk,
+                            kv_chunk=q_chunk)
+    else:
+        o = chunked_attention(q, k, v, causal=False, q_chunk=q_chunk)
+    return o.reshape(b, s, cfg.q_dim) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------
@@ -383,6 +412,9 @@ def decode_attention(p: Params, cfg: AttentionConfig, x: torch.Tensor,
     k = (x @ p["wk"]).reshape(b, 1, cfg.num_kv_heads, hd)
     v = (x @ p["wv"]).reshape(b, 1, cfg.num_kv_heads, hd)
     posb = pos.to(torch.int32).reshape(1, 1).expand(b, 1)
+    if cfg.rope_kind == "mrope":
+        # one position for all three sections (text-only decode)
+        posb = posb[..., None].expand(b, 1, 3)
     q, k = _rope_qk(cfg, q, k, posb, b, 1)
 
     t = cache["k"].shape[1]

@@ -22,10 +22,13 @@ recomputed in the backward, so the full logits never materialize.
 
 The parameter tree pads an MoE layer's experts to a multiple of the
 reference's model axis (``model_axis=16``: qwen2's 60 to 64 inert
-experts), so a reference tree bridges leaf for leaf.  The vision stub
-and enc-dec raise ``NotImplementedError`` naming their ROADMAP item.
-The reference's sharding constraints are dropped: one device has no
-sharding.
+experts), so a reference tree bridges leaf for leaf.  The VLM's vision
+stub (qwen2-vl) projects precomputed patch embeddings through
+``vision_proj`` and writes them over the first ``num_patches`` token
+embeddings; its 3-D M-RoPE positions come with the batch.  The
+encoder-decoder (whisper) lives in ``encdec.py`` and reuses the
+embedding, the loss, remat and stacking from here.  The reference's
+sharding constraints are dropped: one device has no sharding.
 """
 from __future__ import annotations
 
@@ -37,7 +40,6 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch import NOT_PORTED
 from repro_torch.config.base import LayerSpec, ModelConfig
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 from .layers import attention as attn_lib
@@ -52,11 +54,6 @@ Params = Dict[str, Any]
 
 LOSS_CHUNK = 512
 EMBED_CHUNK = 2048
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(what + " " + NOT_PORTED.format(
-        "Queue A item 7"))
 
 
 # ---------------------------------------------------------------------------
@@ -109,11 +106,8 @@ def param_spec(cfg: ModelConfig, *, model_axis: int = 16) -> Params:
     over pattern positions, each the block tree stacked over
     ``pattern_repeat``; dense-prefix overrides are separate unstacked
     entries in ``prefix_blocks``.  MoE experts are padded to a multiple
-    of ``model_axis`` (``moe.padded_num_experts``)."""
-    if cfg.vision is not None:
-        raise _not_ported("the vision stub")
-    if cfg.encoder is not None:
-        raise _not_ported("enc-dec")
+    of ``model_axis`` (``moe.padded_num_experts``); a VLM adds the
+    vision stub's ``vision_proj`` (patch_dim, d_model)."""
     dtype = dtype_of(cfg.dtype)
     rep = cfg.pattern_repeat
     v, d = cfg.vocab_size, cfg.d_model
@@ -127,6 +121,8 @@ def param_spec(cfg: ModelConfig, *, model_axis: int = 16) -> Params:
         for s in cfg.layer_specs()[:cfg.num_dense_prefix]]
     p["blocks"] = [_stack(block_spec(spec, cfg, dtype, model_axis), rep)
                    for spec in cfg.pattern]
+    if cfg.vision is not None:
+        p["vision_proj"] = TensorSpec((cfg.vision.patch_dim, d), dtype)
     return p
 
 
@@ -285,15 +281,15 @@ def _remat(fn, policy: str):
     if policy not in ("none", "full", "dots"):
         raise ValueError(f"remat {policy!r}: 'none', 'full' or 'dots'")
 
-    def run(p, x):
+    def run(p, x, *rest):
         if policy == "none" or not torch.is_grad_enabled():
-            return fn(p, x)
+            return fn(p, x, *rest)
         if policy == "dots":
-            return checkpoint(fn, p, x, use_reentrant=False,
+            return checkpoint(fn, p, x, *rest, use_reentrant=False,
                               context_fn=functools.partial(
                                   create_selective_checkpoint_contexts,
                                   _save_dots))
-        return checkpoint(fn, p, x, use_reentrant=False)
+        return checkpoint(fn, p, x, *rest, use_reentrant=False)
     return run
 
 
@@ -348,31 +344,60 @@ def apply_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
 # Train-mode forward + loss
 
 
-def _check_batch(cfg: ModelConfig, batch) -> None:
-    if cfg.vision is not None or "patch_embeds" in batch:
-        raise _not_ported("the vision stub")
+def embed_inputs(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                 patch_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Token embeddings (B, S, D); given a VLM's ``patch_embeds``
+    (B, P, patch_dim), their projection through ``vision_proj``
+    replaces the first P token embeddings (the reference's
+    ``dynamic_update_slice`` at 0, whose update must fit: S >= P)."""
+    x = embed_tokens(cfg, params, tokens)
+    if cfg.vision is None or patch_embeds is None:
+        return x
+    patches = patch_embeds.to(x.dtype) @ params["vision_proj"]
+    npatch, s = patches.shape[1], x.shape[1]
+    if s < npatch:
+        raise ValueError(
+            f"{cfg.name}: {npatch} patch embeddings do not fit in {s} "
+            "tokens; they overwrite the first num_patches token "
+            "embeddings, so the sequence must hold at least as many")
+    return torch.cat([patches, x[:, npatch:]], dim=1)
 
 
 def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
             layer_mode: str = "scan", remat: str = "full",
             q_chunk: int = 512
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    _check_batch(cfg, batch)
-    x = embed_tokens(cfg, params, batch["tokens"])
-    x, aux = apply_stack(cfg, params, x, layer_mode=layer_mode,
-                         remat=remat, q_chunk=q_chunk)
+    """Mean CE (+ the MoE aux loss).  A VLM's batch carries
+    ``patch_embeds`` and, optionally, ``positions`` (B, S, 3) for
+    M-RoPE (text-only ids when absent)."""
+    positions = None
+    if cfg.vision is not None:
+        if "patch_embeds" not in batch:
+            raise ValueError(
+                f"{cfg.name}: the vision stub needs patch_embeds (B, "
+                f"{cfg.vision.num_patches}, {cfg.vision.patch_dim})")
+        positions = batch.get("positions")
+    x = embed_inputs(cfg, params, batch["tokens"], batch.get("patch_embeds"))
+    x, aux = apply_stack(cfg, params, x, positions=positions,
+                         layer_mode=layer_mode, remat=remat, q_chunk=q_chunk)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     ce = chunked_ce_loss(cfg, params, x, batch["labels"])
     return ce + aux, {"ce": ce, "moe_aux": aux}
 
 
 def prefill_logits(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                   *, q_chunk: int = 512) -> torch.Tensor:
+                   *, patch_embeds: Optional[torch.Tensor] = None,
+                   positions: Optional[torch.Tensor] = None,
+                   q_chunk: int = 512) -> torch.Tensor:
     """The forward of ``lm_loss`` up to the head: float32 logits
     (B, S, V) at every position (to hold decode against; it
-    materializes the full logits)."""
-    x = embed_tokens(cfg, params, tokens)
-    x, _ = apply_stack(cfg, params, x, remat="none", q_chunk=q_chunk)
+    materializes the full logits).  ``patch_embeds`` and ``positions``
+    as in ``lm_loss``'s batch; a VLM without them reads a text-only
+    prompt (M-RoPE with t = h = w)."""
+    x = embed_inputs(cfg, params, tokens, patch_embeds)
+    x, _ = apply_stack(cfg, params, x, positions=positions, remat="none",
+                       q_chunk=q_chunk)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return _head_logits(cfg, params, x).float()
 

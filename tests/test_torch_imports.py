@@ -73,6 +73,10 @@ def test_imports_with_jax_and_repro_blocked():
             "repro_torch.models.layers.xlstm",
             "repro_torch.configs.jamba_v0_1_52b",
             "repro_torch.configs.xlstm_350m"} <= names
+    # and the enc-dec and VLM LMs'
+    assert {"repro_torch.models.encdec",
+            "repro_torch.configs.whisper_small",
+            "repro_torch.configs.qwen2_vl_72b"} <= names
 
 
 def test_no_source_imports_jax_or_repro():

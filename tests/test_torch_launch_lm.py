@@ -2,9 +2,10 @@
 ``launch.train`` for an LM arch (with and without ``--ckpt-dir``, with
 ``--compress-grads`` and ``--grad-accum``, resuming from the directory),
 ``launch.serve --mode lm`` and ``examples/lm_train_torch.py``; the MoE
-and MLA + MoE archs through both launchers; the messages of what is not
-ported (an SSM arch, ``--mesh multi``, a mesh shape over several
-devices); and CUDA as the default device."""
+and MLA + MoE archs through both launchers; the VLM through
+``launch.serve``; the messages of what the launcher refuses (whisper's
+frames, ``--mesh multi``, a mesh shape over several devices); and CUDA
+as the default device."""
 import os
 import runpy
 import subprocess
@@ -59,13 +60,20 @@ def test_launch_train_lm_with_checkpoints_resumes(tmp_path, capsys, extra):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "whisper-small"], "Queue A item 7"),
+    (["--arch", "whisper-small"], "frames"),
     (["--mesh", "multi"], "Queue A item 7"),
     (["--mesh-shape", "2x4"], "Queue A item 7"),
 ])
-def test_launch_train_refuses_what_is_not_ported(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_launch_train_refuses_what_is_not_ported(argv, match, capsys):
+    """A mesh over several devices is not ported; whisper-small's loss
+    needs frames that the launcher's batches lack (as the reference's
+    launcher's do), refused with a ValueError before any step."""
+    exc = ValueError if match == "frames" else NotImplementedError
+    with pytest.raises(exc, match=match) as e:
         launch_train.main(LM + argv)
+    if exc is ValueError:
+        assert "lm_batch_fn" in str(e.value)
+        assert "step " not in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b"])
@@ -95,9 +103,11 @@ def test_serve_lm(capsys):
     text = capsys.readouterr().out
     assert "decoded 6 steps x batch 4:" in text and "tok/s" in text
     assert out["steps"] == 6 and out["last_tokens"].shape == (4, 1)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        launch_serve.main(["--mode", "lm", "--arch", "qwen2-vl-72b",
-                           "--device", "cpu"])
+    # the VLM decodes too (text only: 1-D positions on all 3 sections)
+    vlm = launch_serve.main(["--mode", "lm", "--arch", "qwen2-vl-72b",
+                             "--device", "cpu", "--requests", "3",
+                             "--batch", "2"])
+    assert vlm["steps"] == 3 and vlm["last_tokens"].shape == (2, 1)
     with pytest.raises(SystemExit, match="unknown"):
         launch_serve.main(["--mode", "lm", "--arch", "neuralut-jsc-2l",
                            "--device", "cpu"])

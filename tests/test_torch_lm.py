@@ -1,7 +1,9 @@
 """Port parity of the LMs (``repro_torch.models``) against the
 reference's (``repro.models``) on the CPU, for every registered LM
 arch's reduced form whose layers are all attention (the dense ones and,
-since the MoE and MLA layers, qwen2-moe-a2.7b and deepseek-v2-lite-16b):
+since the MoE and MLA layers, qwen2-moe-a2.7b and deepseek-v2-lite-16b;
+since the enc-dec and VLM layers, whisper-small with its frames and
+qwen2-vl-72b with its patch embeddings and 3-D positions):
 ``lm_loss`` and its gradients, ``decode_step``'s logits; the parameter
 layout and ``config_fingerprint`` of every LM arch
 (``tests/test_torch_lm_moe.py`` holds the MoE models closer,
@@ -64,10 +66,23 @@ def _jax_tree(np_tree, dtype):
     return jax.tree.map(lambda a: jnp.asarray(a, jd), np_tree)
 
 
-def _batch(vocab, seed=0):
+def _batch(vocab, seed=0, cfg=None):
+    """Tokens and labels (B, S); with ``cfg`` its modality stubs too:
+    whisper's frames, the VLM's patch embeddings and 3-D positions."""
     rng = np.random.default_rng(seed)
-    return {"tokens": rng.integers(0, vocab, (B, S)).astype(np.int32),
-            "labels": rng.integers(0, vocab, (B, S)).astype(np.int32)}
+    out = {"tokens": rng.integers(0, vocab, (B, S)).astype(np.int32),
+           "labels": rng.integers(0, vocab, (B, S)).astype(np.int32)}
+    if cfg is not None and cfg.encoder is not None:
+        e = cfg.encoder
+        out["frames"] = rng.normal(0, 1, (B, e.seq_len, e.feature_dim)
+                                   ).astype(np.float32)
+    if cfg is not None and cfg.vision is not None:
+        v = cfg.vision
+        out["patch_embeds"] = rng.normal(0, 1, (B, v.num_patches,
+                                                v.patch_dim)
+                                         ).astype(np.float32)
+        out["positions"] = rng.integers(0, S, (B, S, 3)).astype(np.int32)
+    return out
 
 
 def _params(cfg, seed=0):
@@ -88,7 +103,7 @@ def reference():
         if (arch, dtype) not in cache:
             cfg, jcfg = _cfgs(arch, dtype)
             p_np = bridge.params_to_numpy(_params(cfg))
-            batch = _batch(cfg.vocab_size)
+            batch = _batch(cfg.vocab_size, cfg=cfg)
             f = jax.jit(jax.value_and_grad(lambda p, b: JA.loss_fn(
                 jcfg, p, b, q_chunk=Q_CHUNK), has_aux=True))
             (loss, m), g = f(_jax_tree(p_np, dtype), batch)
@@ -280,21 +295,38 @@ def test_make_batch_shapes():
     d = api.make_batch(cfg, ShapeConfig("d", "decode", 16, 2), g)
     assert d["token"].shape == (2, 1) and int(d["state"]["pos"]) == 0
     assert d["state"]["blocks"][0]["k"].shape == (2, 2, 16, 2, 16)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        api.input_specs(cfg, ShapeConfig("t", "train", 32, 4))
+    # input_specs, which make_batch draws from, is the reference's
+    for sh in (ShapeConfig("t", "train", 32, 4),
+               ShapeConfig("d", "decode", 16, 2)):
+        specs, jspecs = (api.input_specs(cfg, sh), JA.input_specs(
+            j_get_config("lm-100m", reduced=True),
+            JShape(**dataclasses.asdict(sh))))
+        assert [tuple(s.shape) for s in tree_leaves(specs)] == \
+            [tuple(s.shape) for s in jax.tree.leaves(jspecs)]
 
 
 @pytest.mark.parametrize("arch,reduced", [
     ("whisper-small", True), ("whisper-small", False),
     ("qwen2-vl-72b", True), ("qwen2-vl-72b", False)])
 def test_other_lm_archs_are_refused(arch, reduced):
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        get_config(arch, reduced=reduced)
-    # the reference's config of the same arch, built through the port's
-    # classes, is refused by the model too
-    jcfg = j_get_config(arch, reduced=reduced)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        api.param_spec(jcfg)
+    """The enc-dec and VLM archs, refused until their layers were
+    ported, now build: the port's config equals the reference's field
+    for field, and ``param_spec`` (``enc_in``, ``enc_blocks``,
+    ``dec_blocks``, the empty ``prefix_blocks``; ``vision_proj``)
+    equals the reference's layout, key for key and shape for shape."""
+    cfg, jcfg = get_config(arch, reduced=reduced), \
+        j_get_config(arch, reduced=reduced)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    spec, jspec = api.param_spec(cfg), JA.param_spec(jcfg)
+    assert spec["prefix_blocks"] == jspec["prefix_blocks"] == []
+    flat = jax.tree_util.tree_flatten_with_path(jspec)[0]
+    assert [tuple(s.shape) for s in tree_leaves(spec)] == \
+        [tuple(s.shape) for _, s in flat]
+    assert [s.dtype for s in tree_leaves(spec)] == \
+        [getattr(torch, str(s.dtype)) for _, s in flat]
+    extra = {"enc_in", "enc_blocks", "dec_blocks"} if cfg.encoder \
+        else {"vision_proj"}
+    assert extra <= set(spec) and set(spec) == set(jspec)
 
 
 def test_config_fingerprints_equal_reference():

@@ -94,8 +94,13 @@ def test_rope_matches_reference(theta):
     np.testing.assert_array_equal(
         R.positions_for(cfg, 3, 7, offset=2).numpy(),
         np.asarray(JR.positions_for(jcfg, 3, 7, offset=2)))
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        R.positions_for(AttentionConfig(rope_kind="mrope"), 1, 4)
+    # M-RoPE's text-only ids, t = h = w: (batch, seq, 3)
+    mcfg, jmcfg = (AttentionConfig(rope_kind="mrope"),
+                   JAttentionConfig(rope_kind="mrope"))
+    got = R.positions_for(mcfg, 3, 7, offset=2)
+    assert tuple(got.shape) == (3, 7, 3) and got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(JR.positions_for(jmcfg, 3, 7, offset=2)))
 
 
 # the cases of tests/test_attention.py, then cross attention

@@ -187,14 +187,15 @@ def test_launch_train_cpu():
 @pytest.mark.parametrize("argv,err", [
     (["--seeds", "2", "--registry", "reg"], None),
     (["--registry", "reg"], None),
-    (["--arch", "qwen2-vl-72b"], NotImplementedError),
+    (["--arch", "qwen2-vl-72b"], ValueError),
     (["--arch", "polylut-add-jsc-2l", "--registry", "reg"], None),
     (["--arch", "neuralut-hdr-5l"], SystemExit),
 ])
 def test_launch_train_refuses_what_is_not_ported(argv, err, tmp_path,
                                                  capsys):
-    """LM archs not ported yet and archs without a dataset are refused;
-    ``--registry``
+    """An LM arch whose loss needs inputs the launcher does not make
+    (qwen2-vl-72b's patch embeddings and positions) and archs without a
+    dataset are refused; ``--registry``
     (refused until the serving stack was ported) saves the served bundle
     to a TableRegistry, bit-identical on load."""
     from repro_torch.serve import TableRegistry
@@ -213,8 +214,9 @@ def test_launch_train_refuses_what_is_not_ported(argv, err, tmp_path,
         return
     with pytest.raises(err) as e:
         LT.main(base + argv)
-    if err is NotImplementedError:
-        assert "ROADMAP" in str(e.value)
+    if err is ValueError:
+        assert "patch_embeds" in str(e.value) and "positions" in str(
+            e.value)
 
 
 def test_device_dataset_is_resident_and_reused():
