@@ -92,6 +92,16 @@ then drives the port's paths at full width:
   prefill at 8 x 512 with 256 patches and its value_and_grad at 4 x
   512, bf16 decode against its bytes bound, ``launch.serve --mode lm``
   as processes; no LUT kernel on these paths (counts 0);
+* the LM over a mesh of processes (``sharding.spmd``'s ZeRO-3 step
+  through ``launch.train``): ``lm-100m`` at full width, float32, at
+  ``--mesh-shape 1x1`` in a one-rank NCCL group, bit for bit against
+  the plain step with no process group; two ranks sharing the card
+  over gloo at 2x1 and 1x2 against it (the step tests' limits), with
+  each rank's ms/step, peak memory and the bytes it holds;
+  ``psum_int8`` over the two ranks on CUDA tensors bit for bit against
+  the formula on one; the MoE LM at 2x1 against one rank (its aux
+  loss's global statistics); one card checks ranks sharing it only, not
+  several cards; no LUT kernel on these paths (counts 0);
 * the serving stack, right after graph serving, over the bundles of
   the two serving paths: a ``TableRegistry`` round trip (verified,
   bit-identical), a corrupted version refused and quarantined by the
@@ -321,11 +331,13 @@ def _trace_ms(fn, reps, kernel="", traces: int = 4):
     return best[1] / reps / 1e3 if best[0] else None
 
 
-def activities_per_call(fn, reps: int = 5, traces: int = 4):
+def activities_per_call(fn, reps: int = 5, traces: int = 12):
     """Device activities (kernels, memsets, copies) per call of ``fn`` by
     name, {name: count per call}: of two traces of ``reps`` calls, and of
     up to ``traces`` while the fuller one is not whole (``_whole``), the
-    fuller one."""
+    fuller one.  A trace loses records in bursts (four traces in a row
+    have lost one of five kernels), never adds one, so more traces only
+    bring the fullest closer to the truth."""
     best = {}
     for n in range(traces):
         _, records = _trace(fn, reps)
@@ -336,7 +348,7 @@ def activities_per_call(fn, reps: int = 5, traces: int = 4):
     return {k: v / reps for k, v in best.items()}
 
 
-def kernels_per_call(fn, reps: int = 5, traces: int = 4) -> float:
+def kernels_per_call(fn, reps: int = 5, traces: int = 12) -> float:
     """Device activities per call of ``fn``, whatever their names
     (``activities_per_call``)."""
     return sum(activities_per_call(fn, reps, traces).values())
@@ -5328,6 +5340,294 @@ def _vlm(dev, card, tcfg, pool, cpu_pool):
     return r
 
 
+MESH_ARCH_STEPS = 10       # (a): lm-100m at 1x1 against the plain step
+MESH_SHARED_STEPS = 5      # (b): 2x1 and 1x2, two ranks on one card
+MESH_MOE_STEPS = 3         # (d): reduced qwen2-moe-a2.7b, 2x1 vs 1x1
+MESH_LOSS_RTOL = 1e-5      # tests/test_torch_lm_train.py's STEP
+MESH_BF16_STEPS = 3        # (b'): the config's bfloat16 at 2x1 vs 1x1
+MESH_BF16_RTOL = 2.0 ** -8  # one bfloat16 ulp: a 2x1 gradient rounds twice
+MESH_TIMEOUT = 600
+MESH_PSUM_SHAPES = ((768, 3072), (32000,), (7, 5))
+
+
+def _mesh_launch(arch, shape, steps, reduced, device, dtype="float32"):
+    """launch.train's LM branch at ``--mesh-shape shape`` on the arch's
+    config in ``dtype`` (float32: the step tests' arithmetic)."""
+    import dataclasses
+    from repro_torch.config import get_config
+    from repro_torch.launch import train as launch_train
+    args = launch_train.parse_args(
+        ["--arch", arch, "--mesh-shape", shape, "--steps", str(steps),
+         "--log-every", "0", "--device", device, "--global-batch",
+         str(LM_B), "--seq-len", str(LM_S)]
+        + (["--reduced"] if reduced else []))
+    cfg = get_config(arch, reduced=reduced)
+    return launch_train.train_lm_arch(
+        args, dataclasses.replace(cfg, dtype=dtype))
+
+
+def _mesh_psum_inputs(rank):
+    """Per rank: float32 leaves at the lm-100m layer's shapes, a wide
+    range, and an all-zero one (drawn on the host from the rank)."""
+    import numpy as np
+    rng = np.random.default_rng(100 + rank)
+    out = {}
+    for i, shp in enumerate(MESH_PSUM_SHAPES):
+        v = rng.normal(0, 1 + rank, shp) * 10.0 ** rng.integers(-3, 3, shp)
+        out[f"g{i}"] = v.astype(np.float32)
+    out["zero"] = np.zeros((3, 4), np.float32)
+    return out
+
+
+def _mesh_worker(rank, world, init, out_dir, reduced, device):
+    """One of the ranks sharing the card: (b) launch.train at 2x1 and
+    1x2, (c) psum_int8 on CUDA tensors, (d) the MoE LM at 2x1; writes
+    its results to ``out_dir``.  ``device`` "cpu" rehearses it on the
+    host."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import psum_int8
+    from repro_torch.sharding import ctx
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, world_size=world,
+                            rank=rank)
+    res = {}
+    try:
+        for shape in ("2x1", "1x2"):
+            out = _mesh_launch(LM_ARCH, shape, MESH_SHARED_STEPS, reduced,
+                               device)
+            res[shape] = {"losses": out["losses"], "rank": out["rank"],
+                          "backend": out["backend"]}
+            del out
+        out = _mesh_launch(LM_ARCH, "2x1", MESH_BF16_STEPS, reduced, device,
+                           "bfloat16")
+        res["bf16"] = {"losses": out["losses"], "rank": out["rank"]}
+        del out
+        mesh = make_host_mesh((world, 1), device=dev)
+        leaves = {k: torch.as_tensor(v).to(dev)
+                  for k, v in _mesh_psum_inputs(rank).items()}
+        with ctx.active_mesh(mesh):
+            summed = psum_int8(leaves, "data")
+        np.savez(os.path.join(out_dir, f"psum{rank}.npz"),
+                 **{k: v.cpu().numpy() for k, v in summed.items()})
+        res["psum_device"] = str(summed["g0"].device)
+        out = _mesh_launch(MOE_ARCHS[0], "2x1", MESH_MOE_STEPS, True,
+                           device)
+        res["moe"] = {"losses": out["losses"], "rank": out["rank"]}
+        res["k_launches"] = _k_launches()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _k_launches():
+    from repro_torch.kernels.lut_cascade import lut_cascade
+    from repro_torch.kernels.lut_gather import lut_layer, lut_lookup
+    from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
+                                                   subnet_train_fwd)
+    from repro_torch.kernels.neuralut_mlp import grouped_subnet
+    return {fn.__name__: fn.launches for fn in (
+        lut_cascade, lut_layer, lut_lookup, subnet_train_fwd,
+        subnet_train_bwd, grouped_subnet)}
+
+
+def _k_reset():
+    from repro_torch.kernels.lut_cascade import lut_cascade
+    from repro_torch.kernels.lut_gather import lut_layer, lut_lookup
+    from repro_torch.kernels.neuralut_grad import (subnet_train_bwd,
+                                                   subnet_train_fwd)
+    from repro_torch.kernels.neuralut_mlp import grouped_subnet
+    for fn in (lut_cascade, lut_layer, lut_lookup, subnet_train_fwd,
+               subnet_train_bwd, grouped_subnet):
+        fn.launches = 0
+
+
+def _mesh_plain_losses(cfg, dev, steps):
+    """The plain step (train.step.make_train_step, no process group) at
+    the launcher's settings: its losses."""
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.step import make_train_step
+    tcfg = TrainConfig(lr=3e-4, sgdr_t0=max(50, steps // 4))
+    params = api.init_params(cfg, torch.Generator().manual_seed(tcfg.seed),
+                             device=dev)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, tcfg)
+    make = lm_batch_fn(cfg.vocab_size, LM_B, LM_S, seed=tcfg.seed)
+    losses = []
+    for s in range(steps):
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in make(s).items()}
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def phase_mesh(dev, card):
+    """The LM over a mesh of processes: (a) lm-100m at full width,
+    float32, through launch.train --mesh-shape 1x1 in a one-rank NCCL
+    group, MESH_ARCH_STEPS steps bit for bit against the plain step
+    with no process group; (b) two ranks sharing the card over gloo,
+    at 2x1 and 1x2, MESH_SHARED_STEPS steps against (a)'s first losses
+    at MESH_LOSS_RTOL, each rank's ms/step, peak memory and the bytes
+    it holds against the whole; (b') the config's bfloat16 at 2x1
+    against 1x1 at MESH_BF16_RTOL; (c) psum_int8 over those ranks on CUDA
+    tensors bit for bit against the formula on one rank; (d) the reduced
+    MoE LM at 2x1 against one rank.  One card checks ranks that share
+    it, not several cards.  None of K1-K5 is on these paths: their
+    counts must stay 0 in every process."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.config import get_config
+
+    t_start = time.perf_counter()
+    _k_reset()
+    res = {}
+    cfg = dataclasses.replace(get_config(LM_ARCH, reduced=LM_REDUCED),
+                              dtype="float32")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        # (a) the plain step, then one rank in an NCCL group
+        plain = _mesh_plain_losses(cfg, dev, MESH_ARCH_STEPS)
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        dist.init_process_group(backend, init_method=f"file://{tmp}/a",
+                                world_size=1, rank=0)
+        try:
+            one = _mesh_launch(LM_ARCH, "1x1", MESH_ARCH_STEPS,
+                               LM_REDUCED, dev.type)
+        finally:
+            dist.destroy_process_group()
+        require(one["backend"] == backend and one["world"] == 1,
+                f"(a) ran on {one['backend']} over {one['world']} ranks")
+        same = [a == b for a, b in zip(one["losses"], plain)]
+        log(f"mesh (a) {LM_ARCH} float32 {LM_B} x {LM_S}, launch.train "
+            f"--mesh-shape 1x1 in a 1-rank {backend} group against the plain "
+            f"step: {sum(same)} of {len(plain)} losses bit-identical; "
+            f"{one['ms_per_step']:.3f} ms/step, peak "
+            f"{_gib(one['peak_mem_gib'])}; losses {one['losses']}")
+        require(len(one["losses"]) == len(plain) and all(same),
+                f"(a) 1x1 losses {one['losses']} differ from the plain "
+                f"step's {plain}")
+        res["one"] = {k: one[k] for k in ("ms_per_step", "peak_mem_gib",
+                                          "losses")}
+        res["one"]["rank"] = one["rank"]
+        del one
+        # (b)-(d): two ranks sharing the card
+        t0 = time.perf_counter()
+        pctx = mp.start_processes(
+            _mesh_worker, args=(2, f"file://{tmp}/b", tmp, LM_REDUCED,
+                                dev.type),
+            nprocs=2, join=False, start_method="spawn")
+        deadline = time.time() + MESH_TIMEOUT
+        while not pctx.join(timeout=max(1.0, deadline - time.time())):
+            if time.time() > deadline:
+                for proc in pctx.processes:
+                    proc.kill()
+                require(False, f"the 2 ranks did not finish in "
+                        f"{MESH_TIMEOUT} s")
+        res["ranks_s"] = time.perf_counter() - t0
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(2)]
+        for shape in ("2x1", "1x2"):
+            got = ranks[0][shape]["losses"]
+            err = max(abs(a - b) / abs(b) for a, b in zip(
+                got, plain[:MESH_SHARED_STEPS]))
+            for r in ranks:
+                line = r[shape]["rank"]
+                log(f"mesh (b) {shape}, two ranks sharing one card over "
+                    f"gloo (not a multi-GPU result), rank {line['rank']} "
+                    f"at {tuple(line['coords'])}: "
+                    f"{line['ms_per_step']:.3f} ms/step, peak "
+                    f"{_gib(line['peak_mem_gib'])}; holds params "
+                    f"{line['param_bytes']} of {line['param_bytes_whole']} "
+                    f"B ({line['param_bytes'] / line['param_bytes_whole']:.3f}"
+                    f"), AdamW state {line['opt_bytes']} of "
+                    f"{line['opt_bytes_whole']} B "
+                    f"({line['opt_bytes'] / line['opt_bytes_whole']:.3f})")
+            log(f"mesh (b) {shape} losses {got}: largest relative "
+                f"difference from (a)'s {err:.3e} (limit "
+                f"{MESH_LOSS_RTOL:g})")
+            require(len(got) == MESH_SHARED_STEPS and err <= MESH_LOSS_RTOL,
+                    f"(b) {shape} losses {got} against {plain}")
+            res[shape] = {"losses": got, "rel_err": err,
+                          "ranks": [r[shape]["rank"] for r in ranks]}
+        # (b') the config's bfloat16: shards gathered as bytes
+        bf16 = _mesh_launch(LM_ARCH, "1x1", MESH_BF16_STEPS, LM_REDUCED,
+                            dev.type, "bfloat16")
+        got = ranks[0]["bf16"]["losses"]
+        err = max(abs(a - b) / abs(b) for a, b in zip(got, bf16["losses"]))
+        ms2 = ranks[0]["bf16"]["rank"]["ms_per_step"]
+        log(f"mesh (b') {LM_ARCH} bfloat16 at 2x1 (two ranks sharing the "
+            f"card) against 1x1: losses {got} / {bf16['losses']}, largest "
+            f"relative difference {err:.3e} (limit {MESH_BF16_RTOL:.3e}, "
+            f"one bfloat16 ulp); rank 0 {ms2:.3f} ms/step against "
+            f"{bf16['ms_per_step']:.3f} at 1x1")
+        require(len(got) == MESH_BF16_STEPS and err <= MESH_BF16_RTOL,
+                f"(b') bfloat16 losses {got} against {bf16['losses']}")
+        res["bf16"] = {"losses": got, "one": bf16["losses"], "rel_err": err}
+        del bf16
+        # (c) the formula on one rank, on the card
+        ins = [{k: torch.as_tensor(v).to(dev)
+                for k, v in _mesh_psum_inputs(r).items()} for r in range(2)]
+        flips = 0
+        for k in ins[0]:
+            g = [x[k] for x in ins]
+            scale = torch.maximum(*[torch.clamp(torch.max(torch.abs(t)),
+                                                min=1e-12) / 127.0
+                                    for t in g])
+            q = [torch.clamp(torch.round(t / scale), -127, 127).to(
+                torch.int8).to(torch.int32) for t in g]
+            want = ((q[0] + q[1]).to(torch.float32) * scale).cpu().numpy()
+            for r in range(2):
+                with np.load(Path(tmp, f"psum{r}.npz")) as data:
+                    flips += int((data[k] != want).sum())
+        log(f"mesh (c) psum_int8 over the 2 ranks on "
+            f"{ranks[0]['psum_device']} tensors, shapes "
+            f"{list(MESH_PSUM_SHAPES)} and an all-zero leaf: {flips} "
+            "elements differ from the formula on one rank")
+        require(flips == 0, f"(c) psum_int8: {flips} elements differ")
+        # (d) the MoE LM at 2x1 against one rank
+        moe_one = _mesh_launch(MOE_ARCHS[0], "1x1", MESH_MOE_STEPS, True,
+                               dev.type)
+        got = ranks[0]["moe"]["losses"]
+        err = max(abs(a - b) / abs(b) for a, b in zip(got,
+                                                      moe_one["losses"]))
+        log(f"mesh (d) {MOE_ARCHS[0]} reduced at 2x1 (ranks sharing the "
+            f"card) against one rank: losses {got} / {moe_one['losses']}, "
+            f"largest relative difference {err:.3e}")
+        require(len(got) == MESH_MOE_STEPS and err <= MESH_LOSS_RTOL,
+                f"(d) MoE losses {got} against {moe_one['losses']}")
+        res["moe"] = {"losses": got, "one": moe_one["losses"],
+                      "rel_err": err}
+        counts = [_k_launches()] + [r["k_launches"] for r in ranks]
+        log(f"mesh K1-K5 launches (this process, rank 0, rank 1): {counts}")
+        require(all(n == 0 for c in counts for n in c.values()),
+                f"a LUT kernel launched on a mesh path: {counts}")
+        res["launches"] = counts
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"mesh phase {res['seconds']:.1f} s (the 2 ranks' processes "
+        f"{res['ranks_s']:.1f} s)")
+    return res
+
+
 def phase_encdec_vlm_lm(dev, card):
     """The encoder-decoder LM (whisper-small, whole) and the VLM
     backbone (qwen2-vl-72b at full width, cut in depth), params drawn on
@@ -5908,6 +6208,7 @@ def main() -> int:
     moe = phase_moe_lm(dev, card)
     ssm = phase_ssm_lm(dev, card)
     edv = phase_encdec_vlm_lm(dev, card)
+    mesh = phase_mesh(dev, card)
 
     head, dag_head = k1[HEADLINE_B], k1_dag[HEADLINE_B]
     kernels = [
@@ -6158,6 +6459,11 @@ def main() -> int:
         f"{vl['grad_busy_share']:.4f}, peak {vl['grad_peak_gib']:.3f} GiB; "
         f"decode {vl['decode']['ms_per_token']:.3f} ms/token (bound "
         f"{vl['decode']['bound_ms']:.3f}); phase {edv['seconds']:.1f} s")
+    log(f"lm mesh ({card}): 1x1 {mesh['one']['ms_per_step']:.3f} ms/step; "
+        + "; ".join(f"{k} (two ranks sharing the card) " + ", ".join(
+            f"rank {r['rank']} {r['ms_per_step']:.3f} ms/step"
+            for r in mesh[k]["ranks"]) for k in ("2x1", "1x2"))
+        + f"; phase {mesh['seconds']:.1f} s")
     log("sweep over logical replicas of the card: " + "; ".join(
         f"{k} at R = {v['replicas']} {v['seconds']:.3f} s (R = 1: "
         f"{sum(g['seconds_r1'] for g in v['groups']):.3f} s)"

@@ -8,7 +8,3 @@ hand-written kernels (``kernels/lut_cascade``, ``kernels/neuralut_mlp``,
 ``kernels/neuralut_grad``) launch on CUDA tensors and fall to their
 plain PyTorch versions only for tensors that lie on the CPU.
 """
-
-# The message of an entry point or option that waits for a later slice:
-# ``NOT_PORTED.format("Queue A item 7")`` names its ROADMAP.md item.
-NOT_PORTED = "is not ported yet (ROADMAP.md, {})"

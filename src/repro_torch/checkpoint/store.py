@@ -26,8 +26,13 @@ Guarantees:
   * keep-last-k garbage collection.
 
 ``restore`` returns numpy arrays, or tensors on the device the caller
-names; the reference's ``shardings`` (``jax.device_put`` onto a mesh)
-has no counterpart here.
+names, or, given ``shardings`` (a tree of ``sharding.partition.
+NamedSharding`` shaped like the template, as ``named`` makes), each
+rank's shard of every leaf on its mesh's device: the reference's
+``restore(shardings=)``.  A checkpoint holds whole arrays, so it
+restores onto any mesh, another shape than the one that saved it
+included.  Over a mesh the caller gathers the leaves whole
+(``sharding.spmd.gather_tree``) and one rank saves them.
 """
 from __future__ import annotations
 
@@ -210,24 +215,25 @@ class CheckpointStore:
         return json.loads(path.read_text()).get("meta", {})
 
     def restore(self, template: Any, *, step: Optional[int] = None,
-                device=None) -> Tuple[int, Any]:
+                device=None, shardings: Any = None) -> Tuple[int, Any]:
         """Rebuild a ``template``-shaped tree (only its structure is
         read) of numpy arrays, or of tensors on ``device`` when one is
-        named.
+        named, or of this rank's shards by ``shardings`` (on ``device``,
+        else the mesh's device).
 
         With ``step=None`` a checkpoint whose shard is truncated or
         corrupted is skipped with a ``RuntimeWarning`` and the
         next-newest committed step is tried; an explicitly requested
         ``step`` raises on corruption."""
         if step is not None:
-            return self._restore_step(step, template, device)
+            return self._restore_step(step, template, device, shardings)
         steps = self.list_steps()
         if not steps:
             raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
         last_exc: Optional[Exception] = None
         for s in reversed(steps):
             try:
-                return self._restore_step(s, template, device)
+                return self._restore_step(s, template, device, shardings)
             except Exception as e:  # truncated npz, bad zip CRC, ...
                 warnings.warn(
                     f"checkpoint step {s} in {self.dir} is unreadable "
@@ -239,17 +245,31 @@ class CheckpointStore:
             f"no readable checkpoint in {self.dir} "
             f"({len(steps)} committed but all corrupt)") from last_exc
 
-    def _restore_step(self, step: int, template: Any, device
-                      ) -> Tuple[int, Any]:
+    def _restore_step(self, step: int, template: Any, device,
+                      shardings: Any = None) -> Tuple[int, Any]:
         path = self.dir / f"step_{step:010d}"
         dtypes = json.loads(
             (path / "manifest.json").read_text()).get("dtypes", {})
+        flat = _leaves_with_path(template)
+        shard_flat = ([s for _, s in _leaves_with_path(shardings)]
+                      if shardings is not None else [None] * len(flat))
+        if len(shard_flat) != len(flat):
+            raise ValueError(f"shardings hold {len(shard_flat)} leaves, "
+                             f"the template {len(flat)}")
         leaves = []
         with np.load(path / f"shard_{self.host}.npz") as data:
-            for p, _ in _leaves_with_path(template):
+            for (p, _), sh in zip(flat, shard_flat):
                 key = "/".join(p)
                 arr = data[key]  # raises on a missing key or a bad CRC
-                leaves.append(_restore_leaf(arr, dtypes.get(key), device))
+                if sh is None:
+                    leaves.append(_restore_leaf(arr, dtypes.get(key),
+                                                device))
+                    continue
+                from repro_torch.sharding.spmd import local_shard
+                t = _restore_leaf(arr, dtypes.get(key),
+                                  device if device is not None
+                                  else sh.mesh.device)
+                leaves.append(local_shard(sh.mesh, t, sh.spec))
         return step, _rebuild(template, leaves)
 
 

@@ -317,3 +317,15 @@ def accuracy_from_values(values: torch.Tensor,
                          labels: torch.Tensor) -> torch.Tensor:
     return torch.mean((torch.argmax(values, dim=-1) == labels)
                       .to(torch.float32))
+
+
+def total_params(cfg) -> int:
+    """Elements of every parameter leaf of ``model_spec`` (shapes only,
+    nothing drawn)."""
+    def count(t) -> int:
+        if isinstance(t, dict):
+            return sum(count(v) for v in t.values())
+        if isinstance(t, list):
+            return sum(count(v) for v in t)
+        return math.prod(t)   # a leaf is a shape tuple
+    return count(model_spec(cfg)[0])

@@ -81,9 +81,26 @@ def quant_codes(p: Params, x: torch.Tensor, beta: int) -> torch.Tensor:
     return q + 2 ** (beta - 1)
 
 
+def code_values(p: Params, beta: int) -> torch.Tensor:
+    """(C, 2^beta) dequantized value of every code for every channel."""
+    s = torch.exp(p["log_s"])
+    codes = (torch.arange(2 ** beta, dtype=torch.float32,
+                          device=s.device) - 2 ** (beta - 1))
+    return s[:, None] * codes[None, :]
+
+
 def bn_spec(channels: int):
     return ({"g": (channels,), "b": (channels,)},
             {"mean": (channels,), "var": (channels,)})
+
+
+def bn_init(channels: int) -> Tuple[Params, Params]:
+    """Identity BatchNorm: (params {g: 1, b: 0}, state {mean: 0, var:
+    1}), float32."""
+    return ({"g": torch.ones((channels,), dtype=torch.float32),
+             "b": torch.zeros((channels,), dtype=torch.float32)},
+            {"mean": torch.zeros((channels,), dtype=torch.float32),
+             "var": torch.ones((channels,), dtype=torch.float32)})
 
 
 def bn_apply(p: Params, state: Params, x: torch.Tensor, *, train: bool,

@@ -148,6 +148,18 @@ def _require_packed(cfg, idx: int, packed) -> None:
             f"(beta={cfg.beta}); geometry not servable bit-packed")
 
 
+def layer_truth_table(cfg, params: Params, state: Params,
+                      statics: List[Dict], layer_idx: int, *,
+                      use_subnet_kernel: Optional[bool] = None
+                      ) -> np.ndarray:
+    """uint16 (out_width, 2^{beta_in*F}) output codes for one layer of
+    a chain."""
+    plan = _convert_plan(cfg, params, use_subnet_kernel)
+    tables, _ = _graph_node_sweep(cfg.graph(), params, state, statics,
+                                  layer_idx, exec_plan=plan)
+    return _host_u16(tables[0])
+
+
 def convert(cfg, params: Params, state: Params,
             statics: List[Dict], *,
             use_subnet_kernel: Optional[bool] = None) -> List:

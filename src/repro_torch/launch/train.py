@@ -6,6 +6,8 @@ through the LM step under the training supervisor.
         --ckpt-dir /ckpt/lm100m
     python -m repro_torch.launch.train --arch lm-100m --reduced --steps 3 \\
         --device cpu
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch llama3-8b --reduced --mesh-shape 2x1 --device cpu --steps 3
     python -m repro_torch.launch.train --arch neuralut-jsc-5l --epochs 20
     python -m repro_torch.launch.train --arch polylut-add-jsc-5l \\
         --epochs 20 --seeds 4
@@ -38,11 +40,23 @@ the CPU; whisper-small and qwen2-vl-72b are refused with a
 microbatches and ``--compress-grads`` (error-feedback int8).  With
 ``--ckpt-dir`` the run goes through ``TrainSupervisor`` (an async
 checkpoint every ``--ckpt-every`` steps, restart from the latest on
-failure) and resumes from the directory's latest checkpoint.  One
-device: ``--mesh host`` or ``single`` (the reference's 16x16 pod layout
-has no counterpart); ``--mesh multi`` or a ``--mesh-shape`` over more
-than one device is refused.  Prints the loss every ``--log-every``
-steps, then ms/step, tokens/s and the peak device memory.
+failure) and resumes from the directory's latest checkpoint.
+
+Over several processes (one per device; it joins the process group the
+caller opened, else opens one from ``torchrun``'s environment: NCCL
+when each rank has a card of its own, gloo when ranks share a card or
+run on the CPU; rank r computes on ``cuda:{local_rank % count}``) the
+processes form the mesh of ``--mesh-shape`` (``--mesh host`` without
+it: (n / 2, 2), the reference's; ``--mesh single`` / ``multi``: the
+16x16 / 2x16x16 pods, refused unless the world has 256 / 512
+processes) and every step is ``sharding.spmd``'s ZeRO-3 step: each rank
+stores its shards of the params and AdamW state by ``param_partition``,
+takes its rows of the global batch by ``batch_partition``, and equals
+one process at the same global batch.  The model axis shards storage
+only.  One process is the mesh of ones.  Rank 0 prints the loss every
+``--log-every`` steps, then ms/step, tokens/s and the peak device
+memory; over several ranks each rank prints its own ms/step, peak and
+the bytes it holds against the whole (``mesh rank summary``).
 """
 from __future__ import annotations
 
@@ -50,8 +64,6 @@ import argparse
 import json
 import time
 from typing import Any, Dict, Optional, Sequence
-
-from repro_torch import NOT_PORTED
 
 
 def train_neuralut_arch(args, cfg) -> Dict[str, Any]:
@@ -138,10 +150,12 @@ def train_neuralut_arch(args, cfg) -> Dict[str, Any]:
 class _LoaderBatches:
     """``make_batch(step)`` served by a prefetching ``ShardedLoader``,
     restarted at ``step`` whenever the caller jumps (a supervisor's
-    restart): the batch of a step is the same either way."""
+    restart): the batch of a step is the same either way.  ``rows``
+    picks this rank's rows of the global batch on the host."""
 
-    def __init__(self, make, device):
+    def __init__(self, make, device, rows=None):
         self.make, self.device, self.loader = make, device, None
+        self.rows = rows or (lambda batch: batch)
 
     def __call__(self, step: int):
         import torch
@@ -149,8 +163,9 @@ class _LoaderBatches:
         if self.loader is None or self.loader.step != step:
             self.close()
             self.loader = ShardedLoader(self.make, start_step=step)
-        return {k: torch.as_tensor(v).to(self.device)
-                for k, v in next(self.loader).items()}
+        batch = self.rows({k: torch.as_tensor(v)
+                           for k, v in next(self.loader).items()})
+        return {k: v.to(self.device) for k, v in batch.items()}
 
     def close(self) -> None:
         if self.loader is not None:
@@ -158,20 +173,56 @@ class _LoaderBatches:
             self.loader = None
 
 
-def _mesh_shape(args) -> tuple:
-    """The one-device mesh the port runs; refuses more devices."""
-    if args.mesh == "multi":
-        raise NotImplementedError(
-            "--mesh multi: multi-device training " + NOT_PORTED.format(
-                "Queue A item 7"))
+def _join_group(args):
+    """(this rank's device, whether this call opened the process group).
+    Joins the group the caller already opened; else opens one from
+    ``torchrun``'s environment when it names more than one process
+    (NCCL when every rank of the host has a card of its own, gloo when
+    ranks share a card or run on the CPU); else runs alone."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(args.device)
+    opened = False
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE",
+                                                        "1")) > 1:
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                         os.environ["WORLD_SIZE"]))
+        nccl = (dev.type == "cuda"
+                and local_world <= torch.cuda.device_count())
+        dist.init_process_group("nccl" if nccl else "gloo",
+                                init_method="env://")
+        opened = True
+    if dev.type == "cuda":
+        local = int(os.environ.get(
+            "LOCAL_RANK", dist.get_rank() if dist.is_initialized() else 0))
+        dev = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    return dev, opened
+
+
+def _mesh_config(args, world: int):
+    """The reference's choice of mesh: ``--mesh single`` / ``multi`` the
+    production pods, else ``--mesh-shape`` (AxB: data x model; PxAxB:
+    pod x data x model), else the host default over ``world``
+    processes, (max(1, n // min(n, 2)), min(n, 2))."""
+    from repro_torch.config import MeshConfig
+    from repro_torch.launch.mesh import mesh_config
+    if args.mesh != "host":
+        return mesh_config(multi_pod=args.mesh == "multi")
     if args.mesh_shape:
         shape = tuple(int(x) for x in args.mesh_shape.split("x"))
-        if any(n != 1 for n in shape):
-            raise NotImplementedError(
-                f"--mesh-shape {args.mesh_shape}: a mesh over more than one "
-                "device " + NOT_PORTED.format("Queue A item 7"))
-        return shape
-    return (1, 1)
+        axes = {2: ("data", "model"), 3: ("pod", "data", "model")}.get(
+            len(shape))
+        if axes is None:
+            raise ValueError(f"--mesh-shape {args.mesh_shape}: give AxB "
+                             "(data x model) or PxAxB (pod x data x model)")
+        return MeshConfig(shape, axes)
+    n = world
+    return MeshConfig((max(1, n // min(n, 2)), min(n, 2)), ("data", "model"))
 
 
 def _check_lm_inputs(cfg) -> None:
@@ -191,38 +242,72 @@ def _check_lm_inputs(cfg) -> None:
 
 def train_lm_arch(args, cfg) -> Dict[str, Any]:
     """The LM branch for one parsed command line; returns the losses,
-    the timings and the final carry."""
-    import torch
-    from repro_torch.checkpoint import CheckpointStore
-    from repro_torch.config import TrainConfig
-    from repro_torch.data import lm_batch_fn
-    from repro_torch.device import resolve_device
-    from repro_torch.models import api
-    from repro_torch.optim import adamw_init, make_ef_int8_compressor
-    from repro_torch.runtime.fault import TrainSupervisor
-    from repro_torch.train.step import make_train_step
+    the timings and the final carry (this rank's shards)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh_from_config
+    from repro_torch.sharding import ctx
 
     _check_lm_inputs(cfg)
-    shape = _mesh_shape(args)
-    dev = resolve_device(args.device)
-    print(f"mesh {shape} devices=1 ({dev})", flush=True)
+    dev, opened = _join_group(args)
+    try:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        mesh = make_mesh_from_config(_mesh_config(args, world), device=dev)
+        with ctx.active_mesh(mesh, data_axes=mesh.data_axes):
+            return _train_lm_mesh(args, cfg, mesh)
+    finally:
+        if opened:
+            dist.destroy_process_group()
+
+
+def _train_lm_mesh(args, cfg, mesh) -> Dict[str, Any]:
+    import torch
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.config import ShapeConfig, TrainConfig
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.models import api
+    from repro_torch.models.layers.common import TensorSpec
+    from repro_torch.optim import (adamw_init, adamw_init_spec,
+                                   make_ef_int8_compressor)
+    from repro_torch.runtime.fault import TrainSupervisor
+    from repro_torch.sharding.spmd import (local_batch, make_mesh_train_step,
+                                           opt_shardings, param_shardings,
+                                           shard_tree, tree_bytes)
+    from repro_torch.tree import tree_map
+
+    dev, lead = mesh.device, mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    say(f"mesh {mesh.shape} devices={mesh.world} ({dev}) backend="
+        f"{mesh.backend or 'none'} axes={mesh.axes}: params and AdamW "
+        "state sharded over the data and model axes; the model axis "
+        "shards storage only, its compute is not split", flush=True)
     tcfg = TrainConfig(lr=args.lr if args.lr is not None else 3e-4,
                        grad_accum=args.grad_accum,
                        sgdr_t0=max(50, args.steps // 4))
+    shape = ShapeConfig("cli", "train", args.seq_len, args.global_batch)
+    # whole on every rank from one seed, then cut: never drawn per shard
     params = api.init_params(cfg, torch.Generator().manual_seed(tcfg.seed),
                              device=dev)
+    whole_bytes = (tree_bytes(params), tree_bytes(adamw_init_spec(
+        tree_map(lambda p: TensorSpec(tuple(p.shape), p.dtype), params))))
+    psh = param_shardings(cfg, params, mesh)
+    params = shard_tree(params, psh)
     opt = adamw_init(params)
+    carry_sh = (psh, opt_shardings(opt, psh))
     compress = None
     if args.compress_grads:
         ef_init, ef_compress = make_ef_int8_compressor()
-        # the error-feedback residual rides in a closure cell
-        cell = {"ef": ef_init(params)}
+        # the error-feedback residual (of the whole averaged gradient)
+        # rides in a closure cell
+        cell = {"ef": None}
 
         def compress(grads):
+            if cell["ef"] is None:
+                cell["ef"] = ef_init(grads)
             g2, cell["ef"] = ef_compress(grads, cell["ef"])
             return g2
 
-    raw_step = make_train_step(cfg, tcfg, compress_grads=compress)
+    raw_step = make_mesh_train_step(cfg, tcfg, mesh, psh, shape,
+                                    compress_grads=compress)
     losses, seconds = [], []
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
@@ -233,14 +318,19 @@ def train_lm_arch(args, cfg) -> Dict[str, Any]:
             losses.append(float(metrics["loss"]))  # waits for the step
             seconds.append(time.perf_counter() - t0)
             if args.log_every and len(losses) % args.log_every == 0:
-                print(f"step {len(losses)} loss={losses[-1]:.4f} "
-                      f"lr={float(metrics['lr']):.2e} "
-                      f"{seconds[-1] * 1e3:.0f}ms/step", flush=True)
+                say(f"step {len(losses)} loss={losses[-1]:.4f} "
+                    f"lr={float(metrics['lr']):.2e} "
+                    f"{seconds[-1] * 1e3:.0f}ms/step", flush=True)
             return (p, o), metrics
         return step
 
+    def rows(batch):
+        return local_batch(batch, mesh, cfg, shape,
+                           grad_accum=tcfg.grad_accum)
+
     batches = _LoaderBatches(lm_batch_fn(cfg.vocab_size, args.global_batch,
-                                         args.seq_len, seed=tcfg.seed), dev)
+                                         args.seq_len, seed=tcfg.seed), dev,
+                             rows)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     carry, start, restarts = (params, opt), 0, 0
@@ -250,16 +340,17 @@ def train_lm_arch(args, cfg) -> Dict[str, Any]:
             store = CheckpointStore(args.ckpt_dir, keep=3)
             sup = TrainSupervisor(store=store, make_step=make_step,
                                   make_batch=batches,
-                                  ckpt_every=args.ckpt_every)
+                                  ckpt_every=args.ckpt_every, mesh=mesh,
+                                  shardings=carry_sh)
             start = store.latest_step() or 0
             if start:
-                start, carry = store.restore(carry, device=dev)
-                print(f"resumed from step {start}", flush=True)
+                start, carry = store.restore(carry, shardings=carry_sh)
+                say(f"resumed from step {start}", flush=True)
             out = sup.run(carry, start_step=start, num_steps=args.steps)
             carry, restarts = out["carry"], out["restarts"]
-            print(f"done at step {out['step']} restarts={restarts} "
-                  f"loss={losses[-1] if losses else float('nan'):.4f}",
-                  flush=True)
+            say(f"done at step {out['step']} restarts={restarts} "
+                f"loss={losses[-1] if losses else float('nan'):.4f}",
+                flush=True)
         else:
             step = make_step()
             for s in range(args.steps):
@@ -274,18 +365,29 @@ def train_lm_arch(args, cfg) -> Dict[str, Any]:
     tokens = args.global_batch * args.seq_len
     peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
             if dev.type == "cuda" else None)
+    held = (tree_bytes(carry[0]), tree_bytes(carry[1]))
+    rank_line = {"rank": mesh.rank, "world": mesh.world,
+                 "coords": list(mesh.coords), "ms_per_step": ms,
+                 "peak_mem_gib": peak, "param_bytes": held[0],
+                 "opt_bytes": held[1], "param_bytes_whole": whole_bytes[0],
+                 "opt_bytes_whole": whole_bytes[1]}
+    if mesh.world > 1:
+        print("mesh rank summary " + json.dumps(rank_line), flush=True)
     summary = {"arch": cfg.name, "steps": len(losses), "wall_s": wall,
-               "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+               "ms_per_step": ms,
+               "tokens_per_s": tokens / ms * 1e3 if ms > 0 else 0.0,
                "peak_mem_gib": peak, "first_loss": losses[0] if losses
                else None, "last_loss": losses[-1] if losses else None,
-               "restarts": restarts}
-    print(f"trained {len(losses)} steps in {wall:.2f} s: {ms:.2f} ms/step, "
-          f"{summary['tokens_per_s']:.0f} tokens/s (batch "
-          f"{args.global_batch} x seq {args.seq_len}), peak device memory "
-          + (f"{peak:.3f} GiB" if peak is not None else "n/a (cpu)"),
-          flush=True)
-    print("lm train summary " + json.dumps(summary), flush=True)
-    return dict(summary, losses=losses, carry=carry)
+               "restarts": restarts, "mesh": list(mesh.shape),
+               "world": mesh.world, "backend": mesh.backend}
+    say(f"trained {len(losses)} steps in {wall:.2f} s: {ms:.2f} ms/step, "
+        f"{summary['tokens_per_s']:.0f} tokens/s (batch "
+        f"{args.global_batch} x seq {args.seq_len}), peak device memory "
+        + (f"{peak:.3f} GiB" if peak is not None else "n/a (cpu)"),
+        flush=True)
+    say("lm train summary " + json.dumps(summary), flush=True)
+    return dict(summary, losses=losses, carry=carry, rank=rank_line,
+                shardings=carry_sh)
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -306,11 +408,13 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--mesh", default="host",
                     choices=["host", "single", "multi"],
-                    help="LM archs: host and single run on one device; "
-                         "multi is not ported")
+                    help="LM archs: host lays the processes out as "
+                         "--mesh-shape, else (n/2, 2); single and multi "
+                         "are the 16x16 and 2x16x16 pods (256 and 512 "
+                         "processes)")
     ap.add_argument("--mesh-shape", default=None,
-                    help="e.g. 1x1; a shape over more devices is not "
-                         "ported")
+                    help="e.g. 2x1 (data x model) or 2x2x1 (pod x data "
+                         "x model); one process per device")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--grad-accum", type=int, default=1)
@@ -324,7 +428,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                     help="accepted for the reference's command lines; "
                          "does nothing here (XLA flags)")
     ap.add_argument("--device", default=None,
-                    help="cuda (default) or cpu")
+                    help="cuda (default; a rank takes card local_rank %% "
+                         "count) or cpu")
     return ap.parse_args(argv)
 
 

@@ -13,6 +13,13 @@ Dispatch, as the reference's:
     (E, C, D) buffer; overflowing (token, expert) pairs drop to the
     residual path.
 
+Over a mesh whose data ranks split the batch (``sharding.ctx.
+batch_split``) the batch statistics are the whole batch's, as under the
+reference's GSPMD: the load-balancing loss's two means are averaged
+over those ranks (``sharding.spmd.batch_mean``, with their gradient),
+and the capacity dispatch counts T over all of them and slots each
+rank's tokens after those of the ranks before it.
+
 An expert count that does not divide the model axis (qwen2's 60 on the
 reference's 16-way axis) is padded with inert experts whose logits are
 pinned at -2^30, so they are never chosen; the port keeps the padded
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import MoEConfig
+from repro_torch.sharding.spmd import batch_counts_before, batch_mean
 from .attention import NEG_INF
 from .common import TensorSpec
 
@@ -156,10 +164,10 @@ def _topk_gates(logits: torch.Tensor, cfg: MoEConfig, e_padded: int
     top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
     gates = torch.zeros_like(probs).scatter(1, top_i, top_w)
     # Switch-style load-balance loss: E * sum_e (frac_tokens_e * mean_prob_e)
-    me = torch.mean(probs, dim=0)
+    me = batch_mean(torch.mean(probs, dim=0))
     one_hot_top1 = torch.nn.functional.one_hot(
         top_i[:, 0], probs.shape[-1]).float()
-    ce = torch.mean(one_hot_top1, dim=0)
+    ce = batch_mean(torch.mean(one_hot_top1, dim=0))
     aux = probs.shape[-1] * torch.sum(me * ce)
     return gates, aux
 
@@ -215,12 +223,15 @@ def _capacity_dispatch(p, cfg, xt, gates, act, capacity_factor):
     t, d = xt.shape
     e = p["w_gate"].shape[0]
     k = cfg.top_k
-    cap = int(max(1, round(t / e * k * capacity_factor)))
-
     top_w, top_i = _top_k(gates, k)                            # (T, k)
-    # slot of each (token, choice) within its expert's capacity buffer
+    # slot of each (token, choice) within its expert's capacity buffer,
+    # after the tokens of the ranks before this one
     chosen = gates > 0
+    ranks, before = batch_counts_before(
+        torch.sum(chosen.to(torch.int32), dim=0))
+    cap = int(max(1, round(t * ranks / e * k * capacity_factor)))
     pos_in_e = torch.cumsum(chosen.to(torch.int32), dim=0) - 1  # (T, E)
+    pos_in_e = pos_in_e + before
     slot = torch.gather(pos_in_e, 1, top_i)                    # (T, k)
     keep = (slot < cap) & (top_w > 0)
     slot_c = torch.clamp(slot, 0, cap - 1)

@@ -39,16 +39,41 @@ def adamw_init(params) -> OptState:
     return state
 
 
+def adamw_init_spec(param_spec) -> OptState:
+    """``TensorSpec`` mirror of :func:`adamw_init` (shapes and dtypes,
+    no storage) over a tree of ``TensorSpec``: float32 ``m`` and ``v``,
+    an int32 scalar ``count`` and, when any leaf is bfloat16, float32
+    ``master`` specs of the bfloat16 leaves (``None`` for the others).
+    The reference's always holds ``master``, all ``None`` for a tree
+    without bfloat16, where ``adamw_init`` has none."""
+    from repro_torch.models.layers.common import TensorSpec
+
+    def f32(p):
+        return TensorSpec(tuple(p.shape), torch.float32)
+
+    leaves = tree_leaves(param_spec)
+    state = {"m": tree_map(f32, param_spec), "v": tree_map(f32, param_spec),
+             "count": TensorSpec((), torch.int32)}
+    if any(p.dtype == torch.bfloat16 for p in leaves):
+        state["master"] = tree_map(
+            lambda p: f32(p) if p.dtype == torch.bfloat16 else None,
+            param_spec)
+    return state
+
+
 def adamw_update(grads, state: OptState, params, *, lr,
                  beta1: float = 0.9, beta2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 0.0,
-                 grad_clip: float = 0.0) -> Tuple[Any, OptState]:
+                 grad_clip: float = 0.0,
+                 clip_from=None) -> Tuple[Any, OptState]:
     """One AdamW step -> (new params, new state).  ``lr`` may be a
     float32 tensor (the SGDR schedule's).  The clip scale is
     ``min(1, clip / max(gnorm, 1e-12))`` with the norm over all leaves;
-    the step is ``lr * (mh / (sqrt(vh) + eps) + wd * base)`` where
-    ``base`` is the float32 master of a bfloat16 parameter, else the
-    parameter.  Under ``torch.func.vmap`` over a leading seed axis (the
+    ``clip_from`` is the tree that norm is taken over when it is not
+    ``grads`` (a mesh step updates a rank's shards by the norm of the
+    whole gradient); the step is ``lr * (mh / (sqrt(vh) + eps) + wd *
+    base)`` where ``base`` is the float32 master of a bfloat16
+    parameter, else the parameter.  Under ``torch.func.vmap`` over a leading seed axis (the
     ensemble step) the norm, and so the clip, is each seed's own."""
     count = state["count"] + 1
     cf = count.to(torch.float32)
@@ -58,7 +83,8 @@ def adamw_update(grads, state: OptState, params, *, lr,
         # float64, so that the sum's order (on CUDA it follows the
         # leaf's shape, the seed count included) does not show
         gsq = sum(torch.sum(torch.square(g.to(torch.float64)))
-                  for g in tree_leaves(grads))
+                  for g in tree_leaves(grads if clip_from is None
+                                       else clip_from))
         gnorm = torch.sqrt(gsq).to(torch.float32)
         scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12),
                             max=1.0)

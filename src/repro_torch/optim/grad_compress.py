@@ -5,8 +5,13 @@
 ``make_train_step``: it fake-quantizes each gradient leaf to int8 (per-
 leaf absmax scale) with an error-feedback residual carried across
 steps, so a data-parallel reduction of the int8 values would keep
-convergence.  ``psum_int8``, the reference's explicit compressed
-collective, waits for the sharding slice.
+convergence.
+
+``psum_int8(tree, axis_name)`` is the reference's explicit compressed
+collective over the active mesh's ranks along ``axis_name``: the scale
+shared by an all-reduce MAX of the local absmax / 127, the int8 codes,
+an int32 all-reduce SUM of them, dequantized.  Integer sums and a MAX
+are exact, so it equals the reference's bit for bit on equal inputs.
 """
 from __future__ import annotations
 
@@ -14,7 +19,6 @@ from typing import Any, Tuple
 
 import torch
 
-from repro_torch import NOT_PORTED
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -48,7 +52,27 @@ def make_ef_int8_compressor():
     return init, compress
 
 
-def psum_int8(tree: Any, axis_name: str) -> Any:
-    raise NotImplementedError(
-        "psum_int8 (a collective over a device mesh) " + NOT_PORTED.format(
-            "Queue A item 7"))
+def psum_int8(tree: Any, axis_name) -> Any:
+    """Compressed sum of every leaf over the active mesh's ranks along
+    ``axis_name`` (an axis name or a tuple of them), in the leaf's dtype.
+
+    The scale is SHARED across ranks before quantizing (a scalar
+    all-reduce MAX), so the sum of the int8 codes times the scale has
+    one meaning; the codes are summed as int32 (no overflow across
+    >= 256 ranks).  Outside an active mesh the axis is unbound, as in
+    JAX outside ``shard_map``."""
+    from repro_torch.sharding import ctx
+    mesh = ctx.get_active_mesh()
+    names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+    if mesh is None or any(a not in mesh.axes for a in names):
+        raise NameError(f"unbound axis name: {axis_name}")
+
+    def one(g):
+        g32 = g.to(torch.float32)
+        local = torch.clamp(torch.max(torch.abs(g32)), min=1e-12) / 127.0
+        scale = mesh.all_reduce(local, "max", names)
+        q = torch.clamp(torch.round(g32 / scale), -127, 127).to(torch.int8)
+        tot = mesh.all_reduce(q.to(torch.int32), "sum", names)
+        return (tot.to(torch.float32) * scale).to(g.dtype)
+
+    return tree_map(one, tree)

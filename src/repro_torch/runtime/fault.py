@@ -6,8 +6,17 @@ source, saves the carry asynchronously every ``ckpt_every`` steps and,
 on any failure, restores the latest committed checkpoint and continues
 from its step (up to ``max_restarts`` times).  The batch source is a
 function of the step index, so the sample order survives a restart and
-a resumed run equals an uninterrupted one.  The reference's mesh
-shrink on restart has no counterpart: the port runs one device.
+a resumed run equals an uninterrupted one.
+
+Over a mesh of processes (``mesh`` and the carry's ``shardings``; the
+carry holds each rank's shards) every rank gathers the carry whole at a
+checkpoint and rank 0 writes it; a restore waits at a barrier for that
+write and re-places the checkpoint onto the mesh.  Every rank takes the
+same restart decision: a failure before the step (the injector, the
+batch) is all-reduced over the ranks after it, so all restore together
+and none waits in a collective of a step the others left.  A rank whose
+step itself fails cannot leave its peers' collectives, so it raises
+(the process exits non-zero) and does not retry.
 
 The tracker is a copy of the reference's (it uses no JAX); the chaos
 harness's ``FailureInjector`` and ``NodeFailure`` are re-exported from
@@ -160,7 +169,10 @@ class TrainSupervisor:
     the carry is the (params, opt_state, ...) tree the checkpoint
     covers, and ``step_fn`` must not write into the carry it is given
     (a save of it may still be in flight).  A restored carry comes back
-    on the device of the carry it replaces.
+    on the device of the carry it replaces.  ``mesh`` (a
+    ``sharding.spmd.ProcessMesh`` of more than one rank) and
+    ``shardings`` (the carry's ``NamedSharding`` tree) run it over ranks
+    (module docstring).
     """
 
     store: CheckpointStore
@@ -169,11 +181,16 @@ class TrainSupervisor:
     ckpt_every: int = 50
     max_restarts: int = 8
     watchdog: StepWatchdog = field(default_factory=StepWatchdog)
+    mesh: Any = None
+    shardings: Any = None
 
     def run(self, carry, *, start_step: int = 0, num_steps: int = 100,
             injector: Optional[FailureInjector] = None,
             on_restart: Optional[Callable[[int], None]] = None
             ) -> Dict[str, Any]:
+        if self.mesh is not None and self.mesh.world > 1:
+            return self._run_ranks(carry, start_step, num_steps, injector,
+                                   on_restart)
         step_fn = self.make_step()
         step = start_step
         restarts = 0
@@ -209,6 +226,63 @@ class TrainSupervisor:
                 step_fn = self.make_step()
         if pending is not None:
             pending.result()
+        return {"carry": carry, "step": step, "restarts": restarts,
+                "metrics": metrics}
+
+    def _run_ranks(self, carry, start_step, num_steps, injector,
+                   on_restart) -> Dict[str, Any]:
+        from repro_torch.sharding.spmd import gather_tree
+        mesh = self.mesh
+        step_fn = self.make_step()
+        step = start_step
+        restarts = 0
+        metrics = None
+        pending = None
+
+        def drain():
+            if pending is not None:
+                pending.result()
+            mesh.barrier()  # the write is committed for every rank
+
+        while step < num_steps:
+            t0 = time.time()
+            error = None
+            try:
+                if injector is not None:
+                    injector.check(step)
+                batch = self.make_batch(step)
+            except Exception as e:  # noqa: BLE001 — any failure: restart
+                error = e
+            if mesh.any(error is not None):
+                restarts += 1
+                if restarts > self.max_restarts:
+                    raise error or RuntimeError(
+                        f"step {step} failed on another rank "
+                        f"{restarts - 1} times")
+                drain()
+                last = self.store.latest_step()
+                if last is not None:
+                    last, carry = self.store.restore(
+                        carry, shardings=self.shardings)
+                    step = last
+                else:
+                    step = start_step
+                if on_restart is not None:
+                    on_restart(step)
+                step_fn = self.make_step()
+                continue
+            carry, metrics = step_fn(carry, batch)  # raises: exit
+            self.watchdog.record(time.time() - t0)
+            step += 1
+            if step % self.ckpt_every == 0 or step == num_steps:
+                whole = gather_tree(carry, self.shardings)
+                if mesh.rank == 0:
+                    if pending is not None:
+                        pending.result()
+                    pending = self.store.save_async(
+                        step, whole, meta={"step": step})
+                del whole
+        drain()
         return {"carry": carry, "step": step, "restarts": restarts,
                 "metrics": metrics}
 

@@ -42,16 +42,11 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     metrics); metrics hold ``loss``, ``lr``, ``ce`` and ``moe_aux``."""
 
-    def loss_fn(params, batch):
-        return api.loss_fn(cfg, params, batch, layer_mode=tcfg.layer_mode,
-                           remat=tcfg.remat, q_chunk=q_chunk)
+    loss_fn = make_loss_fn(cfg, tcfg, q_chunk=q_chunk)
 
     def step(params, opt_state, batch):
-        if tcfg.grad_accum > 1:
-            grads, (loss, metrics) = _accum_grads(
-                loss_fn, params, batch, tcfg.grad_accum)
-        else:
-            (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
+        grads, (loss, metrics) = loss_and_grads(loss_fn, params, batch,
+                                                tcfg.grad_accum)
         if compress_grads is not None:
             grads = compress_grads(grads)
         lr = sgdr_schedule(opt_state["count"], lr_max=tcfg.lr,
@@ -65,6 +60,26 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
         return params, opt_state, metrics
 
     return step
+
+
+def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig, *,
+                 q_chunk: int = 512) -> Callable:
+    """loss_fn(params, batch) -> (loss, metrics) at ``tcfg``'s layer
+    mode and remat policy."""
+    def loss_fn(params, batch):
+        return api.loss_fn(cfg, params, batch, layer_mode=tcfg.layer_mode,
+                           remat=tcfg.remat, q_chunk=q_chunk)
+    return loss_fn
+
+
+def loss_and_grads(loss_fn: Callable, params, batch: Dict[str, Any],
+                   accum: int = 1):
+    """(grads, (loss, metrics)): one value-and-grad, or ``accum``
+    microbatches along the batch's first dim."""
+    if accum > 1:
+        return _accum_grads(loss_fn, params, batch, accum)
+    (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
+    return grads, (loss, metrics)
 
 
 def _accum_grads(loss_fn, params, batch: Dict[str, Any], accum: int):

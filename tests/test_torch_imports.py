@@ -77,12 +77,17 @@ def test_imports_with_jax_and_repro_blocked():
     assert {"repro_torch.models.encdec",
             "repro_torch.configs.whisper_small",
             "repro_torch.configs.qwen2_vl_72b"} <= names
+    # and the mesh's
+    assert {"repro_torch.sharding", "repro_torch.sharding.ctx",
+            "repro_torch.sharding.partition", "repro_torch.sharding.spmd",
+            "repro_torch.launch.mesh"} <= names
 
 
 def test_no_source_imports_jax_or_repro():
     files = sorted(PKG.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "examples" / "lm_train_torch.py",
-        ROOT / "probes" / "linear_grads.py"]
+        ROOT / "probes" / "linear_grads.py",
+        ROOT / "probes" / "mesh_step.py"]
     assert len(files) > 20
     for f in files:
         assert not FORBIDDEN.search(f.read_text()), f

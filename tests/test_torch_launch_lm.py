@@ -4,8 +4,8 @@
 ``launch.serve --mode lm`` and ``examples/lm_train_torch.py``; the MoE
 and MLA + MoE archs through both launchers; the VLM through
 ``launch.serve``; the messages of what the launcher refuses (whisper's
-frames, ``--mesh multi``, a mesh shape over several devices); and CUDA
-as the default device."""
+frames; ``--mesh multi`` and a mesh shape whose device count is not the
+number of processes); and CUDA as the default device."""
 import os
 import runpy
 import subprocess
@@ -61,19 +61,23 @@ def test_launch_train_lm_with_checkpoints_resumes(tmp_path, capsys, extra):
 
 @pytest.mark.parametrize("argv,match", [
     (["--arch", "whisper-small"], "frames"),
-    (["--mesh", "multi"], "Queue A item 7"),
-    (["--mesh-shape", "2x4"], "Queue A item 7"),
+    (["--mesh", "multi"], r"\(2, 16, 16\) .* needs 512 processes; the "
+                          "world has 1"),
+    (["--mesh-shape", "2x4"], r"\(2, 4\) .* needs 8 processes; the world "
+                              "has 1"),
 ])
 def test_launch_train_refuses_what_is_not_ported(argv, match, capsys):
-    """A mesh over several devices is not ported; whisper-small's loss
-    needs frames that the launcher's batches lack (as the reference's
-    launcher's do), refused with a ValueError before any step."""
-    exc = ValueError if match == "frames" else NotImplementedError
-    with pytest.raises(exc, match=match) as e:
+    """A mesh needs one process per device: one process refuses the
+    2x16x16 pod and a 2x4 mesh, naming the shape and the world size
+    (tests/test_torch_mesh_train.py runs meshes over processes);
+    whisper-small's loss needs frames that the launcher's batches lack
+    (as the reference's launcher's do).  Each is refused with a
+    ValueError before any step."""
+    with pytest.raises(ValueError, match=match) as e:
         launch_train.main(LM + argv)
-    if exc is ValueError:
+    if match == "frames":
         assert "lm_batch_fn" in str(e.value)
-        assert "step " not in capsys.readouterr().out
+    assert "step " not in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b"])
