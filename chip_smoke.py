@@ -69,7 +69,8 @@ then drives the port's paths at full width:
   as processes;
 * the MoE LM (``qwen2-moe-a2.7b``) and the MLA + MoE LM
   (``deepseek-v2-lite-16b``) at their published widths, cut to 2
-  layers: a float32 step on the card against the CPU, bf16 training
+  layers: a float32 step on the card against the CPU (qwen's at its
+  first layer), bf16 training
   steps (ms/step, tokens/s, peak memory, busy share, CE and aux loss),
   decode against prefill, ``launch.train`` and ``launch.serve --mode
   lm`` as processes; no LUT kernel on the LM paths (counts 0);
@@ -84,10 +85,10 @@ then drives the port's paths at full width:
 * the encoder-decoder LM (``whisper-small``, whole: 12 + 12 layers,
   1,500 frames) and the VLM backbone (``qwen2-vl-72b`` at full width,
   cut to 2 layers): float32 gradients on the card against the CPU
-  (whisper through a whole step, the VLM with 16 patch embeddings on a
-  grid and 3-D M-RoPE positions), whisper's float32 decode from
-  ``prefill_cross(encode(frames))`` (its first token against the
-  forward, every token card against CPU), the VLM's text-only decode
+  (whisper's first 2 + 2 layers through a step, the VLM with 16 patch
+  embeddings on a grid and 3-D M-RoPE positions), whisper's float32
+  decode from ``prefill_cross(encode(frames))`` (its first token against
+  the forward, every token card against CPU), the VLM's text-only decode
   against prefill, whisper's bf16 steps at 8 x 448, the VLM's bf16
   prefill at 8 x 512 with 256 patches and its value_and_grad at 4 x
   512, bf16 decode against its bytes bound, ``launch.serve --mode lm``
@@ -102,6 +103,13 @@ then drives the port's paths at full width:
   the formula on one; the MoE LM at 2x1 against one rank (its aux
   loss's global statistics); one card checks ranks sharing it only, not
   several cards; no LUT kernel on these paths (counts 0);
+* the dry run (``repro_torch.launch.dryrun``: one rank's step counted
+  on the meta device, ``roofline.counter``) against the card, on the LM
+  cells timed above (lm-100m's step and decode, the qwen2-moe-a2.7b cut,
+  whisper-small): the FLOPs of one real step under ``FlopCounterMode``
+  equal the meta count, the meta peak lies within 20 % of
+  ``max_memory_allocated``, and the roofline's bound stands beside the
+  measured ms/step; no LUT kernel on these paths (counts 0);
 * the serving stack, right after graph serving, over the bundles of
   the two serving paths: a ``TableRegistry`` round trip (verified,
   bit-identical), a corrupted version refused and quarantined by the
@@ -4334,6 +4342,10 @@ def phase_lm(dev, card):
 
 MOE_ARCHS = ("qwen2-moe-a2.7b", "deepseek-v2-lite-16b")
 MOE_CUT_LAYERS = 2         # qwen: 2 MoE layers; deepseek: the dense prefix + 1
+# (a)'s float32 step, card against the CPU, cut further where a layer is
+# still an MoE layer: qwen to its first (the CPU's AdamW over 2B params
+# took ~50 s); deepseek keeps both (its first is the dense prefix)
+MOE_STEP_LAYERS = {"qwen2-moe-a2.7b": 1}
 MOE_STEP_B, MOE_STEP_S = 2, 32   # (a): the dense dispatch on the CPU
 MOE_WARM_STEPS, MOE_TIMED_STEPS = 2, 6     # (b), then one profiled step
 MOE_CLI_STEPS = 6
@@ -4412,6 +4424,21 @@ def _lm_train_steps(cfg, dev, tcfg, params, make=None):
                 history=hist)
 
 
+def _first_layers(cfg, params, n):
+    """(cfg, params) cut to the first ``n`` layers of a stacked LM tree
+    (a single-position pattern: each leaf of ``blocks`` stacked over the
+    layers), the params views of the uncut ones."""
+    import dataclasses
+    from repro_torch.tree import tree_map
+    if n == cfg.num_layers:
+        return cfg, params
+    if len(cfg.pattern) != 1 or cfg.num_dense_prefix:
+        raise ValueError(f"{cfg.name}: cut only a single-position pattern")
+    return (dataclasses.replace(cfg, num_layers=n),
+            dict(params, blocks=[tree_map(lambda a: a[:n], b)
+                                 for b in params["blocks"]]))
+
+
 def _moe_decode(cfg32, cfg, dev, p32, params):
     """(c): teacher-forced float32 decode of LM_PREFILL tokens at batch
     LM_DECODE_B, context LM_DECODE_CTX, against the float32 prefill
@@ -4481,7 +4508,8 @@ def phase_moe_lm(dev, card):
     LMs at their published widths, depth cut to MOE_CUT_LAYERS, params
     drawn once per config from seed 0 (float32, on the card, where 2B
     draws take a fraction of a second against ~18 s on the host) and
-    reused: (a) one float32 step on the card against the CPU at batch
+    reused: (a) one float32 step on the card against the CPU (qwen's at
+    its first layer, MOE_STEP_LAYERS) at batch
     MOE_STEP_B x MOE_STEP_S, the CPU's step (~1 min of host AdamW over
     2B params) run beside the card's step and (c), compared on the
     card; (b) bf16 training steps at LM_B x LM_S with a profiled step;
@@ -4527,7 +4555,9 @@ def phase_moe_lm(dev, card):
             td = time.perf_counter()
             p32 = api.init_params(cut32, torch.Generator(
                 device=dev).manual_seed(0), device=dev)
-            host_p = tree_map(lambda a: a.to(host), p32)
+            step_cfg, step_p = _first_layers(
+                cut32, p32, MOE_STEP_LAYERS.get(arch, MOE_CUT_LAYERS))
+            host_p = tree_map(lambda a: a.to(host), step_p)
             n_params = sum(a.numel() for a in tree_leaves(p32))
             e_pad = p32["blocks"][0]["ffn"]["w_gate"].shape[1]
             r = {"params": n_params, "padded_experts": e_pad,
@@ -4542,15 +4572,15 @@ def phase_moe_lm(dev, card):
             # (a)'s CPU step runs beside the card's step and (c)
             batch_np = lm_batch_fn(cut.vocab_size, MOE_STEP_B, MOE_STEP_S,
                                    seed=0)(0)
-            cpu_fut = cpu_pool.submit(_lm_step, cut32, tcfg, host_p,
+            cpu_fut = cpu_pool.submit(_lm_step, step_cfg, tcfg, host_p,
                                       batch_np)
-            on_card = _lm_step(cut32, tcfg, p32, batch_np)
+            on_card = _lm_step(step_cfg, tcfg, step_p, batch_np)
             spec = api.param_spec(cut)
             pb = tree_map(lambda a, sp: a.to(sp.dtype), p32, spec)
             r["decode"] = _moe_decode(cut32, cut, dev, p32, pb)
-            r["step"] = _lm_step_compare(cut32, tcfg, on_card,
+            r["step"] = _lm_step_compare(step_cfg, tcfg, on_card,
                                          cpu_fut.result(), batch_np, dev)
-            del on_card, cpu_fut, host_p, p32
+            del on_card, cpu_fut, host_p, p32, step_p
             torch.cuda.empty_cache()
             r["train"] = _lm_train_steps(cut, dev, tcfg, pb)
             del pb
@@ -4948,6 +4978,9 @@ def phase_ssm_lm(dev, card):
 
 ENCDEC_ARCH, VLM_ARCH = "whisper-small", "qwen2-vl-72b"
 ED_STEP_B, ED_STEP_S = 1, 64      # (a) whisper: 1 x 64 tokens, 1 x 1,500 frames
+# (a)'s float32 step, card against the CPU, at the first 2 + 2 layers of
+# the 12 + 12 (the CPU's step of the whole model took ~27 s)
+ED_STEP_LAYERS = 2
 ED_TRAIN_B = 8                    # (b) whisper: 8 x max_seq_len tokens
 ED_DECODE_B32, ED_DECODE_N32 = 2, 9   # (c) the first token, then 8 more
 # (c) float32: decode's first token against the prefill's position-0
@@ -5058,9 +5091,10 @@ def _encdec_decode_check(cfg32, p32, host_p, dev, frames, toks):
 def _whisper(dev, card, tcfg, pool, cpu_pool):
     """whisper-small whole (12 + 12 layers at full width): (a) a float32
     make_train_step step on the card against the CPU at ED_STEP_B x
-    ED_STEP_S tokens and the encoder's frames, the CPU's step beside
-    (c); (c) float32 decode from prefill_cross(encode(frames)); (b) bf16
-    steps at ED_TRAIN_B x max_seq_len with a profiled one; (d) bf16
+    ED_STEP_S tokens and the encoder's frames, the first ED_STEP_LAYERS
+    layers of each stack, the CPU's step beside (c); (c) float32 decode
+    from prefill_cross(encode(frames)); (b) bf16 steps at ED_TRAIN_B x
+    max_seq_len with a profiled one; (d) bf16
     decode at batch LM_DECODE_B, context max_seq_len, against the
     encoded frames' cross K/V; launch.serve --mode lm beside (a)."""
     import dataclasses
@@ -5093,14 +5127,20 @@ def _whisper(dev, card, tcfg, pool, cpu_pool):
     batch_np = lm_batch_fn(full.vocab_size, ED_STEP_B, ED_STEP_S, seed=0)(0)
     batch_np["frames"] = rng.standard_normal(
         (ED_STEP_B, e.seq_len, e.feature_dim), dtype=np.float32)
-    cpu_fut = cpu_pool.submit(_lm_step, f32, tcfg, host_p, batch_np)
-    on_card = _lm_step(f32, tcfg, p32, batch_np)
+    a_cfg = dataclasses.replace(f32, num_layers=ED_STEP_LAYERS,
+                                encoder=dataclasses.replace(
+                                    e, num_layers=ED_STEP_LAYERS))
+    a_p = dict(p32, **{k: tree_map(lambda a: a[:ED_STEP_LAYERS], p32[k])
+                       for k in ("enc_blocks", "dec_blocks")})
+    cpu_fut = cpu_pool.submit(_lm_step, a_cfg, tcfg, tree_map(
+        lambda a: a.to("cpu"), a_p), batch_np)
+    on_card = _lm_step(a_cfg, tcfg, a_p, batch_np)
     frames = torch.as_tensor(rng.standard_normal(
         (ED_DECODE_B32, e.seq_len, e.feature_dim), dtype=np.float32))
     toks = torch.as_tensor(lm_batch_fn(full.vocab_size, ED_DECODE_B32,
                                        ED_DECODE_N32, seed=1)(0)["tokens"])
     r["decode32"] = _encdec_decode_check(f32, p32, host_p, dev, frames, toks)
-    r["step"] = _lm_step_compare(f32, tcfg, on_card, cpu_fut.result(),
+    r["step"] = _lm_step_compare(a_cfg, tcfg, on_card, cpu_fut.result(),
                                  batch_np, dev)
     d32 = r["decode32"]
     log(f"lm (c) {ENCDEC_ARCH} float32 decode from prefill_cross(encode("
@@ -5113,7 +5153,7 @@ def _whisper(dev, card, tcfg, pool, cpu_pool):
         "(decode adds position 0's sinusoid at every step, as the "
         "reference's)")
     pb = tree_map(lambda a, sp: a.to(sp.dtype), p32, api.param_spec(full))
-    del on_card, cpu_fut, host_p, p32
+    del on_card, cpu_fut, host_p, p32, a_p
     torch.cuda.empty_cache()
     _cli_results(ENCDEC_ARCH, running, r, 0)
     tok_make = lm_batch_fn(full.vocab_size, ED_TRAIN_B, full.max_seq_len,
@@ -5625,6 +5665,171 @@ def phase_mesh(dev, card):
     res["seconds"] = time.perf_counter() - t_start
     log(f"mesh phase {res['seconds']:.1f} s (the 2 ranks' processes "
         f"{res['ranks_s']:.1f} s)")
+    return res
+
+
+DRY_PEAK_REL = 0.2   # the meta peak within 20 % of the card's
+
+
+def _dry_cell(cfg, shape, tcfg, dev):
+    """One LM cell of the dry run (``launch.dryrun.cost_cell`` on a 1 x 1
+    ``CountingMesh``, the meta device) and the same step on the card: the
+    dry run's param tree (experts padded to the model axis, 1) drawn on
+    the card, ``make_mesh_train_step`` (train) or ``make_mesh_serve_step``
+    (decode) over a one-process ``ProcessMesh``, one warm step, then one
+    under ``FlopCounterMode`` with the peak memory reset before it.
+    Returns the meta analysis and memory, the meta seconds, the card's
+    FLOPs, its peak bytes above what was allocated before the cell
+    (earlier phases' caches; None off the card), that base, and the
+    step's seconds."""
+    import gc
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.config import MeshConfig
+    from repro_torch.launch.dryrun import cost_cell
+    from repro_torch.models import api
+    from repro_torch.models.layers.common import (init_from_spec,
+                                                  zeros_from_spec)
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.partition import cache_partition, named
+    from repro_torch.sharding.spmd import (ProcessMesh, local_batch,
+                                           make_mesh_serve_step,
+                                           make_mesh_train_step,
+                                           param_shardings)
+
+    mcfg = MeshConfig((1, 1), ("data", "model"))
+    t0 = time.perf_counter()
+    ana, mem, _, _ = cost_cell(cfg, shape, mcfg, tcfg)
+    meta_s = time.perf_counter() - t0
+    on_card = dev.type == "cuda"
+    base = 0
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+    mesh = ProcessMesh(mcfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_from_spec(api.param_spec(cfg, model_axis=1), gen,
+                            device=dev)
+    psh = param_shardings(cfg, params, mesh)
+    if shape.kind in ("train", "prefill"):
+        batch = api.make_batch(cfg, shape, torch.Generator().manual_seed(0),
+                               device=dev)
+        step = make_mesh_train_step(cfg, tcfg, mesh, psh, shape)
+        args = (params, adamw_init(params),
+                local_batch(batch, mesh, cfg, shape))
+    else:
+        state = zeros_from_spec(api.decode_state_spec(
+            cfg, shape.global_batch, shape.seq_len), device=dev)
+        csh = named(mesh, cache_partition(cfg, shape, mcfg, state))
+        token = torch.zeros((shape.global_batch, 1), dtype=torch.int32,
+                            device=dev)
+        step = make_mesh_serve_step(cfg, mesh, psh, csh, shape)
+        args = (params, state, token)
+    del params
+    out = step(*args)
+    del out
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        out = step(*args)
+        if on_card:
+            torch.cuda.synchronize(dev)
+    step_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated(dev) - base if on_card else None
+    del out, args
+    return dict(ana=ana, mem=mem, meta_s=meta_s,
+                card_flops=int(fc.get_total_flops()), card_peak=peak,
+                base=base, step_s=step_s)
+
+
+def phase_dryrun(dev, card, lm, moe, edv):
+    """The dry run (``repro_torch.launch.dryrun``: one rank's step counted
+    on the meta device) against the card, on the LM cells that the LM
+    phases timed: lm-100m whole, a bf16 step at LM_B x LM_S and its decode
+    at LM_DECODE_B x LM_DECODE_CTX; the qwen2-moe-a2.7b cut at LM_B x
+    LM_S; whisper-small whole at ED_TRAIN_B x its max_seq_len with its
+    frames.  Per cell on a 1 x 1 mesh: the card's FLOPs
+    (``FlopCounterMode`` over one real step) equal the meta count, the
+    meta peak (the arguments and the live peak of what the step made) is
+    within DRY_PEAK_REL of ``max_memory_allocated``, and the roofline's
+    max(t_compute, t_memory) (the H100 figures of ``roofline.analysis``)
+    stands beside the ms/step the earlier phase measured.  No LUT kernel
+    is on these paths (counts 0)."""
+    import dataclasses
+    import torch
+    from repro_torch.config import ShapeConfig, TrainConfig, get_config
+    from repro_torch.roofline.analysis import (HW, model_flops_estimate,
+                                               roofline_report)
+
+    t_start = time.perf_counter()
+    _k_reset()
+    tcfg = TrainConfig(lr=3e-4, sgdr_t0=50)   # the launcher's defaults
+    full = get_config(LM_ARCH, reduced=LM_REDUCED)
+    moe_full = get_config(MOE_ARCHS[0], reduced=LM_REDUCED)
+    wh = get_config(ENCDEC_ARCH, reduced=LM_REDUCED)
+    cells = [
+        (f"{LM_ARCH} train", full, ShapeConfig("train", "train", LM_S, LM_B),
+         lm["profile"]["wall_ms"], "the in-process step, lm (b')"),
+        (f"{LM_ARCH} decode", full, ShapeConfig(
+            "decode", "decode", LM_DECODE_CTX, LM_DECODE_B),
+         lm["decode"]["ms_per_token"], "ms/token, lm (d)"),
+        (f"{MOE_ARCHS[0]} x{MOE_CUT_LAYERS} train",
+         dataclasses.replace(moe_full, num_layers=MOE_CUT_LAYERS),
+         ShapeConfig("train", "train", LM_S, LM_B),
+         moe[MOE_ARCHS[0]]["train"]["ms_per_step"],
+         "lm (b), over the experts padded to the model axis of 16"),
+        (f"{ENCDEC_ARCH} train", wh, ShapeConfig(
+            "train", "train", wh.max_seq_len, ED_TRAIN_B),
+         edv[ENCDEC_ARCH]["train"]["ms_per_step"], "lm (b)"),
+    ]
+    res = {"cells": {}}
+    for name, cfg, shape, ms_then, what in cells:
+        r = _dry_cell(cfg, shape, tcfg, dev)
+        ana, mem = r["ana"], r["mem"]
+        require(r["card_flops"] == ana.dot_flops,
+                f"dryrun {name}: the card's step counts {r['card_flops']} "
+                f"FLOPs, the meta count {ana.dot_flops:.0f}")
+        meta_peak = mem.peak_memory_in_bytes
+        gap = abs(meta_peak - r["card_peak"]) / r["card_peak"]
+        require(gap <= DRY_PEAK_REL,
+                f"dryrun {name}: meta peak {meta_peak / 2**30:.3f} GiB "
+                f"against max_memory_allocated {r['card_peak'] / 2**30:.3f} "
+                f"GiB ({gap:.3f} > {DRY_PEAK_REL})")
+        rep = roofline_report(
+            arch=cfg.name, shape=shape.name, mesh="1x1", num_devices=1,
+            analysis=ana, memstats=mem,
+            model_flops=model_flops_estimate(cfg, shape),
+            bf16_model=cfg.dtype == "bfloat16")
+        bound = max(rep.t_compute, rep.t_memory) * 1e3
+        res["cells"][name] = dict(
+            dot_flops=ana.dot_flops, hbm_bytes=ana.hbm_bytes,
+            meta_peak=meta_peak, card_peak=r["card_peak"], peak_gap=gap,
+            base=r["base"],
+            arguments=mem.argument_size_in_bytes, t_compute_ms=rep.t_compute
+            * 1e3, t_memory_ms=rep.t_memory * 1e3, bound_ms=bound,
+            measured_ms=ms_then, meta_s=r["meta_s"], step_s=r["step_s"])
+        log(f"dryrun {name} ({card}), batch {shape.global_batch} x "
+            f"{shape.seq_len}: FLOPs card {r['card_flops']} = meta "
+            f"{ana.dot_flops:.0f}; peak meta {meta_peak / 2**30:.3f} GiB "
+            f"(arguments {mem.argument_size_in_bytes / 2**30:.3f}) against "
+            f"max_memory_allocated {r['card_peak'] / 2**30:.3f} GiB above "
+            f"the {r['base'] / 2**30:.3f} GiB allocated before the cell "
+            f"({gap:.3f} apart); max(t_compute {rep.t_compute * 1e3:.3f}, "
+            f"t_memory {rep.t_memory * 1e3:.3f}) = {bound:.3f} ms against "
+            f"{ms_then:.3f} ms measured ({what}); meta count "
+            f"{r['meta_s']:.1f} s")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    launches = _k_launches()
+    require(not any(launches.values()), f"the dry run launched a LUT "
+            f"kernel: {launches}")
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"dryrun ({card}): Hardware.hbm_bytes {HW.hbm_bytes:.0f} B "
+        f"({HW.name}) against the card's total_memory {total} B; K1-K5 "
+        f"launches {launches}; phase {res['seconds']:.1f} s")
     return res
 
 
@@ -6209,6 +6414,7 @@ def main() -> int:
     ssm = phase_ssm_lm(dev, card)
     edv = phase_encdec_vlm_lm(dev, card)
     mesh = phase_mesh(dev, card)
+    dry = phase_dryrun(dev, card, lm, moe, edv)
 
     head, dag_head = k1[HEADLINE_B], k1_dag[HEADLINE_B]
     kernels = [
@@ -6384,6 +6590,8 @@ def main() -> int:
                 graph_serve=graph_launches.get(name, 0),
                 graph_train=gtrain["train"]["launches"][name],
                 graph_ensemble=gtrain["ensemble"]["launches"][name])
+    for k in kernels:   # the dry run's phase: none of K1-K5 is on it
+        k["launches_by_path"]["dryrun"] = dry["launches"][k["name"]]
     log(f"training: {train['steps']} steps, {train['train_s']:.3f} s, "
         f"{train['steps'] / train['train_s']:.2f} steps/s; epoch "
         f"{train['epoch_s']:.3f} s, device busy share "
@@ -6464,6 +6672,12 @@ def main() -> int:
             f"rank {r['rank']} {r['ms_per_step']:.3f} ms/step"
             for r in mesh[k]["ranks"]) for k in ("2x1", "1x2"))
         + f"; phase {mesh['seconds']:.1f} s")
+    log(f"dryrun ({card}): " + "; ".join(
+        f"{name} bound {c['bound_ms']:.3f} ms against {c['measured_ms']:.3f} "
+        f"measured, peak meta {c['meta_peak'] / 2**30:.3f} / card "
+        f"{c['card_peak'] / 2**30:.3f} GiB"
+        for name, c in dry["cells"].items())
+        + f"; phase {dry['seconds']:.1f} s")
     log("sweep over logical replicas of the card: " + "; ".join(
         f"{k} at R = {v['replicas']} {v['seconds']:.3f} s (R = 1: "
         f"{sum(g['seconds_r1'] for g in v['groups']):.3f} s)"

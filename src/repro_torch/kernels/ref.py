@@ -281,3 +281,76 @@ def lut_cascade_ref(codes: torch.Tensor,
                 bufs[s] = None
         bufs.append(out)
     return bufs[-1].to(torch.int32)
+
+
+def _blocked_carrier(sched) -> torch.dtype:
+    """The narrowest safe integer dtype of the blocked walk's buffers
+    and addresses: int16 when every address (word and slot bits) and
+    every node's branch sum fits 15 bits, else int32."""
+    bits = max(max(wb + sb, int(arity * ((1 << beta) - 1)).bit_length())
+               for _s, arity, _ib, wb, sb, beta in sched)
+    return torch.int16 if bits <= 15 else torch.int32
+
+
+def lut_cascade_blocked(codes: torch.Tensor,
+                        conns: Sequence[torch.Tensor],
+                        packed_tables: Sequence[torch.Tensor],
+                        schedule, block_b: int = 512) -> torch.Tensor:
+    """Cache-blocked gather cascade (port of
+    ``repro.kernels.ref.lut_cascade_blocked``, the reference's compiled
+    CPU serving route): the function of :func:`lut_cascade_ref`, walked
+    neuron-major over tiles of ``block_b`` rows.
+
+    Codes ride as (W, Bt) tiles in the narrowest safe integer dtype
+    (``_blocked_carrier``: int16 for every paper geometry).  Per node
+    the source tiles concatenate as rows into the pool; per branch and
+    fan-in slot j one row gather ``pool[conn[:, j]]`` shifted by
+    ``in_bits (F - 1 - j)`` adds into the address (slot 0 = MSB, as
+    ``pack_index``); the packed word ``packed[o, addr >> slot_bits]``
+    is gathered per neuron row and the slot's code shifted out; branch
+    codes sum.  The reference derives the per-slot gathers from its
+    shift matrices; the port holds the connectivity itself.
+    codes: (B, W_0) int -> (B, O_last) int32, bit-identical to
+    :func:`lut_cascade_ref`."""
+    sched = as_schedule(schedule)
+    branches = sum(arity for _s, arity, *_r in sched)
+    if not len(conns) == len(packed_tables) == branches:
+        raise ValueError(f"the schedule has {branches} branches, got "
+                         f"{len(conns)} conns and {len(packed_tables)} "
+                         "tables")
+    carrier = _blocked_carrier(sched)
+    pts = [p.to(torch.int32) for p in packed_tables]
+    cols = [[c[:, j].long() for j in range(c.shape[1])] for c in conns]
+
+    def tile(h0: torch.Tensor) -> torch.Tensor:
+        bufs = [h0]
+        k = 0
+        for srcs, arity, in_bits, _wb, slot_bits, beta in sched:
+            pool = (bufs[srcs[0]] if len(srcs) == 1
+                    else torch.cat([bufs[s] for s in srcs], dim=0))
+            node = None
+            for _a in range(arity):
+                f = len(cols[k])
+                addr = None
+                for j, rows in enumerate(cols[k]):
+                    g = pool[rows]                              # (O, Bt)
+                    s = in_bits * (f - 1 - j)
+                    g = (g << s) if s else g
+                    addr = g if addr is None else addr + g
+                packed = pts[k]
+                k += 1
+                o, words = packed.shape
+                wsel = (addr >> slot_bits).long().clamp(max=words - 1)
+                slot = (addr & ((1 << slot_bits) - 1)).to(torch.int32)
+                word = packed[torch.arange(o, device=packed.device)[:, None],
+                              wsel]
+                code = (word >> (beta * slot)) & ((1 << beta) - 1)
+                node = code if node is None else node + code
+            bufs.append(node.to(carrier))
+        return bufs[-1].to(torch.int32)
+
+    h_all = codes.t().to(carrier)                               # (W_0, B)
+    b = codes.shape[0]
+    bb = max(1, min(int(block_b), b))
+    outs = [tile(h_all[:, s:s + bb]) for s in range(0, b, bb)]
+    return torch.cat(outs, dim=1).t()

@@ -47,8 +47,14 @@ def _sinusoid_table(seq: int, d: int, device: str) -> torch.Tensor:
 
 def _sinusoid(seq: int, d: int, like: torch.Tensor) -> torch.Tensor:
     """(seq, d) sinusoidal positions [sin | cos], float32, cast to
-    ``like``'s dtype on its device."""
-    return _sinusoid_table(seq, d, str(like.device)).to(like.dtype)
+    ``like``'s dtype on its device.  On the meta device (a cost count)
+    the table is a constant with no data, as the cached one is on a
+    card, made in every step alike and nothing on the host."""
+    if like.device.type == "meta":
+        table = torch.empty((seq, d), dtype=torch.float32, device="meta")
+    else:
+        table = _sinusoid_table(seq, d, str(like.device))
+    return table.to(like.dtype)
 
 
 def _enc_block_spec(cfg: ModelConfig, dtype) -> Params:

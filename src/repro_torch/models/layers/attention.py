@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import AttentionConfig
-from .common import TensorSpec
+from .common import TensorSpec, sequential_loop
 from .rope import apply_mrope, apply_rope
 
 Params = Dict[str, torch.Tensor]
@@ -122,24 +122,26 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"window band {band} exceeds {t} keys")
     ar_q = torch.arange(q_chunk, device=q.device)
     outs = []
-    for ci in range(nchunk):
-        start = ci * q_chunk
-        qc = qg[:, start:start + q_chunk]
-        if banded:
-            kstart = max(start + q_chunk - band, 0)
-            kc = k[:, kstart:kstart + band]
-            vc = v[:, kstart:kstart + band]
-            rows = start + ar_q
-            cols = kstart + torch.arange(band, device=q.device)
-            m = (cols[None, :] <= rows[:, None]) & (
-                cols[None, :] > rows[:, None] - window)
-            outs.append(_sdpa(qc, kc, vc, mask=m[None]))
-        else:
-            rows = q_offset + start + ar_q
-            cols = torch.arange(t, device=q.device)
-            m = _tile_mask(rows, cols, causal, window)
-            outs.append(_sdpa(qc, k, v, mask=m[None]))
-    return torch.cat(outs, dim=1).reshape(b, s, h, dv)
+    with sequential_loop("attn_q_chunks", nchunk) as steps:
+        qcs = steps.pieces(qg, 1, q_chunk)
+        for ci in steps:
+            start = ci * q_chunk
+            qc = qcs[ci]
+            if banded:
+                kstart = max(start + q_chunk - band, 0)
+                kc = k[:, kstart:kstart + band]
+                vc = v[:, kstart:kstart + band]
+                rows = start + ar_q
+                cols = kstart + torch.arange(band, device=q.device)
+                m = (cols[None, :] <= rows[:, None]) & (
+                    cols[None, :] > rows[:, None] - window)
+                outs.append(_sdpa(qc, kc, vc, mask=m[None]))
+            else:
+                rows = q_offset + start + ar_q
+                cols = torch.arange(t, device=q.device)
+                m = _tile_mask(rows, cols, causal, window)
+                outs.append(_sdpa(qc, k, v, mask=m[None]))
+    return steps.join(outs, 1, stack=False).reshape(b, s, h, dv)
 
 
 def _pick_chunk(n: int, chunk: int) -> int:

@@ -8,6 +8,7 @@ and ``zeros_from_spec`` materialize them.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
@@ -35,6 +36,61 @@ class TensorSpec:
 
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+# ---------------------------------------------------------------------------
+# Sequential loops (the sLSTM's steps; the mLSTM's, the Mamba scan's,
+# attention's query and the loss's chunks): a hook that a cost counter
+# may set to run fewer steps
+
+_LOOP_HOOK = None
+
+
+class Steps:
+    """The steps of a sequential loop of ``n`` identical steps, all of
+    them: iterate over it for the step indices, cut the loop's inputs
+    into per-step pieces with ``pieces`` and join its per-step outputs
+    with ``join``.  A cost counter's subclass runs fewer steps
+    (``roofline.counter``)."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __iter__(self):
+        return iter(range(self.n))
+
+    def pieces(self, x: torch.Tensor, dim: int, size: Optional[int] = None):
+        """``x`` cut along ``dim`` into the steps' pieces: ``unbind``, or
+        ``split`` into ``size``-long chunks.  One cut, not a slice per
+        step: a slice's backward writes a zero tensor of all of ``x``
+        per step, the cut's one stack or cat."""
+        return x.unbind(dim) if size is None else x.split(size, dim)
+
+    def join(self, outs, dim: int, stack: bool = True) -> torch.Tensor:
+        """The steps' outputs stacked (or concatenated) along ``dim``."""
+        return torch.stack(outs, dim) if stack else torch.cat(outs, dim)
+
+
+def set_loop_hook(hook) -> None:
+    """``hook(kind, n)`` is a context manager yielding a loop's
+    :class:`Steps` (``roofline.counter`` yields one that runs a few
+    steps and extends the counts to ``n``); ``None`` runs every step."""
+    global _LOOP_HOOK
+    _LOOP_HOOK = hook
+
+
+@contextlib.contextmanager
+def sequential_loop(kind: str, n: int):
+    """Yields the :class:`Steps` of the loop's ``n``: all of them unless
+    a hook is set."""
+    if _LOOP_HOOK is None:
+        yield Steps(n)
+        return
+    with _LOOP_HOOK(kind, n) as steps:
+        yield steps
 
 
 # ---------------------------------------------------------------------------

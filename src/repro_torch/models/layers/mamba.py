@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import SSMConfig
-from .common import TensorSpec
+from .common import TensorSpec, sequential_loop
 
 Params = Dict[str, torch.Tensor]
 
@@ -96,12 +96,14 @@ def ssm_scan_chunked(abar: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor,
     if s % chunk:
         raise ValueError(f"seq {s} % chunk {chunk}")
     h, hs = h0, []
-    for c in range(0, s, chunk):
-        aa, bb = _chunk_scan(abar[:, c:c + chunk], bx[:, c:c + chunk])
-        part = aa * h[:, None] + bb
-        hs.append(part)
-        h = part[:, -1]
-    return torch.cat(hs, dim=1), h
+    with sequential_loop("mamba_chunks", s // chunk) as steps:
+        abars, bxs = steps.pieces(abar, 1, chunk), steps.pieces(bx, 1, chunk)
+        for c in steps:
+            aa, bb = _chunk_scan(abars[c], bxs[c])
+            part = aa * h[:, None] + bb
+            hs.append(part)
+            h = part[:, -1]
+    return steps.join(hs, 1, stack=False), h
 
 
 def _ssm_inputs(p: Params, cfg: SSMConfig, xc: torch.Tensor, d: int):

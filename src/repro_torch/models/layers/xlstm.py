@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import SSMConfig
-from .common import TensorSpec, apply_norm
+from .common import TensorSpec, apply_norm, sequential_loop
 from .mamba import causal_conv
 
 Params = Dict[str, torch.Tensor]
@@ -122,41 +122,45 @@ def mlstm_chunkwise(q, k, v, li, lf, *, chunk: int = 128) -> torch.Tensor:
     n_prev = torch.zeros((b, h, dh), dtype=torch.float32, device=dev)
     m_prev = torch.full((b, h), -math.inf, dtype=torch.float32, device=dev)
     hs = []
-    for c0 in range(0, s, chunk):
-        sl = slice(c0, c0 + chunk)
-        qc, kc, vc, lic = qf[:, sl], kf[:, sl], vf[:, sl], li[:, sl]
-        # cumulative log-forget within the chunk: bc[j] = sum_{u<=j} lf_u
-        bc = torch.cumsum(lf[:, sl], dim=1)
-        bt = bc[:, -1]                                       # (B, H)
-        # intra-chunk log weights: lw[j,u] = bc[j] - bc[u] + li[u], u <= j
-        lw = bc[:, :, None, :] - bc[:, None, :, :] + lic[:, None, :, :]
-        lw = torch.where(tri, lw, neg_inf)
-        l_inter = bc + m_prev[:, None, :]                    # (B, W, H)
-        m_intra = torch.amax(lw, dim=2)
-        m_cur = torch.maximum(l_inter, m_intra)              # (B, W, H)
-        wts = torch.exp(lw - m_cur[:, :, None, :])           # (B, W, W, H)
-        scores = torch.einsum("bwhd,buhd->bwuh", qc, kc)
-        intra = torch.einsum("bwuh,buhd->bwhd", scores * wts, vc)
-        inter_scale = torch.exp(l_inter - m_cur)
-        inter = torch.einsum("bwhd,bhde->bwhe", qc, c_prev) \
-            * inter_scale[..., None]
-        num = intra + inter
-        n_intra = torch.einsum("bwuh,buhd->bwhd", wts, kc)
-        n_vec = n_intra + n_prev[:, None] * inter_scale[..., None]
-        qdot = torch.abs(torch.einsum("bwhd,bwhd->bwh", n_vec, qc))
-        denom = torch.maximum(qdot, torch.exp(-m_cur))
-        hs.append(num / denom[..., None])
-        # chunk-final state update (stabilized at m_new)
-        lk = bt[:, None] - bc + lic          # log weight of k_u into state
-        m_new = torch.maximum(bt + m_prev, torch.amax(lk, dim=1))
-        dec_state = torch.exp(bt + m_prev - m_new)           # (B, H)
-        kw = torch.exp(lk - m_new[:, None])
-        c_prev = dec_state[:, :, None, None] * c_prev + torch.einsum(
-            "bwhd,bwhe->bhde", kw[..., None] * kc, vc)
-        n_prev = dec_state[:, :, None] * n_prev + torch.einsum(
-            "bwh,bwhd->bhd", kw, kc)
-        m_prev = m_new
-    return torch.cat(hs, dim=1)
+    with sequential_loop("mlstm_chunks", s // chunk) as steps:
+        parts = list(zip(*(steps.pieces(t, 1, chunk)
+                           for t in (qf, kf, vf, li, lf))))
+        for c in steps:
+            qc, kc, vc, lic, lfc = parts[c]
+            # cumulative log-forget within the chunk: bc[j] = sum_{u<=j} lf_u
+            bc = torch.cumsum(lfc, dim=1)
+            bt = bc[:, -1]                                       # (B, H)
+            # intra-chunk log weights: lw[j,u] = bc[j] - bc[u] + li[u], u <= j
+            lw = bc[:, :, None, :] - bc[:, None, :, :] + lic[:, None, :, :]
+            lw = torch.where(tri, lw, neg_inf)
+            l_inter = bc + m_prev[:, None, :]                    # (B, W, H)
+            m_intra = torch.amax(lw, dim=2)
+            m_cur = torch.maximum(l_inter, m_intra)              # (B, W, H)
+            wts = torch.exp(lw - m_cur[:, :, None, :])           # (B, W, W, H)
+            scores = torch.einsum("bwhd,buhd->bwuh", qc, kc)
+            intra = torch.einsum("bwuh,buhd->bwhd", scores * wts, vc)
+            inter_scale = torch.exp(l_inter - m_cur)
+            inter = torch.einsum("bwhd,bhde->bwhe", qc, c_prev) \
+                * inter_scale[..., None]
+            num = intra + inter
+            n_intra = torch.einsum("bwuh,buhd->bwhd", wts, kc)
+            n_vec = n_intra + n_prev[:, None] * inter_scale[..., None]
+            qdot = torch.abs(torch.einsum("bwhd,bwhd->bwh", n_vec, qc))
+            denom = torch.maximum(qdot, torch.exp(-m_cur))
+            hs.append(num / denom[..., None])
+            if c + 1 == len(steps):
+                break   # the state after the last chunk is not used
+            # chunk-final state update (stabilized at m_new)
+            lk = bt[:, None] - bc + lic          # log weight of k_u into state
+            m_new = torch.maximum(bt + m_prev, torch.amax(lk, dim=1))
+            dec_state = torch.exp(bt + m_prev - m_new)           # (B, H)
+            kw = torch.exp(lk - m_new[:, None])
+            c_prev = dec_state[:, :, None, None] * c_prev + torch.einsum(
+                "bwhd,bwhe->bhde", kw[..., None] * kc, vc)
+            n_prev = dec_state[:, :, None] * n_prev + torch.einsum(
+                "bwh,bwhd->bhd", kw, kc)
+            m_prev = m_new
+    return steps.join(hs, 1, stack=False)
 
 
 def mlstm_recurrent_step(c, n, m, q, k, v, li, lf):
@@ -289,10 +293,12 @@ def apply_slstm(p: Params, cfg: SSMConfig, x: torch.Tensor) -> torch.Tensor:
              "m": torch.full(sh, -math.inf, dtype=torch.float32,
                              device=x.device)}
     hs = []
-    for t in range(s):
-        state = _slstm_step(p, cfg, state, xw[:, t])
-        hs.append(state["h"])
-    hs = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
+    with sequential_loop("slstm_steps", s) as steps:
+        xws = steps.pieces(xw, 1)
+        for t in steps:
+            state = _slstm_step(p, cfg, state, xws[t])
+            hs.append(state["h"])
+    hs = steps.join(hs, 1).reshape(b, s, d).to(x.dtype)
     return _slstm_out(p, hs)
 
 

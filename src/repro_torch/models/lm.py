@@ -48,7 +48,7 @@ from .layers import mla as mla_lib
 from .layers import moe as moe_lib
 from .layers import xlstm as xlstm_lib
 from .layers.common import (TensorSpec, activation, apply_mlp, apply_norm,
-                            dtype_of, mlp_spec, norm_spec)
+                            dtype_of, mlp_spec, norm_spec, sequential_loop)
 
 Params = Dict[str, Any]
 
@@ -208,10 +208,11 @@ def chunked_ce_loss(cfg: ModelConfig, params: Params, x: torch.Tensor,
         xf = F.pad(xf, (0, 0, 0, pad))
         lf = F.pad(lf, (0, pad), value=-1)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
-    for c in range(0, xf.shape[0], chunk):
-        tot = tot + _maybe_checkpoint(
-            functools.partial(_ce_chunk, cfg), params, xf[c:c + chunk],
-            lf[c:c + chunk])
+    with sequential_loop("ce_chunks", xf.shape[0] // chunk) as steps:
+        xs, ls = steps.pieces(xf, 0, chunk), steps.pieces(lf, 0, chunk)
+        for c in steps:
+            tot = tot + _maybe_checkpoint(
+                functools.partial(_ce_chunk, cfg), params, xs[c], ls[c])
     return tot / n
 
 

@@ -410,7 +410,52 @@ def make_mesh_train_step(cfg, tcfg, mesh: ProcessMesh, shardings, shape, *,
     return step
 
 
+def _rows_kept(mesh: ProcessMesh, shardings, split):
+    """The cache leaves' shardings with the data axes taken out of the
+    spec where they split the rows (``split``): what a rank gathers
+    whole and cuts back; a leaf whose rows are not split (the sequence
+    sharded over the data axes instead) is gathered over those too."""
+    dax = set(mesh.data_axes)
+
+    def keep(s):
+        if split is None:
+            return s
+        return NamedSharding(s.mesh, PartitionSpec(*(
+            None if set(_as_axes(p)) == dax else p for p in s.spec)))
+
+    return _zip(lambda s, _: keep(s), shardings, shardings)
+
+
+def make_mesh_serve_step(cfg, mesh: ProcessMesh, shardings, cache_shardings,
+                         shape):
+    """step(param shards, state shards, local token) -> (local logits,
+    state shards): one decode step over the mesh.  A rank gathers the
+    params whole (as ``make_mesh_train_step``), gathers its rows' cache
+    leaves whole over the other axes (``cache_partition``'s layout,
+    ``cache_shardings``), runs ``train.step.make_serve_step`` on its
+    rows (``local_batch``'s token) and keeps its shard of the new
+    state.  Ranks along the model axis decode the same rows."""
+    from repro_torch.train.step import make_serve_step
+
+    serve = make_serve_step(cfg)
+    n_data = mesh.size(mesh.data_axes)
+    split = (mesh.data_axes if n_data > 1
+             and shape.global_batch % n_data == 0 else None)
+    rest = _rows_kept(mesh, cache_shardings, split)
+
+    def step(params_s, state_s, token):
+        params = gather_tree(params_s, shardings)
+        state = gather_tree(state_s, rest)
+        with ctx.active_mesh(mesh, data_axes=mesh.data_axes), \
+                ctx.batch_split(split):
+            logits, new = serve(params, state, token)
+        del params, state
+        return logits, shard_tree(new, rest)
+
+    return step
+
+
 __all__ = ["ProcessMesh", "batch_counts_before", "batch_mean", "gather_leaf",
            "gather_tree", "local_batch", "local_shard",
-           "make_mesh_train_step", "opt_shardings", "param_shardings",
-           "shard_tree", "tree_bytes"]
+           "make_mesh_serve_step", "make_mesh_train_step", "opt_shardings",
+           "param_shardings", "shard_tree", "tree_bytes"]

@@ -81,6 +81,10 @@ def test_imports_with_jax_and_repro_blocked():
     assert {"repro_torch.sharding", "repro_torch.sharding.ctx",
             "repro_torch.sharding.partition", "repro_torch.sharding.spmd",
             "repro_torch.launch.mesh"} <= names
+    # and the dry run's
+    assert {"repro_torch.roofline", "repro_torch.roofline.analysis",
+            "repro_torch.roofline.counter", "repro_torch.launch.dryrun",
+            "repro_torch.launch.report"} <= names
 
 
 def test_no_source_imports_jax_or_repro():
