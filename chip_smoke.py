@@ -47,7 +47,7 @@ then drives the port's paths at full width:
   kernel;
 * the Pareto sweep (``repro_torch.sweep``) at the paper grid's full
   widths (three LogicNets and three NeuraLUT geometries, 196 pooled
-  synthetic-MNIST inputs, F 6, beta 2; 3 seeds, 3 epochs where the
+  synthetic-MNIST inputs, F 6, beta 2; 3 seeds, 2 epochs where the
   launcher's default is 10): four stacked group runs, one K4 and one K5
   launch per NeuraLUT layer per step for all units of a group (none for
   LogicNets), every point's best member converted (K2), saved to a
@@ -177,6 +177,8 @@ K5_RTOL, K5_ATOL = 2e-4, 3e-5
 TRAIN_B = 256              # the trainer's batch
 TRAIN_EPOCHS = 3           # 3 x 78 = 234 steps on 20,000 rows
 RERUN_STEPS = 10
+PROFILE_STEPS = 12         # steps of an epoch in a profiled window
+TIMED_STEPS = 26           # steps of an epoch timed (a third of 78)
 CASCADE_BATCHES = (1, 8, 64, 256, 1000, 4096)
 GATHER_BATCHES = CASCADE_BATCHES    # K3; 1000 fills no 256-thread block
 GRAPH_ARCH = "polylut-add-jsc-5l"   # PolyLUT-Add, arXiv:2406.04910
@@ -193,10 +195,10 @@ KIND_EPOCHS = 1                     # linear and poly on the jsc-5l chain
 TILE_SWEEP = (1, 2, 4, 8, 16, 32)   # K1 rows per block
 # The Pareto sweep (paper Figs. 6-7 grid, repro_torch.sweep) on
 # mnist_pooled 6000 / 2000 rows (launch.sweep's defaults), seeds 0-2,
-# batch 256: 23 steps per epoch.  Depth cut: 3 epochs where the
+# batch 256: 23 steps per epoch.  Depth cut: 2 epochs where the
 # launcher's default is 10.
 SWEEP_SEEDS = (0, 1, 2)
-SWEEP_EPOCHS = 3
+SWEEP_EPOCHS = 2
 SWEEP_ROWS = (6000, 2000)
 SWEEP_LR = 3e-3                     # run_pareto_sweep's default
 # The padded NeuraLUT group (U = 6) against train_neuralut_ensemble per
@@ -243,6 +245,27 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+T_START = time.perf_counter()
+PHASE_S = {}
+
+
+def clock(phase, *args):
+    """``phase(*args)``, its wall seconds kept in PHASE_S and written to
+    both streams with the script's seconds so far (a run stopped at its
+    time limit shows on its standard error where it stood)."""
+    name = phase.__name__.removeprefix("phase_")
+    print(f"phase {name} starts at {time.perf_counter() - T_START:.1f} s",
+          file=sys.stderr, flush=True)
+    t0 = time.perf_counter()
+    out = phase(*args)
+    PHASE_S[name] = PHASE_S.get(name, 0.0) + time.perf_counter() - t0
+    msg = (f"phase {name}: {time.perf_counter() - t0:.1f} s (the script "
+           f"{time.perf_counter() - T_START:.1f} s)")
+    log(msg)
+    print(msg, file=sys.stderr, flush=True)
+    return out
+
+
 def hash_seed() -> str:
     return os.environ.get("PYTHONHASHSEED", "unset")
 
@@ -285,23 +308,33 @@ def call_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _trace(fn, reps: int, kernel=""):
+def _trace(fn, reps: int, kernel="", primed: bool = False):
     """One ``torch.profiler`` trace of ``reps`` calls of ``fn`` after a
     warm-up call: the device us of the CUDA kernels whose name holds
     ``kernel`` (a name or a tuple of names; "" = every kernel the call
     launches), and the trace's device activities (kernels, memsets,
-    copies) of such names, {name: count}."""
+    copies) of such names, {name: count}.  ``primed``: the warm-up call
+    runs inside the profiler's session as a warm-up step, which its
+    schedule discards, so the trace's first calls are not its session's
+    first activities."""
     import collections
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    plan = schedule(wait=0, warmup=1, active=1, repeat=1) if primed else None
+    with profile(activities=[ProfilerActivity.CUDA], schedule=plan) as prof:
+        if primed:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        if primed:
+            prof.step()
     us = sum(e.self_device_time_total for e in prof.key_averages()
              if any(k in e.key for k in names))
     return us, collections.Counter(
@@ -331,7 +364,7 @@ def _trace_ms(fn, reps, kernel="", traces: int = 4):
     None when none was.  Never a call time in place of a device time."""
     best = (0, 0.0)
     for n in range(traces):
-        us, records = _trace(fn, reps, kernel)
+        us, records = _trace(fn, reps, kernel, primed=n % 2 == 1)
         if _whole(records, reps):
             best = max(best, (sum(records.values()), us))
         if n >= 1 and best[0]:
@@ -345,10 +378,12 @@ def activities_per_call(fn, reps: int = 5, traces: int = 12):
     up to ``traces`` while the fuller one is not whole (``_whole``), the
     fuller one.  A trace loses records in bursts (four traces in a row
     have lost one of five kernels), never adds one, so more traces only
-    bring the fullest closer to the truth."""
+    bring the fullest closer to the truth.  Every other trace is
+    ``primed`` (one run's twelve plain traces in a row each lost one of
+    five records)."""
     best = {}
     for n in range(traces):
-        _, records = _trace(fn, reps)
+        _, records = _trace(fn, reps, primed=n % 2 == 1)
         if sum(records.values()) > sum(best.values()):
             best = records
         if n >= 1 and _whole(best, reps):
@@ -1058,7 +1093,6 @@ def phase_train_path(cfg, dev):
     (K4/K5), conversion through K2, a bundle, the engine through K1."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import lut_infer as LI
     from repro_torch.core import model as M
     from repro_torch.core import train as TR
@@ -1174,26 +1208,18 @@ def phase_train_path(cfg, dev):
 
     # Busy share of one training epoch: device kernel time (profiler)
     # over the epoch's wall time without the profiler.
-    def epoch():
+    def epoch(n=steps_per_epoch):
         p, s, o = p0, s0, adamw_init(p0)
-        for k in range(steps_per_epoch):
+        for k in range(n):
             p, s, o, _ = step(p, s, o, sd, xtr[ib[k]], ytr[ib[k]])
-        torch.cuda.synchronize()
-    epoch()
-    te = time.perf_counter()
-    epoch()
-    wall = time.perf_counter() - te
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        epoch()
-    by_kernel = sorted(((e.self_device_time_total, e.key)
-                        for e in prof.key_averages()
-                        if e.self_device_time_total > 0), reverse=True)
-    busy = sum(u for u, _ in by_kernel) / 1e6
-    log(f"training epoch ({steps_per_epoch} steps, no eval): {wall:.3f} s "
+    wall, busy, _, _, by_kernel = _epoch_profile(epoch, steps_per_epoch,
+                                                 epoch)
+    log(f"training epoch ({steps_per_epoch} steps, no eval; timed over "
+        f"{TIMED_STEPS}, profiled over {PROFILE_STEPS}): {wall:.3f} s "
         f"wall, {steps_per_epoch / wall:.2f} steps/s, device busy "
         f"{busy:.4f} s = {busy / wall:.4f} of the wall time")
     log("training epoch device time by kernel (ms): " + ", ".join(
-        f"{k[:48]} {u / 1e3:.2f}" for u, k in by_kernel[:12]))
+        f"{k[:48]} {u / 1e3:.2f}" for u, k in by_kernel))
     return dict(launches=launches, steps=steps, train_s=t1 - t0,
                 epoch_s=wall, busy_share=busy / wall,
                 acc_q=hist["test_acc_q"][-1], loss=hist["loss"],
@@ -2614,7 +2640,6 @@ def phase_ensemble_path(cfg, dev):
     at S = 4 beside S = 1."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import lut_infer as LI
     from repro_torch.core import model as M
     from repro_torch.core import train as TR
@@ -2711,65 +2736,58 @@ def phase_ensemble_path(cfg, dev):
         f"bit-identical params, BN state and opt state ({len(a)} tensors)")
 
     # steps/s, busy share and K4/K5 device time per step at S = 4 and 1:
-    # one warm-up epoch each, then timed epochs in turns (4, 1, 1, 4),
-    # since host time varies between epochs on a shared machine, then
-    # one profiled epoch each.
-    runs = {len(seeds): (TR.init_ensemble(cfg, seeds, xtr, device=dev),
-                         batches(seeds))
-            for seeds in (ENSEMBLE_SEEDS, ENSEMBLE_SEEDS[:1])}
-    walls = {n: [] for n in runs}
-    for n in runs:
-        run(*runs[n])
-    for n in (ns, 1, 1, ns):
-        te = time.perf_counter()
-        run(*runs[n])
-        walls[n].append(time.perf_counter() - te)
+    # a timed epoch each, and a profiled window of its first steps
     by_s = {}
-    for n, (init, idx) in runs.items():
-        wall = sum(walls[n]) / len(walls[n])
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run(init, idx)
-        ev = [(e.self_device_time_total, e.key) for e in prof.key_averages()
-              if e.self_device_time_total > 0]
-        busy = sum(u for u, _ in ev) / 1e6
-        k4 = sum(u for u, k in ev if "subnet_train_fwd_kernel" in k)
-        k5 = sum(u for u, k in ev if "subnet_train_bwd_kernel" in k)
+    for seeds in (ENSEMBLE_SEEDS, ENSEMBLE_SEEDS[:1]):
+        n = len(seeds)
+        init, idx = TR.init_ensemble(cfg, seeds, xtr, device=dev), batches(
+            seeds)
+        wall, busy, k4, k5, top = _epoch_profile(
+            lambda: run(init, idx), steps_per_epoch,
+            lambda m: run(init, idx[:m]))
         by_s[n] = dict(
             steps_s=steps_per_epoch / wall, epoch_s=wall,
-            epoch_s_each=walls[n], busy_share=busy / wall,
-            k4_ms_step=k4 / 1e3 / steps_per_epoch,
-            k5_ms_step=k5 / 1e3 / steps_per_epoch,
+            busy_share=busy / wall, k4_ms_step=k4, k5_ms_step=k5,
             device_ms_step=busy * 1e3 / steps_per_epoch)
-        log(f"ensemble epoch S={n} ({steps_per_epoch} steps, no eval): "
-            f"{wall:.3f} s wall (epochs {[round(w, 3) for w in walls[n]]}), "
-            f"{steps_per_epoch / wall:.2f} steps/s, device busy "
-            f"{busy:.4f} s = {busy / wall:.4f}; per step K4 "
-            f"{by_s[n]['k4_ms_step']:.4f} ms, K5 "
-            f"{by_s[n]['k5_ms_step']:.4f} ms, all device "
+        log(f"ensemble epoch S={n} ({steps_per_epoch} steps, no eval; "
+            f"timed over {TIMED_STEPS}, profiled over {PROFILE_STEPS}): "
+            f"{wall:.3f} s wall, {steps_per_epoch / wall:.2f} steps/s, "
+            f"device busy {busy:.4f} s = {busy / wall:.4f}; per step K4 "
+            f"{k4:.4f} ms, K5 {k5:.4f} ms, all device "
             f"{by_s[n]['device_ms_step']:.4f} ms")
         log("  device time by kernel (ms): " + ", ".join(
-            f"{k[:48]} {u / 1e3:.2f}" for u, k in sorted(ev, reverse=True)[:8]))
+            f"{k[:48]} {u / 1e3:.2f}" for u, k in top))
     return dict(launches=launches, steps=steps, train_s=t1 - t0,
                 best=best, acc_q=final_q.tolist(), by_s=by_s)
 
 
-def _epoch_profile(run, steps):
+def _epoch_profile(run, steps, window=None):
     """Wall s of one epoch ``run()`` (warmed up, no profiler), then the
     device time of a profiled epoch: (wall, busy s, K4 ms per step, K5
-    ms per step, top kernels)."""
+    ms per step, top kernels).  ``window(n)``, where given, runs the
+    epoch's first n steps (every step has the same shapes): the wall is
+    then its first TIMED_STEPS steps' scaled to the epoch's ``steps``,
+    and the warm-up and the profiled run its first PROFILE_STEPS steps,
+    the busy seconds scaled the same way."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    run()
+    part = (lambda: window(PROFILE_STEPS)) if window else run
+    scale = steps / PROFILE_STEPS if window else 1.0
+    part()
     torch.cuda.synchronize()
     te = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - te
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    if window:
+        window(TIMED_STEPS)
+    else:
         run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - te) * (steps / TIMED_STEPS if window
+                                         else 1.0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        part()
         torch.cuda.synchronize()
-    ev = [(e.self_device_time_total, e.key) for e in prof.key_averages()
-          if e.self_device_time_total > 0]
+    ev = [(e.self_device_time_total * scale, e.key)
+          for e in prof.key_averages() if e.self_device_time_total > 0]
     busy = sum(u for u, _ in ev) / 1e6
     k4 = sum(u for u, k in ev if "subnet_train_fwd_kernel" in k) / 1e3
     k5 = sum(u for u, k in ev if "subnet_train_bwd_kernel" in k) / 1e3
@@ -2956,14 +2974,15 @@ def phase_graph_train_path(cfg, dev):
         f"{chk['bn_err']:.3e}; a profiled step holds {c4} K4 and {c5} K5 "
         f"kernels for {n4} / {n5} wrapper calls: 1 kernel per call")
 
-    def epoch():
+    def epoch(n=spe):
         p, s, o = p0, s0, adamw_init(p0)
-        for k in range(spe):
+        for k in range(n):
             p, s, o, _ = step(p, s, o, sd, xtr[ib[k]], ytr[ib[k]])
-    wall, busy, k4, k5, top = _epoch_profile(epoch, spe)
+    wall, busy, k4, k5, top = _epoch_profile(epoch, spe, epoch)
     one = dict(steps_s=spe / wall, epoch_s=wall, busy_share=busy / wall,
                k4_ms_step=k4, k5_ms_step=k5, device_ms_step=busy * 1e3 / spe)
-    log(f"graph training epoch S=1 ({spe} steps, no eval): {wall:.3f} s, "
+    log(f"graph training epoch S=1 ({spe} steps, no eval; timed over "
+        f"{TIMED_STEPS}, profiled over {PROFILE_STEPS}): {wall:.3f} s, "
         f"{spe / wall:.2f} steps/s, device busy {busy:.4f} s = "
         f"{busy / wall:.4f}; per step K4 {k4:.4f} ms + K5 {k5:.4f} ms over "
         f"{branches} branches, all device {busy * 1e3 / spe:.4f} ms")
@@ -3015,15 +3034,16 @@ def phase_graph_train_path(cfg, dev):
             f"one graph ensemble step: {n4} K4 / {n5} K5 calls; want "
             f"{branches} of each")
 
-    def eepoch():
+    def eepoch(n=spe):
         p, s, o = einit
-        for k in range(spe):
+        for k in range(n):
             p, s, o, _ = estep(p, s, o, esd, xtr[eidx[k]], ytr[eidx[k]])
-    wall, busy, k4, k5, top = _epoch_profile(eepoch, spe)
+    wall, busy, k4, k5, top = _epoch_profile(eepoch, spe, eepoch)
     four = dict(steps_s=spe / wall, epoch_s=wall, busy_share=busy / wall,
                 k4_ms_step=k4, k5_ms_step=k5,
                 device_ms_step=busy * 1e3 / spe)
-    log(f"graph ensemble epoch S={ns} ({spe} steps, no eval): {wall:.3f} s, "
+    log(f"graph ensemble epoch S={ns} ({spe} steps, no eval; timed over "
+        f"{TIMED_STEPS}, profiled over {PROFILE_STEPS}): {wall:.3f} s, "
         f"{spe / wall:.2f} steps/s, device busy {busy:.4f} s = "
         f"{busy / wall:.4f}; per step K4 {k4:.4f} ms + K5 {k5:.4f} ms over "
         f"{branches} branches (one seed-axis launch each), all device "
@@ -3928,7 +3948,7 @@ LM_ARCH = "lm-100m"
 LM_REDUCED = False         # True: the reduced config (CPU rehearsals)
 LM_CUT_LAYERS = 2          # (a) and (c): full width, depth cut to 2
 LM_B, LM_S = 8, 128        # the launcher's default global batch and seq
-LM_TRAIN_STEPS, LM_CKPT_EVERY = 40, 20
+LM_TRAIN_STEPS, LM_CKPT_EVERY = 20, 10
 LM_SUP_STEPS, LM_SUP_EVERY, LM_FAIL_AT = 20, 5, 13
 LM_DECODE_B, LM_DECODE_CTX, LM_DECODE_TOKENS = 64, 128, 64
 LM_PREFILL = 16            # decoded tokens held against prefill logits
@@ -4347,7 +4367,7 @@ MOE_CUT_LAYERS = 2         # qwen: 2 MoE layers; deepseek: the dense prefix + 1
 # took ~50 s); deepseek keeps both (its first is the dense prefix)
 MOE_STEP_LAYERS = {"qwen2-moe-a2.7b": 1}
 MOE_STEP_B, MOE_STEP_S = 2, 32   # (a): the dense dispatch on the CPU
-MOE_WARM_STEPS, MOE_TIMED_STEPS = 2, 6     # (b), then one profiled step
+MOE_WARM_STEPS, MOE_TIMED_STEPS = 2, 3     # (b), then one profiled step
 MOE_CLI_STEPS = 6
 # (c) float32 decode against float32 prefill: |logit diff| <= 3e-3 x the
 # largest |prefill logit| (tests/test_mla.py's decode-vs-prefill 3e-3,
@@ -4616,7 +4636,7 @@ SSM_DECODE_TOL = 3e-3
 # element (wq of the second layer), with ~1.2M elements of that leaf
 # beyond rtol 1e-4 / atol 1e-5 x max; the loss by 1e-7 relative
 XLSTM_GRAD_ATOL_REL = 1e-2
-XLSTM_TRAIN_STEPS = 4      # (b) launch.train at full size, one checkpoint
+XLSTM_TRAIN_STEPS = 2      # (b) launch.train at full size, one checkpoint
 SSM_CLI_STEPS = 6
 
 
@@ -5381,11 +5401,16 @@ def _vlm(dev, card, tcfg, pool, cpu_pool):
 
 
 MESH_ARCH_STEPS = 10       # (a): lm-100m at 1x1 against the plain step
-MESH_SHARED_STEPS = 5      # (b): 2x1 and 1x2, two ranks on one card
+MESH_SHARED_STEPS = 3      # (b): 2x1 and 1x2, two ranks on one card
 MESH_MOE_STEPS = 3         # (d): reduced qwen2-moe-a2.7b, 2x1 vs 1x1
 MESH_LOSS_RTOL = 1e-5      # tests/test_torch_lm_train.py's STEP
 MESH_BF16_STEPS = 3        # (b'): the config's bfloat16 at 2x1 vs 1x1
 MESH_BF16_RTOL = 2.0 ** -8  # one bfloat16 ulp: a 2x1 gradient rounds twice
+# (b'') 1x2 splits the model axis: a row-split product's output is two
+# bfloat16 parts summed in float32 and rounded again, where one process
+# rounds the whole product once; each loss, a float32 mean of the CE
+# over LM_B x LM_S tokens, is held within one bfloat16 ulp of 1x1's
+MESH_BF16_SPLIT_RTOL = 2.0 ** -8
 MESH_TIMEOUT = 600
 MESH_PSUM_SHAPES = ((768, 3072), (32000,), (7, 5))
 
@@ -5439,15 +5464,18 @@ def _mesh_worker(rank, world, init, out_dir, reduced, device):
     res = {}
     try:
         for shape in ("2x1", "1x2"):
+            base = _allocated(dev)
             out = _mesh_launch(LM_ARCH, shape, MESH_SHARED_STEPS, reduced,
                                device)
             res[shape] = {"losses": out["losses"], "rank": out["rank"],
-                          "backend": out["backend"]}
+                          "backend": out["backend"], "base": base}
             del out
-        out = _mesh_launch(LM_ARCH, "2x1", MESH_BF16_STEPS, reduced, device,
-                           "bfloat16")
-        res["bf16"] = {"losses": out["losses"], "rank": out["rank"]}
-        del out
+        for shape, key in (("2x1", "bf16"), ("1x2", "bf16_1x2")):
+            out = _mesh_launch(LM_ARCH, shape, MESH_BF16_STEPS, reduced,
+                               device, "bfloat16")
+            res[key] = {"losses": out["losses"], "rank": out["rank"]}
+            del out
+        res["flops_1x2"] = _mesh_step_flops(reduced, dev)
         mesh = make_host_mesh((world, 1), device=dev)
         leaves = {k: torch.as_tensor(v).to(dev)
                   for k, v in _mesh_psum_inputs(rank).items()}
@@ -5464,6 +5492,51 @@ def _mesh_worker(rank, world, init, out_dir, reduced, device):
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
+
+
+def _allocated(dev):
+    import torch
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.synchronize(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def _mesh_step_flops(reduced, dev):
+    """FlopCounterMode's count of one float32 LM_ARCH training step over
+    the open group as a 1 x 2 mesh (after a warm step), at the dry run's
+    settings: ``make_mesh_train_step`` on the launcher's init, the
+    batch of ``api.make_batch``."""
+    import dataclasses
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.config import ShapeConfig, TrainConfig, get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.spmd import (local_batch, make_mesh_train_step,
+                                           param_shardings, shard_tree)
+    cfg = dataclasses.replace(get_config(LM_ARCH, reduced=reduced),
+                              dtype="float32")
+    tcfg = TrainConfig(lr=3e-4, sgdr_t0=50)
+    shape = ShapeConfig("train", "train", LM_S, LM_B)
+    mesh = make_host_mesh((1, 2), device=dev)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                             device=dev)
+    psh = param_shardings(cfg, params, mesh)
+    params = shard_tree(params, psh)
+    batch = local_batch(api.make_batch(cfg, shape,
+                                       torch.Generator().manual_seed(0),
+                                       device=dev), mesh, cfg, shape)
+    step = make_mesh_train_step(cfg, tcfg, mesh, psh, shape)
+    args = (params, adamw_init(params), batch)
+    del params
+    out = step(*args)
+    del out
+    with FlopCounterMode(display=False) as fc:
+        out = step(*args)
+        _allocated(dev)
+    return int(fc.get_total_flops())
 
 
 def _k_launches():
@@ -5511,19 +5584,55 @@ def _mesh_plain_losses(cfg, dev, steps):
     return losses
 
 
+def _mesh_transient(line):
+    """A rank line's peak above what was allocated before its run, its
+    carry's bytes (param and AdamW shards) and that peak less the carry
+    handed in and the one handed back."""
+    peak = int(round((line["peak_mem_gib"] or 0.0) * 2 ** 30)) - line["base"]
+    resident = line["param_bytes"] + line["opt_bytes"]
+    return {"peak": peak, "resident": resident,
+            "transient": peak - 2 * resident}
+
+
+def _mesh_flops_check(card_flops, card):
+    import dataclasses
+    from repro_torch.config import (MeshConfig, ShapeConfig, TrainConfig,
+                                    get_config)
+    from repro_torch.launch.dryrun import cost_cell
+    cfg = dataclasses.replace(get_config(LM_ARCH, reduced=LM_REDUCED),
+                              dtype="float32")
+    tcfg = TrainConfig(lr=3e-4, sgdr_t0=50)
+    shape = ShapeConfig("train", "train", LM_S, LM_B)
+    meta = {m: cost_cell(cfg, shape, MeshConfig(m, ("data", "model")),
+                         tcfg)[0].dot_flops for m in ((1, 2), (1, 1))}
+    log(f"mesh (e) {LM_ARCH} float32 step at 1x2 ({card}), rank 0 under "
+        f"FlopCounterMode: {card_flops} FLOPs; the dry run's meta count at "
+        f"(1, 2) {meta[(1, 2)]:.0f}, at (1, 1) {meta[(1, 1)]:.0f} "
+        f"({meta[(1, 1)] / meta[(1, 2)]:.4f}x)")
+    require(card_flops == meta[(1, 2)] and meta[(1, 2)] < meta[(1, 1)],
+            f"(e) the card's 1x2 step counts {card_flops} FLOPs against the "
+            f"meta {meta[(1, 2)]:.0f} (1x1: {meta[(1, 1)]:.0f})")
+    return {"card": card_flops, "meta_1x2": meta[(1, 2)],
+            "meta_1x1": meta[(1, 1)]}
+
+
 def phase_mesh(dev, card):
     """The LM over a mesh of processes: (a) lm-100m at full width,
     float32, through launch.train --mesh-shape 1x1 in a one-rank NCCL
     group, MESH_ARCH_STEPS steps bit for bit against the plain step
     with no process group; (b) two ranks sharing the card over gloo,
-    at 2x1 and 1x2, MESH_SHARED_STEPS steps against (a)'s first losses
-    at MESH_LOSS_RTOL, each rank's ms/step, peak memory and the bytes
-    it holds against the whole; (b') the config's bfloat16 at 2x1
-    against 1x1 at MESH_BF16_RTOL; (c) psum_int8 over those ranks on CUDA
-    tensors bit for bit against the formula on one rank; (d) the reduced
-    MoE LM at 2x1 against one rank.  One card checks ranks that share
-    it, not several cards.  None of K1-K5 is on these paths: their
-    counts must stay 0 in every process."""
+    at 2x1 and 1x2 (the model axis's compute split), MESH_SHARED_STEPS
+    steps against (a)'s first losses at MESH_LOSS_RTOL, each rank's
+    ms/step, peak memory and the bytes it holds against the whole; at
+    1x2 a rank's peak less its carry in and out falls below one whole
+    copy of the params; (b') the config's bfloat16 at 2x1 against 1x1
+    at MESH_BF16_RTOL, (b'') at 1x2 at MESH_BF16_SPLIT_RTOL; (c)
+    psum_int8 over those ranks on CUDA tensors bit for bit against the
+    formula on one rank; (d) the reduced MoE LM at 2x1 against one rank;
+    (e) rank 0's FLOPs of a 1x2 step equal the dry run's meta count,
+    below the 1x1 count.  One card checks ranks that share it, not
+    several cards.  None of K1-K5 is on these paths: their counts must
+    stay 0 in every process."""
     import dataclasses
     import shutil
     import tempfile
@@ -5547,6 +5656,7 @@ def phase_mesh(dev, card):
         dist.init_process_group(backend, init_method=f"file://{tmp}/a",
                                 world_size=1, rank=0)
         try:
+            base = _allocated(dev)
             one = _mesh_launch(LM_ARCH, "1x1", MESH_ARCH_STEPS,
                                LM_REDUCED, dev.type)
         finally:
@@ -5554,8 +5664,9 @@ def phase_mesh(dev, card):
         require(one["backend"] == backend and one["world"] == 1,
                 f"(a) ran on {one['backend']} over {one['world']} ranks")
         same = [a == b for a, b in zip(one["losses"], plain)]
-        log(f"mesh (a) {LM_ARCH} float32 {LM_B} x {LM_S}, launch.train "
-            f"--mesh-shape 1x1 in a 1-rank {backend} group against the plain "
+        log(f"mesh (a) {LM_ARCH} float32 {LM_B} x {LM_S} ({card}), "
+            f"launch.train --mesh-shape 1x1 in a 1-rank {backend} group "
+            f"against the plain "
             f"step: {sum(same)} of {len(plain)} losses bit-identical; "
             f"{one['ms_per_step']:.3f} ms/step, peak "
             f"{_gib(one['peak_mem_gib'])}; losses {one['losses']}")
@@ -5565,6 +5676,8 @@ def phase_mesh(dev, card):
         res["one"] = {k: one[k] for k in ("ms_per_step", "peak_mem_gib",
                                           "losses")}
         res["one"]["rank"] = one["rank"]
+        res["one"]["transient"] = _mesh_transient(dict(one["rank"],
+                                                       base=base))
         del one
         # (b)-(d): two ranks sharing the card
         t0 = time.perf_counter()
@@ -5588,8 +5701,8 @@ def phase_mesh(dev, card):
                 got, plain[:MESH_SHARED_STEPS]))
             for r in ranks:
                 line = r[shape]["rank"]
-                log(f"mesh (b) {shape}, two ranks sharing one card over "
-                    f"gloo (not a multi-GPU result), rank {line['rank']} "
+                log(f"mesh (b) {shape}, two ranks sharing one card ({card}) "
+                    f"over gloo (not a multi-GPU result), rank {line['rank']} "
                     f"at {tuple(line['coords'])}: "
                     f"{line['ms_per_step']:.3f} ms/step, peak "
                     f"{_gib(line['peak_mem_gib'])}; holds params "
@@ -5598,13 +5711,36 @@ def phase_mesh(dev, card):
                     f"), AdamW state {line['opt_bytes']} of "
                     f"{line['opt_bytes_whole']} B "
                     f"({line['opt_bytes'] / line['opt_bytes_whole']:.3f})")
-            log(f"mesh (b) {shape} losses {got}: largest relative "
+            log(f"mesh (b) {shape} ({card}) losses {got}: largest relative "
                 f"difference from (a)'s {err:.3e} (limit "
                 f"{MESH_LOSS_RTOL:g})")
             require(len(got) == MESH_SHARED_STEPS and err <= MESH_LOSS_RTOL,
                     f"(b) {shape} losses {got} against {plain}")
             res[shape] = {"losses": got, "rel_err": err,
                           "ranks": [r[shape]["rank"] for r in ranks]}
+        # (b) at 1x2 the model axis splits the compute: a rank's peak less
+        # the shards it holds stays below one whole copy of the params
+        whole = ranks[0]["1x2"]["rank"]["param_bytes_whole"]
+        res["1x2"]["transient"] = []
+        for r in ranks:
+            line = dict(r["1x2"]["rank"], base=r["1x2"]["base"])
+            t = _mesh_transient(line)
+            res["1x2"]["transient"].append(t)
+            log(f"mesh (b) 1x2 rank {line['rank']} ({card}): "
+                f"{line['ms_per_step']:.3f} ms/step; max_memory_allocated "
+                f"{t['peak']} B above the {line['base']} B allocated "
+                f"before the run, of which its carry in and out (param and "
+                f"AdamW shards, {t['resident']} B each: the step is pure, "
+                f"both live at its end) {2 * t['resident']} B: "
+                f"{t['transient']} B beside the whole params' {whole} B "
+                f"({t['transient'] / whole:.3f} of a copy; 1x1 in (a): "
+                f"{res['one']['transient']['transient']} B, "
+                f"{res['one']['transient']['transient'] / whole:.3f})")
+            if dev.type == "cuda":
+                require(t["transient"] < whole,
+                        f"(b) 1x2 rank {line['rank']}: peak less its shards "
+                        f"{t['transient']} B is not below one whole copy "
+                        f"of the params ({whole} B)")
         # (b') the config's bfloat16: shards gathered as bytes
         bf16 = _mesh_launch(LM_ARCH, "1x1", MESH_BF16_STEPS, LM_REDUCED,
                             dev.type, "bfloat16")
@@ -5612,14 +5748,30 @@ def phase_mesh(dev, card):
         err = max(abs(a - b) / abs(b) for a, b in zip(got, bf16["losses"]))
         ms2 = ranks[0]["bf16"]["rank"]["ms_per_step"]
         log(f"mesh (b') {LM_ARCH} bfloat16 at 2x1 (two ranks sharing the "
-            f"card) against 1x1: losses {got} / {bf16['losses']}, largest "
-            f"relative difference {err:.3e} (limit {MESH_BF16_RTOL:.3e}, "
-            f"one bfloat16 ulp); rank 0 {ms2:.3f} ms/step against "
+            f"card, {card}) against 1x1: losses {got} / {bf16['losses']}, "
+            f"largest relative difference {err:.3e} (limit "
+            f"{MESH_BF16_RTOL:.3e}, one bfloat16 ulp); rank 0 {ms2:.3f} ms/step against "
             f"{bf16['ms_per_step']:.3f} at 1x1")
         require(len(got) == MESH_BF16_STEPS and err <= MESH_BF16_RTOL,
                 f"(b') bfloat16 losses {got} against {bf16['losses']}")
         res["bf16"] = {"losses": got, "one": bf16["losses"], "rel_err": err}
+        # (b'') bfloat16 at 1x2: the model axis's split in the config's
+        # dtype, against the same 1x1 run
+        got = ranks[0]["bf16_1x2"]["losses"]
+        err = max(abs(a - b) / abs(b) for a, b in zip(got, bf16["losses"]))
+        log(f"mesh (b'') {LM_ARCH} bfloat16 at 1x2, the model axis split "
+            f"(two ranks sharing the card, {card}) against 1x1: losses "
+            f"{got} / {bf16['losses']}, largest relative difference "
+            f"{err:.3e} (limit {MESH_BF16_SPLIT_RTOL:.3e}, one bfloat16 "
+            f"ulp); rank 0 {ranks[0]['bf16_1x2']['rank']['ms_per_step']:.3f}"
+            f" ms/step")
+        require(len(got) == MESH_BF16_STEPS and err <= MESH_BF16_SPLIT_RTOL,
+                f"(b'') bfloat16 1x2 losses {got} against {bf16['losses']}")
+        res["bf16_1x2"] = {"losses": got, "rel_err": err}
         del bf16
+        # (e) rank 0's FLOPs of one 1x2 step equal the dry run's meta count
+        # of the same step, below the one-process count
+        res["flops"] = _mesh_flops_check(ranks[0]["flops_1x2"], card)
         # (c) the formula on one rank, on the card
         ins = [{k: torch.as_tensor(v).to(dev)
                 for k, v in _mesh_psum_inputs(r).items()} for r in range(2)]
@@ -5647,7 +5799,8 @@ def phase_mesh(dev, card):
         err = max(abs(a - b) / abs(b) for a, b in zip(got,
                                                       moe_one["losses"]))
         log(f"mesh (d) {MOE_ARCHS[0]} reduced at 2x1 (ranks sharing the "
-            f"card) against one rank: losses {got} / {moe_one['losses']}, "
+            f"card, {card}) against one rank: losses {got} / "
+            f"{moe_one['losses']}, "
             f"largest relative difference {err:.3e}")
         require(len(got) == MESH_MOE_STEPS and err <= MESH_LOSS_RTOL,
                 f"(d) MoE losses {got} against {moe_one['losses']}")
@@ -5663,7 +5816,7 @@ def phase_mesh(dev, card):
             dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     res["seconds"] = time.perf_counter() - t_start
-    log(f"mesh phase {res['seconds']:.1f} s (the 2 ranks' processes "
+    log(f"mesh phase ({card}) {res['seconds']:.1f} s (the 2 ranks' processes "
         f"{res['ranks_s']:.1f} s)")
     return res
 
@@ -6002,12 +6155,18 @@ def phase_examples(dev):
             require(want in proc.stdout, f"example {name}: no '{want}'")
         results[name] = dict(seconds=seconds)
 
+    def chain(name, argv):   # the second serving run after the first
+        done = [run(name, argv)]
+        if name == "serve_lut (train)" and done[0][1].returncode == 0:
+            done.append(run("serve_lut (load)", ["serve_lut_torch.py"]
+                            + serve))
+        return done
+
     try:
-        # the first three at once, the second serving run after the first
         with ThreadPoolExecutor(len(runs)) as pool:
-            for done in list(pool.map(lambda kv: run(*kv), runs.items())):
-                check(*done)
-        check(*run("serve_lut (load)", ["serve_lut_torch.py"] + serve))
+            for done in list(pool.map(lambda kv: chain(*kv), runs.items())):
+                for d in done:
+                    check(*d)
     finally:
         shutil.rmtree(reg, ignore_errors=True)
     log("examples: " + "; ".join(
@@ -6378,43 +6537,43 @@ def main() -> int:
     dev = torch.device("cuda")
     cfg = get_config("neuralut-jsc-5l")
 
-    card = phase_environment()
-    phase_build()
-    floor = phase_launch_floor(dev)
-    k2 = phase_subnet_kernel(cfg, dev)
-    k1, tile_sweep = phase_cascade_kernel(cfg, dev)
-    k1_dag, dag_sweep, dag_cases = phase_dag_cascade_kernel(dev)
-    k3 = phase_gather_kernel(cfg, dev)
-    k3l = phase_layer_kernel(cfg, dev)
-    launches, served = phase_main_path(cfg, dev)
-    stages = phase_convert_stages(cfg, dev)
-    layer = phase_layer_serving(cfg, dev, served)
-    rtl = phase_rtl(cfg, served)
-    graph_launches, graph, graph_served = phase_graph_serving(dev)
+    card = clock(phase_environment)
+    clock(phase_build)
+    floor = clock(phase_launch_floor, dev)
+    k2 = clock(phase_subnet_kernel, cfg, dev)
+    k1, tile_sweep = clock(phase_cascade_kernel, cfg, dev)
+    k1_dag, dag_sweep, dag_cases = clock(phase_dag_cascade_kernel, dev)
+    k3 = clock(phase_gather_kernel, cfg, dev)
+    k3l = clock(phase_layer_kernel, cfg, dev)
+    launches, served = clock(phase_main_path, cfg, dev)
+    stages = clock(phase_convert_stages, cfg, dev)
+    layer = clock(phase_layer_serving, cfg, dev, served)
+    rtl = clock(phase_rtl, cfg, served)
+    graph_launches, graph, graph_served = clock(phase_graph_serving, dev)
     probe = {"before": profiler_probe(dev)}
-    stack = phase_serving_stack(dev, card, served, graph_served)
-    probe["after"] = profiler_probe(dev)
+    stack = clock(phase_serving_stack, dev, card, served, graph_served)
+    probe["after"] = clock(profiler_probe, dev)
     log("profiler probe (K4 at O=64 S=1 and a PyTorch control, 5 calls a "
         "trace), short traces before / after the serving stack: " + "; ".join(
             f"{k} {probe['before'][k]} / {probe['after'][k]} of "
             f"{probe['before']['traces']}" for k in ("k4", "control")))
-    sharded = phase_sharded(cfg, dev, served, graph_served)
-    k4, k5 = phase_train_kernels(cfg, dev)
-    shapes = phase_train_shapes(dev)
-    train = phase_train_path(cfg, dev)
-    seed_k = phase_seed_kernels(cfg, dev)
-    ens = phase_ensemble_path(cfg, dev)
-    gtrain = phase_graph_train_path(get_config(GRAPH_ARCH), dev)
-    kinds = phase_kinds(cfg, dev)
-    examples = phase_examples(dev)
-    sweep_k = phase_sweep_kernels(dev)
-    sweep = phase_sweep(dev)
-    lm = phase_lm(dev, card)
-    moe = phase_moe_lm(dev, card)
-    ssm = phase_ssm_lm(dev, card)
-    edv = phase_encdec_vlm_lm(dev, card)
-    mesh = phase_mesh(dev, card)
-    dry = phase_dryrun(dev, card, lm, moe, edv)
+    sharded = clock(phase_sharded, cfg, dev, served, graph_served)
+    k4, k5 = clock(phase_train_kernels, cfg, dev)
+    shapes = clock(phase_train_shapes, dev)
+    train = clock(phase_train_path, cfg, dev)
+    seed_k = clock(phase_seed_kernels, cfg, dev)
+    ens = clock(phase_ensemble_path, cfg, dev)
+    gtrain = clock(phase_graph_train_path, get_config(GRAPH_ARCH), dev)
+    kinds = clock(phase_kinds, cfg, dev)
+    examples = clock(phase_examples, dev)
+    sweep_k = clock(phase_sweep_kernels, dev)
+    sweep = clock(phase_sweep, dev)
+    lm = clock(phase_lm, dev, card)
+    moe = clock(phase_moe_lm, dev, card)
+    ssm = clock(phase_ssm_lm, dev, card)
+    edv = clock(phase_encdec_vlm_lm, dev, card)
+    mesh = clock(phase_mesh, dev, card)
+    dry = clock(phase_dryrun, dev, card, lm, moe, edv)
 
     head, dag_head = k1[HEADLINE_B], k1_dag[HEADLINE_B]
     kernels = [
@@ -6671,7 +6830,10 @@ def main() -> int:
         + "; ".join(f"{k} (two ranks sharing the card) " + ", ".join(
             f"rank {r['rank']} {r['ms_per_step']:.3f} ms/step"
             for r in mesh[k]["ranks"]) for k in ("2x1", "1x2"))
-        + f"; phase {mesh['seconds']:.1f} s")
+        + f"; 1x2 peak less the shards "
+        + ", ".join(f"{t['transient']} B" for t in mesh["1x2"]["transient"])
+        + f"; bfloat16 1x2 {mesh['bf16_1x2']['rel_err']:.3e}; FLOPs at 1x2 "
+        f"{mesh['flops']['card']} = meta; phase {mesh['seconds']:.1f} s")
     log(f"dryrun ({card}): " + "; ".join(
         f"{name} bound {c['bound_ms']:.3f} ms against {c['measured_ms']:.3f} "
         f"measured, peak meta {c['meta_peak'] / 2**30:.3f} / card "
@@ -6682,6 +6844,9 @@ def main() -> int:
         f"{k} at R = {v['replicas']} {v['seconds']:.3f} s (R = 1: "
         f"{sum(g['seconds_r1'] for g in v['groups']):.3f} s)"
         for k, v in sweep["replicas"].items()))
+    log(f"phases ({card}), wall s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_S.items())
+        + f"; the script {time.perf_counter() - T_START:.1f} s")
     log(card)  # nvidia-smi's "name, power.limit", as it printed them
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

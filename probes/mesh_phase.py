@@ -1,0 +1,35 @@
+"""``chip_smoke.py``'s mesh phase alone: its checks and its lines.
+
+    python3 probes/mesh_phase.py          # on the card
+    python3 probes/mesh_phase.py --cpu    # a rehearsal on the host,
+                                          # reduced lm-100m, gloo ranks
+
+Exits non-zero when a check of the phase fails.
+"""
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+
+def main(argv=None) -> int:
+    import torch
+    import chip_smoke as cs
+    argv = sys.argv[1:] if argv is None else argv
+    if "--cpu" in argv:
+        cs.LM_REDUCED = True
+        dev, card = torch.device("cpu"), "the host's CPU (rehearsal)"
+    else:
+        card, dev = cs.phase_environment(), torch.device("cuda")
+    res = cs.phase_mesh(dev, card)
+    print(json.dumps({k: res[k] for k in ("bf16_1x2", "flops", "seconds")}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,13 +7,15 @@ For each mesh shape, spawns one process per device of the shape (ranks
 share the card: gloo; one rank: no process group) and runs ``lm-100m``
 in float32 at 8 x 128 tokens through the parts of
 ``sharding.spmd.make_mesh_train_step``, timed one by one with the device
-synchronized after each: ``gather`` (every leaf whole from the shards),
-``loss+grads`` (the loss and backward on the rank's rows), ``average``
-(float32 gradient sums over the data axes), ``update`` (the gradient
-shards, the clip norm and AdamW on the rank's shards).  The first step
-is left out.  Prints one JSON line per shape with each rank's median ms
-per part and per step; the step's arithmetic is the launcher's (the
-losses are printed to hold against ``launch.train``).
+synchronized after each: ``loss+grads`` (the loss and backward on the
+rank's rows, with the per-layer gathers over the data axes, the model
+axis's split and the gradients' float32 sums over the data ranks in the
+backward), ``clip`` (the whole gradient's squared norm from the shards,
+summed over the mesh), ``update`` (AdamW on the rank's shards).  The
+first step is left out.  Prints one JSON line per shape with each
+rank's median ms per part and per step and its peak device memory; the
+step's arithmetic is the launcher's (the losses are printed to hold
+against ``launch.train``).
 """
 from __future__ import annotations
 
@@ -44,11 +46,10 @@ def _worker(rank, world, init, out_dir, shape, steps, device, reduced):
     from repro_torch.launch.mesh import make_mesh_from_config
     from repro_torch.models import api
     from repro_torch.optim import adamw_init, adamw_update, sgdr_schedule
-    from repro_torch.sharding import ctx
-    from repro_torch.sharding.spmd import (_mean_over, _zip, gather_tree,
-                                           local_batch, param_shardings,
-                                           shard_tree)
-    from repro_torch.train.step import loss_and_grads, make_loss_fn
+    from repro_torch.sharding.spmd import (_mean_over, grad_sq,
+                                           local_batch, mesh_loss_and_grads,
+                                           param_shardings, shard_tree)
+    from repro_torch.train.step import make_loss_fn
 
     dev = resolve_device(device)
     if world > 1:
@@ -73,9 +74,10 @@ def _worker(rank, world, init, out_dir, shape, steps, device, reduced):
         dax = mesh.data_axes
         split = dax if mesh.size(dax) > 1 else None
         make = lm_batch_fn(cfg.vocab_size, B, S, seed=0)
-        parts = {k: [] for k in ("gather", "loss+grads", "average",
-                                 "update", "step")}
+        parts = {k: [] for k in ("loss+grads", "clip", "update", "step")}
         losses = []
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         for s in range(steps):
             batch = local_batch({k: torch.as_tensor(v)
                                  for k, v in make(s).items()}, mesh, cfg,
@@ -83,36 +85,33 @@ def _worker(rank, world, init, out_dir, shape, steps, device, reduced):
             batch = {k: v.to(dev) for k, v in batch.items()}
             sync()
             t = [time.perf_counter()]
-            params = gather_tree(params_s, psh)
+            grads, (loss, _) = mesh_loss_and_grads(
+                loss_fn, mesh, psh, params_s, batch, 1, split)
             sync()
             t.append(time.perf_counter())
-            with ctx.active_mesh(mesh, data_axes=dax), \
-                    ctx.batch_split(split):
-                grads, (loss, _) = loss_and_grads(loss_fn, params, batch)
-            sync()
-            t.append(time.perf_counter())
-            del params
-            grads = _zip(lambda g, _: _mean_over(mesh, g, dax), grads,
-                         grads)
+            sq = grad_sq(mesh, grads, psh)
             sync()
             t.append(time.perf_counter())
             lr = sgdr_schedule(opt_s["count"], lr_max=tcfg.lr,
                                lr_min=tcfg.lr_min, t0=tcfg.sgdr_t0,
                                t_mult=tcfg.sgdr_t_mult)
             params_s, opt_s = adamw_update(
-                shard_tree(grads, psh), opt_s, params_s, lr=lr,
-                beta1=tcfg.beta1, beta2=tcfg.beta2, eps=tcfg.eps,
+                grads, opt_s, params_s, lr=lr, beta1=tcfg.beta1,
+                beta2=tcfg.beta2, eps=tcfg.eps,
                 weight_decay=tcfg.weight_decay, grad_clip=tcfg.grad_clip,
-                clip_from=grads)
+                grad_sq=sq)
             losses.append(float(_mean_over(mesh, loss, dax)))
             sync()
             t.append(time.perf_counter())
             if s:
-                for k, a, b in zip(list(parts)[:4], t, t[1:]):
+                for k, a, b in zip(list(parts)[:3], t, t[1:]):
                     parts[k].append(1e3 * (b - a))
                 parts["step"].append(1e3 * (t[-1] - t[0]))
+        peak = (torch.cuda.max_memory_allocated(dev)
+                if dev.type == "cuda" else None)
         out = {"rank": rank, "coords": list(mesh.coords),
                "backend": mesh.backend, "losses": losses,
+               "peak_bytes": peak,
                "ms": {k: statistics.median(v) for k, v in parts.items()}}
     finally:
         if world > 1:

@@ -13,11 +13,13 @@ prefill cells, as the reference's) or ``make_mesh_serve_step``
 (decode).  ``roofline.counter.count_step`` counts the step; nothing is
 allocated.
 
-The counts are the port's own, not the reference's: the model axis
-shards storage only, so a rank computes the whole model on its rows,
-and its ``dot_flops`` are about the model axis's size times the
-reference's per-device count (``useful_ratio`` falls by that factor;
-ROADMAP.md, Queue A).
+The counts are the port's own, not the reference's: a rank gathers
+each layer's params over the data axes and computes its block of what
+the model axis splits (attention heads, dense FFN units, the
+vocabulary); MoE experts, MLA, Mamba and xLSTM layers and the decode
+step stay whole over the model axis, so their cells count about the
+model axis's size times the reference's per-device work there
+(ROADMAP.md, Queue A).
 
 A record has the reference's keys.  ``lower_s`` is the seconds to build
 the specs, shardings and meta shards; ``compile_s`` those of the

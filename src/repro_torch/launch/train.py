@@ -52,8 +52,10 @@ it: (n / 2, 2), the reference's; ``--mesh single`` / ``multi``: the
 processes) and every step is ``sharding.spmd``'s ZeRO-3 step: each rank
 stores its shards of the params and AdamW state by ``param_partition``,
 takes its rows of the global batch by ``batch_partition``, and equals
-one process at the same global batch.  The model axis shards storage
-only.  One process is the mesh of ones.  Rank 0 prints the loss every
+one process at the same global batch.  The model axis splits attention
+heads, the dense FFN and the vocabulary; MoE, MLA, Mamba and xLSTM
+layers stay whole over it (ROADMAP.md, Queue A).  One process is the
+mesh of ones.  Rank 0 prints the loss every
 ``--log-every`` steps, then ms/step, tokens/s and the peak device
 memory; over several ranks each rank prints its own ms/step, peak and
 the bytes it holds against the whole (``mesh rank summary``).
@@ -278,8 +280,9 @@ def _train_lm_mesh(args, cfg, mesh) -> Dict[str, Any]:
     say = print if lead else (lambda *a, **k: None)
     say(f"mesh {mesh.shape} devices={mesh.world} ({dev}) backend="
         f"{mesh.backend or 'none'} axes={mesh.axes}: params and AdamW "
-        "state sharded over the data and model axes; the model axis "
-        "shards storage only, its compute is not split", flush=True)
+        "state sharded over the data and model axes, gathered per layer; "
+        "the model axis splits attention heads, the dense FFN and the "
+        "vocabulary", flush=True)
     tcfg = TrainConfig(lr=args.lr if args.lr is not None else 3e-4,
                        grad_accum=args.grad_accum,
                        sgdr_t0=max(50, args.steps // 4))
@@ -334,6 +337,9 @@ def _train_lm_mesh(args, cfg, mesh) -> Dict[str, Any]:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     carry, start, restarts = (params, opt), 0, 0
+    # the carry alone holds the first shards: a step's new carry then
+    # replaces them rather than standing beside a third copy
+    del params, opt
     t0 = time.perf_counter()
     try:
         if args.ckpt_dir:

@@ -16,6 +16,9 @@ state (``launch.serve``'s) holds zero cross K/V, not an encoded input.
 The blocks are stacked over layers (``enc_blocks``, ``dec_blocks``) and
 ``prefix_blocks`` is empty, so a reference tree bridges leaf for leaf;
 the reference's ``layer_mode`` "scan" and "unroll" are one loop here.
+In a mesh step the blocks are gathered per layer; the decoder's
+self-attention, its FFN and the vocabulary split over the model axis,
+the encoder and the cross attention stay whole.
 """
 from __future__ import annotations
 
@@ -25,11 +28,12 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.sharding import tensor_parallel as tp
 from .layers import attention as attn_lib
 from .layers.common import (TensorSpec, apply_mlp, apply_norm, dtype_of,
                             mlp_spec, norm_spec)
 from .lm import (_check_layer_mode, _head_logits, _remat, _stack, _unstack,
-                 chunked_ce_loss, embed_tokens)
+                 chunked_ce_loss, embed_tokens, gathering)
 
 Params = Dict[str, Any]
 
@@ -90,13 +94,22 @@ def param_spec(cfg: ModelConfig, *, model_axis: int = 16) -> Params:
     }
 
 
+# the leaves outside the stacks, gathered once per step over a mesh
+TOP_KEYS = ("embed", "lm_head", "enc_in", "enc_norm", "final_norm")
+
+
 def _enc_block(cfg, p, x, *, q_chunk):
     h = apply_norm(p["ln1"], x, cfg.norm)
     h = attn_lib.apply_attention(p["self"], cfg.attention, h, causal=False,
                                  q_chunk=q_chunk, impl=cfg.attn_impl)
     x = x + h
     h = apply_norm(p["ln2"], x, cfg.norm)
-    return x + apply_mlp(p["ffn"], h, cfg.act)
+    return x + _mlp(cfg, p, h)
+
+
+def _mlp(cfg, p, h):
+    return apply_mlp(p["ffn"], h, cfg.act,
+                     split=p["ffn"]["w_down"].shape[-2] != cfg.d_ff)
 
 
 def _dec_block(cfg, p, x, enc_out, *, q_chunk):
@@ -110,7 +123,7 @@ def _dec_block(cfg, p, x, enc_out, *, q_chunk):
                                        impl=cfg.attn_impl)
     x = x + h
     h = apply_norm(p["ln2"], x, cfg.norm)
-    return x + apply_mlp(p["ffn"], h, cfg.act)
+    return x + _mlp(cfg, p, h)
 
 
 def _n_layers(stack) -> int:
@@ -127,7 +140,10 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
         q_chunk = cfg.attn_chunk
     x = frames.to(dtype_of(cfg.dtype)) @ params["enc_in"]
     x = x + _sinusoid(x.shape[1], cfg.d_model, x)
-    fn = _remat(functools.partial(_enc_block, cfg, q_chunk=q_chunk), remat)
+    # the encoder stays whole over a mesh's model axis
+    fn = _remat(gathering(functools.partial(_enc_block, cfg, q_chunk=q_chunk),
+                          tp.shardings_of("enc_blocks"), stacked=True),
+                remat)
     stack = params["enc_blocks"]
     for bp in _unstack(stack, _n_layers(stack)):
         x = fn(bp, x)
@@ -137,7 +153,13 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
 def _decoder(cfg, params, tokens, enc_out, *, remat, q_chunk):
     x = embed_tokens(cfg, params, tokens)
     x = x + _sinusoid(x.shape[1], cfg.d_model, x)
-    fn = _remat(functools.partial(_dec_block, cfg, q_chunk=q_chunk), remat)
+    # the decoder's self-attention and FFN split over a mesh's model
+    # axis; its cross attention stays whole
+    split = ("self", "ffn") if cfg.attention.num_heads \
+        % tp.model_size() == 0 else ("ffn",)
+    fn = _remat(gathering(functools.partial(_dec_block, cfg, q_chunk=q_chunk),
+                          tp.shardings_of("dec_blocks"), split,
+                          stacked=True), remat)
     stack = params["dec_blocks"]
     for bp in _unstack(stack, _n_layers(stack)):
         x = fn(bp, x, enc_out)
@@ -152,6 +174,7 @@ def encdec_loss(cfg: ModelConfig, params: Params, batch, *,
     ``encode(frames)``; the aux loss is 0."""
     if cfg.attn_chunk:
         q_chunk = cfg.attn_chunk
+    params = tp.gather_top(params, TOP_KEYS, split=("embed", "lm_head"))
     enc_out = encode(cfg, params, batch["frames"], layer_mode=layer_mode,
                      remat=remat, q_chunk=q_chunk)
     x = _decoder(cfg, params, batch["tokens"], enc_out, remat=remat,

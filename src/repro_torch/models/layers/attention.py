@@ -9,7 +9,15 @@ parity tests hold the port to the reference's own arithmetic.
 
   * Prefill attention is chunked over query blocks (one-level chunking
     with a full-row stable softmax); sliding-window layers attend over a
-    band of KV per query chunk.
+    band of KV per query chunk, the bands cut from the keys once
+    (``unfold``), so the backward adds their gradients into one tensor
+    of the keys, not one per chunk.
+  * In a step that splits the model axis a layer given its model block
+    of the weights computes this rank's query heads: ``wq``/``wk``/``wv``
+    by columns, ``wo`` by rows, the output summed over the model ranks;
+    kv heads that the axis does not divide (``wk``/``wv`` split across
+    ``head_dim``) are gathered from their owners, the rank's query heads'
+    kept, and their gradient summed back.
   * ``flash_attention`` is the online softmax over KV tiles with a
     tile-recomputing backward (``torch.autograd.Function``, the
     reference's custom VJP): only (out, lse) are saved.
@@ -25,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import AttentionConfig
+from repro_torch.sharding import tensor_parallel as tp
 from .common import TensorSpec, sequential_loop
 from .rope import apply_mrope, apply_rope
 
@@ -124,13 +133,20 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     outs = []
     with sequential_loop("attn_q_chunks", nchunk) as steps:
         qcs = steps.pieces(qg, 1, q_chunk)
+        if banded:
+            # every band, cut once: band w holds keys [w * q_chunk,
+            # w * q_chunk + band), (B, KV, D, band) each
+            kbs = steps.pieces(k.unfold(1, band, q_chunk), 1)
+            vbs = steps.pieces(v.unfold(1, band, q_chunk), 1)
+            lead = band // q_chunk - 1
         for ci in steps:
             start = ci * q_chunk
             qc = qcs[ci]
             if banded:
                 kstart = max(start + q_chunk - band, 0)
-                kc = k[:, kstart:kstart + band]
-                vc = v[:, kstart:kstart + band]
+                w = max(ci - lead, 0)
+                kc = kbs[w].permute(0, 3, 1, 2)
+                vc = vbs[w].permute(0, 3, 1, 2)
                 rows = start + ar_q
                 cols = kstart + torch.arange(band, device=q.device)
                 m = (cols[None, :] <= rows[:, None]) & (
@@ -333,16 +349,83 @@ def _rope_qk(cfg, q, k, positions, b, s):
             apply_rope(k, positions, cfg.rope_theta))
 
 
+def _kv_runs(first_q: int, n_q: int, rep: int):
+    """[(kv head, query heads on it), ...] of query heads first_q ..
+    first_q + n_q - 1 in order (query head i reads kv head i // rep)."""
+    runs = []
+    for i in range(first_q, first_q + n_q):
+        if runs and runs[-1][0] == i // rep:
+            runs[-1][1] += 1
+        else:
+            runs.append([i // rep, 1])
+    return runs
+
+
+def _split_qkv(p: Params, cfg: AttentionConfig, x: torch.Tensor,
+               positions, fused_qkv: bool):
+    """This rank's query heads' q, k, v (B, S, H / model, hd), roped,
+    k and v repeated to the query heads, from its model block of the
+    weights."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    m, r = tp.model_size(), tp.model_rank()
+    h_l = cfg.num_heads // m
+    kv = cfg.num_kv_heads
+    rep = cfg.num_heads // kv
+    x = tp.copy_to_model(x)
+    if kv % m == 0:
+        # the rank's kv heads are those its query heads read
+        kv_l = kv // m
+        if fused_qkv:
+            wqkv = torch.cat([p["wq"], _tile_kv_weight(p["wk"], kv_l, rep),
+                              _tile_kv_weight(p["wv"], kv_l, rep)], dim=1)
+            qkv = (x @ wqkv).reshape(b, s, 3, h_l, hd)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            q, k = _rope_qk(cfg, q, k, positions, b, s)
+            return q, k, v
+        q = (x @ p["wq"]).reshape(b, s, h_l, hd)
+        k = (x @ p["wk"]).reshape(b, s, kv_l, hd)
+        v = (x @ p["wv"]).reshape(b, s, kv_l, hd)
+        q, k = _rope_qk(cfg, q, k, positions, b, s)
+        return q, repeat_kv(k, rep), repeat_kv(v, rep)
+    # wk / wv split across head_dim: every rank's columns gathered, the
+    # kv heads of this rank's query heads kept (the backward sums their
+    # gradient over the ranks, each of which keeps its columns)
+    runs = _kv_runs(r * h_l, h_l, rep)
+    first, n = runs[0][0], runs[-1][0] - runs[0][0] + 1
+    q = (x @ p["wq"]).reshape(b, s, h_l, hd)
+
+    def heads(w):
+        t = tp.gather_from_model(x @ w, -1, grad="sum")
+        return t.reshape(b, s, kv, hd)[:, :, first:first + n]
+
+    k, v = heads(p["wk"]), heads(p["wv"])
+    q, k = _rope_qk(cfg, q, k, positions, b, s)
+
+    def expand(t):
+        if n == 1:
+            return repeat_kv(t, h_l)
+        return torch.cat([t[:, :, j - first:j - first + 1].expand(
+            b, s, c, hd) for j, c in runs], dim=2)
+    return q, expand(k), expand(v)
+
+
 def apply_attention(p: Params, cfg: AttentionConfig, x: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     positions: Optional[torch.Tensor] = None,
                     q_chunk: int = 512, impl: str = "chunked",
                     fused_qkv: bool = False) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D)."""
+    """x: (B, S, D) -> (B, S, D).  Given this rank's model block of the
+    weights (``wq`` narrower than ``q_dim``), it computes the rank's
+    query heads and sums the output over the model ranks."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     rep = cfg.num_heads // cfg.num_kv_heads
     h = cfg.num_heads
+    if p["wq"].shape[1] != cfg.q_dim:
+        q, k, v = _split_qkv(p, cfg, x, positions, fused_qkv)
+        o = _attend(q, k, v, causal, window, q_chunk, impl)
+        return tp.reduce_from_model(o.reshape(b, s, -1) @ p["wo"])
     if fused_qkv:
         wk = _tile_kv_weight(p["wk"], cfg.num_kv_heads, rep)
         wv = _tile_kv_weight(p["wv"], cfg.num_kv_heads, rep)
@@ -357,13 +440,16 @@ def apply_attention(p: Params, cfg: AttentionConfig, x: torch.Tensor, *,
         q, k = _rope_qk(cfg, q, k, positions, b, s)
         k = repeat_kv(k, rep)
         v = repeat_kv(v, rep)
-    if impl == "flash":
-        o = flash_attention(q, k, v, causal=causal, window=window,
-                            q_chunk=q_chunk, kv_chunk=q_chunk)
-    else:
-        o = chunked_attention(q, k, v, causal=causal, window=window,
-                              q_chunk=q_chunk)
+    o = _attend(q, k, v, causal, window, q_chunk, impl)
     return o.reshape(b, s, cfg.q_dim) @ p["wo"]
+
+
+def _attend(q, k, v, causal, window, q_chunk, impl):
+    if impl == "flash":
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               q_chunk=q_chunk, kv_chunk=q_chunk)
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             q_chunk=q_chunk)
 
 
 def apply_cross_attention(p: Params, cfg: AttentionConfig,

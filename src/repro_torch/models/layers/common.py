@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import tensor_parallel as tp
 from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
@@ -191,8 +192,14 @@ def mlp_spec(d_model: int, d_ff: int, dtype) -> Params:
 
 
 def apply_mlp(p: Params, x: torch.Tensor, act: str,
-              fused: bool = False) -> torch.Tensor:
+              fused: bool = False, split: bool = False) -> torch.Tensor:
+    """The gated MLP.  ``split``: ``p`` holds this rank's block of the
+    hidden units (``w_gate``/``w_up`` columns, ``w_down`` rows) in a
+    step that splits the model axis: the input's gradient and the
+    output are summed over the model ranks."""
     a = activation(act)
+    if split:
+        x = tp.copy_to_model(x)
     if fused:
         # one matmul for gate and up
         w = torch.cat([p["w_gate"], p["w_up"]], dim=1)
@@ -201,4 +208,5 @@ def apply_mlp(p: Params, x: torch.Tensor, act: str,
         h = a(gu[..., :ff]) * gu[..., ff:]
     else:
         h = a(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    out = h @ p["w_down"]
+    return tp.reduce_from_model(out) if split else out

@@ -41,11 +41,13 @@ exactly the 2-D matmuls.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import CheckpointPolicy
 
 from repro_torch.config.base import MoEConfig
 from repro_torch.sharding.spmd import batch_counts_before, batch_mean
@@ -197,8 +199,42 @@ def apply_moe(p: Params, cfg: MoEConfig, x: torch.Tensor, act: Callable, *,
 
     if "ws_gate" in p:
         h = act(xt @ p["ws_gate"]) * (xt @ p["ws_up"])
-        out = out + h @ p["ws_down"]
+        with _kept():
+            out = out + h @ p["ws_down"]
     return out.reshape(b, s, d), aux * cfg.aux_loss_coef
+
+
+# ---------------------------------------------------------------------------
+# What a checkpoint keeps
+
+_KEEP = [False]
+
+
+@contextlib.contextmanager
+def _kept():
+    """The products run within it are kept by ``keep_policy``."""
+    _KEEP[0] = True
+    try:
+        yield
+    finally:
+        _KEEP[0] = False
+
+
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def keep_policy(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of a block with an MoE FFN under
+    remat "full": keep the results of the routed combine and of the
+    shared experts' down projection (their products, run in ``_kept``),
+    recompute everything else.  No backward reads those results, so the
+    recompute need not run them, as XLA's remat does not; a plain
+    checkpoint reruns a block up to its last op that saves a tensor,
+    the shared experts' projection, and so the combine.  The kept
+    results are (tokens, d_model) each."""
+    if _KEEP[0] and op in _PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _expert_in(xt: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -213,7 +249,9 @@ def _dense_dispatch(p, xt, gates, act):
     """Every expert on every token, masked by its gate weight."""
     h = act(_expert_in(xt, p["w_gate"])) * _expert_in(xt, p["w_up"])
     o = torch.einsum("etf,efd->etd", h, p["w_down"])           # (E, T, D)
-    return torch.einsum("etd,te->td", o, gates.to(o.dtype))
+    g = gates.to(o.dtype)
+    with _kept():
+        return torch.einsum("etd,te->td", o, g)
 
 
 def _capacity_dispatch(p, cfg, xt, gates, act, capacity_factor):
@@ -249,4 +287,5 @@ def _capacity_dispatch(p, cfg, xt, gates, act, capacity_factor):
     # combine: gather each token's k expert outputs, weight, sum
     y = oe.reshape(e * cap, d)[flat].reshape(t, k, d)
     w = torch.where(keep, top_w, 0.0).to(oe.dtype)
-    return torch.einsum("tkd,tk->td", y, w)
+    with _kept():
+        return torch.einsum("tkd,tk->td", y, w)

@@ -14,11 +14,13 @@ projections, the MLP and the experts' gate and up products) and
 recomputes the rest, "none" saves all.
 
 Embeddings: a tied table goes in through a chunked one-hot matmul, as
-the reference's; an untied one through a gather whose backward is the
-same one-hot matmul.  Both backward passes are therefore matmuls, with
-no atomics, so a step is bitwise reproducible on the card.  The loss is
-computed in chunks over the tokens, each chunk's (tokens, vocab) logits
-recomputed in the backward, so the full logits never materialize.
+the reference's; an untied one through a gather whose backward sums the
+gradient's rows by token id (``segment_rows``: a sort and a sum per
+id, the reference's scatter without float atomics).  Neither backward
+uses atomics, so a step is bitwise reproducible on the card.  The loss
+is computed in chunks over the tokens, each chunk's (tokens, vocab)
+logits recomputed in the backward, so the full logits never
+materialize.
 
 The parameter tree pads an MoE layer's experts to a multiple of the
 reference's model axis (``model_axis=16``: qwen2's 60 to 64 inert
@@ -28,7 +30,11 @@ stub (qwen2-vl) projects precomputed patch embeddings through
 embeddings; its 3-D M-RoPE positions come with the batch.  The
 encoder-decoder (whisper) lives in ``encdec.py`` and reuses the
 embedding, the loss, remat and stacking from here.  The reference's
-sharding constraints are dropped: one device has no sharding.
+sharding constraints are dropped: a mesh step (``sharding.spmd``)
+gathers each block's params inside its checkpointed function, and a
+layer given its model block of the weights computes its part
+(``sharding.tensor_parallel``): attention heads, the dense FFN's units,
+the vocabulary of the embedding and the loss.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.config.base import LayerSpec, ModelConfig
+from repro_torch.sharding import tensor_parallel as tp
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 from .layers import attention as attn_lib
 from .layers import mamba as mamba_lib
@@ -54,6 +61,9 @@ Params = Dict[str, Any]
 
 LOSS_CHUNK = 512
 EMBED_CHUNK = 2048
+EMBED_COLS = 1024
+# the leaves outside the blocks, gathered once per step over a mesh
+TOP_KEYS = ("embed", "lm_head", "final_norm", "vision_proj")
 
 
 # ---------------------------------------------------------------------------
@@ -134,9 +144,54 @@ def _onehot_rows(tk: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     return F.one_hot(tk.long(), emb.shape[0]).to(emb.dtype) @ emb
 
 
+def _onehot_rows_from(tk: torch.Tensor, emb: torch.Tensor,
+                      first: int) -> torch.Tensor:
+    """``emb``'s rows of the ids ``first`` to ``first + len(emb)`` by a
+    one-hot matmul; rows of other ids are zero (a vocabulary block)."""
+    ids = torch.arange(first, first + emb.shape[0], device=tk.device)
+    return (tk.long()[:, None] == ids[None, :]).to(emb.dtype) @ emb
+
+
+def segment_rows(g: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """(n, D): row i the sum of ``g``'s rows whose id is i, in their
+    order, in float32, cast back to ``g``'s dtype; zero where no id is i.
+    The ids are sorted (stable), ``torch.segment_reduce`` sums each
+    distinct id's run of rows on its own, ``EMBED_COLS`` columns at a
+    time, and each sum is copied to its id's row: no float atomics, so
+    two runs give the same bits, and the work follows the tokens, not
+    the table."""
+    ids = ids.reshape(-1).long()
+    t = ids.shape[0]
+    dev = ids.device
+    order = torch.argsort(ids, stable=True)
+    sid = ids[order]
+    rows = g.reshape(t, -1)[order]
+    # each sorted row's run, the index of its id among the distinct ids
+    start = torch.ones(t, dtype=torch.bool, device=dev)
+    start[1:] = sid[1:] != sid[:-1]
+    run = torch.cumsum(start.long(), 0) - 1
+    counts = torch.zeros(t, dtype=torch.long, device=dev).index_add_(
+        0, run, torch.ones_like(run))
+    # run k's id (every row of a run writes the same one); the slots
+    # past the last run go to rows n + k, beyond the table
+    ids_of = torch.zeros(t, dtype=torch.long, device=dev).scatter_(
+        0, run, sid)
+    dest = torch.where(counts > 0, ids_of,
+                       n + torch.arange(t, device=dev))
+    d = rows.shape[1]
+    out = torch.zeros((n + t, d), dtype=g.dtype, device=g.device)
+    for c in range(0, d, EMBED_COLS):
+        sums = torch.segment_reduce(
+            rows[:, c:c + EMBED_COLS].to(torch.float32), "sum",
+            lengths=counts, axis=0, unsafe=True)
+        out[:, c:c + EMBED_COLS].index_copy_(0, dest, sums.to(g.dtype))
+    return out[:n]
+
+
 class _GatherRows(torch.autograd.Function):
-    """``emb[tokens]`` with the one-hot matmul as its backward (chunks
-    of ``EMBED_CHUNK`` tokens): no scatter atomics."""
+    """``emb[tokens]`` whose backward sums the output gradient's rows by
+    token id (``segment_rows``): a scatter's arithmetic without float
+    atomics."""
 
     @staticmethod
     def forward(ctx, emb, flat):
@@ -147,13 +202,7 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (flat,) = ctx.saved_tensors
-        out = None
-        for c in range(0, flat.shape[0], EMBED_CHUNK):
-            oh = F.one_hot(flat[c:c + EMBED_CHUNK].long(),
-                           ctx.vocab).to(g.dtype)
-            part = oh.t() @ g[c:c + EMBED_CHUNK]
-            out = part if out is None else out + part
-        return out, None
+        return segment_rows(g, flat, ctx.vocab), None
 
 
 def _maybe_checkpoint(fn, *args):
@@ -164,14 +213,28 @@ def _maybe_checkpoint(fn, *args):
 
 def embed_tokens(cfg: ModelConfig, params: Params,
                  tokens: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) token embeddings.  Given this rank's model block of the
+    table (a step that splits the model axis): an untied table's columns
+    are looked up and gathered over the model axis; a tied table's
+    vocabulary rows are looked up (zeros for other ids) and summed over
+    it."""
     emb = params["embed"]
     b, s = tokens.shape
     flat = tokens.reshape(-1)
     if not cfg.tie_embeddings:
-        return _GatherRows.apply(emb, flat).reshape(b, s, cfg.d_model)
+        x = _GatherRows.apply(emb, flat)
+        if emb.shape[1] != cfg.d_model:
+            x = tp.gather_from_model(x, -1)
+        return x.reshape(b, s, cfg.d_model)
     # Tied: chunked one-hot matmul, each chunk recomputed in backward.
     n = flat.shape[0]
     chunk = min(EMBED_CHUNK, n)
+    if emb.shape[0] != cfg.vocab_size:
+        first = tp.model_rank() * emb.shape[0]
+        xs = [_maybe_checkpoint(_onehot_rows_from, flat[c:c + chunk], emb,
+                                first) for c in range(0, n, chunk)]
+        x = tp.reduce_from_model(torch.cat(xs, dim=0))
+        return x.reshape(b, s, cfg.d_model)
     xs = [_maybe_checkpoint(_onehot_rows, flat[c:c + chunk], emb)
           for c in range(0, n, chunk)]
     return torch.cat(xs, dim=0).reshape(b, s, cfg.d_model)
@@ -193,14 +256,36 @@ def _ce_chunk(cfg, params, xc, lc):
     return torch.sum(torch.where(lc >= 0, lse - ll, 0.0))
 
 
+def _ce_stats(cfg, params, xc, lc):
+    """Per token of a chunk, over this rank's block of the vocabulary:
+    the largest logit (no gradient), the sum of exponentials below it
+    and the label's logit (0 where the label is another rank's)."""
+    logits = _head_logits(cfg, params, xc).float()
+    v = logits.shape[-1]
+    mx = torch.amax(logits.detach(), dim=-1)
+    se = torch.sum(torch.exp(logits - mx[:, None]), dim=-1)
+    iota = torch.arange(v, device=lc.device)[None, :] + tp.model_rank() * v
+    ll = torch.sum(torch.where(iota == lc[:, None], logits, 0.0), dim=-1)
+    return mx, se, ll
+
+
 def chunked_ce_loss(cfg: ModelConfig, params: Params, x: torch.Tensor,
                     labels: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy without materializing (tokens, vocab) logits:
     chunks of ``LOSS_CHUNK * batch`` tokens, each recomputed in the
-    backward, summed in order in float32."""
+    backward, summed in order in float32.  Given this rank's block of
+    the head's vocabulary, the loss is vocabulary-parallel: each chunk
+    gives its tokens' statistics over the block (``_ce_stats``), and
+    after the chunks the max, the sum of exponentials and the label's
+    logit are reduced over the model axis in float32, once for all the
+    tokens."""
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     lf = labels.reshape(b * s)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    split = head.shape[0 if cfg.tie_embeddings else 1] != cfg.vocab_size
+    if split:
+        xf = tp.copy_to_model(xf)
     n = xf.shape[0]
     chunk = min(LOSS_CHUNK * max(1, b), n)
     pad = (-n) % chunk
@@ -208,11 +293,24 @@ def chunked_ce_loss(cfg: ModelConfig, params: Params, x: torch.Tensor,
         xf = F.pad(xf, (0, 0, 0, pad))
         lf = F.pad(lf, (0, pad), value=-1)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    stats = []
     with sequential_loop("ce_chunks", xf.shape[0] // chunk) as steps:
         xs, ls = steps.pieces(xf, 0, chunk), steps.pieces(lf, 0, chunk)
         for c in steps:
-            tot = tot + _maybe_checkpoint(
-                functools.partial(_ce_chunk, cfg), params, xs[c], ls[c])
+            if split:
+                stats.append(_maybe_checkpoint(
+                    functools.partial(_ce_stats, cfg), params, xs[c], ls[c]))
+            else:
+                tot = tot + _maybe_checkpoint(
+                    functools.partial(_ce_chunk, cfg), params, xs[c], ls[c])
+        if split:
+            mx, se, ll = (steps.join(list(t), 0, stack=False)
+                          for t in zip(*stats))
+    if split:
+        top = tp.max_over_model(mx)
+        lse = top + torch.log(tp.reduce_from_model(se * torch.exp(mx - top)))
+        ll = tp.reduce_from_model(ll)
+        tot = torch.sum(torch.where(lf >= 0, lse - ll, 0.0))
     return tot / n
 
 
@@ -257,7 +355,8 @@ def apply_block(spec: LayerSpec, cfg: ModelConfig, p: Params,
     if spec.ffn != "none":
         h = apply_norm(p["ln2"], x, cfg.norm)
         if spec.ffn == "dense":
-            h = apply_mlp(p["ffn"], h, cfg.act, fused=cfg.fused_qkv)
+            h = apply_mlp(p["ffn"], h, cfg.act, fused=cfg.fused_qkv,
+                          split=p["ffn"]["w_down"].shape[-2] != cfg.d_ff)
         else:
             h, aux = moe_lib.apply_moe(p["ffn"], cfg.moe, h,
                                        activation(cfg.act),
@@ -278,18 +377,22 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _remat(fn, policy: str):
+def _remat(fn, policy: str, keep=None):
+    """``fn`` under the remat ``policy``; ``keep``: the selective policy
+    that "full" takes instead of recomputing every op (an MoE block's,
+    ``moe.keep_policy``)."""
     if policy not in ("none", "full", "dots"):
         raise ValueError(f"remat {policy!r}: 'none', 'full' or 'dots'")
+    pick = {"dots": _save_dots, "full": keep}.get(policy)
 
     def run(p, x, *rest):
         if policy == "none" or not torch.is_grad_enabled():
             return fn(p, x, *rest)
-        if policy == "dots":
+        if pick is not None:
             return checkpoint(fn, p, x, *rest, use_reentrant=False,
                               context_fn=functools.partial(
                                   create_selective_checkpoint_contexts,
-                                  _save_dots))
+                                  pick))
         return checkpoint(fn, p, x, *rest, use_reentrant=False)
     return run
 
@@ -306,25 +409,58 @@ def _check_layer_mode(layer_mode: str) -> None:
         raise ValueError(f"layer_mode {layer_mode!r}: 'scan' or 'unroll'")
 
 
+def _split_parts(spec: LayerSpec, cfg: ModelConfig) -> Tuple[str, ...]:
+    """The parts of a block that a step splitting the model axis
+    computes split: grouped-query attention whose heads divide the axis,
+    a dense FFN.  MLA, Mamba, xLSTM and MoE stay whole."""
+    a = cfg.attention
+    out = []
+    if spec.mixer == "attn" and a.kind != "mla" \
+            and a.num_heads % tp.model_size() == 0:
+        out.append("mixer")
+    if spec.ffn == "dense":
+        out.append("ffn")
+    return tuple(out)
+
+
+def gathering(fn, sh, split=(), *, stacked: bool = False):
+    """``fn(p, x, *rest)`` with the block's params ``p`` gathered first
+    (``tensor_parallel.gather_block`` by the block's shardings ``sh``),
+    inside whatever checkpoint wraps it; ``fn`` itself without a step
+    layout."""
+    if sh is None:
+        return fn
+
+    def run(p, x, *rest):
+        return fn(tp.gather_block(p, sh, split, stacked=stacked), x, *rest)
+    return run
+
+
 def apply_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                 positions=None, layer_mode: str = "scan",
                 remat: str = "full", q_chunk: int = 512
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run all layers. Returns (x, total_moe_aux)."""
+    """Run all layers. Returns (x, total_moe_aux).  Under a mesh step's
+    layout each block's params are gathered inside its checkpointed
+    function (so the backward gathers them again)."""
     _check_layer_mode(layer_mode)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     n_prefix = cfg.num_dense_prefix
     specs = cfg.layer_specs()
+    sh = tp.shardings_of()
 
-    def block(spec):
-        return _remat(functools.partial(apply_block, spec, cfg,
-                                        positions=positions,
-                                        q_chunk=q_chunk), remat)
+    def block(spec, bsh, stacked):
+        fn = functools.partial(apply_block, spec, cfg, positions=positions,
+                               q_chunk=q_chunk)
+        keep = moe_lib.keep_policy if spec.ffn == "moe" else None
+        return _remat(gathering(fn, bsh, _split_parts(spec, cfg),
+                                stacked=stacked), remat, keep)
 
     for i, bp in enumerate(params["prefix_blocks"]):
         s = LayerSpec(mixer=specs[i].mixer, ffn="dense",
                       window=specs[i].window)
-        x, aux = block(s)(bp, x)
+        x, aux = block(s, None if sh is None else sh["prefix_blocks"][i],
+                       False)(bp, x)
         aux_total = aux_total + aux
     if n_prefix:
         # the prefix layers replace the first repeats of the pattern
@@ -333,7 +469,8 @@ def apply_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
     rep = cfg.pattern_repeat
     stacks = [_unstack(params["blocks"][j], rep)
               for j in range(len(cfg.pattern))]
-    fns = [block(spec) for spec in cfg.pattern]
+    fns = [block(spec, None if sh is None else sh["blocks"][j], True)
+           for j, spec in enumerate(cfg.pattern)]
     for r in range(n_prefix, rep):
         for j, fn in enumerate(fns):
             x, aux = fn(stacks[j][r], x)
@@ -379,6 +516,7 @@ def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
                 f"{cfg.name}: the vision stub needs patch_embeds (B, "
                 f"{cfg.vision.num_patches}, {cfg.vision.patch_dim})")
         positions = batch.get("positions")
+    params = tp.gather_top(params, TOP_KEYS, split=("embed", "lm_head"))
     x = embed_inputs(cfg, params, batch["tokens"], batch.get("patch_embeds"))
     x, aux = apply_stack(cfg, params, x, positions=positions,
                          layer_mode=layer_mode, remat=remat, q_chunk=q_chunk)

@@ -61,30 +61,35 @@ def adamw_init_spec(param_spec) -> OptState:
     return state
 
 
+def tree_sq(tree) -> torch.Tensor:
+    """The squared norm of a tree's leaves, float64, leaf by leaf in tree
+    order (float64, so that the sum's order, which on CUDA follows the
+    leaf's shape, the seed count included, does not show)."""
+    return sum(torch.sum(torch.square(g.to(torch.float64)))
+               for g in tree_leaves(tree))
+
+
 def adamw_update(grads, state: OptState, params, *, lr,
                  beta1: float = 0.9, beta2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 0.0,
                  grad_clip: float = 0.0,
-                 clip_from=None) -> Tuple[Any, OptState]:
+                 grad_sq=None) -> Tuple[Any, OptState]:
     """One AdamW step -> (new params, new state).  ``lr`` may be a
     float32 tensor (the SGDR schedule's).  The clip scale is
     ``min(1, clip / max(gnorm, 1e-12))`` with the norm over all leaves;
-    ``clip_from`` is the tree that norm is taken over when it is not
-    ``grads`` (a mesh step updates a rank's shards by the norm of the
-    whole gradient); the step is ``lr * (mh / (sqrt(vh) + eps) + wd *
-    base)`` where ``base`` is the float32 master of a bfloat16
-    parameter, else the parameter.  Under ``torch.func.vmap`` over a leading seed axis (the
+    ``grad_sq`` is the norm squared (float64) when the caller has it: a
+    mesh step updates a rank's shards by the norm of the whole gradient,
+    summed over the mesh from the shards (``sharding.spmd.grad_sq``);
+    the step is ``lr * (mh / (sqrt(vh) + eps) + wd * base)`` where
+    ``base`` is the float32 master of a bfloat16 parameter, else the
+    parameter.  Under ``torch.func.vmap`` over a leading seed axis (the
     ensemble step) the norm, and so the clip, is each seed's own."""
     count = state["count"] + 1
     cf = count.to(torch.float32)
     bc1 = 1.0 - beta1 ** cf
     bc2 = 1.0 - beta2 ** cf
     if grad_clip > 0:
-        # float64, so that the sum's order (on CUDA it follows the
-        # leaf's shape, the seed count included) does not show
-        gsq = sum(torch.sum(torch.square(g.to(torch.float64)))
-                  for g in tree_leaves(grads if clip_from is None
-                                       else clip_from))
+        gsq = grad_sq if grad_sq is not None else tree_sq(grads)
         gnorm = torch.sqrt(gsq).to(torch.float32)
         scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
@@ -98,19 +103,25 @@ def adamw_update(grads, state: OptState, params, *, lr,
         g32 = g.to(torch.float32)
         if scale is not None:
             g32 = g32 * scale
-        m2 = beta1 * m + (1 - beta1) * g32
-        v2 = beta2 * v + (1 - beta2) * g32 * g32
-        mh = m2 / bc1
-        vh = v2 / bc2
+        # the same operations in the same order as written out
+        # (m2 = b1 m + (1 - b1) g; step = mh / (sqrt(vh) + eps) + wd base),
+        # in place on this update's own temporaries: fewer allocations
+        m2 = torch.mul(m, beta1).add_(torch.mul(g32, 1 - beta1))
+        v2 = torch.mul(v, beta2).add_(torch.mul(g32, 1 - beta2).mul_(g32))
         base = master if master is not None else p.to(torch.float32)
-        new_master = base - lr * (mh / (torch.sqrt(vh) + eps)
-                                  + weight_decay * base)
+        step = torch.div(m2, bc1).div_(torch.div(v2, bc2).sqrt_().add_(eps))
+        new_master = base - step.add_(torch.mul(base, weight_decay)).mul_(lr)
         return (new_master.to(p.dtype), m2, v2,
                 new_master if master is not None else None)
 
-    outs = [upd(*z) for z in zip(tree_leaves(grads), tree_leaves(state["m"]),
-                                 tree_leaves(state["v"]),
-                                 tree_leaves(params), masters)]
+    leaves = list(zip(tree_leaves(grads), tree_leaves(state["m"]),
+                      tree_leaves(state["v"]), tree_leaves(params), masters))
+    # the largest leaves first, so that each leaf's temporaries stand
+    # beside the fewest finished results (each leaf's update is its own:
+    # the order changes no value)
+    outs = [None] * len(leaves)
+    for i in sorted(range(len(leaves)), key=lambda i: -leaves[i][3].numel()):
+        outs[i] = upd(*leaves[i])
     new_state = {"m": tree_unflatten(params, [o[1] for o in outs]),
                  "v": tree_unflatten(params, [o[2] for o in outs]),
                  "count": count}

@@ -1,5 +1,5 @@
 """A training step over a (pod?, data, model) mesh of processes: ZeRO-3
-driven by the partition rules.
+driven by the partition rules, with the model axis's compute split.
 
 The reference is single-controller GSPMD: it places every param by
 ``param_partition`` and every batch by ``batch_partition`` and lets XLA
@@ -12,24 +12,36 @@ a step over a mesh equals one process at the same global batch:
   ``m``, ``v`` and float32 ``master``, the shard that the leaf's
   PartitionSpec names over the whole mesh (the data axes: FSDP; the
   model axis);
-* compute: each rank gathers every leaf whole, runs the unchanged
-  ``train.step`` loss and backward on its rows of the global batch
-  (``local_batch``; ranks along the model axis hold the same rows), the
-  gradients are averaged over the data axes (float32 sums, cast back
-  to each gradient's dtype), the ``compress_grads`` hook sees the
-  averaged gradient (the reference's hook sees the logical global one),
-  the clip norm is taken over the whole averaged gradient, and each rank
-  runs AdamW on its own shards.
+* compute: each rank runs the ``train.step`` loss and backward on its
+  rows of the global batch (``local_batch``; ranks along the model axis
+  hold the same rows) under a ``tensor_parallel.StepLayout``: the model
+  gathers each block's leaves over the data axes inside the block's
+  checkpointed function, so that the backward gathers them again, and
+  the embedding, the head and the final norm once per step; the
+  gather's backward sums the gradient over the data ranks in float32,
+  divides by their count and keeps the rank's block;
+* the model axis splits attention heads (``wq``/``wk``/``wv`` by
+  columns, ``wo`` by rows; kv heads that do not divide the axis are
+  gathered from their owners), the dense FFN's units and the
+  vocabulary (a vocabulary-parallel embedding and loss), Megatron's
+  column and row splits (``sharding.tensor_parallel``);
+* the ``compress_grads`` hook sees the averaged gradient gathered whole
+  (the reference's hook sees the logical global one), the clip norm is
+  summed over the whole mesh from each rank's shards (each element
+  once), and each rank runs AdamW on its own shards.
 
-The model axis shards storage only: no matmul is split over heads, FFN
-units, experts or the vocabulary (ROADMAP.md, Queue A).  A rank peaks
-at its shards plus one gathered copy of the params and the gradients.
+Still whole over the model axis, gathered per layer (ROADMAP.md, Queue
+A, the next item): MoE experts and shared experts, MLA, Mamba, xLSTM,
+whisper's encoder and cross attention, attention whose heads do not
+divide the axis, and the decode step (``make_mesh_serve_step`` gathers
+every leaf whole and computes the whole model on its rows).
 
 Collectives run over the mesh's process groups.  Under gloo a CUDA
 tensor is staged through pinned host memory for every collective
 (gloo reduces and gathers host buffers); under NCCL they run on the
 card.  With one rank on an axis a collective over it is the identity,
-so a one-process mesh is the plain step bit for bit.
+and no split op runs, so a one-process mesh is the plain step bit for
+bit.
 """
 from __future__ import annotations
 
@@ -40,7 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import MeshConfig
-from repro_torch.sharding import ctx
+from repro_torch.sharding import ctx, tensor_parallel
 from repro_torch.sharding.partition import (NamedSharding, PartitionSpec,
                                             batch_partition, named,
                                             param_partition)
@@ -166,6 +178,11 @@ class ProcessMesh:
         dist.all_reduce(h, op={"sum": dist.ReduceOp.SUM,
                                "max": dist.ReduceOp.MAX}[op], group=g[0])
         return h.to(t.device) if self.stage else h
+
+    def all_reduce_f32(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """``t`` summed over the ranks that ``axes`` span in float32, cast
+        back to its dtype (gloo takes no bfloat16)."""
+        return self.all_reduce(t.to(torch.float32), "sum", axes).to(t.dtype)
 
     def all_gather(self, t: torch.Tensor, axes) -> List[torch.Tensor]:
         """Every rank's ``t`` over ``axes``, in flattened index order.
@@ -367,6 +384,43 @@ def _mean_over(mesh: ProcessMesh, t: torch.Tensor, axes) -> torch.Tensor:
     return (s / n).to(t.dtype)
 
 
+def grad_sq(mesh: ProcessMesh, grads, shardings) -> torch.Tensor:
+    """The whole gradient's squared norm (float64) from this rank's
+    shards: each leaf's elements are counted once, by the rank at index
+    0 of every axis that the leaf's spec does not split, and the ranks'
+    sums are added in rank order on every rank.  One process: the sum
+    ``adamw_update`` takes over the tree."""
+    from repro_torch.optim.adamw import tree_sq
+    from repro_torch.tree import tree_leaves
+    own = []
+    for g, s in zip(tree_leaves(grads), tree_leaves(shardings)):
+        named_axes = {a for p in s.spec for a in _as_axes(p)}
+        if all(c == 0 for a, c in zip(mesh.axes, mesh.coords)
+               if a not in named_axes):
+            own.append(g)
+    local = tree_sq(own)
+    if not torch.is_tensor(local):      # this rank owns no element
+        local = torch.zeros((), dtype=torch.float64,
+                            device=tree_leaves(grads)[0].device)
+    if mesh.world == 1:
+        return local
+    parts = mesh.all_gather(local.reshape(1), mesh.axes)
+    return sum(parts[1:], parts[0]).reshape(())
+
+
+def mesh_loss_and_grads(loss_fn, mesh: ProcessMesh, shardings, params_s,
+                        batch, accum: int, split):
+    """(gradient shards averaged over the data ranks, (loss, metrics)):
+    the loss on this rank's rows under the step's layout (per-layer
+    gathers, the model axis split), differentiated with respect to the
+    shards."""
+    from repro_torch.train.step import loss_and_grads
+    with ctx.active_mesh(mesh, data_axes=mesh.data_axes), \
+            ctx.batch_split(split), \
+            tensor_parallel.step_layout(mesh, shardings):
+        return loss_and_grads(loss_fn, params_s, batch, accum)
+
+
 def make_mesh_train_step(cfg, tcfg, mesh: ProcessMesh, shardings, shape, *,
                          q_chunk: int = 512,
                          compress_grads: Optional[Callable] = None):
@@ -376,7 +430,8 @@ def make_mesh_train_step(cfg, tcfg, mesh: ProcessMesh, shardings, shape, *,
     ``local_batch``'s.  Metrics are the data ranks' means (the global
     batch's)."""
     from repro_torch.optim import adamw_update, sgdr_schedule
-    from repro_torch.train.step import loss_and_grads, make_loss_fn
+    from repro_torch.optim.adamw import tree_sq
+    from repro_torch.train.step import make_loss_fn
 
     loss_fn = make_loss_fn(cfg, tcfg, q_chunk=q_chunk)
     dax = mesh.data_axes
@@ -386,23 +441,22 @@ def make_mesh_train_step(cfg, tcfg, mesh: ProcessMesh, shardings, shape, *,
     split = dax if n_data > 1 and shape.global_batch % n_data == 0 else None
 
     def step(params_s, opt_s, batch):
-        params = gather_tree(params_s, shardings)
-        with ctx.active_mesh(mesh, data_axes=dax), \
-                ctx.batch_split(split):
-            grads, (loss, metrics) = loss_and_grads(
-                loss_fn, params, batch, tcfg.grad_accum)
-        del params
-        grads = _zip(lambda g, _: _mean_over(mesh, g, dax), grads, grads)
+        grads, (loss, metrics) = mesh_loss_and_grads(
+            loss_fn, mesh, shardings, params_s, batch, tcfg.grad_accum,
+            split)
         if compress_grads is not None:
-            grads = compress_grads(grads)
+            whole = compress_grads(gather_tree(grads, shardings))
+            grads = shard_tree(whole, shardings)
+            sq = tree_sq(whole)
+        else:
+            sq = grad_sq(mesh, grads, shardings)
         lr = sgdr_schedule(opt_s["count"], lr_max=tcfg.lr,
                            lr_min=tcfg.lr_min, t0=tcfg.sgdr_t0,
                            t_mult=tcfg.sgdr_t_mult)
         params_s, opt_s = adamw_update(
-            shard_tree(grads, shardings), opt_s, params_s, lr=lr,
-            beta1=tcfg.beta1, beta2=tcfg.beta2, eps=tcfg.eps,
-            weight_decay=tcfg.weight_decay, grad_clip=tcfg.grad_clip,
-            clip_from=grads)
+            grads, opt_s, params_s, lr=lr, beta1=tcfg.beta1,
+            beta2=tcfg.beta2, eps=tcfg.eps, weight_decay=tcfg.weight_decay,
+            grad_clip=tcfg.grad_clip, grad_sq=sq)
         metrics = {k: _mean_over(mesh, v, dax)
                    for k, v in dict(metrics, loss=loss).items()}
         return params_s, opt_s, dict(metrics, lr=lr)
@@ -456,6 +510,7 @@ def make_mesh_serve_step(cfg, mesh: ProcessMesh, shardings, cache_shardings,
 
 
 __all__ = ["ProcessMesh", "batch_counts_before", "batch_mean", "gather_leaf",
-           "gather_tree", "local_batch", "local_shard",
+           "gather_tree", "grad_sq", "local_batch", "local_shard",
+           "mesh_loss_and_grads",
            "make_mesh_serve_step", "make_mesh_train_step", "opt_shardings",
            "param_shardings", "shard_tree", "tree_bytes"]

@@ -4,6 +4,9 @@ a cell counted on the meta device.
 * ``cost_cell`` runs on reduced configs (dense, MoE, xLSTM, Mamba,
   enc-dec; train and decode) over the meshes (2, 1), (1, 2), (2, 2) and
   (2, 2, 2), and every tensor any op makes in it is on the meta device;
+* at (1, 2) a rank of a reduced dense LM (lm-100m, llama3-8b, yi-9b,
+  gemma3-12b) counts exactly half the dot FLOPs of (1, 1): the model
+  axis splits heads, FFN units and the vocabulary;
 * one production cell at full width (llama3-8b ``decode_32k`` on the
   single pod) runs through ``run_cell`` and its record has the
   reference's keys (the committed
@@ -17,7 +20,8 @@ a cell counted on the meta device.
   training and decode steps at 2x1 and 1x2;
 * the loop extension (``count_step(loop_steps=4)``) equals the full run
   field for field on one reduced mLSTM, sLSTM and Mamba layer at
-  sequences whose loops are long enough to extend (``LONG_LOOPS``).
+  sequences whose loops are long enough to extend (``LONG_LOOPS``), and
+  on a dense layer at (1, 2), whose loss is vocabulary-parallel.
 """
 import dataclasses
 import json
@@ -73,8 +77,32 @@ def test_cost_cell_runs_on_meta_over_small_meshes(arch, kind, mesh):
     assert spy.devices == {"meta"}
     assert ana.dot_flops > 0 and ana.hbm_bytes > 0 and ana.peak_bytes > 0
     assert mem.argument_size_in_bytes > 0
-    if kind == "train":     # the gradient average over the data axes
-        assert ("all-reduce" in ana.collective_breakdown) == (shape[-2] > 1)
+    if kind == "train":     # the gradient average over the data axes,
+        # the sums of the model axis's split (attention, FFN, vocabulary)
+        assert ("all-reduce" in ana.collective_breakdown) == (
+            shape[-2] > 1 or shape[-1] > 1)
+
+
+@pytest.mark.parametrize("arch", ["lm-100m", "llama3-8b", "yi-9b",
+                                  "gemma3-12b"])
+def test_the_model_axis_halves_a_dense_rank_flops(arch):
+    """At (1, 2) a rank of a dense LM counts half the (1, 1) step's dot
+    FLOPs: attention heads, FFN units and the vocabulary split over the
+    model axis.  What stays whole on a rank, by formula: the norms (no
+    dot), and the kv projections of a layer whose ``wk`` / ``wv`` the
+    axis does not split (none here: ``kv_dim`` divides 2; yi-9b's single
+    kv head is split across head_dim and gathered, so no product is
+    repeated)."""
+    cfg = get_config(arch, reduced=True)
+    a = cfg.attention
+    assert a.kv_dim % 2 == 0 and a.num_heads % 2 == 0
+    count = {}
+    for shape in ((1, 1), (1, 2)):
+        ana, _, _, _ = dryrun.cost_cell(
+            cfg, ShapeConfig("c", "train", S, B),
+            MeshConfig(shape, ("data", "model")), TrainConfig())
+        count[shape] = ana.dot_flops
+    assert 2 * count[(1, 2)] == count[(1, 1)], count
 
 
 def _keys(rec):
@@ -242,6 +270,23 @@ def _one_mixer(arch, mixer):
     cfg = get_config(arch, reduced=True)
     spec = next(p for p in cfg.pattern if p.mixer == mixer)
     return dataclasses.replace(cfg, num_layers=1, pattern=(spec,))
+
+
+def test_loop_extension_equals_the_full_run_over_the_model_axis():
+    """At (1, 2) the vocabulary-parallel loss reduces its statistics over
+    the model axis once, after its chunks, so a loop of 33 loss chunks
+    (and 33 query chunks) extends from 4, 5 and 6 of them and equals
+    the full run, collectives included."""
+    cfg = dataclasses.replace(get_config("llama3-8b", reduced=True),
+                              num_layers=1)
+    args = (cfg, ShapeConfig("l", "prefill", 33 * 512, 1),
+            MeshConfig((1, 2), ("data", "model")), TrainConfig())
+    ext, mem_ext, _, _ = dryrun.cost_cell(*args, loop_steps=4)
+    full, mem_full, _, _ = dryrun.cost_cell(*args, loop_steps=None)
+    assert ext.loops and not full.loops
+    assert "all-reduce" in full.collective_breakdown
+    assert dataclasses.replace(ext, loops={}) == full
+    assert mem_ext == mem_full
 
 
 @pytest.mark.parametrize("arch,mixer,seq", [

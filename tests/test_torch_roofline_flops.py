@@ -8,20 +8,12 @@ tests/test_torch_roofline_flops_dense.py).
 The two steps differ by named terms only, each a formula of the config
 (``T`` = rows x tokens, ``E`` the padded experts):
 
-* ``embed_onehot`` (+2 T V d): an untied embedding's backward in the
-  port is a one-hot matmul (``models/lm._GatherRows``, no scatter
-  atomics on the card); the reference's is a scatter, not a dot;
 * ``moe_outer`` (+2 T d E per MoE layer) and ``mamba_outer`` (+2 T DI N
   per Mamba layer): the backward of ``einsum("etd,te->td")`` (the MoE
   combine) and of ``einsum("bsdn,bsn->bsd")`` (Mamba's readout) take,
   for one operand, an outer product, which PyTorch runs as a batched
   matmul of contraction 1 (counted) and XLA as a multiply (not a dot):
   the same arithmetic;
-* ``moe_combine_recompute`` (+2 T d E per MoE layer with shared
-  experts, remat full): PyTorch's checkpoint recomputes a block's ops up
-  to the last one that saves a tensor (the shared experts' projection,
-  after the combine); XLA's remat drops ops whose results no backward
-  reads, and the combine's is read by none (ROADMAP.md, Queue C);
 * ``mlstm_last_state`` (-2 x 2 B H W dh^2 per mLSTM layer, remat full):
   the reference's scan over chunks updates the matrix state after the
   last chunk too, in the forward and the recompute; nothing reads it,
@@ -29,6 +21,10 @@ The two steps differ by named terms only, each a formula of the config
 * ``slstm_h0_grad`` (-2 B H 4dh dh per sLSTM layer): the reference's
   scan takes the gradient of its first step's recurrent input, the
   constant zero state; the port's autograd does not.
+
+An untied embedding's backward (a sum of the gradient's rows by token
+id) and the MoE layer's recompute (which stops before the routed
+combine) add no dot, as the reference's scatter and remat add none.
 """
 import pytest
 import torch
@@ -101,14 +97,10 @@ def terms(arch, remat="full"):
     def add(name, v):
         out[name] = out.get(name, 0) + v
 
-    if not cfg.tie_embeddings:
-        add("embed_onehot", 2 * t * cfg.vocab_size * d)
     for spec in cfg.layer_specs():
         if spec.ffn == "moe":
             e = padded_num_experts(cfg.moe, 16)
             add("moe_outer", 2 * t * d * e)
-            if cfg.moe.num_shared > 0 and remat == "full":
-                add("moe_combine_recompute", 2 * t * d * e)
         if spec.mixer == "mamba":
             add("mamba_outer", 2 * t * cfg.ssm.expand * d * cfg.ssm.d_state)
         if spec.mixer == "mlstm" and remat == "full":
@@ -136,5 +128,4 @@ def check_train(arch, remat):
 # each: ~7 s)
 @pytest.mark.parametrize("arch", LM_ARCHS[:4])
 def test_train_flops_equal_the_reference_up_to_named_terms(arch):
-    named = check_train(arch, "full")
-    assert set(named) - {"embed_onehot"}
+    assert check_train(arch, "full")

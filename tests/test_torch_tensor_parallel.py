@@ -1,0 +1,268 @@
+"""The model axis's split ops (``repro_torch.sharding.tensor_parallel``),
+in the layers that use them, over gloo processes on the CPU against the
+unsplit layer on one process: values and gradients.
+
+Cases (float32, inputs drawn with numpy from a seed):
+
+* attention, ``wq``/``wk``/``wv`` split by columns and ``wo`` by rows:
+  kv heads dividing the model axis (4 heads, 2 kv; plain and
+  ``fused_qkv``); one kv head (``wk``/``wv`` split across head_dim, the
+  kv head gathered from its owners); 6 heads over 3 kv heads, which the
+  axis does not divide (a rank's query heads read two kv heads); a
+  sliding window over several query chunks; M-RoPE;
+* the dense FFN (plain and fused gate/up);
+* the vocabulary-parallel embedding: tied (the rank's vocabulary rows,
+  summed over the axis) and untied (its d_model columns, gathered);
+* the vocabulary-parallel loss (``lm.chunked_ce_loss``), tied and
+  untied heads.
+
+Each runs at 1x2 and at 2x2, where each data rank takes half the rows:
+the one-process reference runs the layer on the same row blocks, and
+the weights' gradients are summed over the blocks (the mesh step
+averages them).  Held to rtol 1e-5, atol 1e-6 x the largest element of
+each array (float32 sums split in two, as the mesh step's).  Under a
+layout whose model axis has one rank every layer is the plain one bit
+for bit and no collective runs.
+"""
+import dataclasses
+import os
+import time
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+TIMEOUT_S = 150
+B, S, D = 4, 32, 48
+VOCAB = 64
+TOL = dict(rtol=1e-5)
+ATOL = 1e-6
+
+
+def _acfg(heads, kv, *, rope="rope", window=0):
+    from repro_torch.config.base import AttentionConfig
+    return AttentionConfig(num_heads=heads, num_kv_heads=kv, head_dim=8,
+                           rope_kind=rope, window=window,
+                           mrope_sections=(2, 1, 1) if rope == "mrope"
+                           else ())
+
+
+def _mcfg(tied):
+    from repro_torch.config import get_config
+    return dataclasses.replace(get_config("llama3-8b", reduced=True),
+                               d_model=D, vocab_size=VOCAB,
+                               tie_embeddings=tied, dtype="float32")
+
+
+# name: (kind, settings); "split" names each weight's dim over "model"
+CASES = {
+    "attn_kv2": ("attn", dict(heads=4, kv=2)),
+    "attn_kv2_fused": ("attn", dict(heads=4, kv=2, fused=True)),
+    "attn_kv1": ("attn", dict(heads=4, kv=1)),
+    "attn_kv3_of_6": ("attn", dict(heads=6, kv=3)),
+    "attn_window": ("attn", dict(heads=4, kv=2, window=6, q_chunk=8)),
+    "attn_mrope": ("attn", dict(heads=4, kv=1, rope="mrope")),
+    "mlp": ("mlp", dict(fused=False)),
+    "mlp_fused": ("mlp", dict(fused=True)),
+    "embed_tied": ("embed", dict(tied=True)),
+    "embed_untied": ("embed", dict(tied=False)),
+    "loss_tied": ("loss", dict(tied=True)),
+    "loss_untied": ("loss", dict(tied=False)),
+}
+
+
+def _draw(name):
+    """(whole weights, inputs, each weight's model-split dim) as numpy."""
+    kind, kw = CASES[name]
+    rng = np.random.default_rng(sorted(CASES).index(name))
+
+    def w(*shape):
+        return (rng.normal(0, 1, shape) / np.sqrt(shape[0])).astype(
+            np.float32)
+
+    ins = {"x": rng.normal(0, 1, (B, S, D)).astype(np.float32),
+           "r": rng.normal(0, 1, (B, S, D)).astype(np.float32)}
+    if kind == "attn":
+        a = _acfg(kw["heads"], kw["kv"], rope=kw.get("rope", "rope"))
+        ws = {"wq": w(D, a.q_dim), "wk": w(D, a.kv_dim),
+              "wv": w(D, a.kv_dim), "wo": w(a.q_dim, D)}
+        split = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
+        if kw.get("rope") == "mrope":
+            ins["positions"] = rng.integers(0, S, (B, S, 3)).astype(np.int32)
+    elif kind == "mlp":
+        ws = {"w_gate": w(D, 80), "w_up": w(D, 80), "w_down": w(80, D)}
+        split = {"w_gate": 1, "w_up": 1, "w_down": 0}
+    else:
+        tied = kw["tied"]
+        ws = {"embed": w(VOCAB, D)}
+        split = {"embed": 0 if tied or kind == "loss" else 1}
+        if kind == "loss" and not tied:
+            ws, split = {"lm_head": w(D, VOCAB)}, {"lm_head": 1}
+        ins["tokens"] = rng.integers(0, VOCAB, (B, S)).astype(np.int64)
+        labels = rng.integers(0, VOCAB, (B, S)).astype(np.int64)
+        labels[:, -3:] = -1          # masked positions
+        ins["labels"] = labels
+    return ws, ins, split
+
+
+def _layer(name, p, ins):
+    """The layer of case ``name`` on params ``p`` and one row block of
+    the inputs -> (its output, the scalar whose gradients are held)."""
+    from repro_torch.models import lm
+    from repro_torch.models.layers.attention import apply_attention
+    from repro_torch.models.layers.common import apply_mlp
+    kind, kw = CASES[name]
+    if kind == "attn":
+        a = _acfg(kw["heads"], kw["kv"], rope=kw.get("rope", "rope"),
+                  window=kw.get("window", 0))
+        out = apply_attention(p, a, ins["x"], window=a.window,
+                              positions=ins.get("positions"),
+                              q_chunk=kw.get("q_chunk", 512),
+                              fused_qkv=kw.get("fused", False))
+    elif kind == "mlp":
+        out = apply_mlp(p, ins["x"], "silu", fused=kw["fused"],
+                        split=p["w_down"].shape[0] != 80)
+    elif kind == "embed":
+        out = lm.embed_tokens(_mcfg(kw["tied"]), p, ins["tokens"])
+    else:
+        out = lm.chunked_ce_loss(_mcfg(kw["tied"]), p, ins["x"],
+                                 ins["labels"])
+        return out, out
+    return out, torch.sum(out * ins["r"])
+
+
+def _blocks(ins, n, i):
+    return {k: torch.as_tensor(v[i * (B // n):(i + 1) * (B // n)])
+            for k, v in ins.items()}
+
+
+def _run(name, p, ins, n_data, data_index):
+    """(output, gradients of the params and of x) on one row block."""
+    p = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+    rows = _blocks(ins, n_data, data_index)
+    if "x" in rows:
+        rows["x"].requires_grad_(True)
+    out, obj = _layer(name, p, rows)
+    wrt = list(p.values()) + ([rows["x"]] if CASES[name][0] in
+                              ("attn", "mlp", "loss") else [])
+    grads = torch.autograd.grad(obj, wrt)
+    return out.detach(), dict(zip(list(p) + ["x"], grads))
+
+
+def _reference(name):
+    """The unsplit layer on one process, per row block of the data
+    ranks: {n_data: (outputs, x gradients per block, weight gradients
+    summed)}."""
+    ws, ins, _ = _draw(name)
+    out = {}
+    for n in (1, 2):
+        outs, dxs, wg = [], [], {}
+        for i in range(n):
+            o, g = _run(name, {k: torch.as_tensor(v) for k, v in ws.items()},
+                        ins, n, i)
+            outs.append(o.numpy())
+            if "x" in g:
+                dxs.append(g["x"].numpy())
+            for k in ws:
+                wg[k] = wg.get(k, 0) + g[k].numpy()
+        out[n] = (outs, dxs, wg)
+    return out
+
+
+def _worker(rank, world, init, out_dir):
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import tensor_parallel as tp
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, world_size=world,
+                            rank=rank)
+    try:
+        shape = (1, 2) if world == 2 else (2, 2)
+        mesh = make_host_mesh(shape)
+        m, r = mesh.size("model"), mesh.index("model")
+        n_data, di = mesh.size("data"), mesh.index("data")
+        res = {}
+        for name in CASES:
+            ws, ins, split = _draw(name)
+            p = {}
+            for k, v in ws.items():
+                d = split[k]
+                size = v.shape[d] // m
+                p[k] = torch.as_tensor(v).narrow(d, r * size, size).clone()
+            with tp.step_layout(mesh, None):
+                out, g = _run(name, p, ins, n_data, di)
+            res[f"{name}/out"] = torch.stack(mesh.all_gather(out, "data"))
+            if "x" in g:
+                res[f"{name}/dx"] = torch.stack(mesh.all_gather(g["x"],
+                                                                "data"))
+            for k in ws:
+                whole = torch.cat(mesh.all_gather(g[k], "model"),
+                                  dim=split[k])
+                res[f"{name}/{k}"] = mesh.all_reduce(whole, "sum", "data")
+        if rank == 0:
+            np.savez(os.path.join(out_dir, "res.npz"),
+                     **{k: v.numpy() for k, v in res.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(world, tmp_path):
+    import torch.multiprocessing as mp
+    pctx = mp.start_processes(
+        _worker, args=(world, f"file://{tmp_path}/rdzv", str(tmp_path)),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.time() + TIMEOUT_S
+    while not pctx.join(timeout=max(1.0, deadline - time.time())):
+        if time.time() > deadline:
+            for p in pctx.processes:
+                p.kill()
+            pytest.fail(f"{world} ranks did not finish in {TIMEOUT_S} s")
+    return dict(np.load(tmp_path / "res.npz"))
+
+
+@pytest.fixture(scope="module")
+def split_runs(tmp_path_factory):
+    return {w: _spawn(w, tmp_path_factory.mktemp(f"tp{w}")) for w in (2, 4)}
+
+
+def _close(got, want, what):
+    np.testing.assert_allclose(got, want, **TOL,
+                               atol=ATOL * float(np.abs(want).max()),
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_split_layer_equals_the_whole_layer(name, mesh, split_runs):
+    world, n_data = (2, 1) if mesh == "1x2" else (4, 2)
+    got = split_runs[world]
+    outs, dxs, wg = _reference(name)[n_data]
+    for i in range(n_data):
+        _close(got[f"{name}/out"][i], outs[i], f"{name} output block {i}")
+        if dxs:
+            _close(got[f"{name}/dx"][i], dxs[i], f"{name} dx block {i}")
+    for k, w in wg.items():
+        _close(got[f"{name}/{k}"], w, f"{name} grad {k}")
+
+
+def test_one_rank_on_the_model_axis_is_the_plain_layer():
+    """Under a (2, 1) layout (no process group: a CountingMesh whose
+    collectives would be recorded) every case is the plain layer, bit
+    for bit, and the model axis moves nothing."""
+    from repro_torch.config import MeshConfig
+    from repro_torch.roofline.counter import CountingMesh
+    from repro_torch.sharding import tensor_parallel as tp
+    mesh = CountingMesh(MeshConfig((2, 1), ("data", "model")),
+                        device="cpu")
+    for name in CASES:
+        ws, ins, _ = _draw(name)
+        p = {k: torch.as_tensor(v) for k, v in ws.items()}
+        want = _run(name, p, ins, 1, 0)
+        with tp.step_layout(mesh, None):
+            got = _run(name, p, ins, 1, 0)
+        assert torch.equal(got[0], want[0]), name
+        for k in want[1]:
+            assert torch.equal(got[1][k], want[1][k]), (name, k)
+    assert mesh.plan == []
