@@ -5403,6 +5403,12 @@ def _vlm(dev, card, tcfg, pool, cpu_pool):
 MESH_ARCH_STEPS = 10       # (a): lm-100m at 1x1 against the plain step
 MESH_SHARED_STEPS = 3      # (b): 2x1 and 1x2, two ranks on one card
 MESH_MOE_STEPS = 3         # (d): reduced qwen2-moe-a2.7b, 2x1 vs 1x1
+MESH_SPLIT_STEPS = 3       # (f): the MoE cuts at 1x1 and 1x2
+# (f): a token routed otherwise at 1x2 than at 1x1 is a tie of the split's
+# rounding when its k-th and (k+1)-th routing probabilities lie within
+# this of each other at 1x1: the split moves a step-0 probability by at
+# most 1.6e-6 of the largest (probes/mesh_split_diff.py), a few 1e-7
+MESH_TIE_GAP = 1e-6
 MESH_LOSS_RTOL = 1e-5      # tests/test_torch_lm_train.py's STEP
 MESH_BF16_STEPS = 3        # (b'): the config's bfloat16 at 2x1 vs 1x1
 MESH_BF16_RTOL = 2.0 ** -8  # one bfloat16 ulp: a 2x1 gradient rounds twice
@@ -5415,9 +5421,11 @@ MESH_TIMEOUT = 600
 MESH_PSUM_SHAPES = ((768, 3072), (32000,), (7, 5))
 
 
-def _mesh_launch(arch, shape, steps, reduced, device, dtype="float32"):
+def _mesh_launch(arch, shape, steps, reduced, device, dtype="float32",
+                 cfg=None):
     """launch.train's LM branch at ``--mesh-shape shape`` on the arch's
-    config in ``dtype`` (float32: the step tests' arithmetic)."""
+    config in ``dtype`` (float32: the step tests' arithmetic), or on
+    ``cfg`` (a cut of it) when given."""
     import dataclasses
     from repro_torch.config import get_config
     from repro_torch.launch import train as launch_train
@@ -5426,9 +5434,97 @@ def _mesh_launch(arch, shape, steps, reduced, device, dtype="float32"):
          "--log-every", "0", "--device", device, "--global-batch",
          str(LM_B), "--seq-len", str(LM_S)]
         + (["--reduced"] if reduced else []))
-    cfg = get_config(arch, reduced=reduced)
-    return launch_train.train_lm_arch(
-        args, dataclasses.replace(cfg, dtype=dtype))
+    if cfg is None:
+        cfg = dataclasses.replace(get_config(arch, reduced=reduced),
+                                  dtype=dtype)
+    return launch_train.train_lm_arch(args, cfg)
+
+
+class _Routing:
+    """Within it every MoE routing call (``moe._top_k`` over a layer's
+    routing probabilities: forward and recompute, in order) is recorded:
+    the experts it picks per token and the gap between the k-th and the
+    (k+1)-th probability.  ``replay``: another run's record, whose picks
+    the calls take instead, call by call (the gates are still this run's
+    probabilities at those experts).  The dense dispatch calls
+    ``_top_k`` only to route."""
+
+    def __init__(self, replay=None):
+        self.idx, self.gap, self.replay = [], [], replay
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models.layers import moe
+        self.real = real = moe._top_k
+
+        def top_k(x, k):
+            vals, idx = real(x, k)
+            srt = torch.sort(x.detach(), dim=-1, descending=True).values
+            self.gap.append((srt[:, k - 1] - srt[:, k]).cpu().numpy())
+            self.idx.append(idx.cpu().numpy())
+            if self.replay is not None:
+                idx = torch.as_tensor(self.replay[len(self.idx) - 1],
+                                      device=x.device)
+                vals = torch.gather(x, -1, idx)
+            return vals, idx
+        moe._top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models.layers import moe
+        moe._top_k = self.real
+
+    def save(self, path):
+        import numpy as np
+        np.savez(path, **{f"idx{i}": a for i, a in enumerate(self.idx)},
+                 **{f"gap{i}": a for i, a in enumerate(self.gap)})
+
+    @staticmethod
+    def load(path):
+        import numpy as np
+        with np.load(path) as f:
+            n = sum(k.startswith("idx") for k in f.files)
+            return ([f[f"idx{i}"] for i in range(n)],
+                    [f[f"gap{i}"] for i in range(n)])
+
+
+class _DrawnOnce:
+    """Within it ``api.init_params`` draws each (config, seed) of a host
+    generator once in this process and hands every call a copy of those
+    values on its device: (f)'s plain step, launch.train and a replay
+    take the same params, and a 2B-param cut's host draw takes ~15 s."""
+
+    def __enter__(self):
+        from repro_torch.models import api
+        from repro_torch.tree import tree_map
+        self.real = real = api.init_params
+        cache = {}
+
+        def init(cfg, generator, *, device=None):
+            if generator.device.type != "cpu":
+                return real(cfg, generator, device=device)
+            key = (cfg, generator.initial_seed())
+            if key not in cache:
+                cache[key] = real(cfg, generator)
+            return tree_map(lambda t: t.to(device, copy=True), cache[key])
+        api.init_params = init
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import api
+        api.init_params = self.real
+
+
+def _mesh_moe_cut(arch, reduced):
+    """(f)'s config: ``arch`` at its published widths cut to
+    MOE_CUT_LAYERS layers as phase_moe_lm cuts it (deepseek: its dense
+    prefix layer and one MLA + MoE layer), float32, the dense dispatch
+    (the reduced config on a rehearsal)."""
+    import dataclasses
+    from repro_torch.config import get_config
+    return dataclasses.replace(get_config(arch, reduced=reduced),
+                               num_layers=MOE_CUT_LAYERS, dtype="float32",
+                               moe_dispatch="dense")
 
 
 def _mesh_psum_inputs(rank):
@@ -5444,18 +5540,14 @@ def _mesh_psum_inputs(rank):
     return out
 
 
-def _mesh_worker(rank, world, init, out_dir, reduced, device):
-    """One of the ranks sharing the card: (b) launch.train at 2x1 and
-    1x2, (c) psum_int8 on CUDA tensors, (d) the MoE LM at 2x1; writes
-    its results to ``out_dir``.  ``device`` "cpu" rehearses it on the
-    host."""
+def _mesh_worker(rank, world, init, out_dir, reduced, device, only_f):
+    """One of the ranks sharing the card: (b)-(d) unless ``only_f``
+    (``_mesh_worker_dense``), then (f) the MoE cuts at 1x2 and one more
+    1x2 step's FLOPs; writes its results to ``out_dir``.  ``device``
+    "cpu" rehearses it on the host."""
     sys.path.insert(0, str(SRC))
-    import numpy as np
     import torch
     import torch.distributed as dist
-    from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.optim import psum_int8
-    from repro_torch.sharding import ctx
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(0)
@@ -5463,35 +5555,76 @@ def _mesh_worker(rank, world, init, out_dir, reduced, device):
                             rank=rank)
     res = {}
     try:
-        for shape in ("2x1", "1x2"):
-            base = _allocated(dev)
-            out = _mesh_launch(LM_ARCH, shape, MESH_SHARED_STEPS, reduced,
-                               device)
-            res[shape] = {"losses": out["losses"], "rank": out["rank"],
-                          "backend": out["backend"], "base": base}
-            del out
-        for shape, key in (("2x1", "bf16"), ("1x2", "bf16_1x2")):
-            out = _mesh_launch(LM_ARCH, shape, MESH_BF16_STEPS, reduced,
-                               device, "bfloat16")
-            res[key] = {"losses": out["losses"], "rank": out["rank"]}
-            del out
-        res["flops_1x2"] = _mesh_step_flops(reduced, dev)
-        mesh = make_host_mesh((world, 1), device=dev)
-        leaves = {k: torch.as_tensor(v).to(dev)
-                  for k, v in _mesh_psum_inputs(rank).items()}
-        with ctx.active_mesh(mesh):
-            summed = psum_int8(leaves, "data")
-        np.savez(os.path.join(out_dir, f"psum{rank}.npz"),
-                 **{k: v.cpu().numpy() for k, v in summed.items()})
-        res["psum_device"] = str(summed["g0"].device)
-        out = _mesh_launch(MOE_ARCHS[0], "2x1", MESH_MOE_STEPS, True,
-                           device)
-        res["moe"] = {"losses": out["losses"], "rank": out["rank"]}
+        if not only_f:
+            _mesh_worker_dense(rank, world, out_dir, reduced, dev, res)
+        for arch in MOE_ARCHS:
+            cut = _mesh_moe_cut(arch, reduced)
+            with _DrawnOnce():
+                res[arch] = _mesh_split_rank(arch, cut, reduced, dev,
+                                             out_dir, rank)
+            res[arch]["flops"] = _mesh_step_flops(cut, dev)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
         res["k_launches"] = _k_launches()
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
+
+
+def _mesh_split_rank(arch, cut, reduced, dev, out_dir, rank):
+    """(f) on one rank: launch.train at 1x2 with its routing recorded
+    and, where a token routes otherwise than at 1x1, the same steps
+    again replaying 1x1's routing."""
+    base = _allocated(dev)
+    with _Routing() as route:
+        out = _mesh_launch(arch, "1x2", MESH_SPLIT_STEPS, reduced,
+                           dev.type, cfg=cut)
+    route.save(os.path.join(out_dir, f"route_{arch}_{rank}.npz"))
+    res = {"losses": out["losses"], "rank": out["rank"], "base": base}
+    del out
+    one, _ = _Routing.load(os.path.join(out_dir, f"route_{arch}.npz"))
+    if len(one) != len(route.idx) or any(
+            (a != b).any() for a, b in zip(one, route.idx)):
+        with _Routing(replay=one):
+            out = _mesh_launch(arch, "1x2", MESH_SPLIT_STEPS, reduced,
+                               dev.type, cfg=cut)
+        res["replayed"] = out["losses"]
+    return res
+
+
+def _mesh_worker_dense(rank, world, out_dir, reduced, dev, res):
+    """(b) launch.train at 2x1 and 1x2 (float32 and bfloat16) and (e)'s
+    1x2 step's FLOPs, (c) psum_int8 on the device's tensors, (d) the
+    reduced MoE LM at 2x1, on one rank (its process group open)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import psum_int8
+    from repro_torch.sharding import ctx
+    for shape in ("2x1", "1x2"):
+        base = _allocated(dev)
+        out = _mesh_launch(LM_ARCH, shape, MESH_SHARED_STEPS, reduced,
+                           dev.type)
+        res[shape] = {"losses": out["losses"], "rank": out["rank"],
+                      "backend": out["backend"], "base": base}
+        del out
+    for shape, key in (("2x1", "bf16"), ("1x2", "bf16_1x2")):
+        out = _mesh_launch(LM_ARCH, shape, MESH_BF16_STEPS, reduced,
+                           dev.type, "bfloat16")
+        res[key] = {"losses": out["losses"], "rank": out["rank"]}
+        del out
+    res["flops_1x2"] = _mesh_step_flops(_mesh_lm_cfg(reduced), dev)
+    mesh = make_host_mesh((world, 1), device=dev)
+    leaves = {k: torch.as_tensor(v).to(dev)
+              for k, v in _mesh_psum_inputs(rank).items()}
+    with ctx.active_mesh(mesh):
+        summed = psum_int8(leaves, "data")
+    np.savez(os.path.join(out_dir, f"psum{rank}.npz"),
+             **{k: v.cpu().numpy() for k, v in summed.items()})
+    res["psum_device"] = str(summed["g0"].device)
+    out = _mesh_launch(MOE_ARCHS[0], "2x1", MESH_MOE_STEPS, True, dev.type)
+    res["moe"] = {"losses": out["losses"], "rank": out["rank"]}
 
 
 def _allocated(dev):
@@ -5502,27 +5635,35 @@ def _allocated(dev):
     return torch.cuda.memory_allocated(dev)
 
 
-def _mesh_step_flops(reduced, dev):
-    """FlopCounterMode's count of one float32 LM_ARCH training step over
-    the open group as a 1 x 2 mesh (after a warm step), at the dry run's
-    settings: ``make_mesh_train_step`` on the launcher's init, the
-    batch of ``api.make_batch``."""
+def _mesh_lm_cfg(reduced):
     import dataclasses
+    from repro_torch.config import get_config
+    return dataclasses.replace(get_config(LM_ARCH, reduced=reduced),
+                               dtype="float32")
+
+
+def _mesh_step_flops(cfg, dev):
+    """FlopCounterMode's count of one training step of ``cfg`` over the
+    open group as a 1 x 2 mesh (after a warm step), at the dry run's
+    settings: ``make_mesh_train_step`` on the dry run's param tree (an
+    MoE's experts padded to the model axis, 2) drawn from seed 0 on the
+    device (the count does not depend on the values), the batch of
+    ``api.make_batch``."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
-    from repro_torch.config import ShapeConfig, TrainConfig, get_config
+    from repro_torch.config import ShapeConfig, TrainConfig
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import api
+    from repro_torch.models.layers.common import init_from_spec
     from repro_torch.optim import adamw_init
     from repro_torch.sharding.spmd import (local_batch, make_mesh_train_step,
                                            param_shardings, shard_tree)
-    cfg = dataclasses.replace(get_config(LM_ARCH, reduced=reduced),
-                              dtype="float32")
     tcfg = TrainConfig(lr=3e-4, sgdr_t0=50)
     shape = ShapeConfig("train", "train", LM_S, LM_B)
     mesh = make_host_mesh((1, 2), device=dev)
-    params = api.init_params(cfg, torch.Generator().manual_seed(0),
-                             device=dev)
+    params = init_from_spec(api.param_spec(cfg, model_axis=2),
+                            torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
     psh = param_shardings(cfg, params, mesh)
     params = shard_tree(params, psh)
     batch = local_batch(api.make_batch(cfg, shape,
@@ -5594,29 +5735,330 @@ def _mesh_transient(line):
             "transient": peak - 2 * resident}
 
 
-def _mesh_flops_check(card_flops, card):
-    import dataclasses
-    from repro_torch.config import (MeshConfig, ShapeConfig, TrainConfig,
-                                    get_config)
+def _mesh_flops_check(cfg, card_flops, card, tag):
+    """Rank 0's FLOPs of a 1x2 step of ``cfg`` against the dry run's meta
+    counts at (1, 2) (equal) and (1, 1) (above); the (1, 2) cell's meta
+    peak too."""
+    from repro_torch.config import MeshConfig, ShapeConfig, TrainConfig
     from repro_torch.launch.dryrun import cost_cell
-    cfg = dataclasses.replace(get_config(LM_ARCH, reduced=LM_REDUCED),
-                              dtype="float32")
     tcfg = TrainConfig(lr=3e-4, sgdr_t0=50)
     shape = ShapeConfig("train", "train", LM_S, LM_B)
-    meta = {m: cost_cell(cfg, shape, MeshConfig(m, ("data", "model")),
-                         tcfg)[0].dot_flops for m in ((1, 2), (1, 1))}
-    log(f"mesh (e) {LM_ARCH} float32 step at 1x2 ({card}), rank 0 under "
-        f"FlopCounterMode: {card_flops} FLOPs; the dry run's meta count at "
-        f"(1, 2) {meta[(1, 2)]:.0f}, at (1, 1) {meta[(1, 1)]:.0f} "
-        f"({meta[(1, 1)] / meta[(1, 2)]:.4f}x)")
+    cells = {m: cost_cell(cfg, shape, MeshConfig(m, ("data", "model")),
+                          tcfg)[0] for m in ((1, 2), (1, 1))}
+    meta = {m: c.dot_flops for m, c in cells.items()}
+    log(f"mesh ({tag}) {cfg.name} float32 step at 1x2 ({card}), rank 0 "
+        f"under FlopCounterMode: {card_flops} FLOPs; the dry run's meta "
+        f"count at (1, 2) {meta[(1, 2)]:.0f}, at (1, 1) "
+        f"{meta[(1, 1)]:.0f} ({meta[(1, 1)] / meta[(1, 2)]:.4f}x)")
     require(card_flops == meta[(1, 2)] and meta[(1, 2)] < meta[(1, 1)],
-            f"(e) the card's 1x2 step counts {card_flops} FLOPs against the "
-            f"meta {meta[(1, 2)]:.0f} (1x1: {meta[(1, 1)]:.0f})")
+            f"({tag}) the card's 1x2 step of {cfg.name} counts "
+            f"{card_flops} FLOPs against the meta {meta[(1, 2)]:.0f} "
+            f"(1x1: {meta[(1, 1)]:.0f})")
     return {"card": card_flops, "meta_1x2": meta[(1, 2)],
-            "meta_1x1": meta[(1, 1)]}
+            "meta_1x1": meta[(1, 1)],
+            "meta_peak_1x2": cells[(1, 2)].peak_bytes}
 
 
-def phase_mesh(dev, card):
+def _mesh_one_rank(dev, card, cfg, tmp, res):
+    """(a): the plain step, then launch.train at 1x1 in a one-rank
+    group; returns the plain step's losses."""
+    import torch.distributed as dist
+    plain = _mesh_plain_losses(cfg, dev, MESH_ARCH_STEPS)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{tmp}/a",
+                            world_size=1, rank=0)
+    try:
+        base = _allocated(dev)
+        one = _mesh_launch(LM_ARCH, "1x1", MESH_ARCH_STEPS,
+                           LM_REDUCED, dev.type)
+    finally:
+        dist.destroy_process_group()
+    require(one["backend"] == backend and one["world"] == 1,
+            f"(a) ran on {one['backend']} over {one['world']} ranks")
+    same = [a == b for a, b in zip(one["losses"], plain)]
+    log(f"mesh (a) {LM_ARCH} float32 {LM_B} x {LM_S} ({card}), "
+        f"launch.train --mesh-shape 1x1 in a 1-rank {backend} group "
+        f"against the plain "
+        f"step: {sum(same)} of {len(plain)} losses bit-identical; "
+        f"{one['ms_per_step']:.3f} ms/step, peak "
+        f"{_gib(one['peak_mem_gib'])}; losses {one['losses']}")
+    require(len(one["losses"]) == len(plain) and all(same),
+            f"(a) 1x1 losses {one['losses']} differ from the plain "
+            f"step's {plain}")
+    res["one"] = {k: one[k] for k in ("ms_per_step", "peak_mem_gib",
+                                      "losses")}
+    res["one"]["rank"] = one["rank"]
+    res["one"]["transient"] = _mesh_transient(dict(one["rank"],
+                                                   base=base))
+    del one
+    return plain
+
+
+def _mesh_dense_checks(dev, card, plain, tmp, ranks, res):
+    """(b)-(e) and (c), (d) from the ranks' results."""
+    import numpy as np
+    import torch
+    for shape in ("2x1", "1x2"):
+        got = ranks[0][shape]["losses"]
+        err = max(abs(a - b) / abs(b) for a, b in zip(
+            got, plain[:MESH_SHARED_STEPS]))
+        for r in ranks:
+            line = r[shape]["rank"]
+            log(f"mesh (b) {shape}, two ranks sharing one card ({card}) "
+                f"over gloo (not a multi-GPU result), rank {line['rank']} "
+                f"at {tuple(line['coords'])}: "
+                f"{line['ms_per_step']:.3f} ms/step, peak "
+                f"{_gib(line['peak_mem_gib'])}; holds params "
+                f"{line['param_bytes']} of {line['param_bytes_whole']} "
+                f"B ({line['param_bytes'] / line['param_bytes_whole']:.3f}"
+                f"), AdamW state {line['opt_bytes']} of "
+                f"{line['opt_bytes_whole']} B "
+                f"({line['opt_bytes'] / line['opt_bytes_whole']:.3f})")
+        log(f"mesh (b) {shape} ({card}) losses {got}: largest relative "
+            f"difference from (a)'s {err:.3e} (limit "
+            f"{MESH_LOSS_RTOL:g})")
+        require(len(got) == MESH_SHARED_STEPS and err <= MESH_LOSS_RTOL,
+                f"(b) {shape} losses {got} against {plain}")
+        res[shape] = {"losses": got, "rel_err": err,
+                      "ranks": [r[shape]["rank"] for r in ranks]}
+    # (b) at 1x2 the model axis splits the compute: a rank's peak less
+    # the shards it holds stays below one whole copy of the params
+    whole = ranks[0]["1x2"]["rank"]["param_bytes_whole"]
+    res["1x2"]["transient"] = []
+    for r in ranks:
+        line = dict(r["1x2"]["rank"], base=r["1x2"]["base"])
+        t = _mesh_transient(line)
+        res["1x2"]["transient"].append(t)
+        log(f"mesh (b) 1x2 rank {line['rank']} ({card}): "
+            f"{line['ms_per_step']:.3f} ms/step; max_memory_allocated "
+            f"{t['peak']} B above the {line['base']} B allocated "
+            f"before the run, of which its carry in and out (param and "
+            f"AdamW shards, {t['resident']} B each: the step is pure, "
+            f"both live at its end) {2 * t['resident']} B: "
+            f"{t['transient']} B beside the whole params' {whole} B "
+            f"({t['transient'] / whole:.3f} of a copy; 1x1 in (a): "
+            f"{res['one']['transient']['transient']} B, "
+            f"{res['one']['transient']['transient'] / whole:.3f})")
+        if dev.type == "cuda":
+            require(t["transient"] < whole,
+                    f"(b) 1x2 rank {line['rank']}: peak less its shards "
+                    f"{t['transient']} B is not below one whole copy "
+                    f"of the params ({whole} B)")
+    # (b') the config's bfloat16: shards gathered as bytes
+    bf16 = _mesh_launch(LM_ARCH, "1x1", MESH_BF16_STEPS, LM_REDUCED,
+                        dev.type, "bfloat16")
+    got = ranks[0]["bf16"]["losses"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(got, bf16["losses"]))
+    ms2 = ranks[0]["bf16"]["rank"]["ms_per_step"]
+    log(f"mesh (b') {LM_ARCH} bfloat16 at 2x1 (two ranks sharing the "
+        f"card, {card}) against 1x1: losses {got} / {bf16['losses']}, "
+        f"largest relative difference {err:.3e} (limit "
+        f"{MESH_BF16_RTOL:.3e}, one bfloat16 ulp); rank 0 {ms2:.3f} "
+        f"ms/step against {bf16['ms_per_step']:.3f} at 1x1")
+    require(len(got) == MESH_BF16_STEPS and err <= MESH_BF16_RTOL,
+            f"(b') bfloat16 losses {got} against {bf16['losses']}")
+    res["bf16"] = {"losses": got, "one": bf16["losses"], "rel_err": err}
+    # (b'') bfloat16 at 1x2: the model axis's split in the config's
+    # dtype, against the same 1x1 run
+    got = ranks[0]["bf16_1x2"]["losses"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(got, bf16["losses"]))
+    log(f"mesh (b'') {LM_ARCH} bfloat16 at 1x2, the model axis split "
+        f"(two ranks sharing the card, {card}) against 1x1: losses "
+        f"{got} / {bf16['losses']}, largest relative difference "
+        f"{err:.3e} (limit {MESH_BF16_SPLIT_RTOL:.3e}, one bfloat16 "
+        f"ulp); rank 0 {ranks[0]['bf16_1x2']['rank']['ms_per_step']:.3f}"
+        f" ms/step")
+    require(len(got) == MESH_BF16_STEPS and err <= MESH_BF16_SPLIT_RTOL,
+            f"(b'') bfloat16 1x2 losses {got} against {bf16['losses']}")
+    res["bf16_1x2"] = {"losses": got, "rel_err": err}
+    del bf16
+    # (e) rank 0's FLOPs of one 1x2 step equal the dry run's meta count
+    # of the same step, below the one-process count
+    res["flops"] = _mesh_flops_check(_mesh_lm_cfg(LM_REDUCED),
+                                     ranks[0]["flops_1x2"], card, "e")
+    # (c) the formula on one rank, on the card
+    ins = [{k: torch.as_tensor(v).to(dev)
+            for k, v in _mesh_psum_inputs(r).items()} for r in range(2)]
+    flips = 0
+    for k in ins[0]:
+        g = [x[k] for x in ins]
+        scale = torch.maximum(*[torch.clamp(torch.max(torch.abs(t)),
+                                            min=1e-12) / 127.0
+                                for t in g])
+        q = [torch.clamp(torch.round(t / scale), -127, 127).to(
+            torch.int8).to(torch.int32) for t in g]
+        want = ((q[0] + q[1]).to(torch.float32) * scale).cpu().numpy()
+        for r in range(2):
+            with np.load(Path(tmp, f"psum{r}.npz")) as data:
+                flips += int((data[k] != want).sum())
+    log(f"mesh (c) psum_int8 over the 2 ranks on "
+        f"{ranks[0]['psum_device']} tensors, shapes "
+        f"{list(MESH_PSUM_SHAPES)} and an all-zero leaf: {flips} "
+        "elements differ from the formula on one rank")
+    require(flips == 0, f"(c) psum_int8: {flips} elements differ")
+    # (d) the MoE LM at 2x1 against one rank
+    moe_one = _mesh_launch(MOE_ARCHS[0], "1x1", MESH_MOE_STEPS, True,
+                           dev.type)
+    got = ranks[0]["moe"]["losses"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(got,
+                                                  moe_one["losses"]))
+    log(f"mesh (d) {MOE_ARCHS[0]} reduced at 2x1 (ranks sharing the "
+        f"card, {card}) against one rank: losses {got} / "
+        f"{moe_one['losses']}, "
+        f"largest relative difference {err:.3e}")
+    require(len(got) == MESH_MOE_STEPS and err <= MESH_LOSS_RTOL,
+            f"(d) MoE losses {got} against {moe_one['losses']}")
+    res["moe"] = {"losses": got, "one": moe_one["losses"],
+                  "rel_err": err}
+
+
+def _mesh_split_one(dev, card, tmp):
+    """(f) before the ranks: per MoE cut, the plain step and
+    launch.train at 1x1 in a one-rank group, bit for bit; the 1x1 run's
+    routing saved for the ranks (``_Routing``).  Returns the losses."""
+    import torch
+    import torch.distributed as dist
+    out = {}
+    for arch in MOE_ARCHS:
+        cut = _mesh_moe_cut(arch, LM_REDUCED)
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        with _DrawnOnce():
+            plain = _mesh_plain_losses(cut, dev, MESH_SPLIT_STEPS)
+            dist.init_process_group(
+                backend, init_method=f"file://{tmp}/f_{arch}",
+                world_size=1, rank=0)
+            try:
+                with _Routing() as route:
+                    one = _mesh_launch(arch, "1x1", MESH_SPLIT_STEPS,
+                                       LM_REDUCED, dev.type, cfg=cut)
+            finally:
+                dist.destroy_process_group()
+        route.save(os.path.join(tmp, f"route_{arch}.npz"))
+        same = sum(a == b for a, b in zip(one["losses"], plain))
+        log(f"mesh (f) {arch} x{cut.num_layers} layers "
+            f"{'reduced' if LM_REDUCED else 'at full width'}, float32, "
+            f"dense dispatch, {LM_B} x {LM_S} ({card}): 1x1 in a 1-rank "
+            f"{backend} group {same} of {len(plain)} losses bit-identical "
+            f"to the plain step ({one['ms_per_step']:.3f} ms/step); "
+            f"smallest gap between a token's k-th and (k+1)-th routing "
+            f"probability {min(float(g.min()) for g in route.gap):.3e}")
+        require(len(one["losses"]) == len(plain) == MESH_SPLIT_STEPS
+                and same == len(plain),
+                f"(f) {arch} 1x1 losses {one['losses']} differ from the "
+                f"plain step's {plain}")
+        out[arch] = {"plain": plain, "one": one["losses"],
+                     "one_ms": one["ms_per_step"]}
+        del one
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()      # the ranks share the card next
+    return out
+
+
+def _loss_err(got, want):
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def _mesh_split_checks(dev, card, tmp, ranks, ones):
+    """(f) from the ranks' results: both ranks route every token alike;
+    the 1x2 losses (the experts, the shared experts and MLA's heads
+    split) against 1x1's at MESH_LOSS_RTOL.  Where a token is routed
+    otherwise at 1x2 than at 1x1, it must be a tie of the split's
+    rounding (its k-th and (k+1)-th probabilities within MESH_TIE_GAP
+    at 1x1): then the losses are held up to the step of that first
+    routing call (later steps part, as any run whose one token took
+    other experts: Adam's first update moves each element whose
+    gradient changes sign by 2 lr), and the ranks' replay of the same
+    steps on 1x1's routing is held to 1x1 at MESH_LOSS_RTOL on every
+    step.  Each rank's ms/step and its peak less its carry in and out
+    below one whole copy of the cut's params; rank 0's FLOPs of a 1x2
+    step equal to the dry run's meta count at (1, 2), below (1, 1)'s."""
+    import numpy as np
+    import torch
+    out = {}
+    for arch in MOE_ARCHS:
+        cut = _mesh_moe_cut(arch, LM_REDUCED)
+        r = dict(ones[arch], ranks=[])
+        one_idx, one_gap = _Routing.load(os.path.join(tmp,
+                                                      f"route_{arch}.npz"))
+        routes = [_Routing.load(os.path.join(tmp, f"route_{arch}_{k}.npz"))[0]
+                  for k in range(2)]
+        require(len(routes[0]) == len(routes[1]) == len(one_idx) and all(
+            (a == b).all() for a, b in zip(*routes)),
+            f"(f) {arch}: the two model ranks routed the tokens otherwise")
+        calls = len(one_idx) // MESH_SPLIT_STEPS     # routing calls a step
+        moved = [(i, np.nonzero((a != b).any(-1))[0])
+                 for i, (a, b) in enumerate(zip(one_idx, routes[0]))]
+        moved = [(i, rows) for i, rows in moved if len(rows)]
+        got = ranks[0][arch]["losses"]
+        r["losses"] = got
+        if not moved:
+            r["rel_err"] = err = _loss_err(got, r["one"])
+            log(f"mesh (f) {arch} 1x2 (two ranks sharing the card over "
+                f"gloo, the experts, shared experts and heads split; every "
+                f"token routed as at 1x1) losses {got} against 1x1's "
+                f"{r['one']}: largest relative difference {err:.3e} (limit "
+                f"{MESH_LOSS_RTOL:g})")
+            require(len(got) == MESH_SPLIT_STEPS and err <= MESH_LOSS_RTOL,
+                    f"(f) {arch} 1x2 losses {got} against 1x1's {r['one']}")
+        else:
+            first, rows = moved[0]
+            gaps = one_gap[first][rows]
+            held = first // calls + 1
+            err = _loss_err(got[:held], r["one"][:held])
+            rep = ranks[0][arch]["replayed"]
+            r.update(rel_err=err, rerouted=[int(x) for x in rows],
+                     tie_gaps=[float(g) for g in gaps], held_steps=held,
+                     replayed=rep, replay_err=_loss_err(rep, r["one"]))
+            log(f"mesh (f) {arch} 1x2 (two ranks sharing the card over "
+                f"gloo, the experts, shared experts and heads split): "
+                f"routing call {first} (step {first // calls}) routes "
+                f"token(s) {r['rerouted']} otherwise than 1x1, whose k-th "
+                f"and (k+1)-th probabilities lie {r['tie_gaps']} apart at "
+                f"1x1 (a tie of the split's rounding if below "
+                f"{MESH_TIE_GAP:g}); losses {got} against "
+                f"1x1's {r['one']}: the first {held} within {err:.3e}; the "
+                f"same steps replaying 1x1's routing {rep}: largest "
+                f"relative difference {r['replay_err']:.3e} (limit "
+                f"{MESH_LOSS_RTOL:g})")
+            require(all(g < MESH_TIE_GAP for g in gaps),
+                    f"(f) {arch}: token(s) {r['rerouted']} routed otherwise "
+                    f"at 1x2 with probability gaps {r['tie_gaps']} at 1x1, "
+                    f"beyond the split's rounding ({MESH_TIE_GAP:g})")
+            require(len(got) == MESH_SPLIT_STEPS and err <= MESH_LOSS_RTOL
+                    and len(rep) == MESH_SPLIT_STEPS
+                    and r["replay_err"] <= MESH_LOSS_RTOL,
+                    f"(f) {arch} 1x2 losses {got} (replaying 1x1's routing "
+                    f"{rep}) against 1x1's {r['one']}")
+        whole = ranks[0][arch]["rank"]["param_bytes_whole"]
+        for rk in ranks:
+            line = dict(rk[arch]["rank"], base=rk[arch]["base"])
+            t = _mesh_transient(line)
+            r["ranks"].append(dict(t, ms_per_step=line["ms_per_step"]))
+            log(f"mesh (f) {arch} 1x2 rank {line['rank']} ({card}): "
+                f"{line['ms_per_step']:.3f} ms/step; holds params "
+                f"{line['param_bytes']} of {whole} B; max_memory_allocated "
+                f"{t['peak']} B above the {line['base']} B allocated "
+                f"before the run, less its carry in and out "
+                f"({2 * t['resident']} B): {t['transient']} B beside the "
+                f"whole params' {whole} B ({t['transient'] / whole:.3f} "
+                f"of a copy)")
+            if dev.type == "cuda":
+                require(t["transient"] < whole,
+                        f"(f) {arch} 1x2 rank {line['rank']}: peak less its "
+                        f"shards {t['transient']} B is not below one whole "
+                        f"copy of the params ({whole} B)")
+        r["flops"] = _mesh_flops_check(cut, ranks[0][arch]["flops"], card,
+                                       "f")
+        log(f"mesh (f) {arch}: the dry run's meta peak at (1, 2) "
+            f"{r['flops']['meta_peak_1x2']:.0f} B beside the ranks' "
+            + ", ".join(f"{t['transient']} B" for t in r["ranks"]))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out[arch] = r
+    return out
+
+
+def phase_mesh(dev, card, only_f=False):
     """The LM over a mesh of processes: (a) lm-100m at full width,
     float32, through launch.train --mesh-shape 1x1 in a one-rank NCCL
     group, MESH_ARCH_STEPS steps bit for bit against the plain step
@@ -5630,15 +6072,18 @@ def phase_mesh(dev, card):
     psum_int8 over those ranks on CUDA tensors bit for bit against the
     formula on one rank; (d) the reduced MoE LM at 2x1 against one rank;
     (e) rank 0's FLOPs of a 1x2 step equal the dry run's meta count,
-    below the 1x1 count.  One card checks ranks that share it, not
-    several cards.  None of K1-K5 is on these paths: their counts must
-    stay 0 in every process."""
+    below the 1x1 count; (f) qwen2-moe-a2.7b and deepseek-v2-lite-16b
+    cut to MOE_CUT_LAYERS layers at published widths, float32, the
+    dense dispatch: 1x1 bit for bit against the plain step, 1x2 (the
+    experts, the shared experts and MLA's heads split) against 1x1, the
+    1x2 gate and FLOPs as (b) and (e) hold lm-100m
+    (``_mesh_split_checks``).  ``only_f``: (f) alone.  One card checks
+    ranks that share it, not several cards.  None of K1-K5 is on these
+    paths: their counts must stay 0 in every process."""
     import dataclasses
     import shutil
     import tempfile
 
-    import numpy as np
-    import torch
     import torch.distributed as dist
     import torch.multiprocessing as mp
     from repro_torch.config import get_config
@@ -5650,40 +6095,14 @@ def phase_mesh(dev, card):
                               dtype="float32")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     try:
-        # (a) the plain step, then one rank in an NCCL group
-        plain = _mesh_plain_losses(cfg, dev, MESH_ARCH_STEPS)
-        backend = "nccl" if dev.type == "cuda" else "gloo"
-        dist.init_process_group(backend, init_method=f"file://{tmp}/a",
-                                world_size=1, rank=0)
-        try:
-            base = _allocated(dev)
-            one = _mesh_launch(LM_ARCH, "1x1", MESH_ARCH_STEPS,
-                               LM_REDUCED, dev.type)
-        finally:
-            dist.destroy_process_group()
-        require(one["backend"] == backend and one["world"] == 1,
-                f"(a) ran on {one['backend']} over {one['world']} ranks")
-        same = [a == b for a, b in zip(one["losses"], plain)]
-        log(f"mesh (a) {LM_ARCH} float32 {LM_B} x {LM_S} ({card}), "
-            f"launch.train --mesh-shape 1x1 in a 1-rank {backend} group "
-            f"against the plain "
-            f"step: {sum(same)} of {len(plain)} losses bit-identical; "
-            f"{one['ms_per_step']:.3f} ms/step, peak "
-            f"{_gib(one['peak_mem_gib'])}; losses {one['losses']}")
-        require(len(one["losses"]) == len(plain) and all(same),
-                f"(a) 1x1 losses {one['losses']} differ from the plain "
-                f"step's {plain}")
-        res["one"] = {k: one[k] for k in ("ms_per_step", "peak_mem_gib",
-                                          "losses")}
-        res["one"]["rank"] = one["rank"]
-        res["one"]["transient"] = _mesh_transient(dict(one["rank"],
-                                                       base=base))
-        del one
-        # (b)-(d): two ranks sharing the card
+        if not only_f:
+            plain = _mesh_one_rank(dev, card, cfg, tmp, res)
+        ones = _mesh_split_one(dev, card, tmp)
+        # (b)-(d) and (f)'s 1x2: two ranks sharing the card
         t0 = time.perf_counter()
         pctx = mp.start_processes(
             _mesh_worker, args=(2, f"file://{tmp}/b", tmp, LM_REDUCED,
-                                dev.type),
+                                dev.type, only_f),
             nprocs=2, join=False, start_method="spawn")
         deadline = time.time() + MESH_TIMEOUT
         while not pctx.join(timeout=max(1.0, deadline - time.time())):
@@ -5695,117 +6114,9 @@ def phase_mesh(dev, card):
         res["ranks_s"] = time.perf_counter() - t0
         ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
                  for r in range(2)]
-        for shape in ("2x1", "1x2"):
-            got = ranks[0][shape]["losses"]
-            err = max(abs(a - b) / abs(b) for a, b in zip(
-                got, plain[:MESH_SHARED_STEPS]))
-            for r in ranks:
-                line = r[shape]["rank"]
-                log(f"mesh (b) {shape}, two ranks sharing one card ({card}) "
-                    f"over gloo (not a multi-GPU result), rank {line['rank']} "
-                    f"at {tuple(line['coords'])}: "
-                    f"{line['ms_per_step']:.3f} ms/step, peak "
-                    f"{_gib(line['peak_mem_gib'])}; holds params "
-                    f"{line['param_bytes']} of {line['param_bytes_whole']} "
-                    f"B ({line['param_bytes'] / line['param_bytes_whole']:.3f}"
-                    f"), AdamW state {line['opt_bytes']} of "
-                    f"{line['opt_bytes_whole']} B "
-                    f"({line['opt_bytes'] / line['opt_bytes_whole']:.3f})")
-            log(f"mesh (b) {shape} ({card}) losses {got}: largest relative "
-                f"difference from (a)'s {err:.3e} (limit "
-                f"{MESH_LOSS_RTOL:g})")
-            require(len(got) == MESH_SHARED_STEPS and err <= MESH_LOSS_RTOL,
-                    f"(b) {shape} losses {got} against {plain}")
-            res[shape] = {"losses": got, "rel_err": err,
-                          "ranks": [r[shape]["rank"] for r in ranks]}
-        # (b) at 1x2 the model axis splits the compute: a rank's peak less
-        # the shards it holds stays below one whole copy of the params
-        whole = ranks[0]["1x2"]["rank"]["param_bytes_whole"]
-        res["1x2"]["transient"] = []
-        for r in ranks:
-            line = dict(r["1x2"]["rank"], base=r["1x2"]["base"])
-            t = _mesh_transient(line)
-            res["1x2"]["transient"].append(t)
-            log(f"mesh (b) 1x2 rank {line['rank']} ({card}): "
-                f"{line['ms_per_step']:.3f} ms/step; max_memory_allocated "
-                f"{t['peak']} B above the {line['base']} B allocated "
-                f"before the run, of which its carry in and out (param and "
-                f"AdamW shards, {t['resident']} B each: the step is pure, "
-                f"both live at its end) {2 * t['resident']} B: "
-                f"{t['transient']} B beside the whole params' {whole} B "
-                f"({t['transient'] / whole:.3f} of a copy; 1x1 in (a): "
-                f"{res['one']['transient']['transient']} B, "
-                f"{res['one']['transient']['transient'] / whole:.3f})")
-            if dev.type == "cuda":
-                require(t["transient"] < whole,
-                        f"(b) 1x2 rank {line['rank']}: peak less its shards "
-                        f"{t['transient']} B is not below one whole copy "
-                        f"of the params ({whole} B)")
-        # (b') the config's bfloat16: shards gathered as bytes
-        bf16 = _mesh_launch(LM_ARCH, "1x1", MESH_BF16_STEPS, LM_REDUCED,
-                            dev.type, "bfloat16")
-        got = ranks[0]["bf16"]["losses"]
-        err = max(abs(a - b) / abs(b) for a, b in zip(got, bf16["losses"]))
-        ms2 = ranks[0]["bf16"]["rank"]["ms_per_step"]
-        log(f"mesh (b') {LM_ARCH} bfloat16 at 2x1 (two ranks sharing the "
-            f"card, {card}) against 1x1: losses {got} / {bf16['losses']}, "
-            f"largest relative difference {err:.3e} (limit "
-            f"{MESH_BF16_RTOL:.3e}, one bfloat16 ulp); rank 0 {ms2:.3f} ms/step against "
-            f"{bf16['ms_per_step']:.3f} at 1x1")
-        require(len(got) == MESH_BF16_STEPS and err <= MESH_BF16_RTOL,
-                f"(b') bfloat16 losses {got} against {bf16['losses']}")
-        res["bf16"] = {"losses": got, "one": bf16["losses"], "rel_err": err}
-        # (b'') bfloat16 at 1x2: the model axis's split in the config's
-        # dtype, against the same 1x1 run
-        got = ranks[0]["bf16_1x2"]["losses"]
-        err = max(abs(a - b) / abs(b) for a, b in zip(got, bf16["losses"]))
-        log(f"mesh (b'') {LM_ARCH} bfloat16 at 1x2, the model axis split "
-            f"(two ranks sharing the card, {card}) against 1x1: losses "
-            f"{got} / {bf16['losses']}, largest relative difference "
-            f"{err:.3e} (limit {MESH_BF16_SPLIT_RTOL:.3e}, one bfloat16 "
-            f"ulp); rank 0 {ranks[0]['bf16_1x2']['rank']['ms_per_step']:.3f}"
-            f" ms/step")
-        require(len(got) == MESH_BF16_STEPS and err <= MESH_BF16_SPLIT_RTOL,
-                f"(b'') bfloat16 1x2 losses {got} against {bf16['losses']}")
-        res["bf16_1x2"] = {"losses": got, "rel_err": err}
-        del bf16
-        # (e) rank 0's FLOPs of one 1x2 step equal the dry run's meta count
-        # of the same step, below the one-process count
-        res["flops"] = _mesh_flops_check(ranks[0]["flops_1x2"], card)
-        # (c) the formula on one rank, on the card
-        ins = [{k: torch.as_tensor(v).to(dev)
-                for k, v in _mesh_psum_inputs(r).items()} for r in range(2)]
-        flips = 0
-        for k in ins[0]:
-            g = [x[k] for x in ins]
-            scale = torch.maximum(*[torch.clamp(torch.max(torch.abs(t)),
-                                                min=1e-12) / 127.0
-                                    for t in g])
-            q = [torch.clamp(torch.round(t / scale), -127, 127).to(
-                torch.int8).to(torch.int32) for t in g]
-            want = ((q[0] + q[1]).to(torch.float32) * scale).cpu().numpy()
-            for r in range(2):
-                with np.load(Path(tmp, f"psum{r}.npz")) as data:
-                    flips += int((data[k] != want).sum())
-        log(f"mesh (c) psum_int8 over the 2 ranks on "
-            f"{ranks[0]['psum_device']} tensors, shapes "
-            f"{list(MESH_PSUM_SHAPES)} and an all-zero leaf: {flips} "
-            "elements differ from the formula on one rank")
-        require(flips == 0, f"(c) psum_int8: {flips} elements differ")
-        # (d) the MoE LM at 2x1 against one rank
-        moe_one = _mesh_launch(MOE_ARCHS[0], "1x1", MESH_MOE_STEPS, True,
-                               dev.type)
-        got = ranks[0]["moe"]["losses"]
-        err = max(abs(a - b) / abs(b) for a, b in zip(got,
-                                                      moe_one["losses"]))
-        log(f"mesh (d) {MOE_ARCHS[0]} reduced at 2x1 (ranks sharing the "
-            f"card, {card}) against one rank: losses {got} / "
-            f"{moe_one['losses']}, "
-            f"largest relative difference {err:.3e}")
-        require(len(got) == MESH_MOE_STEPS and err <= MESH_LOSS_RTOL,
-                f"(d) MoE losses {got} against {moe_one['losses']}")
-        res["moe"] = {"losses": got, "one": moe_one["losses"],
-                      "rel_err": err}
+        if not only_f:
+            _mesh_dense_checks(dev, card, plain, tmp, ranks, res)
+        res["split"] = _mesh_split_checks(dev, card, tmp, ranks, ones)
         counts = [_k_launches()] + [r["k_launches"] for r in ranks]
         log(f"mesh K1-K5 launches (this process, rank 0, rank 1): {counts}")
         require(all(n == 0 for c in counts for n in c.values()),
@@ -6833,7 +7144,12 @@ def main() -> int:
         + f"; 1x2 peak less the shards "
         + ", ".join(f"{t['transient']} B" for t in mesh["1x2"]["transient"])
         + f"; bfloat16 1x2 {mesh['bf16_1x2']['rel_err']:.3e}; FLOPs at 1x2 "
-        f"{mesh['flops']['card']} = meta; phase {mesh['seconds']:.1f} s")
+        f"{mesh['flops']['card']} = meta; (f) " + "; ".join(
+            f"{a} 1x2 {r['rel_err']:.3e} from 1x1, ranks "
+            + ", ".join(f"{t['ms_per_step']:.3f} ms/step" for t in r["ranks"])
+            + f", FLOPs {r['flops']['card']} = meta"
+            for a, r in mesh["split"].items())
+        + f"; phase {mesh['seconds']:.1f} s")
     log(f"dryrun ({card}): " + "; ".join(
         f"{name} bound {c['bound_ms']:.3f} ms against {c['measured_ms']:.3f} "
         f"measured, peak meta {c['meta_peak'] / 2**30:.3f} / card "

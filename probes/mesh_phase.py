@@ -2,7 +2,9 @@
 
     python3 probes/mesh_phase.py          # on the card
     python3 probes/mesh_phase.py --cpu    # a rehearsal on the host,
-                                          # reduced lm-100m, gloo ranks
+                                          # reduced configs, gloo ranks
+    python3 probes/mesh_phase.py --moe    # its check (f) alone: the MoE
+                                          # cuts at 1x1 and 1x2
 
 Exits non-zero when a check of the phase fails.
 """
@@ -26,8 +28,11 @@ def main(argv=None) -> int:
         dev, card = torch.device("cpu"), "the host's CPU (rehearsal)"
     else:
         card, dev = cs.phase_environment(), torch.device("cuda")
-    res = cs.phase_mesh(dev, card)
-    print(json.dumps({k: res[k] for k in ("bf16_1x2", "flops", "seconds")}))
+    only_f = "--moe" in argv
+    res = cs.phase_mesh(dev, card, only_f=only_f)
+    keys = ("split", "seconds") if only_f else ("bf16_1x2", "flops",
+                                                 "split", "seconds")
+    print(json.dumps({k: res[k] for k in keys}))
     return 0
 
 

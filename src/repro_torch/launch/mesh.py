@@ -20,7 +20,9 @@ def mesh_config(*, multi_pod: bool = False) -> MeshConfig:
 
 def make_mesh_from_config(mcfg: MeshConfig, *, device=None):
     """The mesh of ``mcfg`` over the open process group (without one:
-    a mesh of one device); ``device`` is this rank's compute device."""
+    a mesh of one device); ``device`` is this rank's compute device
+    (``None``: the card, which raises without one; pass ``"cpu"`` to
+    run on the host)."""
     from repro_torch.sharding.spmd import ProcessMesh
     return ProcessMesh(mcfg, device=device)
 

@@ -17,6 +17,7 @@ from typing import Dict
 import torch
 
 from repro_torch.config.base import AttentionConfig
+from repro_torch.sharding import tensor_parallel as tp
 from .attention import NEG_INF, _scale, chunked_attention, flash_attention
 from .common import TensorSpec
 from .rope import apply_rope
@@ -42,18 +43,31 @@ def mla_spec(cfg: AttentionConfig, d_model: int, dtype) -> Params:
 
 def apply_mla(p: Params, cfg: AttentionConfig, x: torch.Tensor, *,
               q_chunk: int = 512, impl: str = "chunked") -> torch.Tensor:
-    """Expanded-form causal MLA.  x: (B, S, D) -> (B, S, D)."""
+    """Expanded-form causal MLA.  x: (B, S, D) -> (B, S, D).  Given this
+    rank's model block of the heads (``wq`` narrower than the config's
+    heads), it computes them and sums the output over the model ranks:
+    ``wq``, ``w_uk`` and ``w_uv`` hold the heads' columns, ``wo`` their
+    rows; ``w_dkv`` and ``w_kr`` are whole, so the latent and the rope
+    key enter the heads through ``copy_to_model`` after their products
+    (their gradient summed there, theirs and ``x``'s latent path whole
+    on every rank)."""
     b, s, _ = x.shape
     h, dn, dr = cfg.num_heads, cfg.nope_head_dim, cfg.rope_head_dim
+    split = p["wq"].shape[1] != h * (dn + dr)
+    if split:
+        h = p["wq"].shape[1] // (dn + dr)                      # the rank's
     pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
 
-    q = (x @ p["wq"]).reshape(b, s, h, dn + dr)
+    xq = tp.copy_to_model(x) if split else x
+    q = (xq @ p["wq"]).reshape(b, s, h, dn + dr)
     qn, qr = q[..., :dn], q[..., dn:]
     qr = apply_rope(qr, pos, cfg.rope_theta)
 
     c_kv = x @ p["w_dkv"]                                      # (B, S, r)
-    kr = apply_rope((x @ p["w_kr"]).reshape(b, s, 1, dr), pos,
-                    cfg.rope_theta)
+    k_lin = x @ p["w_kr"]
+    if split:
+        c_kv, k_lin = tp.copy_to_model(c_kv), tp.copy_to_model(k_lin)
+    kr = apply_rope(k_lin.reshape(b, s, 1, dr), pos, cfg.rope_theta)
     kn = (c_kv @ p["w_uk"]).reshape(b, s, h, dn)
     v = (c_kv @ p["w_uv"]).reshape(b, s, h, dn)
 
@@ -65,7 +79,8 @@ def apply_mla(p: Params, cfg: AttentionConfig, x: torch.Tensor, *,
                             kv_chunk=q_chunk)
     else:
         o = chunked_attention(qf, kf, v, causal=True, q_chunk=q_chunk)
-    return o.reshape(b, s, h * dn) @ p["wo"]
+    out = o.reshape(b, s, h * dn) @ p["wo"]
+    return tp.reduce_from_model(out) if split else out
 
 
 def mla_cache_spec(cfg: AttentionConfig, batch: int, seq: int,

@@ -25,6 +25,16 @@ reference's 16-way axis) is padded with inert experts whose logits are
 pinned at -2^30, so they are never chosen; the port keeps the padded
 tree so that a reference tree bridges leaf for leaf.
 
+Over a mesh whose model axis splits the compute (``sharding.
+tensor_parallel``) a rank given its model block of the experts runs its
+part, where ``param_partition`` puts them: expert parallelism (rank r
+holds experts ``[r E / n, (r + 1) E / n)`` of the padded E; the dense
+dispatch runs them on every token, the capacity dispatch scatters and
+combines only their pairs) or, under ``sharding="tp"``, a block of
+every expert's units; the shared experts a block of their units, as the
+dense FFN.  Routing runs whole and replicated on every model rank, and
+the layer sums its partial output over the model ranks once.
+
 ``router_type="neuralut"`` replaces the linear router with a NeuraLUT
 sub-network router (the paper's technique applied to MoE routing): each
 expert logit is a quantized, sparse sub-network of ``ROUTER_FAN_IN``
@@ -43,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -50,6 +61,7 @@ import torch
 from torch.utils.checkpoint import CheckpointPolicy
 
 from repro_torch.config.base import MoEConfig
+from repro_torch.sharding import tensor_parallel as tp
 from repro_torch.sharding.spmd import batch_counts_before, batch_mean
 from .attention import NEG_INF
 from .common import TensorSpec
@@ -116,6 +128,10 @@ def padded_num_experts(cfg: MoEConfig, model_axis: int) -> int:
     return ((e + model_axis - 1) // model_axis) * model_axis
 
 
+def _shared_width(cfg: MoEConfig) -> int:
+    return cfg.num_shared * (cfg.d_ff_shared or cfg.d_ff_expert)
+
+
 def moe_spec(cfg: MoEConfig, d_model: int, dtype, model_axis: int = 16,
              router_extra: Optional[Params] = None) -> Params:
     e = padded_num_experts(cfg, model_axis)
@@ -127,7 +143,7 @@ def moe_spec(cfg: MoEConfig, d_model: int, dtype, model_axis: int = 16,
         "w_down": TensorSpec((e, ff, d_model), dtype),
     }
     if cfg.num_shared > 0:
-        sff = cfg.num_shared * (cfg.d_ff_shared or cfg.d_ff_expert)
+        sff = _shared_width(cfg)
         spec.update({
             "ws_gate": TensorSpec((d_model, sff), dtype),
             "ws_up": TensorSpec((d_model, sff), dtype),
@@ -178,10 +194,20 @@ def apply_moe(p: Params, cfg: MoEConfig, x: torch.Tensor, act: Callable, *,
               dispatch: str = "dense", capacity_factor: float = 1.25,
               router_fn: Optional[Callable] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (output (B, S, D), aux loss x ``aux_loss_coef``)."""
+    """x: (B, S, D) -> (output (B, S, D), aux loss x ``aux_loss_coef``).
+
+    Given this rank's model block of the experts (a step that splits the
+    model axis; weights narrower than the tree's), it computes its part:
+    under expert parallelism its ``E / model`` experts (``w_gate`` of
+    fewer experts than the router's columns), under ``sharding="tp"`` a
+    block of every expert's ``d_ff_expert`` units; the shared experts a
+    block of their units.  The router and the top-k run whole on every
+    model rank (so every rank routes alike and the aux loss is
+    replicated); the partial sums of the routed and shared experts are
+    summed over the model ranks once."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    e = p["w_gate"].shape[0]
+    e = p["router"].shape[-1]
     if router_fn is not None:
         logits = router_fn(p.get("router_nl"), xt)
     elif cfg.router_type == "neuralut":
@@ -190,34 +216,69 @@ def apply_moe(p: Params, cfg: MoEConfig, x: torch.Tensor, act: Callable, *,
         logits = xt.float() @ p["router"]
     gates, aux = _topk_gates(logits, cfg, e)
 
+    # the model split, by the weights' shapes: the routed experts' and
+    # the shared experts' parts are partial sums over the model ranks
+    routed_split = tuple(p["w_gate"].shape) != (e, d, cfg.d_ff_expert)
+    shared_split = "ws_gate" in p and \
+        p["ws_gate"].shape[-1] != _shared_width(cfg)
+    if routed_split or shared_split:
+        # the experts' input: its gradient is each rank's part (the
+        # router's input is not: its gradient is whole on every rank)
+        xs = tp.copy_to_model(xt)
+    xr = xs if routed_split else xt
+    first = 0
+    if routed_split:
+        # the gates enter the rank's experts whole, so that the router's
+        # gradient is summed over the ranks' columns before the router
+        gates = tp.copy_to_model(gates)
+        if p["w_gate"].shape[0] != e:
+            first = tp.model_rank() * p["w_gate"].shape[0]
+
     if dispatch == "dense":
-        out = _dense_dispatch(p, xt, gates, act)
+        out = _dense_dispatch(p, xr, gates, act, first)
     elif dispatch == "sparse_capacity":
-        out = _capacity_dispatch(p, cfg, xt, gates, act, capacity_factor)
+        out = _capacity_dispatch(p, cfg, xr, gates, act, capacity_factor,
+                                 first)
     else:
         raise ValueError(dispatch)
-
+    parts = [(out, routed_split)]
     if "ws_gate" in p:
-        h = act(xt @ p["ws_gate"]) * (xt @ p["ws_up"])
+        xh = xs if shared_split else xt
+        h = act(xh @ p["ws_gate"]) * (xh @ p["ws_up"])
         with _kept():
-            out = out + h @ p["ws_down"]
+            parts.append((h @ p["ws_down"], shared_split))
+    out = _sum_parts(parts)
     return out.reshape(b, s, d), aux * cfg.aux_loss_coef
+
+
+def _sum_parts(parts):
+    """The layer's output from its parts, (tensor, whether it is this
+    rank's partial sum over the model ranks): the partial ones added and
+    summed over the model ranks (one reduction), the whole ones added
+    after them, in order."""
+    split = [t for t, part in parts if part]
+    out = [tp.reduce_from_model(sum(split[1:], split[0]))] if split else []
+    out += [t for t, part in parts if not part]
+    return sum(out[1:], out[0])
 
 
 # ---------------------------------------------------------------------------
 # What a checkpoint keeps
 
-_KEEP = [False]
+# per thread: a forward and its recompute each set and read it on the
+# thread that runs them, and two threads may run MoE blocks at once
+_KEEP = threading.local()
 
 
 @contextlib.contextmanager
 def _kept():
-    """The products run within it are kept by ``keep_policy``."""
-    _KEEP[0] = True
+    """The products run within it, on this thread, are kept by
+    ``keep_policy``."""
+    _KEEP.on = True
     try:
         yield
     finally:
-        _KEEP[0] = False
+        _KEEP.on = False
 
 
 _PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
@@ -232,7 +293,7 @@ def keep_policy(ctx, op, *args, **kwargs):
     checkpoint reruns a block up to its last op that saves a tensor,
     the shared experts' projection, and so the combine.  The kept
     results are (tokens, d_model) each."""
-    if _KEEP[0] and op in _PRODUCTS:
+    if getattr(_KEEP, "on", False) and op in _PRODUCTS:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -245,21 +306,29 @@ def _expert_in(xt: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return h.reshape(-1, e, f).permute(1, 0, 2)
 
 
-def _dense_dispatch(p, xt, gates, act):
-    """Every expert on every token, masked by its gate weight."""
+def _dense_dispatch(p, xt, gates, act, first=0):
+    """Every expert of ``p`` on every token, masked by its gate weight:
+    ``gates``' columns from ``first`` on where ``p`` holds a block of
+    the experts (expert parallelism)."""
     h = act(_expert_in(xt, p["w_gate"])) * _expert_in(xt, p["w_up"])
     o = torch.einsum("etf,efd->etd", h, p["w_down"])           # (E, T, D)
     g = gates.to(o.dtype)
+    if o.shape[0] != g.shape[1]:
+        g = g[:, first:first + o.shape[0]]
     with _kept():
         return torch.einsum("etd,te->td", o, g)
 
 
-def _capacity_dispatch(p, cfg, xt, gates, act, capacity_factor):
+def _capacity_dispatch(p, cfg, xt, gates, act, capacity_factor, first=0):
     """Capacity-based sparse dispatch, scatter/gather form: each expert
     processes at most C tokens (the first by token order); overflowing
-    pairs get weight 0 and their scatter lands, zeroed, in slot C - 1."""
+    pairs get weight 0 and their scatter lands, zeroed, in slot C - 1.
+    The slots come from the whole gate matrix; where ``p`` holds a block
+    of the experts (those from ``first`` on) only their pairs are
+    scattered and combined, the others' weights zeroed."""
     t, d = xt.shape
-    e = p["w_gate"].shape[0]
+    e = gates.shape[1]
+    e_own = p["w_gate"].shape[0]
     k = cfg.top_k
     top_w, top_i = _top_k(gates, k)                            # (T, k)
     # slot of each (token, choice) within its expert's capacity buffer,
@@ -272,20 +341,24 @@ def _capacity_dispatch(p, cfg, xt, gates, act, capacity_factor):
     pos_in_e = pos_in_e + before
     slot = torch.gather(pos_in_e, 1, top_i)                    # (T, k)
     keep = (slot < cap) & (top_w > 0)
+    if e_own != e:
+        own = (top_i >= first) & (top_i < first + e_own)
+        keep = keep & own
+        top_i = torch.where(own, top_i - first, 0)
     slot_c = torch.clamp(slot, 0, cap - 1)
 
     # scatter tokens into expert buffers: (E, C, D)
     upd = keep[..., None].to(xt.dtype) * xt[:, None, :]        # (T, k, D)
     flat = (top_i * cap + slot_c).reshape(-1)
-    xe = torch.zeros((e * cap, d), dtype=xt.dtype, device=xt.device)
-    xe = xe.index_add(0, flat, upd.reshape(-1, d)).reshape(e, cap, d)
+    xe = torch.zeros((e_own * cap, d), dtype=xt.dtype, device=xt.device)
+    xe = xe.index_add(0, flat, upd.reshape(-1, d)).reshape(e_own, cap, d)
 
     h = act(torch.einsum("ecd,edf->ecf", xe, p["w_gate"]))
     h = h * torch.einsum("ecd,edf->ecf", xe, p["w_up"])
     oe = torch.einsum("ecf,efd->ecd", h, p["w_down"])          # (E, C, D)
 
     # combine: gather each token's k expert outputs, weight, sum
-    y = oe.reshape(e * cap, d)[flat].reshape(t, k, d)
+    y = oe.reshape(e_own * cap, d)[flat].reshape(t, k, d)
     w = torch.where(keep, top_w, 0.0).to(oe.dtype)
     with _kept():
         return torch.einsum("tkd,tk->td", y, w)

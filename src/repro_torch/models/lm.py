@@ -33,8 +33,11 @@ embedding, the loss, remat and stacking from here.  The reference's
 sharding constraints are dropped: a mesh step (``sharding.spmd``)
 gathers each block's params inside its checkpointed function, and a
 layer given its model block of the weights computes its part
-(``sharding.tensor_parallel``): attention heads, the dense FFN's units,
-the vocabulary of the embedding and the loss.
+(``sharding.tensor_parallel``): attention and MLA heads, the dense
+FFN's units, an MoE's experts (or their units) and shared experts, the
+vocabulary of the embedding and the loss.  Mamba and xLSTM layers,
+attention whose heads do not divide the model axis and the decode step
+stay whole over it.
 """
 from __future__ import annotations
 
@@ -411,14 +414,19 @@ def _check_layer_mode(layer_mode: str) -> None:
 
 def _split_parts(spec: LayerSpec, cfg: ModelConfig) -> Tuple[str, ...]:
     """The parts of a block that a step splitting the model axis
-    computes split: grouped-query attention whose heads divide the axis,
-    a dense FFN.  MLA, Mamba, xLSTM and MoE stay whole."""
-    a = cfg.attention
+    computes split: attention (grouped-query or MLA) whose heads divide
+    the axis (and a grouped-query layer's kv columns), an FFN, dense or
+    MoE: ``param_partition`` puts a dim of it on the model axis only
+    where the axis divides it, which for an FFN is a block of whole
+    units or experts, and the MoE layer splits its routed and shared
+    parts each where its weights are blocks.  Mamba and xLSTM stay
+    whole."""
+    a, n = cfg.attention, tp.model_size()
     out = []
-    if spec.mixer == "attn" and a.kind != "mla" \
-            and a.num_heads % tp.model_size() == 0:
+    if spec.mixer == "attn" and a.num_heads % n == 0 \
+            and (a.kind == "mla" or a.kv_dim % n == 0):
         out.append("mixer")
-    if spec.ffn == "dense":
+    if spec.ffn != "none":
         out.append("ffn")
     return tuple(out)
 

@@ -138,12 +138,13 @@ class ServeBundle:
     shard_plan: Optional[Any] = None
 
     def plan_shards(self, num_replicas: int, *, mode: str = "auto",
-                    budget_bytes: Optional[int] = None):
+                    budget_bytes: Optional[int] = None, device=None):
         """Compute (and cache) the multi-device layout of this bundle,
         replicated or o_sharded, with its per-device operands built
         once, so sharded serving never converts on the hot path.
         Re-plans only when the requested layout changes, as the
-        reference's."""
+        reference's.  The budget defaults to ``device``'s
+        (``sharded.device_budget``: ``None`` is the card)."""
         from repro_torch.serve.sharded import plan_shards
         plan = self.shard_plan
         if (plan is None or plan.num_replicas != num_replicas
@@ -151,7 +152,8 @@ class ServeBundle:
                 or (budget_bytes is not None
                     and plan.budget_bytes != budget_bytes)):
             self.shard_plan = plan_shards(self, num_replicas, mode=mode,
-                                          budget_bytes=budget_bytes)
+                                          budget_bytes=budget_bytes,
+                                          device=device)
         return self.shard_plan
 
     def prepack(self) -> "ServeBundle":
@@ -393,11 +395,12 @@ class TableRegistry:
     def load(self, name: str, *, version: Optional[int] = None,
              verify: bool = True,
              shard_replicas: Optional[int] = None,
-             shard_mode: str = "auto") -> ServeBundle:
+             shard_mode: str = "auto", shard_device=None) -> ServeBundle:
         """The newest committed version (or ``version``), verified
         against its checksums unless ``verify=False``, packed and ready
         to serve; with ``shard_replicas`` its layout over that many
-        devices is planned here too (``ServeBundle.plan_shards``)."""
+        devices is planned here too (``ServeBundle.plan_shards``, against
+        ``shard_device``'s budget: ``None`` is the card)."""
         store = self._store(name)
         step = store.latest_step() if version is None else version
         if step is None:
@@ -456,7 +459,8 @@ class TableRegistry:
             meta=extra).prepack()
         if shard_replicas is not None:
             # Multi-device deployments plan once, at load.
-            bundle.plan_shards(shard_replicas, mode=shard_mode)
+            bundle.plan_shards(shard_replicas, mode=shard_mode,
+                               device=shard_device)
         return bundle
 
     # -- integrity --------------------------------------------------------

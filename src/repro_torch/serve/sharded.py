@@ -62,9 +62,7 @@ CPU_BUDGET_BYTES = 8 * 2 ** 20
 def device_budget(device: DeviceLike = None) -> int:
     """Operand bytes that one device keeps close: a CUDA device's L2
     size, or :data:`CPU_BUDGET_BYTES` for the CPU.  ``None``: the
-    current CUDA device when the process has one, else the CPU."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    current CUDA device (raises without one, as ``resolve_device``)."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         return int(torch.cuda.get_device_properties(dev).L2_cache_size)
@@ -136,9 +134,9 @@ def plan_shards(bundle, num_replicas: int, *, mode: str = "auto",
     (default: :func:`device_budget` of ``device``) and build its
     operands.  The o_sharded layout of a LUT DAG raises
     ``UnsupportedTopology``."""
+    choose_layout(0, 0, num_replicas, mode)  # validate args before packing
     budget = device_budget(device) if budget_bytes is None \
         else int(budget_bytes)
-    choose_layout(0, 0, num_replicas, mode)  # validate args before packing
     bundle.prepack()
     total = sum(int(t.nbytes) for t in bundle.packed_tables) + sum(
         4 * np.size(c) for s in bundle.statics for c in node_static_conns(s))

@@ -22,19 +22,23 @@ a step over a mesh equals one process at the same global batch:
   divides by their count and keeps the rank's block;
 * the model axis splits attention heads (``wq``/``wk``/``wv`` by
   columns, ``wo`` by rows; kv heads that do not divide the axis are
-  gathered from their owners), the dense FFN's units and the
-  vocabulary (a vocabulary-parallel embedding and loss), Megatron's
-  column and row splits (``sharding.tensor_parallel``);
+  gathered from their owners), MLA's heads (``wq``/``w_uk``/``w_uv`` by
+  columns, ``wo`` by rows; the latent projections whole), the dense
+  FFN's units, an MoE's experts (expert parallelism over the padded
+  experts, or each expert's units under ``sharding="tp"``; the router
+  whole) and its shared experts' units, and the vocabulary (a
+  vocabulary-parallel embedding and loss), Megatron's column and row
+  splits (``sharding.tensor_parallel``);
 * the ``compress_grads`` hook sees the averaged gradient gathered whole
   (the reference's hook sees the logical global one), the clip norm is
   summed over the whole mesh from each rank's shards (each element
   once), and each rank runs AdamW on its own shards.
 
 Still whole over the model axis, gathered per layer (ROADMAP.md, Queue
-A, the next item): MoE experts and shared experts, MLA, Mamba, xLSTM,
-whisper's encoder and cross attention, attention whose heads do not
-divide the axis, and the decode step (``make_mesh_serve_step`` gathers
-every leaf whole and computes the whole model on its rows).
+A, the next item): Mamba, xLSTM, whisper's encoder and cross attention,
+attention or MLA whose heads do not divide the axis, and the decode
+step (``make_mesh_serve_step`` gathers every leaf whole and computes the
+whole model on its rows).
 
 Collectives run over the mesh's process groups.  Under gloo a CUDA
 tensor is staged through pinned host memory for every collective
@@ -52,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import MeshConfig
+from repro_torch.device import resolve_device
 from repro_torch.sharding import ctx, tensor_parallel
 from repro_torch.sharding.partition import (NamedSharding, PartitionSpec,
                                             batch_partition, named,
@@ -76,14 +81,16 @@ class ProcessMesh:
     over the same ranks (named by the axes; ``None`` without a group);
     ``group(axes)`` is the process group over which ``axes`` vary, the
     other coordinates this rank's, made once per axis tuple by every
-    rank in the same order."""
+    rank in the same order.  ``device`` is this rank's compute device,
+    resolved as every entry point resolves it (``None``: the card; the
+    CPU only when named)."""
 
     def __init__(self, mcfg: MeshConfig, device=None):
         import torch.distributed as dist
         self.config = mcfg
         self.shape = tuple(int(s) for s in mcfg.shape)
         self.axes = tuple(mcfg.axes)
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         joined = dist.is_available() and dist.is_initialized()
         self.world = dist.get_world_size() if joined else 1
         self.rank = dist.get_rank() if joined else 0

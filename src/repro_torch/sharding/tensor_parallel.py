@@ -2,10 +2,10 @@
 mesh step (ZeRO-3).
 
 The reference is GSPMD: XLA computes each matmul where
-``param_partition`` placed its weight, so attention heads, FFN units
-and the vocabulary split over "model".  The port does the same by hand,
-in Megatron's column and row splits, over what the partition rules
-already place on "model":
+``param_partition`` placed its weight, so attention and MLA heads, FFN
+units, MoE experts and the vocabulary split over "model".  The port
+does the same by hand, in Megatron's column and row splits, over what
+the partition rules already place on "model":
 
 * ``copy_to_model`` (Megatron's f): the identity, whose backward sums
   the gradient over the model axis: it stands before a column-split
@@ -271,7 +271,10 @@ class _GatherLeaves(torch.autograd.Function):
 def _flatten(p, sh, split: Iterable[str], unstacked: bool):
     """(leaves, their specs, whether each is gathered whole over the
     model axis) of a block's dict of params; ``unstacked``: the specs
-    are a stacked block's, one dim more."""
+    are a stacked block's, one dim more.  A part computed split keeps
+    each leaf that its spec puts on the model axis as the rank's block;
+    its other leaves (an MoE router, MLA's latent projections) are
+    whole there already and gathered over the data axes only."""
     from repro_torch.tree import tree_leaves
     split = set(split)
     leaves, specs, whole = [], [], []
@@ -280,12 +283,9 @@ def _flatten(p, sh, split: Iterable[str], unstacked: bool):
         ss = [s.spec for s in tree_leaves(sh[k])]
         if unstacked:
             ss = [PartitionSpec(*s[1:]) for s in ss]
-        # a part computed split only if every weight of it is split
-        part_split = k in split and all(
-            any(MODEL in _axes(a) for a in s) for s in ss)
         leaves += ls
         specs += ss
-        whole += [not part_split] * len(ls)
+        whole += [k not in split] * len(ls)
     return leaves, specs, whole
 
 
@@ -295,7 +295,7 @@ def gather_block(p: Dict[str, Any], sh: Dict[str, Any],
     """A block's params (this rank's shards) gathered for its compute,
     under the active ``StepLayout`` (``p`` itself without one): over the
     data axes; over the model axis unless the part (a key of ``p``) is
-    in ``split`` and every weight of it is split over the model axis.
+    in ``split``, whose leaves on the model axis stay the rank's block.
     ``sh``: the block's shardings, a stacked block's (one leading dim
     more in each spec) when ``stacked``."""
     from repro_torch.tree import tree_unflatten

@@ -199,7 +199,7 @@ def _real_plans(mesh_shape):
 
     from repro_torch.models.layers.common import init_from_spec
     cfg = get_config(PLAN_ARCH, reduced=True)
-    mesh = Recording(MeshConfig(mesh_shape, ("data", "model")))
+    mesh = Recording(MeshConfig(mesh_shape, ("data", "model")), device="cpu")
     # the dry run's tree: experts padded to the model axis's size
     params = init_from_spec(api.param_spec(cfg, model_axis=mesh_shape[-1]),
                             torch.Generator().manual_seed(0))

@@ -236,3 +236,38 @@ def test_dots_remat_saves_the_expert_products():
         for t in leaves:
             t.requires_grad_(False)
     assert counts["dots"] == counts["none"] < counts["full"], counts
+
+
+def test_keep_policy_reads_this_threads_mark():
+    """``moe.keep_policy`` keeps a product only where this thread marked
+    it (``moe._kept``).  Under a torch whose recompute asks the policy
+    again (2.11 does, 2.13 does not), a flag shared by the threads raised
+    "encountered during backward, but not found in storage" when one
+    thread's MoE combine ran inside ``_kept`` while another recomputed
+    its block, as ``chip_smoke.py``'s MoE phase does with its CPU step
+    beside the card's."""
+    import threading
+
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        SelectiveCheckpointContext)
+    from repro_torch.models.layers import moe
+    ctx = SelectiveCheckpointContext(is_recompute=True)
+    mm = torch.ops.aten.mm.default
+    inside, done = threading.Event(), threading.Event()
+
+    def hold():
+        with moe._kept():
+            inside.set()
+            done.wait(60)
+
+    other = threading.Thread(target=hold)
+    other.start()
+    try:
+        assert inside.wait(60)
+        assert moe.keep_policy(ctx, mm) == CheckpointPolicy.PREFER_RECOMPUTE
+        with moe._kept():
+            assert moe.keep_policy(ctx, mm) == CheckpointPolicy.MUST_SAVE
+        assert moe.keep_policy(ctx, mm) == CheckpointPolicy.PREFER_RECOMPUTE
+    finally:
+        done.set()
+        other.join()

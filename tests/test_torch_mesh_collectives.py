@@ -117,7 +117,7 @@ def _worker(rank, world, init, out_dir):
     res, arrays = {}, {}
     try:
         leaves = _torch_leaves(_inputs(world)[rank])
-        mesh = make_host_mesh((world, 1))
+        mesh = make_host_mesh((world, 1), device="cpu")
         res["device_mesh"] = list(mesh.device_mesh.mesh_dim_names)
         with ctx.active_mesh(mesh):
             for k, v in _np_out(psum_int8(leaves, "data")).items():
@@ -129,15 +129,17 @@ def _worker(rank, world, init, out_dir):
                 res["constrain_arity"] = "no error"
             except AssertionError:
                 res["constrain_arity"] = "AssertionError"
-        for what, build in (("host_2x4", lambda: make_host_mesh()),
-                            ("single_pod", make_production_mesh)):
+        for what, build in (
+                ("host_2x4", lambda: make_host_mesh(device="cpu")),
+                ("single_pod",
+                 lambda: make_production_mesh(device="cpu"))):
             try:
                 build()
                 res[what] = "built"
             except ValueError as e:
                 res[what] = str(e)
         if world == 4:
-            m22 = make_host_mesh((2, 2))
+            m22 = make_host_mesh((2, 2), device="cpu")
             res["coords_2x2"] = list(m22.coords)
             with ctx.active_mesh(m22):
                 for axes, tag in ((("data", "model"), "both"),
@@ -269,12 +271,12 @@ def test_mesh_builders_without_a_group():
     from repro_torch.launch.mesh import (make_host_mesh, make_sweep_mesh,
                                          mesh_config)
     from repro_torch.sharding import REPLICA_AXIS, replica_mesh
-    m = make_host_mesh((1, 1))
+    m = make_host_mesh((1, 1), device="cpu")
     assert (m.world, m.rank, m.coords, m.device_mesh) == (1, 0, (0, 0),
                                                           None)
     with pytest.raises(ValueError, match=r"needs 2 processes; the world "
                        r"has 1 \(no process group is open\)"):
-        make_host_mesh((2, 1))
+        make_host_mesh((2, 1), device="cpu")
     assert mesh_config().shape == (16, 16)
     assert mesh_config(multi_pod=True).axes == ("pod", "data", "model")
     assert REPLICA_AXIS == "replica"
@@ -285,6 +287,29 @@ def test_mesh_builders_without_a_group():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA"):
             make_sweep_mesh()
+
+
+def test_mesh_helpers_default_to_the_card(monkeypatch):
+    """``device=None`` is the card, as at every entry point: with none
+    visible the mesh builders and the sharded-serving budget raise
+    ``resolve_device``'s error; the CPU runs when named."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.config import MeshConfig
+    from repro_torch.launch.mesh import (make_host_mesh,
+                                         make_mesh_from_config,
+                                         make_production_mesh)
+    from repro_torch.serve.sharded import CPU_BUDGET_BYTES, device_budget
+    from repro_torch.sharding.spmd import ProcessMesh
+    one = MeshConfig((1, 1), ("data", "model"))
+    for build in (lambda: make_host_mesh((1, 1)),
+                  lambda: make_mesh_from_config(one),
+                  lambda: ProcessMesh(one), make_production_mesh,
+                  device_budget):
+        with pytest.raises(RuntimeError, match="no CUDA device is "
+                           "available.*pass device='cpu'"):
+            build()
+    assert make_host_mesh((1, 1), device="cpu").device == torch.device("cpu")
+    assert device_budget("cpu") == CPU_BUDGET_BYTES
 
 
 @pytest.mark.parametrize("dispatch", ["dense", "sparse_capacity"])

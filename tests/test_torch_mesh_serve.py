@@ -82,7 +82,7 @@ def test_one_process_mesh_equals_the_serve_step_bit_for_bit():
     from repro_torch.config import MeshConfig
     from repro_torch.sharding.spmd import ProcessMesh
     cfg, params, state, token = _setup()
-    mesh = ProcessMesh(MeshConfig((1, 1), ("data", "model")))
+    mesh = ProcessMesh(MeshConfig((1, 1), ("data", "model")), device="cpu")
     logits, new, want_logits, want_new = _mesh_step(mesh, cfg, params,
                                                     state, token)
     assert torch.equal(logits, want_logits)
@@ -100,7 +100,8 @@ def _worker(rank, world, init, out_dir):
     try:
         cfg, params, state, token = _setup()
         for shape in ((1, 2), (2, 1)):
-            mesh = ProcessMesh(MeshConfig(shape, ("data", "model")))
+            mesh = ProcessMesh(MeshConfig(shape, ("data", "model")),
+                               device="cpu")
             logits, new, wl, wn = _mesh_step(mesh, cfg, params, state, token)
             lrel, lsame = _diffs(logits, wl)
             srel, ssame = _diffs(new, wn)

@@ -15,7 +15,10 @@ the gradient away, so rounding moves an element of cancelling gradient
 by up to lr).  Cases: reduced ``llama3-8b`` (dense; also ``--mesh
 host`` with no shape over 4 processes, the reference's (2, 2));
 reduced ``qwen2-moe-a2.7b`` (the aux loss's global statistics; also at
-``2x2x1``, pod x data x model, whose data axes are two); ``--grad-accum
+``2x2x1``, pod x data x model, whose data axes are two; at ``1x2`` its
+experts split over the model axis, as reduced ``deepseek-v2-lite-16b``'s
+experts and MLA heads and reduced ``jamba-v0.1-52b``'s experts beside
+its whole Mamba layers); ``--grad-accum
 2``; ``--compress-grads``, where one ulp of difference in an averaged
 gradient can flip an int8 code, moving that element by one quantum q
 (its leaf's max / 127): the first step's compressed gradient is held to
@@ -53,6 +56,7 @@ STEP = dict(rtol=1e-5, atol=1e-5)
 GRAD_T = 1e-5
 DENSE, MOE = "llama3-8b", "qwen2-moe-a2.7b"
 YI, GEMMA, LM = "yi-9b", "gemma3-12b", "lm-100m"
+MLA, JAMBA = "deepseek-v2-lite-16b", "jamba-v0.1-52b"
 LM_LR = 3e-4    # the launcher's default, lm-100m's rate on the card
 BF16_RTOL = 2.0 ** -8   # one bfloat16 ulp
 
@@ -92,6 +96,12 @@ CASES = {   # name: (world, arch, mesh shape, extra flags, dtype)
     "yi_1x2": (2, YI, "1x2", (), "float32"),
     "gemma_1x2": (2, GEMMA, "1x2", (), "float32"),
     "lm_2x2": (4, LM, "2x2", ("--lr", str(LM_LR)), "float32"),
+    # the experts over the model axis (reduced configs pad theirs to 16:
+    # rank 1 holds only inert ones), MLA's heads, and an MoE beside
+    # Mamba layers that stay whole
+    "moe_1x2": (2, MOE, "1x2", (), "float32"),
+    "mla_moe_1x2": (2, MLA, "1x2", (), "float32"),
+    "jamba_1x2": (2, JAMBA, "1x2", (), "float32"),
 }
 
 
@@ -255,7 +265,7 @@ def _supervised(rank, out_dir):
                               dtype="float32")
     tcfg = TrainConfig(lr=LR, sgdr_t0=50)
     shape = ShapeConfig("t", "train", S, B)
-    mesh = make_host_mesh((2, 1))
+    mesh = make_host_mesh((2, 1), device="cpu")
     make = lm_batch_fn(cfg.vocab_size, B, S, seed=0)
     finals, restarts = [], []
     for tag, fail_at in (("whole", ()), ("failed", (3,) if rank == 1 else ())):
@@ -408,7 +418,8 @@ def test_one_process_launcher_is_the_plain_step(capsys):
 @pytest.mark.parametrize("name", ["dense_2x1", "dense_1x2", "dense_2x2",
                                   "moe_2x1", "accum_2x1", "pod_2x2x1",
                                   "host_default", "yi_1x2", "gemma_1x2",
-                                  "lm_2x2"])
+                                  "lm_2x2", "moe_1x2", "mla_moe_1x2",
+                                  "jamba_1x2"])
 def test_mesh_step_equals_one_process(name, runs):
     world, arch, shape, extra, _ = CASES[name]
     lr = float(extra[extra.index("--lr") + 1]) if "--lr" in extra else LR
@@ -476,11 +487,13 @@ def test_bfloat16_over_the_mesh(runs):
 
 def test_no_dense_weight_is_gathered_over_the_model_axis(runs):
     """Where the model axis splits the compute, no weight of the dense
-    LMs is gathered over it: the bytes that all-gathers over "model"
-    return are activations only (an untied embedding's columns, the kv
-    heads of yi-9b's single kv head split across head_dim, the clip
-    norm's partial sums)."""
-    cases = {2: ("dense_1x2", "yi_1x2", "gemma_1x2"),
+    LMs, of the MoE (experts, shared experts, router) or of MLA is
+    gathered over it: the bytes that all-gathers over "model" return are
+    activations only (an untied embedding's columns, the kv heads of
+    yi-9b's single kv head split across head_dim, the clip norm's
+    partial sums).  jamba's Mamba layers stay whole: they are."""
+    cases = {2: ("dense_1x2", "yi_1x2", "gemma_1x2", "moe_1x2",
+                 "mla_moe_1x2"),
              4: ("dense_2x2", "lm_2x2")}
     for world, names in cases.items():
         for r in runs[f"info{world}"]:
@@ -491,6 +504,7 @@ def test_no_dense_weight_is_gathered_over_the_model_axis(runs):
     # the 2x1 mesh has one rank on the model axis: nothing crosses it
     for r in runs["info2"]:
         assert r["dense_2x1"]["model_gathers"] == {"params": 0, "other": 0}
+        assert r["jamba_1x2"]["model_gathers"]["params"] > 0
 
 
 def test_shard_bytes_per_rank(runs):

@@ -79,7 +79,7 @@ def test_choose_layout_equals_reference(total, budget, r, mode):
 @pytest.mark.parametrize("arch,mod", CHAINS)
 def test_pad_widths_and_row_blocks(arch, mod, r):
     pb, jb = _pair(arch, mod)
-    plan = S.plan_shards(pb, r, mode="o_sharded")
+    plan = S.plan_shards(pb, r, mode="o_sharded", device="cpu")
     jb.prepack()
     pads, _, _ = JS._pad_operands(jb.cfg, jb.shift_mats, jb.packed_tables, r)
     assert plan.pad_widths == pads
@@ -112,9 +112,9 @@ def test_bundle_plan_cache_and_replan():
     p1 = pb.plan_shards(2, budget_bytes=S.CPU_BUDGET_BYTES)
     assert pb.plan_shards(2) is p1                      # cached
     assert pb.plan_shards(2, budget_bytes=S.CPU_BUDGET_BYTES) is p1
-    p2 = pb.plan_shards(4)                              # new R: re-plan
+    p2 = pb.plan_shards(4, device="cpu")                # new R: re-plan
     assert p2 is not p1 and p2.num_replicas == 4
-    p3 = pb.plan_shards(4, mode="o_sharded")
+    p3 = pb.plan_shards(4, mode="o_sharded", device="cpu")
     assert p3.mode == "o_sharded" and pb.plan_shards(4) is p3
     p4 = pb.plan_shards(4, budget_bytes=123)            # new budget
     assert p4 is not p3 and p4.budget_bytes == 123
@@ -124,7 +124,8 @@ def test_registry_load_plans_shards(tmp_path):
     pb, _ = _pair(*CHAINS[1])
     reg = TableRegistry(str(tmp_path))
     reg.save("m", pb)
-    loaded = reg.load("m", shard_replicas=2, shard_mode="o_sharded")
+    loaded = reg.load("m", shard_replicas=2, shard_mode="o_sharded",
+                      shard_device="cpu")
     assert loaded.shard_plan is not None
     assert loaded.shard_plan.mode == "o_sharded"
     assert loaded.shard_plan.num_replicas == 2

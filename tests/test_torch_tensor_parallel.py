@@ -14,15 +14,30 @@ Cases (float32, inputs drawn with numpy from a seed):
 * the vocabulary-parallel embedding: tied (the rank's vocabulary rows,
   summed over the axis) and untied (its d_model columns, gathered);
 * the vocabulary-parallel loss (``lm.chunked_ce_loss``), tied and
-  untied heads.
+  untied heads;
+* the MoE FFN under expert parallelism (``w_gate``/``w_up``/``w_down``
+  by experts, the router whole), dense and capacity dispatch, with 16
+  experts (routed experts on both ranks) and with reduced
+  qwen2-moe-a2.7b's 6 padded to 16 (at 1x2 rank 1 holds only inert
+  experts and still joins every sum); under ``sharding="tp"`` (each
+  expert's units); with shared experts (by units, summed with the
+  routed part once; units the axis does not divide stay whole and are
+  added after it); the objective adds the aux loss, so the router's
+  gradient, whole on every model rank, is held too;
+* MLA, ``wq``/``w_uk``/``w_uv`` by columns (heads) and ``wo`` by rows,
+  ``w_dkv``/``w_kr`` whole (their gradient whole on every model rank).
 
 Each runs at 1x2 and at 2x2, where each data rank takes half the rows:
 the one-process reference runs the layer on the same row blocks, and
 the weights' gradients are summed over the blocks (the mesh step
 averages them).  Held to rtol 1e-5, atol 1e-6 x the largest element of
-each array (float32 sums split in two, as the mesh step's).  Under a
+each array (float32 sums split in two, as the mesh step's); a weight
+kept whole over the model axis is held on every model rank.  Under a
 layout whose model axis has one rank every layer is the plain one bit
-for bit and no collective runs.
+for bit and no collective runs.  The model axis's collectives of an
+MoE and an MLA + MoE block at (1, 2), forward and backward with and
+without the recompute, are counted through a ``CountingMesh`` on the
+meta device.
 """
 import dataclasses
 import os
@@ -49,6 +64,23 @@ def _acfg(heads, kv, *, rope="rope", window=0):
                            else ())
 
 
+def _moecfg(experts=16, top_k=2, shared=0, shared_ff=24, sharding="auto"):
+    from repro_torch.config import get_config
+    from repro_torch.config.base import MoEConfig
+    if experts is None:       # reduced qwen2-moe-a2.7b's: 6, padded to 16
+        return get_config("qwen2-moe-a2.7b", reduced=True).moe
+    return MoEConfig(num_experts=experts, top_k=top_k, num_shared=shared,
+                     d_ff_expert=16, d_ff_shared=shared_ff,
+                     sharding=sharding)
+
+
+def _mlacfg():
+    from repro_torch.config.base import AttentionConfig
+    return AttentionConfig(kind="mla", num_heads=4, num_kv_heads=4,
+                           head_dim=8, kv_lora_rank=16, rope_head_dim=4,
+                           nope_head_dim=8)
+
+
 def _mcfg(tied):
     from repro_torch.config import get_config
     return dataclasses.replace(get_config("llama3-8b", reduced=True),
@@ -71,12 +103,28 @@ CASES = {
     "loss_tied": ("loss", dict(tied=True)),
     "loss_untied": ("loss", dict(tied=False)),
 }
+# the experts and MLA's heads, seeded after the cases above
+LATER = {
+    "moe_ep16": ("moe", dict()),
+    "moe_ep16_capacity": ("moe", dict(dispatch="sparse_capacity")),
+    "moe_padded": ("moe", dict(experts=None)),
+    "moe_padded_capacity": ("moe", dict(experts=None,
+                                        dispatch="sparse_capacity")),
+    "moe_tp": ("moe", dict(experts=4, shared=1, sharding="tp")),
+    "moe_shared": ("moe", dict(top_k=4, shared=2)),
+    # shared units the axis does not divide stay whole beside the
+    # split experts, added after the experts' sum
+    "moe_shared_whole": ("moe", dict(shared=1, shared_ff=25)),
+    "mla": ("mla", dict()),
+}
+SEEDS = {n: i for i, n in enumerate(sorted(CASES) + list(LATER))}
+CASES.update(LATER)
 
 
 def _draw(name):
     """(whole weights, inputs, each weight's model-split dim) as numpy."""
     kind, kw = CASES[name]
-    rng = np.random.default_rng(sorted(CASES).index(name))
+    rng = np.random.default_rng(SEEDS[name])
 
     def w(*shape):
         return (rng.normal(0, 1, shape) / np.sqrt(shape[0])).astype(
@@ -94,6 +142,24 @@ def _draw(name):
     elif kind == "mlp":
         ws = {"w_gate": w(D, 80), "w_up": w(D, 80), "w_down": w(80, D)}
         split = {"w_gate": 1, "w_up": 1, "w_down": 0}
+    elif kind == "moe":
+        from repro_torch.models.layers.moe import moe_spec
+        m = _moecfg(**{k: v for k, v in kw.items() if k != "dispatch"})
+        ws = {k: w(*t.shape[-2:]) if len(t.shape) == 2 else np.stack(
+            [w(*t.shape[1:]) for _ in range(t.shape[0])])
+            for k, t in moe_spec(m, D, torch.float32).items()}
+        tp_ = m.sharding == "tp"
+        sh = m.d_ff_shared % 2 == 0
+        split = {"router": None, "w_gate": 2 if tp_ else 0,
+                 "w_up": 2 if tp_ else 0, "w_down": 1 if tp_ else 0,
+                 "ws_gate": 1 if sh else None, "ws_up": 1 if sh else None,
+                 "ws_down": 0 if sh else None}
+    elif kind == "mla":
+        from repro_torch.models.layers.mla import mla_spec
+        ws = {k: w(*t.shape)
+              for k, t in mla_spec(_mlacfg(), D, torch.float32).items()}
+        split = {"wq": 1, "w_uk": 1, "w_uv": 1, "wo": 0, "w_dkv": None,
+                 "w_kr": None}
     else:
         tied = kw["tied"]
         ws = {"embed": w(VOCAB, D)}
@@ -124,6 +190,15 @@ def _layer(name, p, ins):
     elif kind == "mlp":
         out = apply_mlp(p, ins["x"], "silu", fused=kw["fused"],
                         split=p["w_down"].shape[0] != 80)
+    elif kind == "moe":
+        from repro_torch.models.layers.moe import apply_moe
+        m = _moecfg(**{k: v for k, v in kw.items() if k != "dispatch"})
+        out, aux = apply_moe(p, m, ins["x"], torch.nn.functional.silu,
+                             dispatch=kw.get("dispatch", "dense"))
+        return out, torch.sum(out * ins["r"]) + aux
+    elif kind == "mla":
+        from repro_torch.models.layers.mla import apply_mla
+        out = apply_mla(p, _mlacfg(), ins["x"], q_chunk=16)
     elif kind == "embed":
         out = lm.embed_tokens(_mcfg(kw["tied"]), p, ins["tokens"])
     else:
@@ -146,7 +221,8 @@ def _run(name, p, ins, n_data, data_index):
         rows["x"].requires_grad_(True)
     out, obj = _layer(name, p, rows)
     wrt = list(p.values()) + ([rows["x"]] if CASES[name][0] in
-                              ("attn", "mlp", "loss") else [])
+                              ("attn", "mlp", "loss", "moe", "mla")
+                              else [])
     grads = torch.autograd.grad(obj, wrt)
     return out.detach(), dict(zip(list(p) + ["x"], grads))
 
@@ -180,7 +256,7 @@ def _worker(rank, world, init, out_dir):
                             rank=rank)
     try:
         shape = (1, 2) if world == 2 else (2, 2)
-        mesh = make_host_mesh(shape)
+        mesh = make_host_mesh(shape, device="cpu")
         m, r = mesh.size("model"), mesh.index("model")
         n_data, di = mesh.size("data"), mesh.index("data")
         res = {}
@@ -189,6 +265,9 @@ def _worker(rank, world, init, out_dir):
             p = {}
             for k, v in ws.items():
                 d = split[k]
+                if d is None:            # whole over the model axis
+                    p[k] = torch.as_tensor(v)
+                    continue
                 size = v.shape[d] // m
                 p[k] = torch.as_tensor(v).narrow(d, r * size, size).clone()
             with tp.step_layout(mesh, None):
@@ -198,8 +277,11 @@ def _worker(rank, world, init, out_dir):
                 res[f"{name}/dx"] = torch.stack(mesh.all_gather(g["x"],
                                                                 "data"))
             for k in ws:
-                whole = torch.cat(mesh.all_gather(g[k], "model"),
-                                  dim=split[k])
+                parts = mesh.all_gather(g[k], "model")
+                if split[k] is None:     # every model rank's, stacked
+                    whole = torch.stack(parts)
+                else:
+                    whole = torch.cat(parts, dim=split[k])
                 res[f"{name}/{k}"] = mesh.all_reduce(whole, "sum", "data")
         if rank == 0:
             np.savez(os.path.join(out_dir, "res.npz"),
@@ -243,8 +325,13 @@ def test_split_layer_equals_the_whole_layer(name, mesh, split_runs):
         _close(got[f"{name}/out"][i], outs[i], f"{name} output block {i}")
         if dxs:
             _close(got[f"{name}/dx"][i], dxs[i], f"{name} dx block {i}")
+    _, _, split = _draw(name)
     for k, w in wg.items():
-        _close(got[f"{name}/{k}"], w, f"{name} grad {k}")
+        if split[k] is None:             # the same on every model rank
+            for i, g in enumerate(got[f"{name}/{k}"]):
+                _close(g, w, f"{name} grad {k} on model rank {i}")
+        else:
+            _close(got[f"{name}/{k}"], w, f"{name} grad {k}")
 
 
 def test_one_rank_on_the_model_axis_is_the_plain_layer():
@@ -266,3 +353,54 @@ def test_one_rank_on_the_model_axis_is_the_plain_layer():
         for k in want[1]:
             assert torch.equal(got[1][k], want[1][k]), (name, k)
     assert mesh.plan == []
+
+
+# (forward, backward without the recompute, the recompute's own) model
+# axis all-reduces of one block at (1, 2): every block sums its mixer's
+# and its FFN's output once (g); the backward sums the input gradient of
+# attention (f on x), of MLA (f on x, on the latent and on the rope key),
+# of a dense FFN (f on x) and of an MoE (f on the experts' input and on
+# the gates); the recompute reruns the mixer's sum only, since the
+# FFN's output (the dense FFN's down projection, the MoE's kept combine
+# and shared projection) is not recomputed
+BLOCK_COLLECTIVES = {
+    "qwen2-moe-a2.7b": [(2, 3, 1), (2, 3, 1)],           # attn + MoE
+    "deepseek-v2-lite-16b": [(2, 4, 1), (2, 5, 1)],      # MLA + dense, MoE
+}
+
+
+@pytest.mark.parametrize("arch", sorted(BLOCK_COLLECTIVES))
+def test_model_axis_collectives_of_a_block(arch):
+    """Reduced ``arch``'s blocks (float32) forward and backward over a
+    (1, 2) ``CountingMesh`` on the meta device, remat "none" and
+    "full": the all-reduces over the model axis are BLOCK_COLLECTIVES'
+    (no gather: every weight is the rank's block or whole there)."""
+    from repro_torch.config import MeshConfig, get_config
+    from repro_torch.models import api, lm
+    from repro_torch.models.layers.common import zeros_from_spec
+    from repro_torch.roofline.counter import CountingMesh
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding import tensor_parallel as tp
+    from repro_torch.sharding.partition import named, param_partition
+    from repro_torch.sharding.spmd import shard_tree
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype="float32")
+    want = BLOCK_COLLECTIVES[arch]
+    for remat in ("none", "full"):
+        mesh = CountingMesh(MeshConfig((1, 2), ("data", "model")))
+        spec = api.param_spec(cfg)
+        psh = named(mesh, param_partition(cfg, spec, mesh.config))
+        params = tree_map(lambda t: t.requires_grad_(True), shard_tree(
+            zeros_from_spec(spec, device="meta"), psh))
+        x = torch.zeros((2, 8, cfg.d_model), device="meta",
+                        requires_grad=True)
+        with ctx.active_mesh(mesh, data_axes=mesh.data_axes), \
+                tp.step_layout(mesh, psh):
+            out, aux = lm.apply_stack(cfg, params, x, remat=remat)
+            fwd = len(mesh.plan)
+            (out.sum() + aux).backward()
+        assert {op for op, _, _ in mesh.plan} == {"all-reduce"}, mesh.plan
+        assert fwd == sum(f for f, _, _ in want), (remat, mesh.plan)
+        bwd = sum(b + (r if remat == "full" else 0) for _, b, r in want)
+        assert len(mesh.plan) - fwd == bwd, (remat, mesh.plan)
