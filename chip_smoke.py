@@ -5403,7 +5403,7 @@ def _vlm(dev, card, tcfg, pool, cpu_pool):
 MESH_ARCH_STEPS = 10       # (a): lm-100m at 1x1 against the plain step
 MESH_SHARED_STEPS = 3      # (b): 2x1 and 1x2, two ranks on one card
 MESH_MOE_STEPS = 3         # (d): reduced qwen2-moe-a2.7b, 2x1 vs 1x1
-MESH_SPLIT_STEPS = 3       # (f): the MoE cuts at 1x1 and 1x2
+MESH_SPLIT_STEPS = 3       # (f): the MoE cuts at 1x1 and 1x2; (g) too
 # (f): a token routed otherwise at 1x2 than at 1x1 is a tie of the split's
 # rounding when its k-th and (k+1)-th routing probabilities lie within
 # this of each other at 1x1: the split moves a step-0 probability by at
@@ -5540,11 +5540,12 @@ def _mesh_psum_inputs(rank):
     return out
 
 
-def _mesh_worker(rank, world, init, out_dir, reduced, device, only_f):
-    """One of the ranks sharing the card: (b)-(d) unless ``only_f``
-    (``_mesh_worker_dense``), then (f) the MoE cuts at 1x2 and one more
-    1x2 step's FLOPs; writes its results to ``out_dir``.  ``device``
-    "cpu" rehearses it on the host."""
+def _mesh_worker(rank, world, init, out_dir, reduced, device, only):
+    """One of the ranks sharing the card: (b)-(d) (``_mesh_worker_dense``),
+    (f) the MoE cuts at 1x2 and (g) the jamba and whisper cuts at 1x2,
+    each with one more 1x2 step's FLOPs; ``only`` "f" or "g": that
+    check alone.  Writes its results to ``out_dir``.  ``device`` "cpu"
+    rehearses it on the host."""
     sys.path.insert(0, str(SRC))
     import torch
     import torch.distributed as dist
@@ -5555,13 +5556,20 @@ def _mesh_worker(rank, world, init, out_dir, reduced, device, only_f):
                             rank=rank)
     res = {}
     try:
-        if not only_f:
+        if only is None:
             _mesh_worker_dense(rank, world, out_dir, reduced, dev, res)
-        for arch in MOE_ARCHS:
-            cut = _mesh_moe_cut(arch, reduced)
+        cuts = {}
+        if only in (None, "f"):
+            cuts.update((a, _mesh_moe_cut(a, reduced)) for a in MOE_ARCHS)
+        if only in (None, "g"):
+            cuts.update(_mesh_g_cuts(reduced))
+        for arch, cut in cuts.items():
             with _DrawnOnce():
-                res[arch] = _mesh_split_rank(arch, cut, reduced, dev,
-                                             out_dir, rank)
+                if arch in MOE_ARCHS:
+                    res[arch] = _mesh_split_rank(arch, cut, reduced, dev,
+                                                 out_dir, rank)
+                else:
+                    res[arch] = _mesh_g_run(arch, cut, reduced, dev, "1x2")
             res[arch]["flops"] = _mesh_step_flops(cut, dev)
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
@@ -5702,12 +5710,27 @@ def _k_reset():
         fn.launches = 0
 
 
+def _mesh_batch(cfg, s, dev):
+    """Step ``s``'s global batch of LM_B x LM_S at the launcher's seed:
+    ``lm_batch_fn``'s (launch.train's), or an encoder-decoder's frames,
+    tokens and labels from ``api.make_batch`` (seed s), which
+    launch.train does not take."""
+    import torch
+    from repro_torch.config import ShapeConfig, TrainConfig
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.models import api
+    if cfg.encoder is not None:
+        return api.make_batch(cfg, ShapeConfig("train", "train", LM_S, LM_B),
+                              torch.Generator().manual_seed(s), device=dev)
+    make = lm_batch_fn(cfg.vocab_size, LM_B, LM_S, seed=TrainConfig().seed)
+    return {k: torch.as_tensor(v).to(dev) for k, v in make(s).items()}
+
+
 def _mesh_plain_losses(cfg, dev, steps):
     """The plain step (train.step.make_train_step, no process group) at
-    the launcher's settings: its losses."""
+    the launcher's settings on ``_mesh_batch``'s batches: its losses."""
     import torch
     from repro_torch.config import TrainConfig
-    from repro_torch.data import lm_batch_fn
     from repro_torch.models import api
     from repro_torch.optim import adamw_init
     from repro_torch.train.step import make_train_step
@@ -5716,11 +5739,9 @@ def _mesh_plain_losses(cfg, dev, steps):
                              device=dev)
     opt = adamw_init(params)
     step = make_train_step(cfg, tcfg)
-    make = lm_batch_fn(cfg.vocab_size, LM_B, LM_S, seed=tcfg.seed)
     losses = []
     for s in range(steps):
-        batch = {k: torch.as_tensor(v).to(dev) for k, v in make(s).items()}
-        params, opt, m = step(params, opt, batch)
+        params, opt, m = step(params, opt, _mesh_batch(cfg, s, dev))
         losses.append(float(m["loss"]))
     return losses
 
@@ -6058,7 +6079,197 @@ def _mesh_split_checks(dev, card, tmp, ranks, ones):
     return out
 
 
-def phase_mesh(dev, card, only_f=False):
+def _mesh_g_cuts(reduced):
+    """(g)'s configs at their published widths, float32: jamba cut as
+    ``_jamba_cut`` cuts it (one Mamba and one attention layer, each with
+    the dense MLP) and whisper-small cut to ED_STEP_LAYERS encoder and
+    decoder layers (the reduced configs on a rehearsal)."""
+    import dataclasses
+    from repro_torch.config import get_config
+    jamba = _jamba_cut(get_config(SSM_ARCHS[0], reduced=reduced))
+    wh = get_config(ENCDEC_ARCH, reduced=reduced)
+    wh = dataclasses.replace(wh, num_layers=ED_STEP_LAYERS,
+                             encoder=dataclasses.replace(
+                                 wh.encoder, num_layers=ED_STEP_LAYERS))
+    return {SSM_ARCHS[0]: dataclasses.replace(jamba, dtype="float32"),
+            ENCDEC_ARCH: dataclasses.replace(wh, dtype="float32")}
+
+
+def _mesh_ed_launch(cfg, shape, steps, device):
+    """launch.train's LM branch for an encoder-decoder, which the
+    launcher refuses: ``make_mesh_train_step`` over the open group (one
+    process without one) laid out as ``shape``, the launcher's init
+    (seed 0, drawn on the host) and settings, on ``_mesh_batch``'s
+    batches; its losses and launch.train's rank line."""
+    import torch
+    from repro_torch.config import ShapeConfig, TrainConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.spmd import (local_batch, make_mesh_train_step,
+                                           param_shardings, shard_tree,
+                                           tree_bytes)
+    tcfg = TrainConfig(lr=3e-4, sgdr_t0=max(50, steps // 4))
+    sh = ShapeConfig("train", "train", LM_S, LM_B)
+    mesh = make_host_mesh(tuple(int(n) for n in shape.split("x")),
+                          device=device)
+    dev = mesh.device
+    params = api.init_params(cfg, torch.Generator().manual_seed(tcfg.seed),
+                             device=dev)
+    whole = tree_bytes(params)
+    psh = param_shardings(cfg, params, mesh)
+    params = shard_tree(params, psh)
+    carry = (params, adamw_init(params))
+    del params
+    step = make_mesh_train_step(cfg, tcfg, mesh, psh, sh)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, seconds = [], []
+    for s in range(steps):
+        batch = local_batch(_mesh_batch(cfg, s, dev), mesh, cfg, sh)
+        t0 = time.perf_counter()
+        p, o, m = step(carry[0], carry[1], batch)
+        losses.append(float(m["loss"]))
+        seconds.append(time.perf_counter() - t0)
+        carry = (p, o)
+        del p, o, m, batch
+    steady = seconds[1:] or seconds
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else None)
+    rank = {"rank": mesh.rank, "world": mesh.world,
+            "coords": list(mesh.coords),
+            "ms_per_step": 1e3 * sum(steady) / len(steady),
+            "peak_mem_gib": peak, "param_bytes": tree_bytes(carry[0]),
+            "opt_bytes": tree_bytes(carry[1]), "param_bytes_whole": whole}
+    return {"losses": losses, "rank": rank, "ms_per_step":
+            rank["ms_per_step"], "world": mesh.world,
+            "backend": mesh.backend}
+
+
+def _mesh_g_run(arch, cut, reduced, dev, shape):
+    """(g) at ``shape``: launch.train on the jamba cut, ``_mesh_ed_launch``
+    on the whisper cut; its losses, rank line and the bytes allocated
+    before it."""
+    base = _allocated(dev)
+    if cut.encoder is not None:
+        out = _mesh_ed_launch(cut, shape, MESH_SPLIT_STEPS, dev.type)
+    else:
+        out = _mesh_launch(arch, shape, MESH_SPLIT_STEPS, reduced, dev.type,
+                           cfg=cut)
+    return {"losses": out["losses"], "rank": out["rank"], "base": base,
+            "ms_per_step": out["ms_per_step"], "world": out["world"],
+            "backend": out["backend"]}
+
+
+def _mesh_g_one(dev, card, tmp):
+    """(g) before the ranks: per cut, the plain step and the same steps at
+    1x1 in a one-rank group (launch.train on jamba's, make_mesh_train_step
+    on whisper's), bit for bit.  Returns the losses and the 1x1 runs'
+    rank lines."""
+    import torch
+    import torch.distributed as dist
+    out = {}
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    for arch, cut in _mesh_g_cuts(LM_REDUCED).items():
+        with _DrawnOnce():
+            plain = _mesh_plain_losses(cut, dev, MESH_SPLIT_STEPS)
+            dist.init_process_group(
+                backend, init_method=f"file://{tmp}/g_{arch}",
+                world_size=1, rank=0)
+            try:
+                one = _mesh_g_run(arch, cut, LM_REDUCED, dev, "1x1")
+            finally:
+                dist.destroy_process_group()
+        same = sum(a == b for a, b in zip(one["losses"], plain))
+        log(f"mesh (g) {arch} {_cut_name(cut)} "
+            f"{'reduced' if LM_REDUCED else 'at full width'}, float32, "
+            f"{LM_B} x {LM_S} ({card}): 1x1 in a 1-rank {backend} group "
+            f"({one['backend']}, {one['world']} rank) {same} of "
+            f"{len(plain)} losses bit-identical to the plain step "
+            f"({one['ms_per_step']:.3f} ms/step); losses {one['losses']}")
+        require(len(one["losses"]) == len(plain) == MESH_SPLIT_STEPS
+                and same == len(plain) and one["world"] == 1,
+                f"(g) {arch} 1x1 losses {one['losses']} differ from the "
+                f"plain step's {plain}")
+        out[arch] = {"plain": plain, "one": one["losses"],
+                     "one_ms": one["ms_per_step"],
+                     "one_transient": _mesh_transient(
+                         dict(one["rank"], base=one["base"]))}
+        del one
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _cut_name(cut):
+    if cut.encoder is not None:
+        return (f"x{cut.encoder.num_layers} + {cut.num_layers} layers "
+                f"(encoder + decoder)")
+    return "x" + " + ".join(f"{s.mixer}/{s.ffn}" for s in cut.pattern)
+
+
+def _mesh_g_checks(dev, card, tmp, ranks, ones):
+    """(g) from the ranks' results: the 1x2 losses (jamba's Mamba channels
+    and whisper's encoder, self and cross attention split) against 1x1's
+    at MESH_LOSS_RTOL, both ranks' alike; rank 0's FLOPs of a 1x2 step
+    equal to the dry run's meta count at (1, 2), below (1, 1)'s.  Each
+    rank's peak less its carry in and out beside the dry run's (1, 2)
+    figure (meta peak less the carry out), 1x1's and one whole copy of
+    the cut's params; held below one copy where the dry run's figure is
+    (jamba's), printed where it is not (whisper's: its encoder's
+    activations over the 1,500 frames pass a copy at 1x1 and 1x2
+    alike)."""
+    import torch
+    out = {}
+    for arch, cut in _mesh_g_cuts(LM_REDUCED).items():
+        r = dict(ones[arch], ranks=[])
+        got = ranks[0][arch]["losses"]
+        r["losses"] = got
+        r["rel_err"] = err = _loss_err(got, r["one"])
+        what = ("the Mamba channels" if cut.encoder is None
+                else "the encoder, self and cross attention")
+        log(f"mesh (g) {arch} 1x2 (two ranks sharing the card over gloo; "
+            f"{what} and the FFNs split) losses {got} against 1x1's "
+            f"{r['one']}: "
+            f"largest relative difference {err:.3e} (limit "
+            f"{MESH_LOSS_RTOL:g}); rank 1's {ranks[1][arch]['losses']}")
+        require(len(got) == MESH_SPLIT_STEPS and err <= MESH_LOSS_RTOL
+                and ranks[1][arch]["losses"] == got,
+                f"(g) {arch} 1x2 losses {got} (rank 1: "
+                f"{ranks[1][arch]['losses']}) against 1x1's {r['one']}")
+        r["flops"] = _mesh_flops_check(cut, ranks[0][arch]["flops"], card,
+                                       "g")
+        whole = ranks[0][arch]["rank"]["param_bytes_whole"]
+        one_t = r["one_transient"]["transient"]
+        for rk in ranks:
+            line = dict(rk[arch]["rank"], base=rk[arch]["base"])
+            t = _mesh_transient(line)
+            meta = r["flops"]["meta_peak_1x2"] - t["resident"]
+            r["ranks"].append(dict(t, ms_per_step=line["ms_per_step"],
+                                   meta=meta))
+            log(f"mesh (g) {arch} 1x2 rank {line['rank']} ({card}): "
+                f"{line['ms_per_step']:.3f} ms/step; holds params "
+                f"{line['param_bytes']} of {whole} B; max_memory_allocated "
+                f"{t['peak']} B above the {line['base']} B allocated "
+                f"before the run, less its carry in and out "
+                f"({2 * t['resident']} B): {t['transient']} B, "
+                f"{t['transient'] / whole:.3f} of a whole copy of the "
+                f"params ({whole} B), {t['transient'] / one_t:.3f} of "
+                f"1x1's {one_t} B; the dry run's (1, 2) figure (meta peak "
+                f"less the carry out) {meta:.0f} B "
+                f"({t['transient'] / meta:.3f}x)")
+            if dev.type == "cuda" and meta < whole:
+                require(t["transient"] < whole,
+                        f"(g) {arch} 1x2 rank {line['rank']}: peak less its "
+                        f"shards {t['transient']} B is not below one whole "
+                        f"copy of the params ({whole} B)")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out[arch] = r
+    return out
+
+
+def phase_mesh(dev, card, only=None):
     """The LM over a mesh of processes: (a) lm-100m at full width,
     float32, through launch.train --mesh-shape 1x1 in a one-rank NCCL
     group, MESH_ARCH_STEPS steps bit for bit against the plain step
@@ -6077,9 +6288,15 @@ def phase_mesh(dev, card, only_f=False):
     dense dispatch: 1x1 bit for bit against the plain step, 1x2 (the
     experts, the shared experts and MLA's heads split) against 1x1, the
     1x2 gate and FLOPs as (b) and (e) hold lm-100m
-    (``_mesh_split_checks``).  ``only_f``: (f) alone.  One card checks
-    ranks that share it, not several cards.  None of K1-K5 is on these
-    paths: their counts must stay 0 in every process."""
+    (``_mesh_split_checks``); (g) jamba-v0.1-52b cut to one Mamba and one
+    attention layer and whisper-small cut to 2 + 2 layers at published
+    widths, float32: 1x1 bit for bit against the plain step, 1x2 (the
+    Mamba channels; whisper's encoder, self and cross attention split)
+    against 1x1, the FLOPs as (e), each rank's peak less its carry
+    beside the dry run's (``_mesh_g_checks``).  ``only`` "f" or "g":
+    that check alone.  One card checks ranks that share it, not several
+    cards.  None of K1-K5 is on these paths: their counts must stay 0
+    in every process."""
     import dataclasses
     import shutil
     import tempfile
@@ -6095,14 +6312,17 @@ def phase_mesh(dev, card, only_f=False):
                               dtype="float32")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     try:
-        if not only_f:
+        if only is None:
             plain = _mesh_one_rank(dev, card, cfg, tmp, res)
-        ones = _mesh_split_one(dev, card, tmp)
-        # (b)-(d) and (f)'s 1x2: two ranks sharing the card
+        if only in (None, "f"):
+            ones = _mesh_split_one(dev, card, tmp)
+        if only in (None, "g"):
+            g_ones = _mesh_g_one(dev, card, tmp)
+        # (b)-(d) and (f)'s and (g)'s 1x2: two ranks sharing the card
         t0 = time.perf_counter()
         pctx = mp.start_processes(
             _mesh_worker, args=(2, f"file://{tmp}/b", tmp, LM_REDUCED,
-                                dev.type, only_f),
+                                dev.type, only),
             nprocs=2, join=False, start_method="spawn")
         deadline = time.time() + MESH_TIMEOUT
         while not pctx.join(timeout=max(1.0, deadline - time.time())):
@@ -6114,9 +6334,12 @@ def phase_mesh(dev, card, only_f=False):
         res["ranks_s"] = time.perf_counter() - t0
         ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
                  for r in range(2)]
-        if not only_f:
+        if only is None:
             _mesh_dense_checks(dev, card, plain, tmp, ranks, res)
-        res["split"] = _mesh_split_checks(dev, card, tmp, ranks, ones)
+        if only in (None, "f"):
+            res["split"] = _mesh_split_checks(dev, card, tmp, ranks, ones)
+        if only in (None, "g"):
+            res["split_g"] = _mesh_g_checks(dev, card, tmp, ranks, g_ones)
         counts = [_k_launches()] + [r["k_launches"] for r in ranks]
         log(f"mesh K1-K5 launches (this process, rank 0, rank 1): {counts}")
         require(all(n == 0 for c in counts for n in c.values()),
@@ -7149,6 +7372,12 @@ def main() -> int:
             + ", ".join(f"{t['ms_per_step']:.3f} ms/step" for t in r["ranks"])
             + f", FLOPs {r['flops']['card']} = meta"
             for a, r in mesh["split"].items())
+        + "; (g) " + "; ".join(
+            f"{a} 1x2 {r['rel_err']:.3e} from 1x1, ranks "
+            + ", ".join(f"{t['ms_per_step']:.3f} ms/step, peak less the "
+                        f"shards {t['transient']} B" for t in r["ranks"])
+            + f", FLOPs {r['flops']['card']} = meta"
+            for a, r in mesh["split_g"].items())
         + f"; phase {mesh['seconds']:.1f} s")
     log(f"dryrun ({card}): " + "; ".join(
         f"{name} bound {c['bound_ms']:.3f} ms against {c['measured_ms']:.3f} "

@@ -5,6 +5,8 @@
                                           # reduced configs, gloo ranks
     python3 probes/mesh_phase.py --moe    # its check (f) alone: the MoE
                                           # cuts at 1x1 and 1x2
+    python3 probes/mesh_phase.py --g      # its check (g) alone: the jamba
+                                          # and whisper cuts at 1x1, 1x2
 
 Exits non-zero when a check of the phase fails.
 """
@@ -28,10 +30,10 @@ def main(argv=None) -> int:
         dev, card = torch.device("cpu"), "the host's CPU (rehearsal)"
     else:
         card, dev = cs.phase_environment(), torch.device("cuda")
-    only_f = "--moe" in argv
-    res = cs.phase_mesh(dev, card, only_f=only_f)
-    keys = ("split", "seconds") if only_f else ("bf16_1x2", "flops",
-                                                 "split", "seconds")
+    only = "f" if "--moe" in argv else "g" if "--g" in argv else None
+    res = cs.phase_mesh(dev, card, only=only)
+    keys = {"f": ("split", "seconds"), "g": ("split_g", "seconds"),
+            None: ("bf16_1x2", "flops", "split", "split_g", "seconds")}[only]
     print(json.dumps({k: res[k] for k in keys}))
     return 0
 

@@ -53,8 +53,8 @@ processes) and every step is ``sharding.spmd``'s ZeRO-3 step: each rank
 stores its shards of the params and AdamW state by ``param_partition``,
 takes its rows of the global batch by ``batch_partition``, and equals
 one process at the same global batch.  The model axis splits attention
-and MLA heads, the dense FFN, MoE experts and shared experts and the
-vocabulary; Mamba and xLSTM layers stay whole over it (ROADMAP.md,
+and MLA heads, the dense FFN, MoE experts and shared experts, Mamba's
+channels and the vocabulary; xLSTM layers stay whole over it (ROADMAP.md,
 Queue A).  One process is the
 mesh of ones.  Rank 0 prints the loss every
 ``--log-every`` steps, then ms/step, tokens/s and the peak device
@@ -283,7 +283,7 @@ def _train_lm_mesh(args, cfg, mesh) -> Dict[str, Any]:
         f"{mesh.backend or 'none'} axes={mesh.axes}: params and AdamW "
         "state sharded over the data and model axes, gathered per layer; "
         "the model axis splits attention and MLA heads, the dense FFN, "
-        "MoE experts and the vocabulary", flush=True)
+        "MoE experts, Mamba's channels and the vocabulary", flush=True)
     tcfg = TrainConfig(lr=args.lr if args.lr is not None else 3e-4,
                        grad_accum=args.grad_accum,
                        sgdr_t0=max(50, args.steps // 4))

@@ -16,9 +16,14 @@ state (``launch.serve``'s) holds zero cross K/V, not an encoded input.
 The blocks are stacked over layers (``enc_blocks``, ``dec_blocks``) and
 ``prefix_blocks`` is empty, so a reference tree bridges leaf for leaf;
 the reference's ``layer_mode`` "scan" and "unroll" are one loop here.
-In a mesh step the blocks are gathered per layer; the decoder's
-self-attention, its FFN and the vocabulary split over the model axis,
-the encoder and the cross attention stay whole.
+In a mesh step the blocks are gathered per layer; self-attention and
+cross attention whose heads divide the model axis, the FFNs of both
+stacks and the vocabulary split over it (``_split``).  The encoder's
+blocks and the cross attention take ``wide`` products
+(``tensor_parallel``): the encoder's states enter every decoder layer's
+cross attention, so a float32 split of theirs rounds as one process
+does; the decoder's self-attention and FFN round their parts as the
+dense LM's do.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ from .layers import attention as attn_lib
 from .layers.common import (TensorSpec, apply_mlp, apply_norm, dtype_of,
                             mlp_spec, norm_spec)
 from .lm import (_check_layer_mode, _head_logits, _remat, _stack, _unstack,
-                 chunked_ce_loss, embed_tokens, gathering)
+                 chunked_ce_loss, embed_tokens, gathering, heads_split)
 
 Params = Dict[str, Any]
 
@@ -101,15 +106,17 @@ TOP_KEYS = ("embed", "lm_head", "enc_in", "enc_norm", "final_norm")
 def _enc_block(cfg, p, x, *, q_chunk):
     h = apply_norm(p["ln1"], x, cfg.norm)
     h = attn_lib.apply_attention(p["self"], cfg.attention, h, causal=False,
-                                 q_chunk=q_chunk, impl=cfg.attn_impl)
+                                 q_chunk=q_chunk, impl=cfg.attn_impl,
+                                 wide=True)
     x = x + h
     h = apply_norm(p["ln2"], x, cfg.norm)
-    return x + _mlp(cfg, p, h)
+    return x + _mlp(cfg, p, h, wide=True)
 
 
-def _mlp(cfg, p, h):
+def _mlp(cfg, p, h, wide=False):
     return apply_mlp(p["ffn"], h, cfg.act,
-                     split=p["ffn"]["w_down"].shape[-2] != cfg.d_ff)
+                     split=p["ffn"]["w_down"].shape[-2] != cfg.d_ff,
+                     wide=wide)
 
 
 def _dec_block(cfg, p, x, enc_out, *, q_chunk):
@@ -140,25 +147,30 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
         q_chunk = cfg.attn_chunk
     x = frames.to(dtype_of(cfg.dtype)) @ params["enc_in"]
     x = x + _sinusoid(x.shape[1], cfg.d_model, x)
-    # the encoder stays whole over a mesh's model axis
     fn = _remat(gathering(functools.partial(_enc_block, cfg, q_chunk=q_chunk),
-                          tp.shardings_of("enc_blocks"), stacked=True),
-                remat)
+                          tp.shardings_of("enc_blocks"), _split(cfg),
+                          stacked=True), remat)
     stack = params["enc_blocks"]
     for bp in _unstack(stack, _n_layers(stack)):
         x = fn(bp, x)
     return apply_norm(params["enc_norm"], x, cfg.norm)
 
 
+def _split(cfg, attention=("self",)):
+    """The parts of a block that a mesh step computes split over the
+    model axis: the FFN, and the ``attention`` parts where
+    ``lm.heads_split``."""
+    if heads_split(cfg.attention):
+        return attention + ("ffn",)
+    return ("ffn",)
+
+
 def _decoder(cfg, params, tokens, enc_out, *, remat, q_chunk):
     x = embed_tokens(cfg, params, tokens)
     x = x + _sinusoid(x.shape[1], cfg.d_model, x)
-    # the decoder's self-attention and FFN split over a mesh's model
-    # axis; its cross attention stays whole
-    split = ("self", "ffn") if cfg.attention.num_heads \
-        % tp.model_size() == 0 else ("ffn",)
     fn = _remat(gathering(functools.partial(_dec_block, cfg, q_chunk=q_chunk),
-                          tp.shardings_of("dec_blocks"), split,
+                          tp.shardings_of("dec_blocks"),
+                          _split(cfg, ("self", "cross")),
                           stacked=True), remat)
     stack = params["dec_blocks"]
     for bp in _unstack(stack, _n_layers(stack)):

@@ -23,7 +23,14 @@ parity tests hold the port to the reference's own arithmetic.
     reference's custom VJP): only (out, lse) are saved.
   * Decode keeps a ring buffer of size ``window`` for local layers.
   * Cross-attention attends, without a mask, from the decoder's
-    queries to the encoder's states, chunked over the queries.
+    queries to the encoder's states, chunked over the queries; it splits
+    over the model axis as self-attention does, the encoder's states
+    entering the rank's column split beside the decoder's.
+  * ``wide`` (whisper's encoder; cross attention always): the
+    projections take ``tp.wide`` operands, split or not, so that a
+    float32 layer's split rounds as one process does (q, k and v
+    rounded to the layer's dtype after rope and the kv repeat, the
+    output after the sum over the model ranks).
 """
 from __future__ import annotations
 
@@ -362,17 +369,28 @@ def _kv_runs(first_q: int, n_q: int, rep: int):
 
 
 def _split_qkv(p: Params, cfg: AttentionConfig, x: torch.Tensor,
-               positions, fused_qkv: bool):
+               positions, fused_qkv: bool, enc: Optional[torch.Tensor] = None):
     """This rank's query heads' q, k, v (B, S, H / model, hd), roped,
     k and v repeated to the query heads, from its model block of the
-    weights."""
+    weights.  ``enc``: cross attention's, keys and values projected from
+    it (B, T, D), with no position embedding.  The weights take ``x``'s
+    dtype (a wide ``x``: ``apply_attention``'s ``wide``)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     m, r = tp.model_size(), tp.model_rank()
     h_l = cfg.num_heads // m
     kv = cfg.num_kv_heads
     rep = cfg.num_heads // kv
+    p = {k: p[k].to(x.dtype) for k in ("wq", "wk", "wv")}
     x = tp.copy_to_model(x)
+    src = x if enc is None else tp.copy_to_model(enc)
+    t = src.shape[1]
+
+    def rope(q, k):
+        if enc is not None:
+            return q, k
+        return _rope_qk(cfg, q, k, positions, b, s)
+
     if kv % m == 0:
         # the rank's kv heads are those its query heads read
         kv_l = kv // m
@@ -381,12 +399,11 @@ def _split_qkv(p: Params, cfg: AttentionConfig, x: torch.Tensor,
                               _tile_kv_weight(p["wv"], kv_l, rep)], dim=1)
             qkv = (x @ wqkv).reshape(b, s, 3, h_l, hd)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-            q, k = _rope_qk(cfg, q, k, positions, b, s)
-            return q, k, v
+            return (*rope(q, k), v)
         q = (x @ p["wq"]).reshape(b, s, h_l, hd)
-        k = (x @ p["wk"]).reshape(b, s, kv_l, hd)
-        v = (x @ p["wv"]).reshape(b, s, kv_l, hd)
-        q, k = _rope_qk(cfg, q, k, positions, b, s)
+        k = (src @ p["wk"]).reshape(b, t, kv_l, hd)
+        v = (src @ p["wv"]).reshape(b, t, kv_l, hd)
+        q, k = rope(q, k)
         return q, repeat_kv(k, rep), repeat_kv(v, rep)
     # wk / wv split across head_dim: every rank's columns gathered, the
     # kv heads of this rank's query heads kept (the backward sums their
@@ -396,17 +413,17 @@ def _split_qkv(p: Params, cfg: AttentionConfig, x: torch.Tensor,
     q = (x @ p["wq"]).reshape(b, s, h_l, hd)
 
     def heads(w):
-        t = tp.gather_from_model(x @ w, -1, grad="sum")
-        return t.reshape(b, s, kv, hd)[:, :, first:first + n]
+        y = tp.gather_from_model(src @ w, -1, grad="sum")
+        return y.reshape(b, t, kv, hd)[:, :, first:first + n]
 
     k, v = heads(p["wk"]), heads(p["wv"])
-    q, k = _rope_qk(cfg, q, k, positions, b, s)
+    q, k = rope(q, k)
 
-    def expand(t):
+    def expand(y):
         if n == 1:
-            return repeat_kv(t, h_l)
-        return torch.cat([t[:, :, j - first:j - first + 1].expand(
-            b, s, c, hd) for j, c in runs], dim=2)
+            return repeat_kv(y, h_l)
+        return torch.cat([y[:, :, j - first:j - first + 1].expand(
+            b, t, c, hd) for j, c in runs], dim=2)
     return q, expand(k), expand(v)
 
 
@@ -414,34 +431,43 @@ def apply_attention(p: Params, cfg: AttentionConfig, x: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     positions: Optional[torch.Tensor] = None,
                     q_chunk: int = 512, impl: str = "chunked",
-                    fused_qkv: bool = False) -> torch.Tensor:
+                    fused_qkv: bool = False, wide: bool = False
+                    ) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D).  Given this rank's model block of the
     weights (``wq`` narrower than ``q_dim``), it computes the rank's
-    query heads and sums the output over the model ranks."""
+    query heads and sums the output over the model ranks.  ``wide``:
+    the products take ``tp.wide`` operands."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     rep = cfg.num_heads // cfg.num_kv_heads
     h = cfg.num_heads
+    dt = x.dtype
+    if wide:
+        x = tp.wide(x)
     if p["wq"].shape[1] != cfg.q_dim:
         q, k, v = _split_qkv(p, cfg, x, positions, fused_qkv)
-        o = _attend(q, k, v, causal, window, q_chunk, impl)
-        return tp.reduce_from_model(o.reshape(b, s, -1) @ p["wo"])
+        o = _attend(q.to(dt), k.to(dt), v.to(dt), causal, window, q_chunk,
+                    impl)
+        return tp.reduce_from_model(
+            o.reshape(b, s, -1).to(x.dtype) @ p["wo"].to(x.dtype)).to(dt)
+    wq, wk, wv = (p[k].to(x.dtype) for k in ("wq", "wk", "wv"))
     if fused_qkv:
-        wk = _tile_kv_weight(p["wk"], cfg.num_kv_heads, rep)
-        wv = _tile_kv_weight(p["wv"], cfg.num_kv_heads, rep)
-        wqkv = torch.cat([p["wq"], wk, wv], dim=1)
+        wk = _tile_kv_weight(wk, cfg.num_kv_heads, rep)
+        wv = _tile_kv_weight(wv, cfg.num_kv_heads, rep)
+        wqkv = torch.cat([wq, wk, wv], dim=1)
         qkv = (x @ wqkv).reshape(b, s, 3, h, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         q, k = _rope_qk(cfg, q, k, positions, b, s)
     else:
-        q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
-        k = (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
-        v = (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+        q = (x @ wq).reshape(b, s, cfg.num_heads, hd)
+        k = (x @ wk).reshape(b, s, cfg.num_kv_heads, hd)
+        v = (x @ wv).reshape(b, s, cfg.num_kv_heads, hd)
         q, k = _rope_qk(cfg, q, k, positions, b, s)
         k = repeat_kv(k, rep)
         v = repeat_kv(v, rep)
-    o = _attend(q, k, v, causal, window, q_chunk, impl)
-    return o.reshape(b, s, cfg.q_dim) @ p["wo"]
+    o = _attend(q.to(dt), k.to(dt), v.to(dt), causal, window, q_chunk, impl)
+    return (o.reshape(b, s, cfg.q_dim).to(x.dtype)
+            @ p["wo"].to(x.dtype)).to(dt)
 
 
 def _attend(q, k, v, causal, window, q_chunk, impl):
@@ -458,21 +484,35 @@ def apply_cross_attention(p: Params, cfg: AttentionConfig,
                           impl: str = "chunked") -> torch.Tensor:
     """Non-causal attention from the decoder's states x (B, S, D) to the
     encoder's enc (B, T, D), KV heads repeated to the query heads, no
-    position embedding; -> (B, S, D)."""
+    position embedding; -> (B, S, D).  Given this rank's model block of
+    the weights (``wq`` narrower than ``q_dim``) it computes the rank's
+    query heads, x and enc entering as ``apply_attention``'s x does, and
+    sums the output over the model ranks.  Always ``wide`` (as
+    ``apply_attention``'s): the encoder's states enter every decoder
+    layer here."""
     b, s, _ = x.shape
     t = enc.shape[1]
     hd = cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
-    k = (enc @ p["wk"]).reshape(b, t, cfg.num_kv_heads, hd)
-    v = (enc @ p["wv"]).reshape(b, t, cfg.num_kv_heads, hd)
-    rep = cfg.num_heads // cfg.num_kv_heads
-    k, v = repeat_kv(k, rep), repeat_kv(v, rep)
+    split = p["wq"].shape[1] != cfg.q_dim
+    dt = x.dtype
+    x, enc = tp.wide(x), tp.wide(enc)
+    if split:
+        q, k, v = _split_qkv(p, cfg, x, None, False, enc=enc)
+    else:
+        wq, wk, wv = (p[k].to(x.dtype) for k in ("wq", "wk", "wv"))
+        q = (x @ wq).reshape(b, s, cfg.num_heads, hd)
+        k = (enc @ wk).reshape(b, t, cfg.num_kv_heads, hd)
+        v = (enc @ wv).reshape(b, t, cfg.num_kv_heads, hd)
+        rep = cfg.num_heads // cfg.num_kv_heads
+        k, v = repeat_kv(k, rep), repeat_kv(v, rep)
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
     if impl == "flash":
         o = flash_attention(q, k, v, causal=False, q_chunk=q_chunk,
                             kv_chunk=q_chunk)
     else:
         o = chunked_attention(q, k, v, causal=False, q_chunk=q_chunk)
-    return o.reshape(b, s, cfg.q_dim) @ p["wo"]
+    out = o.reshape(b, s, -1).to(x.dtype) @ p["wo"].to(x.dtype)
+    return (tp.reduce_from_model(out) if split else out).to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -192,21 +192,28 @@ def mlp_spec(d_model: int, d_ff: int, dtype) -> Params:
 
 
 def apply_mlp(p: Params, x: torch.Tensor, act: str,
-              fused: bool = False, split: bool = False) -> torch.Tensor:
+              fused: bool = False, split: bool = False,
+              wide: bool = False) -> torch.Tensor:
     """The gated MLP.  ``split``: ``p`` holds this rank's block of the
     hidden units (``w_gate``/``w_up`` columns, ``w_down`` rows) in a
     step that splits the model axis: the input's gradient and the
-    output are summed over the model ranks."""
+    output are summed over the model ranks.  ``wide``: the products take
+    ``tp.wide`` operands, each rounded to ``x``'s dtype after it (the
+    output after the sum over the model ranks), so that a float32
+    layer's split rounds as one process does."""
     a = activation(act)
+    dt = x.dtype
+    if wide:
+        x = tp.wide(x)
     if split:
         x = tp.copy_to_model(x)
+    w_gate, w_up = p["w_gate"].to(x.dtype), p["w_up"].to(x.dtype)
     if fused:
         # one matmul for gate and up
-        w = torch.cat([p["w_gate"], p["w_up"]], dim=1)
-        gu = x @ w
-        ff = p["w_gate"].shape[1]
+        gu = (x @ torch.cat([w_gate, w_up], dim=1)).to(dt)
+        ff = w_gate.shape[1]
         h = a(gu[..., :ff]) * gu[..., ff:]
     else:
-        h = a(x @ p["w_gate"]) * (x @ p["w_up"])
-    out = h @ p["w_down"]
-    return tp.reduce_from_model(out) if split else out
+        h = a((x @ w_gate).to(dt)) * (x @ w_up).to(dt)
+    out = h.to(x.dtype) @ p["w_down"].to(x.dtype)
+    return (tp.reduce_from_model(out) if split else out).to(dt)

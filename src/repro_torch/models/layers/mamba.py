@@ -12,6 +12,22 @@ combining every element with the one ``shift`` places before it, and a
 Python loop carries the (B, d_inner, d_state) state across chunks.  The
 scan's tree differs from the reference's, so its rounding does too; both
 are held to the sequential recurrence at float32 tolerance.
+
+In a step that splits the model axis a layer given its model block of
+the weights (``conv_w`` narrower than ``expand * d_model``) computes this
+rank's block of the channels: ``w_in`` by columns, ``conv_w``,
+``conv_b``, ``w_dt``, ``dt_bias``, ``d_skip`` by channel, ``w_x``,
+``a_log``, ``w_out`` by rows.  ``w_in`` is [x | z] joined, so a rank's
+block of its columns is a block of the joined columns (at two ranks
+rank 0 holds all of x, rank 1 all of z): it is gathered over the model
+axis and the rank's x and z channels taken, its gradient summed over
+the ranks before each keeps its block.  ``w_x``'s rows give each rank
+its part of (dt, B, C), summed over the axis; the scan runs per channel;
+``w_out``'s rows end the layer with the sum over the axis.  Each sum
+over the channels (``w_x``'s and ``w_out``'s products, the gradients of
+x, of dt's low rank, of B and of C) accumulates in ``tp.wide`` operands,
+split or not (``tensor_parallel``): ``_Outer`` and ``_ReadOut`` are the
+scan's products with B and C, whose backward sums over the channels.
 """
 from __future__ import annotations
 
@@ -21,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import SSMConfig
+from repro_torch.sharding import tensor_parallel as tp
 from .common import TensorSpec, sequential_loop
 
 Params = Dict[str, torch.Tensor]
@@ -106,37 +123,132 @@ def ssm_scan_chunked(abar: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor,
     return steps.join(hs, 1, stack=False), h
 
 
-def _ssm_inputs(p: Params, cfg: SSMConfig, xc: torch.Tensor, d: int):
-    """(dt, B, C) in float32 from the conv output ``xc`` (B, S, DI)."""
-    dbc = xc @ p["w_x"]
+def _ssm_inputs(p: Params, cfg: SSMConfig, xc: torch.Tensor, d: int,
+                split: bool = False):
+    """(dt, B, C) from the conv output ``xc`` (B, S, DI): dt in float32,
+    B and C in float32 or, for a float32 ``xc``, float64 (wide: their
+    gradients sum over the channels); ``split``: ``xc`` is the rank's
+    channels and ``w_x`` its rows, so the product is summed over the
+    model axis (g) and enters the rank's channels again (f: B and C
+    feed every rank's, dt_low ``w_dt``'s column split)."""
+    dbc = tp.wide(xc) @ tp.wide(p["w_x"])
+    if split:
+        dbc = tp.copy_to_model(tp.reduce_from_model(dbc))
     dr = _dt_rank(cfg, d)
     n = cfg.d_state
     # bf16 @ bf16 + the float32 bias promotes to float32, as in JAX
-    dt = _softplus(dbc[..., :dr] @ p["w_dt"] + p["dt_bias"]).float()
-    bmat = dbc[..., dr:dr + n].float()
-    cmat = dbc[..., dr + n:].float()
-    return dt, bmat, cmat
+    low = (dbc[..., :dr] @ tp.wide(p["w_dt"])).to(xc.dtype)
+    dt = _softplus(low + p["dt_bias"]).float()
+    up = torch.promote_types(dbc.dtype, torch.float32)
+    return dt, dbc[..., dr:dr + n].to(up), dbc[..., dr + n:].to(up)
+
+
+_CHANNELS = 1024    # channels a backward widens at once
+
+
+def _sum_mul(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """sum over d of a[b, s, d, n] * u[b, s, d] as autograd's backward
+    of a broadcast product takes it: a product and a sum."""
+    return torch.sum(a * u[..., None], 2)
+
+
+def _sum_dot(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The same sum as an einsum's backward takes it: a batched
+    product."""
+    return torch.einsum("bsdn,bsd->bsn", a, u)
+
+
+def _channel_sum(product, a: torch.Tensor, u: torch.Tensor,
+                 dtype) -> torch.Tensor:
+    """``product(a, u)`` (``_sum_mul`` or ``_sum_dot``) in ``dtype``: at
+    once where ``a`` is in it, else ``_CHANNELS`` channels widened at a
+    time and their sums added."""
+    step = a.shape[2] if a.dtype == dtype else _CHANNELS
+    out = None
+    for lo in range(0, a.shape[2], step):
+        part = product(a[:, :, lo:lo + step].to(dtype),
+                       u[:, :, lo:lo + step].to(dtype))
+        out = part if out is None else out + part
+    return out
+
+
+class _Outer(torch.autograd.Function):
+    """u (B, S, DI) float32 times ``b`` (B, S, N) over every channel:
+    (B, S, DI, N) float32; ``b``'s gradient sums over the channels in
+    ``b``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, u, b):
+        ctx.save_for_backward(u, b)
+        return u[..., None] * b.to(u.dtype)[..., None, :]
+
+    @staticmethod
+    def backward(ctx, g):
+        u, b = ctx.saved_tensors
+        gu = torch.sum(g * b.to(g.dtype)[..., None, :], -1)
+        return gu, _channel_sum(_sum_mul, g, u, b.dtype)
+
+
+class _ReadOut(torch.autograd.Function):
+    """``einsum("bsdn,bsn->bsd", hs, c)`` in float32; ``c``'s gradient
+    sums over the channels in ``c``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, hs, c):
+        ctx.save_for_backward(hs, c)
+        return torch.einsum("bsdn,bsn->bsd", hs, c.to(hs.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        hs, c = ctx.saved_tensors
+        # the outer product as a matmul of contraction 1, as autograd's
+        ghs = torch.matmul(g[..., None], c.to(g.dtype)[..., None, :])
+        return ghs, _channel_sum(_sum_dot, hs, g, c.dtype)
+
+
+def _split_in_proj(w_in: torch.Tensor, x: torch.Tensor, di: int):
+    """This rank's channels of x and z from its block of ``w_in``'s
+    joined [x | z] columns: every rank's block gathered, the rank's
+    x columns and z columns taken (its gradient summed over the model
+    ranks, each keeping its block)."""
+    k = w_in.shape[1] // 2
+    first = tp.model_rank() * k
+    w = tp.gather_from_model(w_in, -1, grad="sum")
+    xz = x @ tp.wide(torch.cat([w[:, first:first + k],
+                                w[:, di + first:di + first + k]], dim=1))
+    return xz[..., :k], xz[..., k:]
 
 
 def apply_mamba(p: Params, cfg: SSMConfig, x: torch.Tensor, *,
                 chunk: int = 256) -> torch.Tensor:
-    """Training/prefill forward. x: (B, S, D) -> (B, S, D)."""
+    """Training/prefill forward. x: (B, S, D) -> (B, S, D).  Given this
+    rank's model block of the weights it computes the rank's channels
+    and sums the output over the model ranks."""
     b, s, d = x.shape
     di = cfg.expand * d
-    xz = x @ p["w_in"]
-    xi, z = xz[..., :di], xz[..., di:]
+    split = p["conv_w"].shape[1] != di
+    dt_x = x.dtype
+    x = tp.wide(x)
+    if split:
+        x = tp.copy_to_model(x)
+        xi, z = _split_in_proj(p["w_in"], x, di)
+    else:
+        xz = x @ tp.wide(p["w_in"])
+        xi, z = xz[..., :di], xz[..., di:]
+    xi, z = xi.to(dt_x), z.to(dt_x)
     xi = F.silu(causal_conv(xi, p["conv_w"], p["conv_b"]))
-    dt, bmat, cmat = _ssm_inputs(p, cfg, xi, d)
+    dt, bmat, cmat = _ssm_inputs(p, cfg, xi, d, split)
     a = -torch.exp(p["a_log"])                          # (DI, N)
     abar = torch.exp(dt[..., None] * a)                 # (B, S, DI, N)
-    bx = (dt * xi.float())[..., None] * bmat[..., None, :]
-    h0 = torch.zeros((b, di, cfg.d_state), dtype=torch.float32,
+    bx = _Outer.apply(dt * xi.float(), bmat)
+    h0 = torch.zeros((b, xi.shape[-1], cfg.d_state), dtype=torch.float32,
                      device=x.device)
     hs, _ = ssm_scan_chunked(abar, bx, h0, min(chunk, s))
-    y = torch.einsum("bsdn,bsn->bsd", hs, cmat)
+    y = _ReadOut.apply(hs, cmat)
     y = y + xi.float() * p["d_skip"]
-    y = y.to(x.dtype) * F.silu(z)
-    return y @ p["w_out"]
+    y = y.to(dt_x) * F.silu(z)
+    out = tp.wide(y) @ tp.wide(p["w_out"])
+    return (tp.reduce_from_model(out) if split else out).to(dt_x)
 
 
 # ---------------------------------------------------------------------------
@@ -165,6 +277,7 @@ def decode_mamba(p: Params, cfg: SSMConfig, x: torch.Tensor, state: Params
     new_conv = torch.cat([state["conv"][:, 1:],
                           xi.to(state["conv"].dtype)], dim=1)
     dt, bmat, cmat = _ssm_inputs(p, cfg, xi_conv, d)
+    bmat, cmat = bmat.float(), cmat.float()
     a = -torch.exp(p["a_log"])
     abar = torch.exp(dt[:, 0, :, None] * a)             # (B, DI, N)
     bx = (dt[:, 0] * xi_conv[:, 0].float())[..., None] * bmat[:, 0, None, :]

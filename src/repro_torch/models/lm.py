@@ -412,6 +412,14 @@ def _check_layer_mode(layer_mode: str) -> None:
         raise ValueError(f"layer_mode {layer_mode!r}: 'scan' or 'unroll'")
 
 
+def heads_split(a) -> bool:
+    """Whether a step splitting the model axis computes attention ``a``
+    split: its heads divide the axis, and a grouped-query layer's kv
+    columns too."""
+    n = tp.model_size()
+    return a.num_heads % n == 0 and (a.kind == "mla" or a.kv_dim % n == 0)
+
+
 def _split_parts(spec: LayerSpec, cfg: ModelConfig) -> Tuple[str, ...]:
     """The parts of a block that a step splitting the model axis
     computes split: attention (grouped-query or MLA) whose heads divide
@@ -419,12 +427,14 @@ def _split_parts(spec: LayerSpec, cfg: ModelConfig) -> Tuple[str, ...]:
     MoE: ``param_partition`` puts a dim of it on the model axis only
     where the axis divides it, which for an FFN is a block of whole
     units or experts, and the MoE layer splits its routed and shared
-    parts each where its weights are blocks.  Mamba and xLSTM stay
-    whole."""
-    a, n = cfg.attention, tp.model_size()
+    parts each where its weights are blocks; Mamba whose channels
+    (``expand * d_model``) divide the axis, every leaf of it then a
+    block of whole channels.  xLSTM stays whole."""
     out = []
-    if spec.mixer == "attn" and a.num_heads % n == 0 \
-            and (a.kind == "mla" or a.kv_dim % n == 0):
+    if spec.mixer == "attn" and heads_split(cfg.attention):
+        out.append("mixer")
+    if spec.mixer == "mamba" \
+            and cfg.ssm.expand * cfg.d_model % tp.model_size() == 0:
         out.append("mixer")
     if spec.ffn != "none":
         out.append("ffn")

@@ -465,8 +465,9 @@ class CountingMesh(ProcessMesh):
     active) and returns meta tensors of the real one's shapes, so that
     ``sharding.spmd``'s steps run unchanged and issue exactly the
     collectives a rank issues.  ``all_reduce_f32`` (the model axis's
-    sums, float32) is the inherited one: an all-reduce of the float32
-    tensor, charged by its ring rule, as a rank sends it."""
+    sums, float32 or a wide part's float64) is the inherited one: an
+    all-reduce of that tensor, charged by its ring rule, as a rank
+    sends it."""
 
     def __init__(self, mcfg, device="meta"):
         self.config = mcfg

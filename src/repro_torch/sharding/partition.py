@@ -23,11 +23,10 @@ What the port does with a spec is ``sharding.spmd``'s: every rank
 stores the shard of each leaf that the spec names over the whole mesh
 and gathers it per layer over the data axes; where the spec puts
 attention or MLA heads, dense FFN units, MoE experts (or their units),
-shared experts' units or the vocabulary on "model" the rank computes
-its block of them (``sharding.tensor_parallel``), and the other layers
-(Mamba, xLSTM, whisper's encoder and cross attention, heads that do not
-divide the axis) are gathered whole over the model axis too (ROADMAP.md,
-Queue A).
+shared experts' units, Mamba's channels or the vocabulary on "model"
+the rank computes its block of them (``sharding.tensor_parallel``), and
+the other layers (xLSTM, heads or channels that do not divide the axis)
+are gathered whole over the model axis too (ROADMAP.md, Queue A).
 """
 from __future__ import annotations
 

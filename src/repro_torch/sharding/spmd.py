@@ -26,18 +26,20 @@ a step over a mesh equals one process at the same global batch:
   columns, ``wo`` by rows; the latent projections whole), the dense
   FFN's units, an MoE's experts (expert parallelism over the padded
   experts, or each expert's units under ``sharding="tp"``; the router
-  whole) and its shared experts' units, and the vocabulary (a
-  vocabulary-parallel embedding and loss), Megatron's column and row
-  splits (``sharding.tensor_parallel``);
+  whole) and its shared experts' units, Mamba's channels (``w_in``
+  regathered for the rank's x and z columns, ``w_x`` and ``w_out`` by
+  rows), whisper's encoder and cross attention as its self-attention,
+  and the vocabulary (a vocabulary-parallel embedding and loss),
+  Megatron's column and row splits (``sharding.tensor_parallel``);
 * the ``compress_grads`` hook sees the averaged gradient gathered whole
   (the reference's hook sees the logical global one), the clip norm is
   summed over the whole mesh from each rank's shards (each element
   once), and each rank runs AdamW on its own shards.
 
 Still whole over the model axis, gathered per layer (ROADMAP.md, Queue
-A, the next item): Mamba, xLSTM, whisper's encoder and cross attention,
-attention or MLA whose heads do not divide the axis, and the decode
-step (``make_mesh_serve_step`` gathers every leaf whole and computes the
+A, item 11): xLSTM, attention or MLA whose heads do not divide the axis,
+Mamba whose channels do not, and the decode step
+(``make_mesh_serve_step`` gathers every leaf whole and computes the
 whole model on its rows).
 
 Collectives run over the mesh's process groups.  Under gloo a CUDA
@@ -187,9 +189,11 @@ class ProcessMesh:
         return h.to(t.device) if self.stage else h
 
     def all_reduce_f32(self, t: torch.Tensor, axes) -> torch.Tensor:
-        """``t`` summed over the ranks that ``axes`` span in float32, cast
-        back to its dtype (gloo takes no bfloat16)."""
-        return self.all_reduce(t.to(torch.float32), "sum", axes).to(t.dtype)
+        """``t`` summed over the ranks that ``axes`` span in float32 (a
+        float64 ``t`` in float64), cast back to its dtype (gloo takes no
+        bfloat16)."""
+        acc = torch.promote_types(t.dtype, torch.float32)
+        return self.all_reduce(t.to(acc), "sum", axes).to(t.dtype)
 
     def all_gather(self, t: torch.Tensor, axes) -> List[torch.Tensor]:
         """Every rank's ``t`` over ``axes``, in flattened index order.

@@ -3,9 +3,9 @@ mesh step (ZeRO-3).
 
 The reference is GSPMD: XLA computes each matmul where
 ``param_partition`` placed its weight, so attention and MLA heads, FFN
-units, MoE experts and the vocabulary split over "model".  The port
-does the same by hand, in Megatron's column and row splits, over what
-the partition rules already place on "model":
+units, MoE experts, Mamba's channels and the vocabulary split over
+"model".  The port does the same by hand, in Megatron's column and row
+splits, over what the partition rules already place on "model":
 
 * ``copy_to_model`` (Megatron's f): the identity, whose backward sums
   the gradient over the model axis: it stands before a column-split
@@ -13,14 +13,32 @@ the partition rules already place on "model":
 * ``reduce_from_model`` (g): the sum over the model axis, whose backward
   is the identity: it follows a row-split product, whose output is each
   rank's part of the sum;
-* ``gather_from_model``: the ranks' blocks of an activation
-  concatenated along a dim; the backward keeps the rank's block of the
-  gradient, summed over the model ranks first where each rank's
-  gradient is only its part (``grad="sum"``).
+* ``gather_from_model``: the ranks' blocks of an activation (or of a
+  weight whose block is not the columns the rank computes: Mamba's
+  joined ``w_in``) concatenated along a dim; the backward keeps the
+  rank's block of the gradient, summed over the model ranks first where
+  each rank's gradient is only its part (``grad="sum"``).
 
-Sums run in float32 and are cast back; gathers move bytes (gloo takes
-no bfloat16 on every build).  Every collective is ``ProcessMesh``'s
-``all_reduce_f32``, ``all_reduce`` or ``all_gather``.
+Sums run in float32 (float64 for float64 parts) and are cast back;
+gathers move bytes (gloo takes no bfloat16 on every build).  Every
+collective is ``ProcessMesh``'s ``all_reduce_f32``, ``all_reduce`` or
+``all_gather``.
+
+A split sums its parts in another order than one process's product, so
+at float32 it adds rounding of its own.  The dense layers keep it: their
+float32 products round as the reference's dots do (the dense LM's step
+is held to the reference's), and the reference's GSPMD split rounds its
+parts in float32 too.  Mamba and whisper's encoder and cross attention
+take ``wide`` operands instead, on the whole path as on the split one:
+each product whose sum the model axis cuts (a row-split product's
+output, a column-split product's input gradient, the sums over Mamba's
+channels) accumulates in float64 and is rounded once, after the sum over
+the ranks, so the two paths differ by float64 rounding only.  Their cut
+sums feed every channel (Mamba's B, C and dt) or every decoder layer
+(the encoder's states), where the split's float32 rounding moved
+AdamW's steps beyond a float32 step's limits.  A bfloat16 layer keeps
+its dtype (``wide`` is the identity), its parts rounded to bfloat16
+before the float32 sum.
 
 Inside ``sharding.spmd.make_mesh_train_step``'s loss a ``StepLayout``
 is active (``step_layout``): the mesh and the params' shardings.  The
@@ -147,6 +165,12 @@ class _GatherFromModel(torch.autograd.Function):
         return own.contiguous(), None, None, None
 
 
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the dtype of a product whose sum the model axis may cut:
+    float64 for float32, its own otherwise."""
+    return t.to(torch.float64) if t.dtype == torch.float32 else t
+
+
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:
     """``x``, replicated over the model axis, entering column-split
     products: its gradient is summed over the model ranks."""
@@ -154,8 +178,9 @@ def copy_to_model(x: torch.Tensor) -> torch.Tensor:
 
 
 def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
-    """The float32 sum of every model rank's ``x`` (a row-split
-    product's part), cast back; the gradient passes as it is."""
+    """The float32 (for float64, float64) sum of every model rank's
+    ``x`` (a row-split product's part), cast back; the gradient passes
+    as it is."""
     return _ReduceFromModel.apply(x, _model_mesh())
 
 

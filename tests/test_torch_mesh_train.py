@@ -17,8 +17,11 @@ host`` with no shape over 4 processes, the reference's (2, 2));
 reduced ``qwen2-moe-a2.7b`` (the aux loss's global statistics; also at
 ``2x2x1``, pod x data x model, whose data axes are two; at ``1x2`` its
 experts split over the model axis, as reduced ``deepseek-v2-lite-16b``'s
-experts and MLA heads and reduced ``jamba-v0.1-52b``'s experts beside
-its whole Mamba layers); ``--grad-accum
+experts and MLA heads and reduced ``jamba-v0.1-52b``'s experts and Mamba
+channels, also at ``2x2``); reduced ``whisper-small`` at ``1x2``
+(its encoder, self and cross attention and FFNs split) through
+``sharding.spmd.make_mesh_train_step`` on ``api.make_batch`` batches,
+as ``launch.train`` takes no encoder-decoder; ``--grad-accum
 2``; ``--compress-grads``, where one ulp of difference in an averaged
 gradient can flip an int8 code, moving that element by one quantum q
 (its leaf's max / 127): the first step's compressed gradient is held to
@@ -57,6 +60,7 @@ GRAD_T = 1e-5
 DENSE, MOE = "llama3-8b", "qwen2-moe-a2.7b"
 YI, GEMMA, LM = "yi-9b", "gemma3-12b", "lm-100m"
 MLA, JAMBA = "deepseek-v2-lite-16b", "jamba-v0.1-52b"
+WHISPER = "whisper-small"
 LM_LR = 3e-4    # the launcher's default, lm-100m's rate on the card
 BF16_RTOL = 2.0 ** -8   # one bfloat16 ulp
 
@@ -98,10 +102,11 @@ CASES = {   # name: (world, arch, mesh shape, extra flags, dtype)
     "lm_2x2": (4, LM, "2x2", ("--lr", str(LM_LR)), "float32"),
     # the experts over the model axis (reduced configs pad theirs to 16:
     # rank 1 holds only inert ones), MLA's heads, and an MoE beside
-    # Mamba layers that stay whole
+    # Mamba layers split by channels
     "moe_1x2": (2, MOE, "1x2", (), "float32"),
     "mla_moe_1x2": (2, MLA, "1x2", (), "float32"),
     "jamba_1x2": (2, JAMBA, "1x2", (), "float32"),
+    "jamba_2x2": (4, JAMBA, "2x2", (), "float32"),
 }
 
 
@@ -178,12 +183,17 @@ def _run_case(out_dir, name, argv, rank, compress, dtype="float32"):
 class _ModelGathers:
     """Counts the bytes that ``ProcessMesh.all_gather`` returns over the
     model axis: the params' (the per-layer gathers move them as one
-    uint8 buffer) apart from the rest (activations, the clip norm)."""
+    uint8 buffer), those gathered inside a Mamba layer's regather of its
+    ``w_in`` (``mamba._split_in_proj``) and the rest (activations, the
+    clip norm, the final carry's gather)."""
 
     def __init__(self):
+        from repro_torch.models.layers import mamba
         from repro_torch.sharding.spmd import ProcessMesh
         self.cls, self.real = ProcessMesh, ProcessMesh.all_gather
-        self.params = self.other = 0
+        self.mamba, self.real_in = mamba, mamba._split_in_proj
+        self.params = self.other = self.weights = 0
+        self.in_proj = False
         me = self
 
         def counted(mesh, t, axes):
@@ -192,14 +202,26 @@ class _ModelGathers:
                 n = sum(o.numel() * o.element_size() for o in out)
                 if t.dtype == torch.uint8 and t.ndim == 1:
                     me.params += n
+                elif me.in_proj:
+                    me.weights += n
                 else:
                     me.other += n
             return out
+
+        def in_proj(*args):
+            me.in_proj = True
+            try:
+                return me.real_in(*args)
+            finally:
+                me.in_proj = False
         self.cls.all_gather = counted
+        mamba._split_in_proj = in_proj
 
     def close(self):
         self.cls.all_gather = self.real
-        return {"params": self.params, "other": self.other}
+        self.mamba._split_in_proj = self.real_in
+        return {"params": self.params, "weights": self.weights,
+                "other": self.other}
 
 
 def _worker(rank, world, init, out_dir):
@@ -220,11 +242,59 @@ def _worker(rank, world, init, out_dir):
                 info[name] = dict(out["rank"], mesh=out["mesh"],
                                   model_gathers=gathered)
         if world == 2:
+            _whisper_1x2(rank, out_dir, info)
             _resume_and_supervise(rank, out_dir, info)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(info, f)
+
+
+def _ed_batches(cfg, steps=None):
+    """An encoder-decoder's global batches (frames, tokens, labels) of
+    ``api.make_batch``, one seed per step (STEPS of them by default)."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.models import api
+    shape = ShapeConfig("t", "train", S, B)
+    return [api.make_batch(cfg, shape, torch.Generator().manual_seed(s))
+            for s in range(STEPS if steps is None else steps)]
+
+
+def _whisper_1x2(rank, out_dir, info):
+    """Reduced whisper at 1x2 through ``make_mesh_train_step``, the
+    launcher's init and settings, on ``_ed_batches``."""
+    from repro_torch.config import ShapeConfig, TrainConfig, get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.spmd import (gather_tree, local_batch,
+                                           make_mesh_train_step,
+                                           opt_shardings, param_shardings,
+                                           shard_tree)
+    cfg = dataclasses.replace(get_config(WHISPER, reduced=True),
+                              dtype="float32")
+    tcfg = TrainConfig(lr=LR, sgdr_t0=50)
+    shape = ShapeConfig("t", "train", S, B)
+    mesh = make_host_mesh((1, 2), device="cpu")
+    params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                             device=torch.device("cpu"))
+    psh = param_shardings(cfg, params, mesh)
+    params = shard_tree(params, psh)
+    opt = adamw_init(params)
+    step = make_mesh_train_step(cfg, tcfg, mesh, psh, shape)
+    losses = []
+    count = _ModelGathers()
+    try:
+        for batch in _ed_batches(cfg):
+            params, opt, m = step(params, opt,
+                                  local_batch(batch, mesh, cfg, shape))
+            losses.append(float(m["loss"]))
+    finally:
+        gathered = count.close()
+    whole = gather_tree((params, opt), (psh, opt_shardings(opt, psh)))
+    if rank == 0:
+        _save(os.path.join(out_dir, "whisper_1x2.npz"), whole, losses)
+    info["whisper_1x2"] = {"model_gathers": gathered}
 
 
 def _resume_and_supervise(rank, out_dir, info):
@@ -325,7 +395,7 @@ def runs(tmp_path_factory):
         d = tmp_path_factory.mktemp(f"ranks{world}")
         _spawn(_worker, world, d)
         for name in list(CASES) + ["saved_2x1", "restored_1x2",
-                                   "resumed_1x2"]:
+                                   "resumed_1x2", "whisper_1x2"]:
             if (d / f"{name}.npz").exists():
                 out[name] = dict(np.load(d / f"{name}.npz"))
         out[f"info{world}"] = [json.loads((d / f"rank{r}.json").read_text())
@@ -362,10 +432,14 @@ def _plain(arch, *, accum=1, compress=False, steps=STEPS, lr=LR):
         return grads
 
     step = make_train_step(cfg, tcfg, compress_grads=hook)
-    make = lm_batch_fn(cfg.vocab_size, B, S, seed=0)
+    if cfg.encoder is not None:
+        batches = _ed_batches(cfg, steps)
+    else:
+        make = lm_batch_fn(cfg.vocab_size, B, S, seed=0)
+        batches = [{k: torch.as_tensor(v) for k, v in make(s).items()}
+                   for s in range(steps)]
     losses = []
-    for s in range(steps):
-        batch = {k: torch.as_tensor(v) for k, v in make(s).items()}
+    for batch in batches:
         params, opt, m = step(params, opt, batch)
         losses.append(float(m["loss"]))
     return {"params": [t.numpy() for t in tree_leaves(params)],
@@ -419,9 +493,11 @@ def test_one_process_launcher_is_the_plain_step(capsys):
                                   "moe_2x1", "accum_2x1", "pod_2x2x1",
                                   "host_default", "yi_1x2", "gemma_1x2",
                                   "lm_2x2", "moe_1x2", "mla_moe_1x2",
-                                  "jamba_1x2"])
+                                  "jamba_1x2", "jamba_2x2",
+                                  "whisper_1x2"])
 def test_mesh_step_equals_one_process(name, runs):
-    world, arch, shape, extra, _ = CASES[name]
+    world, arch, shape, extra, _ = CASES.get(name, (2, WHISPER, "1x2", (),
+                                                    "float32"))
     lr = float(extra[extra.index("--lr") + 1]) if "--lr" in extra else LR
     ref = _plain(arch, accum=2 if "--grad-accum" in extra else 1, lr=lr)
     _hold(runs[name], ref, _small(ref["seen"]), lr=lr)
@@ -487,24 +563,33 @@ def test_bfloat16_over_the_mesh(runs):
 
 def test_no_dense_weight_is_gathered_over_the_model_axis(runs):
     """Where the model axis splits the compute, no weight of the dense
-    LMs, of the MoE (experts, shared experts, router) or of MLA is
-    gathered over it: the bytes that all-gathers over "model" return are
-    activations only (an untied embedding's columns, the kv heads of
-    yi-9b's single kv head split across head_dim, the clip norm's
-    partial sums).  jamba's Mamba layers stay whole: they are."""
+    LMs, of the MoE (experts, shared experts, router), of MLA, of
+    whisper or of jamba is gathered over it by the per-layer gathers:
+    the bytes that all-gathers over "model" return are activations
+    (an untied embedding's columns, the kv heads of yi-9b's single kv
+    head split across head_dim, the clip norm's partial sums) and, in
+    jamba, each Mamba layer's ``w_in``, whose joined [x | z] columns
+    the layer regathers whole (forward and recompute, each step): those
+    bytes are held to that count."""
     cases = {2: ("dense_1x2", "yi_1x2", "gemma_1x2", "moe_1x2",
-                 "mla_moe_1x2"),
-             4: ("dense_2x2", "lm_2x2")}
+                 "mla_moe_1x2", "jamba_1x2", "whisper_1x2"),
+             4: ("dense_2x2", "lm_2x2", "jamba_2x2")}
+    from repro_torch.config import get_config
+    jamba = get_config(JAMBA, reduced=True)
+    n_mamba = sum(s.mixer == "mamba" for s in jamba.layer_specs())
+    w_in = jamba.d_model * 2 * jamba.ssm.expand * jamba.d_model * 4
     for world, names in cases.items():
         for r in runs[f"info{world}"]:
             for name in names:
                 got = r[name]["model_gathers"]
                 assert got["params"] == 0, (name, got)
                 assert got["other"] > 0, (name, got)
+                want = STEPS * n_mamba * 2 * w_in if "jamba" in name else 0
+                assert got["weights"] == want, (name, got, want)
     # the 2x1 mesh has one rank on the model axis: nothing crosses it
     for r in runs["info2"]:
-        assert r["dense_2x1"]["model_gathers"] == {"params": 0, "other": 0}
-        assert r["jamba_1x2"]["model_gathers"]["params"] > 0
+        assert r["dense_2x1"]["model_gathers"] == {
+            "params": 0, "weights": 0, "other": 0}
 
 
 def test_shard_bytes_per_rank(runs):

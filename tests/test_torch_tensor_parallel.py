@@ -25,19 +25,36 @@ Cases (float32, inputs drawn with numpy from a seed):
   added after it); the objective adds the aux loss, so the router's
   gradient, whole on every model rank, is held too;
 * MLA, ``wq``/``w_uk``/``w_uv`` by columns (heads) and ``wo`` by rows,
-  ``w_dkv``/``w_kr`` whole (their gradient whole on every model rank).
+  ``w_dkv``/``w_kr`` whole (their gradient whole on every model rank);
+* Mamba by channels (``w_in``, ``conv_w``, ``w_dt`` by columns;
+  ``conv_b``, ``dt_bias``, ``d_skip`` by channel; ``w_x``, ``a_log``,
+  ``w_out`` by rows), over several scan chunks: ``w_in`` is [x | z]
+  joined, so at a model axis of two rank 0's block of its columns is
+  all of x and rank 1's all of z, regathered by the layer;
+* whisper's encoder block (non-causal self-attention and the FFN split,
+  the layer norms whole) and its cross attention (the decoder's states
+  and the encoder's both entering the column split, so the encoder
+  states' gradient is held too), with kv heads dividing the axis and
+  with one kv head.
 
 Each runs at 1x2 and at 2x2, where each data rank takes half the rows:
 the one-process reference runs the layer on the same row blocks, and
 the weights' gradients are summed over the blocks (the mesh step
 averages them).  Held to rtol 1e-5, atol 1e-6 x the largest element of
 each array (float32 sums split in two, as the mesh step's); a weight
-kept whole over the model axis is held on every model rank.  Under a
+kept whole over the model axis is held on every model rank.  The wide
+encoder block and cross attention are held bit for bit as well: their
+split sums its cut products in float64 (``tp.wide``) and rounds them
+once, as the whole layer does.  Mamba, wide too, is held at the
+tolerance: the sums that its split does not cut (over the state in the
+readout, over the tokens in its weights' gradients) run in float32, in
+an order that the kernels may pick by the number of channels.  Under a
 layout whose model axis has one rank every layer is the plain one bit
 for bit and no collective runs.  The model axis's collectives of an
 MoE and an MLA + MoE block at (1, 2), forward and backward with and
 without the recompute, are counted through a ``CountingMesh`` on the
-meta device.
+meta device; a jamba stack's too, whose Mamba layers each all-gather
+``w_in`` over the model axis.
 """
 import dataclasses
 import os
@@ -81,6 +98,28 @@ def _mlacfg():
                            nope_head_dim=8)
 
 
+def _ssmcfg():
+    from repro_torch.config.base import SSMConfig
+    return SSMConfig(d_state=8, d_conv=4, expand=2)
+
+
+def _edcfg():
+    """Reduced whisper at the file's widths (4 heads of 8, float32)."""
+    from repro_torch.config import get_config
+    return dataclasses.replace(get_config("whisper-small", reduced=True),
+                               d_model=D, d_ff=80, dtype="float32",
+                               attention=_acfg(4, 4, rope="none"))
+
+
+def _nest(p):
+    """{"part.leaf": t} -> {"part": {"leaf": t}}."""
+    out = {}
+    for k, v in p.items():
+        part, leaf = k.split(".")
+        out.setdefault(part, {})[leaf] = v
+    return out
+
+
 def _mcfg(tied):
     from repro_torch.config import get_config
     return dataclasses.replace(get_config("llama3-8b", reduced=True),
@@ -116,7 +155,20 @@ LATER = {
     # split experts, added after the experts' sum
     "moe_shared_whole": ("moe", dict(shared=1, shared_ff=25)),
     "mla": ("mla", dict()),
+    # Mamba's channels, whisper's encoder block and cross attention
+    "mamba": ("mamba", dict()),
+    "enc_block": ("enc", dict()),
+    "cross": ("cross", dict(heads=4, kv=2)),
+    "cross_kv1": ("cross", dict(heads=4, kv=1)),
 }
+# wide cases whose sums the split leaves whole do not follow the width:
+# split bit for bit
+WIDE = ("enc_block", "cross", "cross_kv1")
+# the inputs whose gradients are held, per kind
+INPUTS = {"attn": ("x",), "mlp": ("x",), "loss": ("x",), "moe": ("x",),
+          "mla": ("x",), "mamba": ("x",), "enc": ("x",),
+          "cross": ("x", "enc")}
+T_ENC = 20      # the encoder states' length beside the decoder's S
 SEEDS = {n: i for i, n in enumerate(sorted(CASES) + list(LATER))}
 CASES.update(LATER)
 
@@ -160,6 +212,34 @@ def _draw(name):
               for k, t in mla_spec(_mlacfg(), D, torch.float32).items()}
         split = {"wq": 1, "w_uk": 1, "w_uv": 1, "wo": 0, "w_dkv": None,
                  "w_kr": None}
+    elif kind == "mamba":
+        from repro_torch.models.layers.mamba import mamba_spec
+        ws = {k: w(*t.shape) if len(t.shape) == 2 else
+              rng.normal(0, 0.5, t.shape).astype(np.float32)
+              for k, t in mamba_spec(_ssmcfg(), D, torch.float32).items()}
+        ws["a_log"] = np.log(rng.uniform(0.5, 4.0, ws["a_log"].shape)
+                             ).astype(np.float32)
+        split = {"w_in": 1, "conv_w": 1, "conv_b": 0, "w_x": 0, "w_dt": 1,
+                 "dt_bias": 0, "a_log": 0, "d_skip": 0, "w_out": 0}
+    elif kind == "enc":
+        from repro_torch.models.encdec import _enc_block_spec
+        ws, split = {}, {}
+        for part, leaves in _enc_block_spec(_edcfg(), torch.float32).items():
+            for k, t in leaves.items():
+                if part.startswith("ln"):
+                    ws[f"{part}.{k}"] = rng.normal(
+                        1.0 if k == "g" else 0.0, 0.1, t.shape).astype(
+                            np.float32)
+                    split[f"{part}.{k}"] = None
+                else:
+                    ws[f"{part}.{k}"] = w(*t.shape)
+                    split[f"{part}.{k}"] = 0 if k in ("wo", "w_down") else 1
+    elif kind == "cross":
+        a = _acfg(kw["heads"], kw["kv"], rope="none")
+        ws = {"wq": w(D, a.q_dim), "wk": w(D, a.kv_dim),
+              "wv": w(D, a.kv_dim), "wo": w(a.q_dim, D)}
+        split = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
+        ins["enc"] = rng.normal(0, 1, (B, T_ENC, D)).astype(np.float32)
     else:
         tied = kw["tied"]
         ws = {"embed": w(VOCAB, D)}
@@ -199,6 +279,17 @@ def _layer(name, p, ins):
     elif kind == "mla":
         from repro_torch.models.layers.mla import apply_mla
         out = apply_mla(p, _mlacfg(), ins["x"], q_chunk=16)
+    elif kind == "mamba":
+        from repro_torch.models.layers.mamba import apply_mamba
+        out = apply_mamba(p, _ssmcfg(), ins["x"], chunk=8)
+    elif kind == "enc":
+        from repro_torch.models.encdec import _enc_block
+        out = _enc_block(_edcfg(), _nest(p), ins["x"], q_chunk=16)
+    elif kind == "cross":
+        from repro_torch.models.layers.attention import apply_cross_attention
+        out = apply_cross_attention(p, _acfg(kw["heads"], kw["kv"],
+                                             rope="none"),
+                                    ins["x"], ins["enc"], q_chunk=8)
     elif kind == "embed":
         out = lm.embed_tokens(_mcfg(kw["tied"]), p, ins["tokens"])
     else:
@@ -214,36 +305,37 @@ def _blocks(ins, n, i):
 
 
 def _run(name, p, ins, n_data, data_index):
-    """(output, gradients of the params and of x) on one row block."""
+    """(output, gradients of the params and of the INPUTS) on one row
+    block."""
     p = {k: v.detach().requires_grad_(True) for k, v in p.items()}
     rows = _blocks(ins, n_data, data_index)
-    if "x" in rows:
-        rows["x"].requires_grad_(True)
+    held = INPUTS.get(CASES[name][0], ())
+    for k in held:
+        rows[k].requires_grad_(True)
     out, obj = _layer(name, p, rows)
-    wrt = list(p.values()) + ([rows["x"]] if CASES[name][0] in
-                              ("attn", "mlp", "loss", "moe", "mla")
-                              else [])
-    grads = torch.autograd.grad(obj, wrt)
-    return out.detach(), dict(zip(list(p) + ["x"], grads))
+    grads = torch.autograd.grad(obj, list(p.values())
+                                + [rows[k] for k in held])
+    return out.detach(), dict(zip(list(p) + list(held), grads))
 
 
 def _reference(name):
     """The unsplit layer on one process, per row block of the data
-    ranks: {n_data: (outputs, x gradients per block, weight gradients
-    summed)}."""
+    ranks: {n_data: (outputs, {input: its gradient per block}, weight
+    gradients summed)}."""
     ws, ins, _ = _draw(name)
+    held = INPUTS.get(CASES[name][0], ())
     out = {}
     for n in (1, 2):
-        outs, dxs, wg = [], [], {}
+        outs, dins, wg = [], {k: [] for k in held}, {}
         for i in range(n):
             o, g = _run(name, {k: torch.as_tensor(v) for k, v in ws.items()},
                         ins, n, i)
             outs.append(o.numpy())
-            if "x" in g:
-                dxs.append(g["x"].numpy())
+            for k in held:
+                dins[k].append(g[k].numpy())
             for k in ws:
                 wg[k] = wg.get(k, 0) + g[k].numpy()
-        out[n] = (outs, dxs, wg)
+        out[n] = (outs, dins, wg)
     return out
 
 
@@ -273,9 +365,9 @@ def _worker(rank, world, init, out_dir):
             with tp.step_layout(mesh, None):
                 out, g = _run(name, p, ins, n_data, di)
             res[f"{name}/out"] = torch.stack(mesh.all_gather(out, "data"))
-            if "x" in g:
-                res[f"{name}/dx"] = torch.stack(mesh.all_gather(g["x"],
-                                                                "data"))
+            for k in INPUTS.get(CASES[name][0], ()):
+                res[f"{name}/d{k}"] = torch.stack(mesh.all_gather(g[k],
+                                                                  "data"))
             for k in ws:
                 parts = mesh.all_gather(g[k], "model")
                 if split[k] is None:     # every model rank's, stacked
@@ -320,11 +412,12 @@ def _close(got, want, what):
 def test_split_layer_equals_the_whole_layer(name, mesh, split_runs):
     world, n_data = (2, 1) if mesh == "1x2" else (4, 2)
     got = split_runs[world]
-    outs, dxs, wg = _reference(name)[n_data]
+    outs, dins, wg = _reference(name)[n_data]
     for i in range(n_data):
         _close(got[f"{name}/out"][i], outs[i], f"{name} output block {i}")
-        if dxs:
-            _close(got[f"{name}/dx"][i], dxs[i], f"{name} dx block {i}")
+        for k, blocks in dins.items():
+            _close(got[f"{name}/d{k}"][i], blocks[i],
+                   f"{name} d{k} block {i}")
     _, _, split = _draw(name)
     for k, w in wg.items():
         if split[k] is None:             # the same on every model rank
@@ -332,6 +425,25 @@ def test_split_layer_equals_the_whole_layer(name, mesh, split_runs):
                 _close(g, w, f"{name} grad {k} on model rank {i}")
         else:
             _close(got[f"{name}/{k}"], w, f"{name} grad {k}")
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
+@pytest.mark.parametrize("name", WIDE)
+def test_wide_split_layer_is_the_whole_layer_bit_for_bit(name, mesh,
+                                                         split_runs):
+    world, n_data = (2, 1) if mesh == "1x2" else (4, 2)
+    got = split_runs[world]
+    outs, dins, wg = _reference(name)[n_data]
+    for i in range(n_data):
+        np.testing.assert_array_equal(got[f"{name}/out"][i], outs[i])
+        for k, blocks in dins.items():
+            np.testing.assert_array_equal(got[f"{name}/d{k}"][i], blocks[i],
+                                          err_msg=f"d{k} block {i}")
+    _, _, split = _draw(name)
+    for k, w in wg.items():
+        for g in (got[f"{name}/{k}"] if split[k] is None
+                  else [got[f"{name}/{k}"]]):
+            np.testing.assert_array_equal(g, w, err_msg=f"grad {k}")
 
 
 def test_one_rank_on_the_model_axis_is_the_plain_layer():
@@ -360,21 +472,32 @@ def test_one_rank_on_the_model_axis_is_the_plain_layer():
 # and its FFN's output once (g); the backward sums the input gradient of
 # attention (f on x), of MLA (f on x, on the latent and on the rope key),
 # of a dense FFN (f on x) and of an MoE (f on the experts' input and on
-# the gates); the recompute reruns the mixer's sum only, since the
+# the gates); the recompute reruns the mixer's sums only, since the
 # FFN's output (the dense FFN's down projection, the MoE's kept combine
-# and shared projection) is not recomputed
+# and shared projection) is not recomputed.  A Mamba mixer sums two in
+# the forward and in the recompute (its rows' part of (dt, B, C), g,
+# and its output, g) and three in the backward (f on x, f on (dt, B, C)
+# and the gradient of its regathered ``w_in``), so a Mamba + dense
+# block is (3, 4, 2) and a Mamba + MoE block (3, 5, 2)
 BLOCK_COLLECTIVES = {
     "qwen2-moe-a2.7b": [(2, 3, 1), (2, 3, 1)],           # attn + MoE
     "deepseek-v2-lite-16b": [(2, 4, 1), (2, 5, 1)],      # MLA + dense, MoE
+    # Mamba + dense, Mamba + MoE, attn + dense, Mamba + MoE
+    "jamba-v0.1-52b": [(3, 4, 2), (3, 5, 2), (2, 2, 1), (3, 5, 2)],
 }
+# the model axis's all-gathers of a stack at (1, 2): one per Mamba layer
+# (its ``w_in`` whole, the only weight regathered over the axis),
+# rerun by the recompute
+BLOCK_GATHERS = {"jamba-v0.1-52b": 3}
 
 
 @pytest.mark.parametrize("arch", sorted(BLOCK_COLLECTIVES))
 def test_model_axis_collectives_of_a_block(arch):
     """Reduced ``arch``'s blocks (float32) forward and backward over a
     (1, 2) ``CountingMesh`` on the meta device, remat "none" and
-    "full": the all-reduces over the model axis are BLOCK_COLLECTIVES'
-    (no gather: every weight is the rank's block or whole there)."""
+    "full": the all-reduces over the model axis are BLOCK_COLLECTIVES';
+    no gather but BLOCK_GATHERS' of each Mamba layer's ``w_in``, whole
+    (every other weight is the rank's block or whole there)."""
     from repro_torch.config import MeshConfig, get_config
     from repro_torch.models import api, lm
     from repro_torch.models.layers.common import zeros_from_spec
@@ -387,6 +510,8 @@ def test_model_axis_collectives_of_a_block(arch):
     cfg = dataclasses.replace(get_config(arch, reduced=True),
                               dtype="float32")
     want = BLOCK_COLLECTIVES[arch]
+    gathers = BLOCK_GATHERS.get(arch, 0)
+    d, di = cfg.d_model, cfg.ssm.expand * cfg.d_model if cfg.ssm else 0
     for remat in ("none", "full"):
         mesh = CountingMesh(MeshConfig((1, 2), ("data", "model")))
         spec = api.param_spec(cfg)
@@ -398,9 +523,18 @@ def test_model_axis_collectives_of_a_block(arch):
         with ctx.active_mesh(mesh, data_axes=mesh.data_axes), \
                 tp.step_layout(mesh, psh):
             out, aux = lm.apply_stack(cfg, params, x, remat=remat)
-            fwd = len(mesh.plan)
+            n_fwd = len(mesh.plan)
             (out.sum() + aux).backward()
-        assert {op for op, _, _ in mesh.plan} == {"all-reduce"}, mesh.plan
-        assert fwd == sum(f for f, _, _ in want), (remat, mesh.plan)
-        bwd = sum(b + (r if remat == "full" else 0) for _, b, r in want)
-        assert len(mesh.plan) - fwd == bwd, (remat, mesh.plan)
+        ops = [op for op, _, _ in mesh.plan]
+        assert set(ops) <= {"all-reduce", "all-gather"}, mesh.plan
+        fwd, bwd = ops[:n_fwd], ops[n_fwd:]
+        assert fwd.count("all-reduce") == sum(f for f, _, _ in want), (
+            remat, mesh.plan)
+        n_bwd = sum(b + (r if remat == "full" else 0) for _, b, r in want)
+        assert bwd.count("all-reduce") == n_bwd, (remat, mesh.plan)
+        assert fwd.count("all-gather") == gathers, (remat, mesh.plan)
+        assert bwd.count("all-gather") == (
+            gathers if remat == "full" else 0), (remat, mesh.plan)
+        for op, nbytes, _ in mesh.plan:
+            if op == "all-gather":          # w_in whole, float32
+                assert nbytes == d * 2 * di * 4, mesh.plan
