@@ -5543,7 +5543,8 @@ def _mesh_psum_inputs(rank):
 def _mesh_worker(rank, world, init, out_dir, reduced, device, only):
     """One of the ranks sharing the card: (b)-(d) (``_mesh_worker_dense``),
     (f) the MoE cuts at 1x2 and (g) the jamba and whisper cuts at 1x2,
-    each with one more 1x2 step's FLOPs; ``only`` "f" or "g": that
+    each with one more 1x2 step's FLOPs, and (h) every decode cut at
+    1x2 with one more step's FLOPs; ``only`` "f", "g" or "h": that
     check alone.  Writes its results to ``out_dir``.  ``device`` "cpu"
     rehearses it on the host."""
     sys.path.insert(0, str(SRC))
@@ -5563,14 +5564,24 @@ def _mesh_worker(rank, world, init, out_dir, reduced, device, only):
             cuts.update((a, _mesh_moe_cut(a, reduced)) for a in MOE_ARCHS)
         if only in (None, "g"):
             cuts.update(_mesh_g_cuts(reduced))
-        for arch, cut in cuts.items():
+        h_cuts = _mesh_h_cuts(reduced) if only in (None, "h") else {}
+        for arch in list(cuts) + [a for a in h_cuts if a not in cuts]:
+            res[arch] = {}
+            # (h) on the draw of (f)'s or (g)'s cut
             with _DrawnOnce():
-                if arch in MOE_ARCHS:
-                    res[arch] = _mesh_split_rank(arch, cut, reduced, dev,
-                                                 out_dir, rank)
-                else:
-                    res[arch] = _mesh_g_run(arch, cut, reduced, dev, "1x2")
-            res[arch]["flops"] = _mesh_step_flops(cut, dev)
+                if arch in cuts:
+                    cut = cuts[arch]
+                    if arch in MOE_ARCHS:
+                        res[arch] = _mesh_split_rank(arch, cut, reduced,
+                                                     dev, out_dir, rank)
+                    else:
+                        res[arch] = _mesh_g_run(arch, cut, reduced, dev,
+                                                "1x2")
+                    res[arch]["flops"] = _mesh_step_flops(cut, dev)
+                if arch in h_cuts:
+                    res[arch]["h"] = _mesh_h_rank(arch, h_cuts[arch], dev,
+                                                  out_dir)
+                    res[arch]["h_flops"] = _mesh_h_flops(h_cuts[arch], dev)
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
         res["k_launches"] = _k_launches()
@@ -5933,10 +5944,11 @@ def _mesh_dense_checks(dev, card, plain, tmp, ranks, res):
                   "rel_err": err}
 
 
-def _mesh_split_one(dev, card, tmp):
+def _mesh_split_one(dev, card, tmp, h=None):
     """(f) before the ranks: per MoE cut, the plain step and
     launch.train at 1x1 in a one-rank group, bit for bit; the 1x1 run's
-    routing saved for the ranks (``_Routing``).  Returns the losses."""
+    routing saved for the ranks (``_Routing``).  Returns the losses.
+    ``h``: a dict that takes (h)'s 1x1 of each cut, on the same draw."""
     import torch
     import torch.distributed as dist
     out = {}
@@ -5954,6 +5966,8 @@ def _mesh_split_one(dev, card, tmp):
                                        LM_REDUCED, dev.type, cfg=cut)
             finally:
                 dist.destroy_process_group()
+            if h is not None:
+                h[arch] = _mesh_h_one(dev, card, tmp, arch, cut)
         route.save(os.path.join(tmp, f"route_{arch}.npz"))
         same = sum(a == b for a, b in zip(one["losses"], plain))
         log(f"mesh (f) {arch} x{cut.num_layers} layers "
@@ -6161,11 +6175,12 @@ def _mesh_g_run(arch, cut, reduced, dev, shape):
             "backend": out["backend"]}
 
 
-def _mesh_g_one(dev, card, tmp):
+def _mesh_g_one(dev, card, tmp, h=None):
     """(g) before the ranks: per cut, the plain step and the same steps at
     1x1 in a one-rank group (launch.train on jamba's, make_mesh_train_step
     on whisper's), bit for bit.  Returns the losses and the 1x1 runs'
-    rank lines."""
+    rank lines.  ``h``: a dict that takes (h)'s 1x1 of each cut, on the
+    same draw."""
     import torch
     import torch.distributed as dist
     out = {}
@@ -6180,6 +6195,8 @@ def _mesh_g_one(dev, card, tmp):
                 one = _mesh_g_run(arch, cut, LM_REDUCED, dev, "1x1")
             finally:
                 dist.destroy_process_group()
+            if h is not None:
+                h[arch] = _mesh_h_one(dev, card, tmp, arch, cut)
         same = sum(a == b for a, b in zip(one["losses"], plain))
         log(f"mesh (g) {arch} {_cut_name(cut)} "
             f"{'reduced' if LM_REDUCED else 'at full width'}, float32, "
@@ -6269,6 +6286,365 @@ def _mesh_g_checks(dev, card, tmp, ranks, ones):
     return out
 
 
+MESH_H_WARM = 4            # (h): plain decode steps that fill the cache
+MESH_H_STEPS = 8           # (h): teacher-forced steps through the mesh step
+MESH_H_GATE = 0.25         # (h): a rank's peak less its carry, of a copy
+MESH_H_ROWS = 8            # (h): whisper's frames encoded this many rows
+H_ARCH = "granite-34b"     # (h): one kv head, its cache across head_dim
+
+
+def _mesh_h_cuts(reduced):
+    """(h)'s configs, float32: lm-100m whole, (f)'s MoE cuts and (g)'s
+    jamba and whisper cuts (equal configs, so ``_DrawnOnce`` shares
+    their host draws), and granite-34b cut to one layer at its published
+    width: its single kv head puts its K/V cache across head_dim at 1x2,
+    which no other cut reaches (the reduced configs on a rehearsal)."""
+    import dataclasses
+    from repro_torch.config import get_config
+    out = {LM_ARCH: _mesh_lm_cfg(reduced)}
+    out.update((a, _mesh_moe_cut(a, reduced)) for a in MOE_ARCHS)
+    out.update(_mesh_g_cuts(reduced))
+    out[H_ARCH] = dataclasses.replace(get_config(H_ARCH, reduced=reduced),
+                                      num_layers=1, dtype="float32")
+    return out
+
+
+def _mesh_h_warm(cfg, dev):
+    """(params on the device, drawn as launch.train draws them: seed 0
+    on the host; the decode state of LM_DECODE_B rows of LM_DECODE_CTX
+    after MESH_H_WARM plain decode steps; the MESH_H_STEPS tokens that
+    follow), tokens drawn from a host seed.  Whisper's cross K/V are
+    projected from encoded frames (MESH_H_ROWS rows at a time)."""
+    import numpy as np
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.models import api, encdec
+    from repro_torch.models.layers.common import zeros_from_spec
+    from repro_torch.train.step import make_serve_step
+    params = api.init_params(cfg, torch.Generator().manual_seed(
+        TrainConfig().seed), device=dev)
+    rng = np.random.default_rng(7)
+    toks = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (MESH_H_WARM + MESH_H_STEPS, LM_DECODE_B, 1)
+    ).astype(np.int32)).to(dev)
+    state = zeros_from_spec(api.decode_state_spec(
+        cfg, LM_DECODE_B, LM_DECODE_CTX), device=dev)
+    if cfg.encoder is not None:
+        frames = torch.as_tensor(rng.normal(0, 1, (
+            LM_DECODE_B, cfg.encoder.seq_len, cfg.encoder.feature_dim)
+        ).astype(np.float32)).to(dev)
+        with torch.no_grad():
+            enc = torch.cat([encdec.encode(cfg, params,
+                                           frames[i:i + MESH_H_ROWS])
+                             for i in range(0, LM_DECODE_B, MESH_H_ROWS)])
+            state["cross"] = encdec.prefill_cross(cfg, params, enc)
+        del frames, enc
+    step = make_serve_step(cfg)
+    for t in toks[:MESH_H_WARM]:
+        _, state = step(params, state, t)
+    return params, state, toks[MESH_H_WARM:]
+
+
+def _mesh_h_layout(cfg, mesh, params, state):
+    """(param shardings, cache shardings, decode shape) on ``mesh``."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.sharding.partition import cache_partition, named
+    from repro_torch.sharding.spmd import param_shardings
+    shape = ShapeConfig("decode", "decode", LM_DECODE_CTX, LM_DECODE_B)
+    return (param_shardings(cfg, params, mesh),
+            named(mesh, cache_partition(cfg, shape, mesh.config, state)),
+            shape)
+
+
+def _model_leaf_bytes(cfg, state):
+    """Bytes of each decode-state leaf that ``cache_partition`` puts on
+    the model axis at (1, 2), in the tree's order."""
+    from repro_torch.config import MeshConfig, ShapeConfig
+    from repro_torch.sharding.partition import cache_partition, named
+    from repro_torch.tree import tree_leaves
+    csh = named(None, cache_partition(
+        cfg, ShapeConfig("decode", "decode", LM_DECODE_CTX, LM_DECODE_B),
+        MeshConfig((1, 2), ("data", "model")), state))
+    return [t.numel() * t.element_size()
+            for t, s in zip(tree_leaves(state), tree_leaves(csh))
+            if any("model" in ((p,) if isinstance(p, str) else (p or ()))
+                   for p in s.spec)]
+
+
+def _mesh_h_one(dev, card, tmp, arch, cut):
+    """(h) before the ranks, for one cut: MESH_H_STEPS teacher-forced
+    decode steps through ``make_mesh_serve_step`` at 1x1 in a one-rank
+    group, each against ``make_serve_step`` bit for bit (logits and the
+    whole state); the plain logits saved for the ranks, an MoE cut's
+    routing of the mesh steps too."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.spmd import make_mesh_serve_step, tree_bytes
+    from repro_torch.train.step import make_serve_step
+    from repro_torch.tree import tree_leaves
+    params, state, toks = _mesh_h_warm(cut, dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{tmp}/h_{arch}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh((1, 1), device=dev)
+        psh, csh, shape = _mesh_h_layout(cut, mesh, params, state)
+        step = make_mesh_serve_step(cut, mesh, psh, csh, shape)
+        plain = make_serve_step(cut)
+        got, want, same, logits = state, state, [], []
+        route = _Routing()
+        t0 = time.perf_counter()
+        for t in toks:
+            with route:
+                gl, got = step(params, got, t)
+            wl, want = plain(params, want, t)
+            same.append(torch.equal(gl, wl) and all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                  tree_leaves(want))))
+            logits.append(wl.cpu().numpy())
+        ms = 1e3 * (time.perf_counter() - t0) / len(toks)
+    finally:
+        dist.destroy_process_group()
+    np.save(os.path.join(tmp, f"h_{arch}.npy"), np.stack(logits))
+    if route.idx:
+        route.save(os.path.join(tmp, f"h_route_{arch}.npz"))
+    out = {"same": same, "ms_plain_and_1x1": ms,
+           "whole": tree_bytes(params),
+           "model_leaves": _model_leaf_bytes(cut, want),
+           "min_gap": min((float(g.min()) for g in route.gap),
+                          default=None)}
+    log(f"mesh (h) {arch} {_cut_name(cut)} "
+        f"{'reduced' if LM_REDUCED else 'at full width'}, float32, "
+        f"decode {LM_DECODE_B} x {LM_DECODE_CTX} after {MESH_H_WARM} plain "
+        f"steps ({card}): {MESH_H_STEPS} teacher-forced steps through "
+        f"make_mesh_serve_step at 1x1 in a 1-rank {backend} group, "
+        f"{sum(same)} of {len(same)} bit-identical to make_serve_step "
+        f"(logits and state); {ms:.3f} ms a step of both"
+        + ("" if out["min_gap"] is None else
+           f"; smallest gap between a token's k-th and (k+1)-th routing "
+           f"probability {out['min_gap']:.3e}"))
+    require(len(same) == MESH_H_STEPS and all(same),
+            f"(h) {arch} 1x1 decode differs from make_serve_step: {same}")
+    del params, state, got, want
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_h_steps(cut, mesh, ps, ss, psh, csh, shape, toks, want,
+                  route, dev):
+    """MESH_H_STEPS mesh decode steps from the state shards ``ss``: each
+    step's logits against 1x1's (``want``; the largest difference over
+    the largest logit) and their digest, the peak above what was
+    allocated before (the carry in), the bytes of the state out that a
+    step allocates (whisper's cross K/V are handed on as they are), the
+    last state shards."""
+    import hashlib
+    import numpy as np
+    import torch
+    from repro_torch.sharding.spmd import make_mesh_serve_step
+    from repro_torch.tree import tree_leaves
+    step = make_mesh_serve_step(cut, mesh, psh, csh, shape)
+    base = _allocated(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    errs, digests = [], []
+    t0 = time.perf_counter()
+    for t, w in zip(toks, want):
+        old = {a.data_ptr() for a in tree_leaves(ss)}
+        with route:
+            logits, ss = step(ps, ss, t)
+        got = logits.cpu().numpy()
+        errs.append(float(np.abs(got - w).max() / np.abs(w).max()))
+        digests.append(hashlib.sha256(got.tobytes()).hexdigest())
+    ms = 1e3 * (time.perf_counter() - t0) / len(toks)
+    peak = (torch.cuda.max_memory_allocated(dev) - base
+            if dev.type == "cuda" else 0)
+    fresh = sum(a.numel() * a.element_size() for a in tree_leaves(ss)
+                if a.data_ptr() not in old)
+    return {"errs": errs, "digests": digests, "peak": int(peak),
+            "fresh": fresh, "ms_per_step": ms}, ss
+
+
+def _mesh_h_rank(arch, cut, dev, out_dir):
+    """(h) on one rank: the cut's state after the plain steps (on the
+    whole params, as 1x1's), then MESH_H_STEPS steps of
+    ``make_mesh_serve_step`` at 1x2 on the rank's param and state
+    shards, routing recorded; where a token routes otherwise than at
+    1x1, the same steps again replaying 1x1's routing.  Its logits'
+    differences from 1x1's, the shards' bytes, the peak less the carry
+    in (param and state shards) and the state out."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.spmd import shard_tree, tree_bytes
+    from repro_torch.tree import tree_map
+    mesh = make_host_mesh((1, 2), device=dev)
+    params, state, toks = _mesh_h_warm(cut, dev)
+    psh, csh, shape = _mesh_h_layout(cut, mesh, params, state)
+    ps = shard_tree(params, psh)
+    # the state shards kept on the host for a replay: the device holds
+    # one carry in
+    ss = tree_map(lambda t: t.cpu(), shard_tree(state, csh))
+    whole = tree_bytes(params)
+    del params, state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    want = np.load(os.path.join(out_dir, f"h_{arch}.npy"))
+    route = _Routing()
+    res, new = _mesh_h_steps(cut, mesh, ps, tree_map(
+        lambda t: t.to(dev), ss), psh, csh, shape, toks, want, route, dev)
+    res.update(whole=whole, param_bytes=tree_bytes(ps),
+               state_bytes=tree_bytes(new),
+               transient=res["peak"] - res["fresh"],
+               model_leaves=_model_leaf_bytes(cut, new))
+    del new
+    path = os.path.join(out_dir, f"h_route_{arch}.npz")
+    if route.idx:
+        one, _ = _Routing.load(path)
+        res["rerouted"] = len(one) != len(route.idx) or any(
+            (a != b).any() for a, b in zip(one, route.idx))
+        res["route"] = [a.tolist() for a in route.idx]
+        if res["rerouted"]:
+            rep, new = _mesh_h_steps(cut, mesh, ps, tree_map(
+                lambda t: t.to(dev), ss), psh, csh, shape, toks, want,
+                _Routing(replay=one), dev)
+            res["replayed"] = rep["errs"]
+            del new
+    return res
+
+
+def _mesh_h_flops(cfg, dev):
+    """FlopCounterMode's count of one decode step of ``cfg`` through
+    ``make_mesh_serve_step`` over the open group as a 1 x 2 mesh (after
+    a warm step), at the dry run's settings: its param tree (an MoE's
+    experts padded to the model axis, 2) drawn from seed 0 on the
+    device and a zero state of LM_DECODE_B x LM_DECODE_CTX (the count
+    does not depend on the values)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.models.layers.common import (init_from_spec,
+                                                  zeros_from_spec)
+    from repro_torch.sharding.spmd import make_mesh_serve_step, shard_tree
+    mesh = make_host_mesh((1, 2), device=dev)
+    params = init_from_spec(api.param_spec(cfg, model_axis=2),
+                            torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    state = zeros_from_spec(api.decode_state_spec(
+        cfg, LM_DECODE_B, LM_DECODE_CTX), device=dev)
+    psh, csh, shape = _mesh_h_layout(cfg, mesh, params, state)
+    step = make_mesh_serve_step(cfg, mesh, psh, csh, shape)
+    args = (shard_tree(params, psh), shard_tree(state, csh),
+            torch.zeros((LM_DECODE_B, 1), dtype=torch.int32, device=dev))
+    del params, state
+    out = step(*args)
+    del out
+    with FlopCounterMode(display=False) as fc:
+        out = step(*args)
+        _allocated(dev)
+    return int(fc.get_total_flops())
+
+
+def _mesh_h_checks(dev, card, tmp, ranks, ones):
+    """(h) from the ranks' results, per cut: the 1x2 logits at every
+    step within MESH_LOSS_RTOL of the largest of 1x1's, both ranks'
+    alike (where a token routes otherwise than at 1x1 it must be a tie,
+    a gap below MESH_TIE_GAP at 1x1, and the replay of 1x1's routing is
+    held instead); each rank's shard of every cache leaf on the model
+    axis half of 1x1's leaf; a rank's peak less its carry (param and
+    state shards in, state out) below MESH_H_GATE of one whole copy of
+    the params; rank 0's FLOPs of one 1x2 step equal to ``cost_cell``'s
+    meta count at (1, 2), below (1, 1)'s."""
+    import numpy as np
+    from repro_torch.config import MeshConfig, ShapeConfig, TrainConfig
+    from repro_torch.launch.dryrun import cost_cell
+    out = {}
+    shape = ShapeConfig("decode", "decode", LM_DECODE_CTX, LM_DECODE_B)
+    for arch, cut in _mesh_h_cuts(LM_REDUCED).items():
+        one = ones[arch]
+        got = [rk[arch]["h"] for rk in ranks]
+        r = {"one_ms": one["ms_plain_and_1x1"], "errs": got[0]["errs"],
+             "ranks": []}
+        require(got[0]["digests"] == got[1]["digests"],
+                f"(h) {arch}: the two model ranks' logits differ")
+        errs = got[0]["errs"]
+        if got[0].get("rerouted"):
+            one_idx, gaps = _Routing.load(os.path.join(
+                tmp, f"h_route_{arch}.npz"))
+            mine = [np.asarray(a) for a in got[0]["route"]]
+            tie = [float(x) for a, b, g in zip(one_idx, mine, gaps)
+                   for x in g[(a != b).any(-1)]]
+            r.update(tie_gaps=tie, replayed=got[0]["replayed"])
+            log(f"mesh (h) {arch} 1x2: {len(tie)} token(s) routed "
+                f"otherwise than at 1x1, their k-th and (k+1)-th "
+                f"probabilities {tie} apart at 1x1 (a tie if below "
+                f"{MESH_TIE_GAP:g}); logits within {max(errs):.3e} of "
+                f"1x1's; replaying 1x1's routing within "
+                f"{max(got[0]['replayed']):.3e}")
+            require(all(g < MESH_TIE_GAP for g in tie),
+                    f"(h) {arch}: tokens rerouted at gaps {tie}")
+            errs = got[0]["replayed"]
+        err = max(errs)
+        r["err"] = err
+        halves = [2 * b == w for b, w in zip(got[0]["model_leaves"],
+                                             one["model_leaves"])]
+        whole = one["whole"]
+        log(f"mesh (h) {arch} 1x2 (two ranks sharing the card over gloo, "
+            f"decode split over the model axis): {MESH_H_STEPS} "
+            f"teacher-forced steps' logits within {err:.3e} of 1x1's "
+            f"largest (limit {MESH_LOSS_RTOL:g}; per step "
+            + ", ".join(f"{e:.2e}" for e in errs) + "); both ranks' "
+            f"logits alike; {sum(halves)} of {len(halves)} cache leaves "
+            f"on the model axis at half of 1x1's bytes "
+            f"({sum(got[0]['model_leaves'])} of "
+            f"{sum(one['model_leaves'])} B)")
+        require(len(errs) == MESH_H_STEPS and err <= MESH_LOSS_RTOL,
+                f"(h) {arch} 1x2 logits off by {errs} of 1x1's largest")
+        require(len(halves) == len(one["model_leaves"]) and all(halves),
+                f"(h) {arch}: a rank's cache leaves on the model axis "
+                f"{got[0]['model_leaves']} B against 1x1's "
+                f"{one['model_leaves']} B")
+        for k, g in enumerate(got):
+            share = g["transient"] / whole
+            r["ranks"].append({"transient": g["transient"], "share": share,
+                               "peak": g["peak"], "fresh": g["fresh"],
+                               "ms_per_step": g["ms_per_step"],
+                               "param_bytes": g["param_bytes"],
+                               "state_bytes": g["state_bytes"]})
+            log(f"mesh (h) {arch} 1x2 rank {k} ({card}): "
+                f"{g['ms_per_step']:.3f} ms a step; holds params "
+                f"{g['param_bytes']} of {whole} B and {g['state_bytes']} B "
+                f"of state; max_memory_allocated {g['peak']} B above its "
+                f"carry in, less the state out that a step allocates "
+                f"({g['fresh']} B): {g['transient']} B, "
+                f"{share:.4f} of a whole copy of the params (limit "
+                f"{MESH_H_GATE:g})")
+            if dev.type == "cuda":
+                require(share < MESH_H_GATE,
+                        f"(h) {arch} 1x2 rank {k}: peak less its carry "
+                        f"{g['transient']} B is {share:.3f} of a copy")
+        meta = {m: cost_cell(cut, shape, MeshConfig(m, ("data", "model")),
+                             TrainConfig())[0].dot_flops
+                for m in ((1, 2), (1, 1))}
+        card_flops = ranks[0][arch]["h_flops"]
+        r["flops"] = {"card": card_flops, "meta_1x2": meta[(1, 2)],
+                      "meta_1x1": meta[(1, 1)]}
+        log(f"mesh (h) {arch} decode step at 1x2 ({card}), rank 0 under "
+            f"FlopCounterMode: {card_flops} FLOPs; the dry run's meta count "
+            f"at (1, 2) {meta[(1, 2)]:.0f}, at (1, 1) {meta[(1, 1)]:.0f} "
+            f"({meta[(1, 1)] / meta[(1, 2)]:.4f}x)")
+        require(card_flops == meta[(1, 2)] and meta[(1, 2)] < meta[(1, 1)],
+                f"(h) {arch}: the card's 1x2 decode step counts "
+                f"{card_flops} FLOPs against the meta {meta[(1, 2)]:.0f} "
+                f"(1x1: {meta[(1, 1)]:.0f})")
+        out[arch] = r
+    return out
+
+
 def phase_mesh(dev, card, only=None):
     """The LM over a mesh of processes: (a) lm-100m at full width,
     float32, through launch.train --mesh-shape 1x1 in a one-rank NCCL
@@ -6293,8 +6669,14 @@ def phase_mesh(dev, card, only=None):
     widths, float32: 1x1 bit for bit against the plain step, 1x2 (the
     Mamba channels; whisper's encoder, self and cross attention split)
     against 1x1, the FLOPs as (e), each rank's peak less its carry
-    beside the dry run's (``_mesh_g_checks``).  ``only`` "f" or "g":
-    that check alone.  One card checks ranks that share it, not several
+    beside the dry run's (``_mesh_g_checks``); (h) the decode step split
+    over the model axis on lm-100m, (f)'s and (g)'s cuts and granite-34b
+    cut to one layer (one kv head: the cache across head_dim), float32,
+    LM_DECODE_B x LM_DECODE_CTX: MESH_H_STEPS teacher-forced steps at
+    1x1 bit for bit against ``make_serve_step``, at 1x2 against 1x1 at
+    MESH_LOSS_RTOL, the cache leaves on the model axis halved, the peak
+    less the carry below MESH_H_GATE of a copy, the FLOPs as (e)
+    (``_mesh_h_checks``).  ``only`` "f", "g" or "h": that check alone.  One card checks ranks that share it, not several
     cards.  None of K1-K5 is on these paths: their counts must stay 0
     in every process."""
     import dataclasses
@@ -6314,10 +6696,19 @@ def phase_mesh(dev, card, only=None):
     try:
         if only is None:
             plain = _mesh_one_rank(dev, card, cfg, tmp, res)
+        h_ones = {} if only in (None, "h") else None
         if only in (None, "f"):
-            ones = _mesh_split_one(dev, card, tmp)
+            ones = _mesh_split_one(dev, card, tmp, h_ones)
         if only in (None, "g"):
-            g_ones = _mesh_g_one(dev, card, tmp)
+            g_ones = _mesh_g_one(dev, card, tmp, h_ones)
+        if h_ones is not None:
+            t0 = time.perf_counter()
+            for arch, cut in _mesh_h_cuts(LM_REDUCED).items():
+                if arch not in h_ones:
+                    with _DrawnOnce():
+                        h_ones[arch] = _mesh_h_one(dev, card, tmp, arch,
+                                                   cut)
+            res["h_one_s"] = time.perf_counter() - t0
         # (b)-(d) and (f)'s and (g)'s 1x2: two ranks sharing the card
         t0 = time.perf_counter()
         pctx = mp.start_processes(
@@ -6340,6 +6731,8 @@ def phase_mesh(dev, card, only=None):
             res["split"] = _mesh_split_checks(dev, card, tmp, ranks, ones)
         if only in (None, "g"):
             res["split_g"] = _mesh_g_checks(dev, card, tmp, ranks, g_ones)
+        if h_ones is not None:
+            res["decode"] = _mesh_h_checks(dev, card, tmp, ranks, h_ones)
         counts = [_k_launches()] + [r["k_launches"] for r in ranks]
         log(f"mesh K1-K5 launches (this process, rank 0, rank 1): {counts}")
         require(all(n == 0 for c in counts for n in c.values()),

@@ -7,6 +7,8 @@
                                           # cuts at 1x1 and 1x2
     python3 probes/mesh_phase.py --g      # its check (g) alone: the jamba
                                           # and whisper cuts at 1x1, 1x2
+    python3 probes/mesh_phase.py --h      # its check (h) alone: decode
+                                          # split over the model axis
 
 Exits non-zero when a check of the phase fails.
 """
@@ -30,10 +32,13 @@ def main(argv=None) -> int:
         dev, card = torch.device("cpu"), "the host's CPU (rehearsal)"
     else:
         card, dev = cs.phase_environment(), torch.device("cuda")
-    only = "f" if "--moe" in argv else "g" if "--g" in argv else None
+    only = ("f" if "--moe" in argv else "g" if "--g" in argv
+            else "h" if "--h" in argv else None)
     res = cs.phase_mesh(dev, card, only=only)
     keys = {"f": ("split", "seconds"), "g": ("split_g", "seconds"),
-            None: ("bf16_1x2", "flops", "split", "split_g", "seconds")}[only]
+            "h": ("decode", "seconds"),
+            None: ("bf16_1x2", "flops", "split", "split_g", "decode",
+                   "seconds")}[only]
     print(json.dumps({k: res[k] for k in keys}))
     return 0
 

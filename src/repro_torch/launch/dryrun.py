@@ -17,10 +17,10 @@ The counts are the port's own, not the reference's: a rank gathers
 each layer's params over the data axes and computes its block of what
 the model axis splits (attention and MLA heads, whisper's encoder and
 cross attention among them, dense FFN units, MoE experts and shared
-experts, Mamba's channels, the vocabulary); xLSTM layers and the decode
-step stay whole over the model axis, so their cells count about the
-model axis's size times the reference's per-device work there
-(ROADMAP.md, Queue A).
+experts, Mamba's channels, the vocabulary), in decode too, on its block
+of the caches; xLSTM layers stay whole over the model axis, so their
+cells count about the model axis's size times the reference's
+per-device work there (ROADMAP.md, Queue A).
 
 A record has the reference's keys.  ``lower_s`` is the seconds to build
 the specs, shardings and meta shards; ``compile_s`` those of the

@@ -18,7 +18,7 @@ The blocks are stacked over layers (``enc_blocks``, ``dec_blocks``) and
 the reference's ``layer_mode`` "scan" and "unroll" are one loop here.
 In a mesh step the blocks are gathered per layer; self-attention and
 cross attention whose heads divide the model axis, the FFNs of both
-stacks and the vocabulary split over it (``_split``).  The encoder's
+stacks and the vocabulary split over it (``_split``), in decode too.  The encoder's
 blocks and the cross attention take ``wide`` products
 (``tensor_parallel``): the encoder's states enter every decoder layer's
 cross attention, so a float32 split of theirs rounds as one process
@@ -37,8 +37,9 @@ from repro_torch.sharding import tensor_parallel as tp
 from .layers import attention as attn_lib
 from .layers.common import (TensorSpec, apply_mlp, apply_norm, dtype_of,
                             mlp_spec, norm_spec)
-from .lm import (_check_layer_mode, _head_logits, _remat, _stack, _unstack,
-                 chunked_ce_loss, embed_tokens, gathering, heads_split)
+from .lm import (DECODE_TOP_KEYS, _check_layer_mode, _head_logits, _remat,
+                 _stack, _unstack, chunked_ce_loss, decode_logits,
+                 embed_tokens, gathering, heads_split)
 
 Params = Dict[str, Any]
 
@@ -249,14 +250,9 @@ def _dec_block_step(cfg, p, x, self_c, cross_c, pos):
     h, new_self = attn_lib.decode_attention(p["self"], a, h, self_c, pos)
     x = x + h
     h = apply_norm(p["ln_x"], x, cfg.norm)
-    b = x.shape[0]
-    q = (h @ p["cross"]["wq"]).reshape(b, 1, a.num_kv_heads,
-                                       a.num_heads // a.num_kv_heads,
-                                       a.head_dim)
-    o = attn_lib._sdpa(q, cross_c["k"], cross_c["v"], mask=None)
-    x = x + o.reshape(b, 1, a.q_dim) @ p["cross"]["wo"]
+    x = x + attn_lib.decode_cross_attention(p["cross"], a, h, cross_c)
     h = apply_norm(p["ln2"], x, cfg.norm)
-    return x + apply_mlp(p["ffn"], h, cfg.act), new_self
+    return x + _mlp(cfg, p, h), new_self
 
 
 def decode_step(cfg: ModelConfig, params: Params, state: Params,
@@ -264,22 +260,33 @@ def decode_step(cfg: ModelConfig, params: Params, state: Params,
                 ) -> Tuple[torch.Tensor, Params]:
     """One decoder token for the whole batch.  token: (B, 1) int.
     Returns (logits (B, vocab) float32, new state); ``state`` is left as
-    it was and its cross K/V are carried over."""
+    it was and its cross K/V are carried over.  In a mesh step each
+    decoder block is gathered before it, its self and cross attention
+    (where ``lm.heads_split``) and its FFN kept as the rank's model
+    block; ``cache_partition`` leaves both caches whole over the model
+    axis (their stacked leaves sit outside "blocks"), so the rank's
+    query heads read their kv heads from them."""
     _check_layer_mode(layer_mode)
     pos = state["pos"]
+    params = tp.gather_top(params, DECODE_TOP_KEYS,
+                           split=("embed", "lm_head"))
     x = embed_tokens(cfg, params, token)
     # position 0's sinusoid at every step, as the reference's decode
     x = x + _sinusoid(1, cfg.d_model, x)
     n = _n_layers(params["dec_blocks"])
-    new_selfs = []
-    for bp, sc, cc in zip(_unstack(params["dec_blocks"], n),
-                          _unstack(state["self"], n),
-                          _unstack(state["cross"], n)):
-        x, ns = _dec_block_step(cfg, bp, x, sc, cc, pos)
-        new_selfs.append(ns)
+    fn = gathering(functools.partial(_dec_block_step, cfg),
+                   tp.shardings_of("dec_blocks"),
+                   _split(cfg, ("self", "cross")), stacked=True)
+    # each layer's new cache copied into its slot as it comes
+    new_self = {k: torch.empty_like(t) for k, t in state["self"].items()}
+    for i, (bp, sc, cc) in enumerate(zip(_unstack(params["dec_blocks"], n),
+                                         _unstack(state["self"], n),
+                                         _unstack(state["cross"], n))):
+        x, ns = fn(bp, x, sc, cc, pos)
+        for k, t in ns.items():
+            new_self[k][i].copy_(t)
+        del ns
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    logits = _head_logits(cfg, params, x[:, 0]).float()
-    new_self = {k: torch.stack([c[k] for c in new_selfs])
-                for k in new_selfs[0]}
+    logits = decode_logits(cfg, params, x[:, 0])
     return logits, {"pos": pos + 1, "self": new_self,
                     "cross": state["cross"]}

@@ -22,6 +22,9 @@ parity tests hold the port to the reference's own arithmetic.
     tile-recomputing backward (``torch.autograd.Function``, the
     reference's custom VJP): only (out, lse) are saved.
   * Decode keeps a ring buffer of size ``window`` for local layers.
+    Over the model axis it splits as prefill does, its cache as
+    ``cache_partition`` lays it out: by kv heads, by head_dim (the
+    scores' parts summed over the axis) or whole.
   * Cross-attention attends, without a mask, from the decoder's
     queries to the encoder's states, chunked over the queries; it splits
     over the model axis as self-attention does, the encoder's states
@@ -528,42 +531,190 @@ def cache_spec(cfg: AttentionConfig, batch: int, seq: int, window: int,
     return {"k": TensorSpec(kshape, dtype), "v": TensorSpec(kshape, dtype)}
 
 
+def _gather_cols(*ts: torch.Tensor):
+    """Every model rank's columns of each ``ts[i]`` (..., n_i), whole
+    (..., m * n_i) in rank order: one gather of them side by side."""
+    sizes = [t.shape[-1] for t in ts]
+    g = tp.gather_from_model(torch.cat(ts, dim=-1), -1)
+    g = g.reshape(*g.shape[:-1], tp.model_size(), sum(sizes))
+    return [part.reshape(*part.shape[:-2], -1)
+            for part in g.split(sizes, dim=-1)]
+
+
+def _kv_read(c: torch.Tensor, cfg: AttentionConfig, h_l: int):
+    """The kv heads (B, T, n, hd) that this rank's ``h_l`` query heads
+    read, each read by ``h_l // n`` of them in order, from a cache ``c``
+    whole over the model axis; ``c`` itself when the rank computes every
+    head or ``c`` is its block of the kv heads already."""
+    kv = cfg.num_kv_heads
+    if h_l == cfg.num_heads or c.shape[2] != kv:
+        return c
+    rep = cfg.num_heads // kv
+    first = tp.model_rank() * h_l
+    runs = _kv_runs(first, h_l, rep)
+    if len({n for _, n in runs}) == 1:
+        return c[:, :, runs[0][0]:runs[-1][0] + 1]
+    idx = torch.arange(first, first + h_l, device=c.device) // rep
+    return c.index_select(2, idx)
+
+
+def _head_scores(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(B, KV, G, 1, T) float32 scores, unscaled, of one query token qg
+    (B, 1, KV, G, D) against k (B, T, KV, D), a cache or a view of its
+    kv heads: each kv head's product batched over the rows on the
+    cache's own strides, so the cache is not copied (an einsum over
+    (B, T, KV, D) copies it to merge B and KV)."""
+    return torch.stack([
+        torch.matmul(qg[:, 0, j], k[:, :, j].transpose(1, 2))
+        for j in range(k.shape[2])], dim=1)[:, :, :, None].float()
+
+
+def _head_mix(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """p @ v per kv head on v's strides: w (B, KV, G, 1, T), v (B, T,
+    KV, D) -> (B, 1, KV, G, D)."""
+    return torch.stack([torch.matmul(w[:, j, :, 0], v[:, :, j])
+                        for j in range(v.shape[2])], dim=1)[:, None]
+
+
+def _decode_sdpa(qg, k, v, mask, hd: Optional[int] = None
+                 ) -> torch.Tensor:
+    """``_sdpa`` of one query token qg (B, 1, KV, G, D) against a cache
+    k/v (B, T, KV, D) per kv head (``_head_scores``); mask (1, T) bool
+    or None.  ``hd``: qg and k are this rank's block of head_dim ``hd``,
+    so the scores' parts are summed over the model axis (float32)
+    before the softmax.  Returns (B, 1, KV, G, Dv)."""
+    scores = _head_scores(qg, k)
+    if hd is not None:
+        scores = tp.reduce_from_model(scores)
+    scores = scores * _scale(hd or qg.shape[-1])
+    if mask is not None:
+        scores = torch.where(mask[:, None, None, None], scores, NEG_INF)
+    return _head_mix(torch.softmax(scores, dim=-1).to(qg.dtype), v)
+
+
+def _rope_token(cfg: AttentionConfig, q, k, pos):
+    """One decode token's q and k (B, 1, ., hd) roped at ``pos`` (M-RoPE:
+    one position for all three sections, text-only decode)."""
+    b = q.shape[0]
+    posb = pos.to(torch.int32).reshape(1, 1).expand(b, 1)
+    if cfg.rope_kind == "mrope":
+        posb = posb[..., None].expand(b, 1, 3)
+    return _rope_qk(cfg, q, k, posb, b, 1)
+
+
+def _decode_mask(t: int, pos, window: int, device):
+    cols = torch.arange(t, device=device)
+    if window > 0:
+        # Ring buffer: slot i holds the largest position p <= pos with
+        # p % t == i; since t == window every written slot is in the
+        # window, and before the first wrap some slots are unwritten.
+        return ((cols <= pos) | (pos >= t))[None, :]
+    return (cols <= pos)[None, :]
+
+
+def _write(cache: Params, k, v, pos, window: int) -> Params:
+    t = cache["k"].shape[1]
+    slot = pos % t if window > 0 else pos
+    # an update slice's start is clamped to fit, as the reference's
+    slot = torch.clamp(slot, 0, t - 1).reshape(1).long()
+    return {"k": cache["k"].index_copy(1, slot, k.to(cache["k"].dtype)),
+            "v": cache["v"].index_copy(1, slot, v.to(cache["v"].dtype))}
+
+
 def decode_attention(p: Params, cfg: AttentionConfig, x: torch.Tensor,
                      cache: Params, pos: torch.Tensor, *, window: int = 0):
     """One decode step: write the new KV at ``pos`` (mod window for
     local layers), attend over the cache.  x: (B, 1, D); cache k/v:
     (B, T, KV, hd); pos: int32 scalar tensor.  Returns (out (B, 1, D),
-    new cache); the old cache is left as it was."""
+    new cache); the old cache is left as it was.
+
+    In a step that splits the model axis the layer reads its split from
+    the shapes.  ``wq`` narrower than ``q_dim``: the rank's query heads
+    (``wq``/``wk``/``wv`` by columns, ``wo`` by rows, the output summed
+    over the model ranks).  The cache as ``cache_partition`` lays it
+    out: (i) by kv heads (narrower on dim 2), the kv heads that the
+    rank's query heads read; (ii) by head_dim (narrower on dim 3,
+    ``_decode_by_dim``); (iii) whole, when the rank computes its query
+    heads: every rank writes the whole new K/V (its columns gathered,
+    (B, 1, kv_dim)) and reads its heads' kv heads from the cache."""
     b = x.shape[0]
     hd = cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, 1, cfg.num_heads, hd)
-    k = (x @ p["wk"]).reshape(b, 1, cfg.num_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, 1, cfg.num_kv_heads, hd)
-    posb = pos.to(torch.int32).reshape(1, 1).expand(b, 1)
-    if cfg.rope_kind == "mrope":
-        # one position for all three sections (text-only decode)
-        posb = posb[..., None].expand(b, 1, 3)
-    q, k = _rope_qk(cfg, q, k, posb, b, 1)
+    if cache["k"].shape[-1] != hd:
+        return _decode_by_dim(p, cfg, x, cache, pos, window)
+    h_l = p["wq"].shape[1] // hd
+    split = h_l != cfg.num_heads
+    q = (x @ p["wq"]).reshape(b, 1, h_l, hd)
+    k, v = x @ p["wk"], x @ p["wv"]
+    if split and cache["k"].shape[2] == cfg.num_kv_heads:
+        k, v = _gather_cols(k, v)
+    q, k = _rope_token(cfg, q, k.reshape(b, 1, -1, hd), pos)
+    new = _write(cache, k, v.reshape(b, 1, -1, hd), pos, window)
+    ck, cv = (_kv_read(new[n], cfg, h_l) for n in ("k", "v"))
+    kv = ck.shape[2]
+    qg = q.reshape(b, 1, kv, h_l // kv, hd)
+    mask = _decode_mask(ck.shape[1], pos, window, x.device)
+    out = _decode_sdpa(qg, ck, cv, mask)
+    out = out.reshape(b, 1, h_l * hd) @ p["wo"]
+    return (tp.reduce_from_model(out) if split else out), new
 
-    t = cache["k"].shape[1]
-    slot = pos % t if window > 0 else pos
-    # an update slice's start is clamped to fit, as the reference's
-    slot = torch.clamp(slot, 0, t - 1).reshape(1).long()
-    ck = cache["k"].index_copy(1, slot, k.to(cache["k"].dtype))
-    cv = cache["v"].index_copy(1, slot, v.to(cache["v"].dtype))
 
-    kv = cfg.num_kv_heads
-    g = cfg.num_heads // kv
-    qg = q.reshape(b, 1, kv, g, hd)
-    cols = torch.arange(t, device=x.device)
-    if window > 0:
-        # Ring buffer: slot i holds the largest position p <= pos with
-        # p % t == i; since t == window every written slot is in the
-        # window, and before the first wrap some slots are unwritten.
-        valid = (cols <= pos) | (pos >= t)
-        mask = valid[None, :]
-    else:
-        mask = (cols <= pos)[None, :]
-    out = _sdpa(qg, ck, cv, mask=mask)
-    out = out.reshape(b, 1, cfg.q_dim) @ p["wo"]
-    return out, {"k": ck, "v": cv}
+def _decode_by_dim(p: Params, cfg: AttentionConfig, x: torch.Tensor,
+                   cache: Params, pos: torch.Tensor, window: int):
+    """``decode_attention`` on a cache split across head_dim (layout
+    (ii): the kv heads do not divide the model axis, head_dim does; the
+    rank holds a head_dim block of every kv head).  Rope pairs dim i
+    with i + hd/2, so a block cannot be roped alone: the new token's q,
+    k and v, (B, 1, ...) each, are computed whole (gathered from the
+    ranks' columns when the weights are split) and roped whole, and the
+    rank writes its block of k and v.  The scores' parts over the
+    blocks are summed over the model axis in float32 and the softmax
+    runs whole; the rank's block of p @ v, (B, 1, H, hd / m), is
+    gathered whole over head_dim rather than the cache, and enters
+    ``wo`` (its rows, the rank's query heads, when split)."""
+    b = x.shape[0]
+    hd, h, kv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    hd_l = cache["k"].shape[-1]
+    r = tp.model_rank()
+    h_l = p["wq"].shape[1] // hd
+    split = h_l != h
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if split:
+        q, k, v = _gather_cols(q, k, v)
+    q, k = _rope_token(cfg, q.reshape(b, 1, h, hd),
+                       k.reshape(b, 1, kv, hd), pos)
+    v = v.reshape(b, 1, kv, hd)
+    lo = r * hd_l
+    new = _write(cache, k[..., lo:lo + hd_l], v[..., lo:lo + hd_l], pos,
+                 window)
+    qg = q[..., lo:lo + hd_l].reshape(b, 1, kv, h // kv, hd_l)
+    mask = _decode_mask(new["k"].shape[1], pos, window, x.device)
+    o = _decode_sdpa(qg, new["k"], new["v"], mask, hd)
+    o = tp.gather_from_model(o, -1).reshape(b, 1, h * hd)
+    if split:
+        o = o[..., r * h_l * hd:(r + 1) * h_l * hd]
+        return tp.reduce_from_model(o @ p["wo"]), new
+    return o @ p["wo"], new
+
+
+def decode_cross_attention(p: Params, cfg: AttentionConfig,
+                           x: torch.Tensor, cache: Params) -> torch.Tensor:
+    """One decoder token's cross attention against the cached K/V
+    (B, T, KV, hd) of the encoder's states: no mask, no position.  Its
+    products take ``tp.wide`` operands, as ``apply_cross_attention``'s.
+    Given this rank's model block of the weights (``wq`` narrower than
+    ``q_dim``) its query heads read their kv heads (``_kv_read``; the
+    cache is never split over the model axis, ``cache_partition``
+    leaves whisper's stacked K/V whole there) and the output, ``wo``'s
+    rows, is summed over the model ranks."""
+    b = x.shape[0]
+    hd = cfg.head_dim
+    dt = x.dtype
+    h_l = p["wq"].shape[1] // hd
+    q = (tp.wide(x) @ tp.wide(p["wq"])).to(dt).reshape(b, 1, h_l, hd)
+    ck, cv = (_kv_read(cache[n], cfg, h_l) for n in ("k", "v"))
+    kv = ck.shape[2]
+    o = _decode_sdpa(q.reshape(b, 1, kv, h_l // kv, hd), ck, cv, None)
+    out = tp.wide(o.reshape(b, 1, h_l * hd)) @ tp.wide(p["wo"])
+    if h_l != cfg.num_heads:
+        out = tp.reduce_from_model(out)
+    return out.to(dt)

@@ -267,16 +267,28 @@ def mamba_state_spec(cfg: SSMConfig, d_model: int, batch: int,
 def decode_mamba(p: Params, cfg: SSMConfig, x: torch.Tensor, state: Params
                  ) -> Tuple[torch.Tensor, Params]:
     """One token. x: (B, 1, D).  The new conv state holds the last K-1
-    inputs before the conv."""
+    inputs before the conv.  Given this rank's model block of the
+    weights and of the state (``h`` (B, DI / m, N) and ``conv``
+    (B, K-1, DI / m), by channel) it computes the rank's channels as
+    ``apply_mamba`` does (``w_in`` regathered, ``w_x``'s part of (dt, B,
+    C) and ``w_out``'s of the output summed over the model ranks), with
+    its ``tp.wide`` products on both paths."""
     d = x.shape[-1]
     di = cfg.expand * d
-    xz = x @ p["w_in"]
-    xi, z = xz[..., :di], xz[..., di:]
+    split = p["conv_w"].shape[1] != di
+    dt_x = x.dtype
+    xw = tp.wide(x)
+    if split:
+        xi, z = _split_in_proj(p["w_in"], tp.copy_to_model(xw), di)
+    else:
+        xz = xw @ tp.wide(p["w_in"])
+        xi, z = xz[..., :di], xz[..., di:]
+    xi, z = xi.to(dt_x), z.to(dt_x)
     xi_conv = F.silu(causal_conv(xi, p["conv_w"], p["conv_b"],
                                  state["conv"]))
     new_conv = torch.cat([state["conv"][:, 1:],
                           xi.to(state["conv"].dtype)], dim=1)
-    dt, bmat, cmat = _ssm_inputs(p, cfg, xi_conv, d)
+    dt, bmat, cmat = _ssm_inputs(p, cfg, xi_conv, d, split)
     bmat, cmat = bmat.float(), cmat.float()
     a = -torch.exp(p["a_log"])
     abar = torch.exp(dt[:, 0, :, None] * a)             # (B, DI, N)
@@ -284,5 +296,7 @@ def decode_mamba(p: Params, cfg: SSMConfig, x: torch.Tensor, state: Params
     h = abar * state["h"] + bx
     y = torch.einsum("bdn,bn->bd", h, cmat[:, 0])
     y = y + xi_conv[:, 0].float() * p["d_skip"]
-    y = y[:, None].to(x.dtype) * F.silu(z)
-    return y @ p["w_out"], {"h": h, "conv": new_conv}
+    y = y[:, None].to(dt_x) * F.silu(z)
+    out = tp.wide(y) @ tp.wide(p["w_out"])
+    return (tp.reduce_from_model(out) if split else out).to(dt_x), \
+        {"h": h, "conv": new_conv}

@@ -96,10 +96,17 @@ def decode_mla(p: Params, cfg: AttentionConfig, x: torch.Tensor,
     """Absorbed-form decode of one token.  x: (B, 1, D); cache
     ``c_kv`` (B, T, r), ``k_rope`` (B, T, dr); pos: int32 scalar
     tensor.  Returns (out (B, 1, D), new cache); the old cache is left
-    as it was."""
+    as it was.  Given this rank's model block of the heads (``wq``
+    narrower than the config's heads) it computes them, as ``apply_mla``
+    does, and sums the output over the model ranks; the cache is not on
+    the model axis, so every model rank writes the same new entry from
+    the whole ``w_dkv`` and ``w_kr``."""
     b = x.shape[0]
     h, dn, dr = cfg.num_heads, cfg.nope_head_dim, cfg.rope_head_dim
     r = cfg.kv_lora_rank
+    split = p["wq"].shape[1] != h * (dn + dr)
+    if split:
+        h = p["wq"].shape[1] // (dn + dr)                      # the rank's
     posb = pos.to(torch.int32).reshape(1, 1).expand(b, 1)
 
     q = (x @ p["wq"]).reshape(b, 1, h, dn + dr)
@@ -129,4 +136,6 @@ def decode_mla(p: Params, cfg: AttentionConfig, x: torch.Tensor,
     o_lat = torch.einsum("bhqt,btr->bqhr", w, c_kv)            # (B,1,H,r)
     wuv = p["w_uv"].reshape(r, h, dn)
     o = torch.einsum("bqhr,rhd->bqhd", o_lat, wuv).reshape(b, 1, h * dn)
-    return o @ p["wo"], {"c_kv": c_kv, "k_rope": k_rope}
+    out = o @ p["wo"]
+    return (tp.reduce_from_model(out) if split else out), \
+        {"c_kv": c_kv, "k_rope": k_rope}

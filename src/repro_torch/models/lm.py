@@ -35,9 +35,11 @@ gathers each block's params inside its checkpointed function, and a
 layer given its model block of the weights computes its part
 (``sharding.tensor_parallel``): attention and MLA heads, the dense
 FFN's units, an MoE's experts (or their units) and shared experts, the
-vocabulary of the embedding and the loss.  Mamba and xLSTM layers,
-attention whose heads do not divide the model axis and the decode step
-stay whole over it.
+vocabulary of the embedding and the loss.  The decode step splits the
+same parts, its caches as ``cache_partition`` lays them out (by kv
+heads or by head_dim, Mamba's states by channel).  xLSTM layers,
+attention whose heads do not divide the model axis and Mamba whose
+channels do not stay whole over it.
 """
 from __future__ import annotations
 
@@ -617,10 +619,31 @@ def _decode_mixer(spec: LayerSpec, cfg: ModelConfig, p, h, cache, pos):
     if spec.mixer == "mamba":
         return mamba_lib.decode_mamba(p["mixer"], cfg.ssm, h, cache)
     if spec.mixer == "mlstm":
-        return xlstm_lib.decode_mlstm(p["mixer"], cfg.ssm, h, cache)
+        return _whole_state(xlstm_lib.decode_mlstm, spec, cfg, p, h, cache)
     if spec.mixer == "slstm":
-        return xlstm_lib.decode_slstm(p["mixer"], cfg.ssm, h, cache)
+        return _whole_state(xlstm_lib.decode_slstm, spec, cfg, p, h, cache)
     raise ValueError(spec.mixer)
+
+
+def _whole_state(fn, spec: LayerSpec, cfg: ModelConfig, p, h, cache):
+    """``fn``, an xLSTM layer's decode, which runs whole over the model
+    axis: a state leaf that ``cache_partition`` splits over it (narrower
+    than ``decode_state_spec``'s: the mLSTM's ``conv`` by channel, the
+    sLSTM's ``h`` by head) is gathered whole for the layer, and the
+    rank's block of the new leaf kept."""
+    whole = _mixer_cache_spec(spec, cfg, h.shape[0], 1, h.dtype)
+    dims = {k: next((d for d, (a, b) in enumerate(
+        zip(t.shape, whole[k].shape)) if a != b), None)
+        for k, t in cache.items()}
+    if all(d is None for d in dims.values()):
+        return fn(p["mixer"], cfg.ssm, h, cache)
+    out, new = fn(p["mixer"], cfg.ssm, h, {
+        k: t if dims[k] is None else tp.gather_from_model(t, dims[k])
+        for k, t in cache.items()})
+    r = tp.model_rank()
+    return out, {k: t if dims[k] is None else t.narrow(
+        dims[k], r * cache[k].shape[dims[k]],
+        cache[k].shape[dims[k]]).contiguous() for k, t in new.items()}
 
 
 def _decode_block(spec: LayerSpec, cfg: ModelConfig, p, x, cache, pos):
@@ -630,7 +653,8 @@ def _decode_block(spec: LayerSpec, cfg: ModelConfig, p, x, cache, pos):
     if spec.ffn != "none":
         h = apply_norm(p["ln2"], x, cfg.norm)
         if spec.ffn == "dense":
-            h = apply_mlp(p["ffn"], h, cfg.act, fused=cfg.fused_qkv)
+            h = apply_mlp(p["ffn"], h, cfg.act, fused=cfg.fused_qkv,
+                          split=p["ffn"]["w_down"].shape[-2] != cfg.d_ff)
         else:
             # decode always takes the dense dispatch, as the reference's
             h, _ = moe_lib.apply_moe(p["ffn"], cfg.moe, h,
@@ -639,22 +663,49 @@ def _decode_block(spec: LayerSpec, cfg: ModelConfig, p, x, cache, pos):
     return x, new_cache
 
 
+# the leaves outside the blocks that decode reads, gathered once a step
+DECODE_TOP_KEYS = ("embed", "lm_head", "final_norm")
+
+
+def decode_logits(cfg: ModelConfig, params: Params,
+                  x: torch.Tensor) -> torch.Tensor:
+    """x: (B, D) -> float32 logits (B, V); given this rank's vocabulary
+    block of the head (a step that splits the model axis) the rank's
+    (B, V / m) logits are gathered over the model axis."""
+    logits = _head_logits(cfg, params, x)
+    if logits.shape[-1] != cfg.vocab_size:
+        logits = tp.gather_from_model(logits, -1)
+    return logits.float()
+
+
 def decode_step(cfg: ModelConfig, params: Params, state: Params,
                 token: torch.Tensor, *, layer_mode: str = "scan"
                 ) -> Tuple[torch.Tensor, Params]:
     """One token for the whole batch.  token: (B, 1) int.  Returns
     (logits (B, vocab) float32, new state); ``state`` is left as it
-    was."""
+    was.  Under a mesh step's layout each block's params are gathered
+    before it, the parts of ``_split_parts`` kept as the rank's model
+    block (as ``apply_stack`` does); each layer reads its cache's split
+    from the cache's shapes (``cache_partition``'s layout)."""
     _check_layer_mode(layer_mode)
     pos = state["pos"]
+    sh = tp.shardings_of()
+    params = tp.gather_top(params, DECODE_TOP_KEYS,
+                           split=("embed", "lm_head"))
     x = embed_tokens(cfg, params, token)
     new_state: Params = {"pos": pos + 1}
     specs = cfg.layer_specs()
+
+    def block(spec, bsh, stacked):
+        return gathering(functools.partial(_decode_block, spec, cfg), bsh,
+                         _split_parts(spec, cfg), stacked=stacked)
+
     new_state["prefix_blocks"] = []
     for i, bp in enumerate(params["prefix_blocks"]):
         s = LayerSpec(mixer=specs[i].mixer, ffn="dense",
                       window=specs[i].window)
-        x, c = _decode_block(s, cfg, bp, x, state["prefix_blocks"][i], pos)
+        x, c = block(s, None if sh is None else sh["prefix_blocks"][i],
+                     False)(bp, x, state["prefix_blocks"][i], pos)
         new_state["prefix_blocks"].append(c)
 
     n_prefix = cfg.num_dense_prefix
@@ -663,14 +714,17 @@ def decode_step(cfg: ModelConfig, params: Params, state: Params,
     for j, spec in enumerate(cfg.pattern):
         ps = _unstack(params["blocks"][j], rep)
         cs = _unstack(state["blocks"][j], rep)
+        fn = block(spec, None if sh is None else sh["blocks"][j], True)
         if n_prefix and j == 0:
             assert len(cfg.pattern) == 1
-        new_cs = cs[:n_prefix] if j == 0 else []
-        for r in range(n_prefix if j == 0 else 0, rep):
-            x, c = _decode_block(spec, cfg, ps[r], x, cs[r], pos)
-            new_cs.append(c)
-        new_state["blocks"].append(tree_map(lambda *xs: torch.stack(xs),
-                                            *new_cs))
+        # each layer's new cache copied into its slot as it comes, so
+        # that no second copy of the stack is ever live
+        out = tree_map(torch.empty_like, state["blocks"][j])
+        for r in range(rep):
+            c = cs[r]
+            if r >= (n_prefix if j == 0 else 0):
+                x, c = fn(ps[r], x, c, pos)
+            tree_map(lambda o, n: o[r].copy_(n), out, c)
+        new_state["blocks"].append(out)
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    logits = _head_logits(cfg, params, x[:, 0]).float()
-    return logits, new_state
+    return decode_logits(cfg, params, x[:, 0]), new_state

@@ -36,11 +36,17 @@ a step over a mesh equals one process at the same global batch:
   summed over the whole mesh from each rank's shards (each element
   once), and each rank runs AdamW on its own shards.
 
+The decode step (``make_mesh_serve_step``) splits the same parts under
+the same layout, each rank keeping its model block of every cache leaf
+that ``cache_partition`` puts on the model axis: K/V caches by kv heads,
+or by head_dim where the kv heads do not divide the axis (the scores'
+parts summed over it), Mamba's states by channel (and xLSTM's leaves
+that the rules put there, gathered for its whole layer); MLA's latent
+cache and whisper's caches are off the axis.
+
 Still whole over the model axis, gathered per layer (ROADMAP.md, Queue
-A, item 11): xLSTM, attention or MLA whose heads do not divide the axis,
-Mamba whose channels do not, and the decode step
-(``make_mesh_serve_step`` gathers every leaf whole and computes the
-whole model on its rows).
+A, item 11): xLSTM, attention or MLA whose heads do not divide the
+axis, and Mamba whose channels do not.
 
 Collectives run over the mesh's process groups.  Under gloo a CUDA
 tensor is staged through pinned host memory for every collective
@@ -475,47 +481,87 @@ def make_mesh_train_step(cfg, tcfg, mesh: ProcessMesh, shardings, shape, *,
     return step
 
 
-def _rows_kept(mesh: ProcessMesh, shardings, split):
-    """The cache leaves' shardings with the data axes taken out of the
-    spec where they split the rows (``split``): what a rank gathers
-    whole and cuts back; a leaf whose rows are not split (the sequence
-    sharded over the data axes instead) is gathered over those too."""
-    dax = set(mesh.data_axes)
+# the decode state's stacked keys: their leaves' rows are dim 1
+_STACKED_STATE = ("blocks", "self", "cross")
 
-    def keep(s):
-        if split is None:
-            return s
-        return NamedSharding(s.mesh, PartitionSpec(*(
-            None if set(_as_axes(p)) == dax else p for p in s.spec)))
 
-    return _zip(lambda s, _: keep(s), shardings, shardings)
+class _Kept:
+    """How a rank holds one decode-state leaf in the step: ``spec``, the
+    leaf's spec without the model axis and without the data axes where
+    they split the rows, is what the rank gathers before the step and
+    cuts back after it; ``rows``, the leaf's rows dim where the step's rows
+    are split over the data axes but the spec splits another dim over
+    them (a whisper cache's layers), so the rank cuts its rows after the
+    gather and gathers them again after the step."""
+
+    def __init__(self, mesh, sharding: NamedSharding, rows: int, split):
+        dax = set(mesh.data_axes)
+        spec = list(sharding.spec)
+        own = (split is not None and len(spec) > rows
+               and set(_as_axes(spec[rows])) == dax)
+        self.mesh = mesh
+        self.spec = PartitionSpec(*(
+            None if "model" in _as_axes(p) or (own and d == rows) else p
+            for d, p in enumerate(spec)))
+        self.rows = rows if (split is not None and len(spec) > rows
+                             and not own) else None
+        self.split = split
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        t = gather_leaf(self.mesh, t, self.spec)
+        if self.rows is None:
+            return t
+        k = t.shape[self.rows] // self.mesh.size(self.split)
+        return t.narrow(self.rows, self.mesh.index(self.split) * k, k)
+
+    def give(self, t: torch.Tensor) -> torch.Tensor:
+        if self.rows is not None:
+            t = torch.cat(self.mesh.all_gather(t, self.split), dim=self.rows)
+        return local_shard(self.mesh, t, self.spec)
+
+
+def _state_kept(mesh: ProcessMesh, cache_shardings, split):
+    """``_Kept`` of every decode-state leaf (a tree of the state's
+    structure)."""
+    from repro_torch.sharding.partition import map_with_path
+
+    def kept(path, s):
+        rows = 1 if any(k in _STACKED_STATE for k in path) else 0
+        return _Kept(mesh, s, rows, split)
+
+    return map_with_path(kept, cache_shardings)
 
 
 def make_mesh_serve_step(cfg, mesh: ProcessMesh, shardings, cache_shardings,
                          shape):
     """step(param shards, state shards, local token) -> (local logits,
-    state shards): one decode step over the mesh.  A rank gathers the
-    params whole (as ``make_mesh_train_step``), gathers its rows' cache
-    leaves whole over the other axes (``cache_partition``'s layout,
-    ``cache_shardings``), runs ``train.step.make_serve_step`` on its
-    rows (``local_batch``'s token) and keeps its shard of the new
-    state.  Ranks along the model axis decode the same rows."""
+    state shards): one decode step over the mesh, split over the model
+    axis as ``make_mesh_train_step``'s loss is.  ``decode_step`` runs on
+    the rank's rows (``local_batch``'s token) under the params' layout:
+    it gathers each block's leaves over the data axes before the block
+    and keeps the model block of the parts it computes split.  A state
+    leaf keeps its model block (``cache_partition``'s layout,
+    ``cache_shardings``): K/V caches by kv heads or by head_dim, Mamba's
+    ``h`` and ``conv`` by channel; what the data axes split besides the
+    rows (a long context's sequence) is gathered for the step and cut
+    back after it (``_Kept``).  Ranks along the model axis decode the
+    same rows, and each returns their logits at the whole vocabulary."""
     from repro_torch.train.step import make_serve_step
 
     serve = make_serve_step(cfg)
     n_data = mesh.size(mesh.data_axes)
     split = (mesh.data_axes if n_data > 1
              and shape.global_batch % n_data == 0 else None)
-    rest = _rows_kept(mesh, cache_shardings, split)
+    kept = _state_kept(mesh, cache_shardings, split)
 
     def step(params_s, state_s, token):
-        params = gather_tree(params_s, shardings)
-        state = gather_tree(state_s, rest)
+        state = _zip(lambda t, k: k.take(t), state_s, kept)
         with ctx.active_mesh(mesh, data_axes=mesh.data_axes), \
-                ctx.batch_split(split):
-            logits, new = serve(params, state, token)
-        del params, state
-        return logits, shard_tree(new, rest)
+                ctx.batch_split(split), \
+                tensor_parallel.step_layout(mesh, shardings):
+            logits, new = serve(params_s, state, token)
+        del state
+        return logits, _zip(lambda t, k: k.give(t), new, kept)
 
     return step
 

@@ -40,8 +40,9 @@ AdamW's steps beyond a float32 step's limits.  A bfloat16 layer keeps
 its dtype (``wide`` is the identity), its parts rounded to bfloat16
 before the float32 sum.
 
-Inside ``sharding.spmd.make_mesh_train_step``'s loss a ``StepLayout``
-is active (``step_layout``): the mesh and the params' shardings.  The
+Inside ``sharding.spmd.make_mesh_train_step``'s loss and
+``make_mesh_serve_step``'s decode a ``StepLayout`` is active
+(``step_layout``): the mesh and the params' shardings.  The
 model code gathers a block's leaves inside the block's checkpointed
 function (``gather_block``), so that the backward's recompute gathers
 them again, and the embedding, the head and the final norm once per

@@ -375,6 +375,7 @@ def _worker(rank, world, init, out_dir):
                 else:
                     whole = torch.cat(parts, dim=split[k])
                 res[f"{name}/{k}"] = mesh.all_reduce(whole, "sum", "data")
+        res.update(_decode_split(mesh))
         if rank == 0:
             np.savez(os.path.join(out_dir, "res.npz"),
                      **{k: v.numpy() for k, v in res.items()})
@@ -538,3 +539,264 @@ def test_model_axis_collectives_of_a_block(arch):
         for op, nbytes, _ in mesh.plan:
             if op == "all-gather":          # w_in whole, float32
                 assert nbytes == d * 2 * di * 4, mesh.plan
+
+
+# --- decode: one token against a cache, per layout --------------------
+
+# name: (kind, settings); appended after the cases above, so their seeds
+# are unchanged.  The cache's split over "model" follows
+# cache_partition: (i) by kv heads where they divide the axis, (ii) by
+# head_dim where only it divides (the rope'd new token whole, the
+# scores' parts summed), (iii) whole (whisper's caches: the rank's query
+# heads read their kv heads from it, the new K/V gathered whole)
+DECODE = {
+    "dec_attn_kv2": ("attn", dict(heads=4, kv=2, cache={"k": 2, "v": 2})),
+    "dec_attn_kv1": ("attn", dict(heads=4, kv=1, cache={"k": 3, "v": 3})),
+    "dec_attn_window": ("attn", dict(heads=4, kv=2, window=6,
+                                     cache={"k": 2, "v": 2})),
+    "dec_attn_kv1_window": ("attn", dict(heads=4, kv=1, window=6,
+                                         cache={"k": 3, "v": 3})),
+    "dec_attn_whole_cache": ("attn", dict(heads=4, kv=2, cache={})),
+    # a rank's 3 query heads read kv heads 0, 0, 1 (or 1, 2, 2)
+    "dec_attn_kv3_of_6_whole_cache": ("attn", dict(heads=6, kv=3,
+                                                   cache={})),
+    "dec_mla": ("mla", dict(cache={})),
+    "dec_mamba": ("mamba", dict(cache={"h": 1, "conv": 2})),
+    "dec_cross": ("cross", dict(heads=4, kv=2, cache={})),
+    "dec_cross_kv1": ("cross", dict(heads=4, kv=1, cache={})),
+}
+SEEDS.update({n: len(SEEDS) + i for i, n in enumerate(DECODE)})
+T_CACHE, POS0, DEC_STEPS = 12, 9, 3     # positions 9-11: a ring of 6 wraps
+
+
+def _draw_decode(name):
+    """(whole weights, their model-split dims, the cache, the cache's
+    model-split dims, the STEPS inputs (steps, B, 1, D)) as numpy."""
+    kind, kw = DECODE[name]
+    rng = np.random.default_rng(SEEDS[name])
+
+    def w(*shape):
+        return (rng.normal(0, 1, shape) / np.sqrt(shape[0])).astype(
+            np.float32)
+
+    def n(*shape, sd=1.0):
+        return rng.normal(0, sd, shape).astype(np.float32)
+
+    if kind in ("attn", "cross"):
+        a = _acfg(kw["heads"], kw["kv"],
+                  rope="rope" if kind == "attn" else "none")
+        ws = {"wq": w(D, a.q_dim), "wk": w(D, a.kv_dim),
+              "wv": w(D, a.kv_dim), "wo": w(a.q_dim, D)}
+        split = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
+        t = kw.get("window") or (T_CACHE if kind == "attn" else T_ENC)
+        cache = {"k": n(B, t, a.num_kv_heads, a.head_dim),
+                 "v": n(B, t, a.num_kv_heads, a.head_dim)}
+    elif kind == "mla":
+        from repro_torch.models.layers.mla import mla_spec
+        m = _mlacfg()
+        ws = {k: w(*t.shape)
+              for k, t in mla_spec(m, D, torch.float32).items()}
+        split = {"wq": 1, "w_uk": 1, "w_uv": 1, "wo": 0, "w_dkv": None,
+                 "w_kr": None}
+        cache = {"c_kv": n(B, T_CACHE, m.kv_lora_rank),
+                 "k_rope": n(B, T_CACHE, m.rope_head_dim)}
+    else:
+        from repro_torch.models.layers.mamba import mamba_spec
+        c = _ssmcfg()
+        ws = {k: w(*t.shape) if len(t.shape) == 2 else
+              rng.normal(0, 0.5, t.shape).astype(np.float32)
+              for k, t in mamba_spec(c, D, torch.float32).items()}
+        ws["a_log"] = np.log(rng.uniform(0.5, 4.0, ws["a_log"].shape)
+                             ).astype(np.float32)
+        split = {"w_in": 1, "conv_w": 1, "conv_b": 0, "w_x": 0, "w_dt": 1,
+                 "dt_bias": 0, "a_log": 0, "d_skip": 0, "w_out": 0}
+        di = c.expand * D
+        cache = {"h": n(B, di, c.d_state, sd=0.5),
+                 "conv": n(B, c.d_conv - 1, di)}
+    return ws, split, cache, kw["cache"], n(DEC_STEPS, B, 1, D)
+
+
+def _decode_layer(name, p, cache, xs):
+    """DEC_STEPS tokens of case ``name`` from position POS0: (outputs
+    (steps, B, 1, D), the last cache)."""
+    from repro_torch.models.layers import attention, mamba, mla
+    kind, kw = DECODE[name]
+    outs = []
+    with torch.no_grad():
+        for i, x in enumerate(xs):
+            pos = torch.tensor(POS0 + i, dtype=torch.int32)
+            if kind == "attn":
+                o, cache = attention.decode_attention(
+                    p, _acfg(kw["heads"], kw["kv"]), x, cache, pos,
+                    window=kw.get("window", 0))
+            elif kind == "cross":
+                o = attention.decode_cross_attention(
+                    p, _acfg(kw["heads"], kw["kv"], rope="none"), x, cache)
+            elif kind == "mla":
+                o, cache = mla.decode_mla(p, _mlacfg(), x, cache, pos)
+            else:
+                o, cache = mamba.decode_mamba(p, _ssmcfg(), x, cache)
+            outs.append(o)
+    return torch.stack(outs), cache
+
+
+def _decode_split(mesh):
+    """Every decode case on this rank's model block of the weights and
+    of the cache and its rows: its outputs stacked over the data ranks
+    and its last cache gathered whole."""
+    from repro_torch.sharding import tensor_parallel as tp
+    m, r = mesh.size("model"), mesh.index("model")
+    n_data, di = mesh.size("data"), mesh.index("data")
+
+    def block(v, d, size, i):
+        return torch.as_tensor(v).narrow(d, i * size, size).clone()
+
+    res = {}
+    for name in DECODE:
+        ws, split, cache, csplit, xs = _draw_decode(name)
+        p = {k: torch.as_tensor(v) if split[k] is None else
+             block(v, split[k], v.shape[split[k]] // m, r)
+             for k, v in ws.items()}
+        rows = B // n_data
+        c = {k: block(v, 0, rows, di) for k, v in cache.items()}
+        c = {k: v if k not in csplit else
+             v.narrow(csplit[k], r * (v.shape[csplit[k]] // m),
+                      v.shape[csplit[k]] // m).clone()
+             for k, v in c.items()}
+        with tp.step_layout(mesh, None):
+            out, new = _decode_layer(name, p, c,
+                                     torch.as_tensor(xs)[:, di * rows:
+                                                         (di + 1) * rows])
+        res[f"{name}/out"] = torch.cat(mesh.all_gather(out, "data"), dim=1)
+        for k, v in new.items():
+            if k in csplit:
+                v = torch.cat(mesh.all_gather(v, "model"), dim=csplit[k])
+            res[f"{name}/cache.{k}"] = torch.cat(mesh.all_gather(v, "data"))
+    return res
+
+
+def _decode_reference(name, n_data):
+    """The whole layer on one process, per row block of ``n_data`` data
+    ranks: (outputs (steps, B, 1, D), {leaf: the last cache})."""
+    ws, _, cache, _, xs = _draw_decode(name)
+    p = {k: torch.as_tensor(v) for k, v in ws.items()}
+    rows = B // n_data
+    outs, caches = [], []
+    for i in range(n_data):
+        sl = slice(i * rows, (i + 1) * rows)
+        o, c = _decode_layer(name, p,
+                             {k: torch.as_tensor(v[sl])
+                              for k, v in cache.items()},
+                             torch.as_tensor(xs[:, sl]))
+        outs.append(o)
+        caches.append(c)
+    return (torch.cat(outs, dim=1).numpy(),
+            {k: torch.cat([c[k] for c in caches]).numpy()
+             for k in caches[0]})
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
+@pytest.mark.parametrize("name", list(DECODE))
+def test_split_decode_equals_the_whole_layer(name, mesh, split_runs):
+    """DEC_STEPS decode tokens of each case at 1x2 and 2x2 against the
+    whole layer: the outputs and the last cache (each rank's block
+    gathered) at the file's limits."""
+    world, n_data = (2, 1) if mesh == "1x2" else (4, 2)
+    got = split_runs[world]
+    out, cache = _decode_reference(name, n_data)
+    _close(got[f"{name}/out"], out, f"{name} outputs")
+    for k, v in cache.items():
+        _close(got[f"{name}/cache.{k}"], v, f"{name} cache {k}")
+
+
+def test_one_rank_on_the_model_axis_is_the_plain_decode_layer():
+    """Under a (2, 1) layout (a CountingMesh, no process group) every
+    decode case is the plain layer bit for bit and the model axis moves
+    nothing."""
+    from repro_torch.config import MeshConfig
+    from repro_torch.roofline.counter import CountingMesh
+    from repro_torch.sharding import tensor_parallel as tp
+    mesh = CountingMesh(MeshConfig((2, 1), ("data", "model")),
+                        device="cpu")
+    for name in DECODE:
+        ws, _, cache, _, xs = _draw_decode(name)
+        args = ({k: torch.as_tensor(v) for k, v in ws.items()},
+                {k: torch.as_tensor(v) for k, v in cache.items()},
+                torch.as_tensor(xs))
+        want = _decode_layer(name, *args)
+        with tp.step_layout(mesh, None):
+            got = _decode_layer(name, *args)
+        assert torch.equal(got[0], want[0]), name
+        for k in want[1]:
+            assert torch.equal(got[1][k], want[1][k]), (name, k)
+    assert mesh.plan == []
+
+
+# (all-reduces, all-gathers) over the model axis of one decode step at
+# (1, 2), per block and outside the blocks.  A dense FFN or an MoE sums
+# its output once (g; the MoE's routed and shared parts together).
+# Attention with the cache by kv heads (i) and MLA (its latent cache off
+# the axis) sum their output once; attention with the cache by head_dim
+# (ii) gathers the new token's q, k and v (one gather of the three),
+# sums the scores' parts, gathers p @ v's head_dim blocks and sums its
+# output: (2, 2); with the cache whole (iii: whisper's self attention)
+# it gathers the new k and v and sums its output: (1, 1); whisper's
+# cross attention sums its output.  A Mamba layer sums its rows' part of
+# (dt, B, C) and its output and regathers ``w_in``: (2, 1).  Outside
+# the blocks an untied embedding gathers its columns and a tied one sums
+# its vocabulary rows; the head's vocabulary blocks of the logits are
+# gathered.
+DECODE_COLLECTIVES = {
+    # untied; attn (i) + MoE, twice
+    "qwen2-moe-a2.7b": ([(2, 0), (2, 0)], (0, 2)),
+    # untied; MLA + dense (the prefix), MLA + MoE
+    "deepseek-v2-lite-16b": ([(2, 0), (2, 0)], (0, 2)),
+    # untied; Mamba + dense, Mamba + MoE, attn (i) + dense, Mamba + MoE
+    "jamba-v0.1-52b": ([(3, 1), (3, 1), (2, 0), (3, 1)], (0, 2)),
+    # tied; attn (ii) + dense, three times
+    "granite-34b": ([(3, 2)] * 3, (1, 1)),
+    # untied; self (iii) + cross + dense, twice
+    "whisper-small": ([(3, 1)] * 2, (0, 2)),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(DECODE_COLLECTIVES))
+def test_model_axis_collectives_of_a_decode_step(arch):
+    """One decode step of reduced ``arch`` (float32) through
+    ``make_mesh_serve_step`` over a (1, 2) ``CountingMesh`` on the meta
+    device: its model-axis all-reduces and all-gathers are
+    DECODE_COLLECTIVES' sums, and no all-gather moves a param but
+    jamba's ``w_in`` (its float32 bytes)."""
+    from repro_torch.config import MeshConfig, ShapeConfig, get_config
+    from repro_torch.models import api
+    from repro_torch.models.layers.common import zeros_from_spec
+    from repro_torch.roofline.counter import CountingMesh
+    from repro_torch.sharding.partition import (cache_partition, named,
+                                                param_partition)
+    from repro_torch.sharding.spmd import make_mesh_serve_step, shard_tree
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype="float32")
+    mesh = CountingMesh(MeshConfig((1, 2), ("data", "model")))
+    shape = ShapeConfig("d", "decode", 16, 4)
+    spec = api.param_spec(cfg)
+    psh = named(mesh, param_partition(cfg, spec, mesh.config))
+    sspec = api.decode_state_spec(cfg, 4, 16)
+    csh = named(mesh, cache_partition(cfg, shape, mesh.config, sspec))
+    step = make_mesh_serve_step(cfg, mesh, psh, csh, shape)
+    step(shard_tree(zeros_from_spec(spec, device="meta"), psh),
+         shard_tree(zeros_from_spec(sspec, device="meta"), csh),
+         torch.zeros((4, 1), dtype=torch.int32, device="meta"))
+    blocks, top = DECODE_COLLECTIVES[arch]
+    ops = [op for op, _, _ in mesh.plan]
+    assert set(ops) <= {"all-reduce", "all-gather"}, mesh.plan
+    assert ops.count("all-reduce") == sum(a for a, _ in blocks) + top[0], (
+        mesh.plan)
+    assert ops.count("all-gather") == sum(g for _, g in blocks) + top[1], (
+        mesh.plan)
+    if cfg.ssm is not None:
+        di = cfg.ssm.expand * cfg.d_model
+        w_in = [b for op, b, _ in mesh.plan
+                if op == "all-gather" and b == cfg.d_model * 2 * di * 4]
+        assert len(w_in) == sum(s.mixer == "mamba"
+                                for s in cfg.layer_specs()), mesh.plan
+
